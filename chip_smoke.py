@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: serve full-width dlrm-rm2.
+"""Smoke run of the PyTorch/CUDA port on one GPU: serve and train
+full-width dlrm-rm2.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 sm_90 card and ``nvcc``; it imports only torch, numpy and ``repro_torch``
@@ -7,8 +8,8 @@ sm_90 card and ``nvcc``; it imports only torch, numpy and ``repro_torch``
 no card or no port beside it.
 
 Phases (any failure raises and ends the run with a non-zero code):
-  1. print the card's name and power limit; build the three CUDA kernels
-     (one nvcc per source, in parallel);
+  1. print the card's name and power limit; build the CUDA kernels (one
+     nvcc per source, in parallel);
   2. build dlrm-rm2 at full width on the card: the 135,053,312-slot striped
      LMA pool and the 33,762,577 x 32 D' store with planted clusters, a
      share of values made very sparse (support 0 or 1) so the fallback runs;
@@ -20,10 +21,34 @@ Phases (any failure raises and ends the run with a non-zero code):
      launched; one served batch is recomputed from the plain versions;
   5. the split lookup (locations kernel + gather) over the served batch;
      the locations kernel must have launched;
-  6. time each kernel at B=512 and B=4096 (device time from CUDA-graph
-     replay) beside its bound, its plain version and, for the dot,
-     torch.bmm; print one line per kernel, the ``kernels`` JSON line, the
-     card line, and last the result line.
+  6. time each serving kernel at B=512 and B=4096 (device time from
+     CUDA-graph replay) beside its bound, its plain version and, for the
+     dot, torch.bmm;
+  7. hold the training kernels against their plain versions at full width:
+     locations bit-exact (lma flat and striped with fallback rows,
+     hashed_elem, hashed_row), scatter-add and weight gradient within 1e-6,
+     on a serving batch; locations bit-exact and scatter-add within 1e-6 of
+     each slot's sum |g| on a real B=65,536 training batch (the plain
+     versions in chunks); sparse Adagrad on a sentinel-padded unique stream
+     and on a real B=65,536 step's bucketed stream (updates and
+     accumulators equal, the untouched accumulator slots bit-unchanged);
+  8. train dlrm-rm2 at full width for a few steps through the port's Trainer
+     with sparse pool gradients, each step also taken densely (a second
+     Trainer) from the same parameters and accumulators: finite losses,
+     the pool's .grad stays None on the sparse path, the sparse run launched
+     the locations and sparse Adagrad kernels and not the scatter-add, the
+     dense run the reverse; the two steps agree (``check_step``: bit-equal
+     outside the pool, pool slot sums within the rounding bound, each pool
+     exactly Adagrad of its own sums); steps/s, lookups/s, a per-phase split
+     from CUDA events, host batch time and peak memory;
+  9. the paper's comparison through the port's launcher: lma-dlrm-criteo,
+     300 steps at B=512, lma and hashed_elem, eval AUC of each;
+ 10. a bag's backward on the full pool (scatter-add and weight-gradient
+     kernels) against the plain versions;
+ 11. time the training kernels (CUDA-graph replay) beside their bounds,
+     plain versions and, for sparse Adagrad, torch.optim.Adagrad on a
+     sparse gradient; print one line per kernel, the ``kernels`` JSON line,
+     the card line, and last the result line.
 """
 from __future__ import annotations
 
@@ -44,6 +69,25 @@ SERVE_RUNS = ((100_000, 2048), (5_000, 1024))
 TICK_S = 1e-3
 SPARSE_PERIOD = 50              # value v % 50 == 0: support 0, == 1: support 1
 N_CLUSTERS = 4096
+TRAIN_STEPS = 8                 # per run, sparse and dense
+LAUNCHER_STEPS, LAUNCHER_BATCH = 300, 512
+FULL_CHUNK = 4096 * 26         # values per plain call over a B=65,536 batch
+# A pool slot's gradient is a float32 sum of its run of n contributions (n
+# up to ~22,000 at the hottest slot of a B=65,536 step).  Two summation
+# orders (atomics, the plain index_add_, the sparse fold) differ by
+# rounding only, which scales with the slot's sum of |contribution|.  For
+# contributions of random sign (phase 7's random g) the partial sums are a
+# random walk and the difference stays near u = 2^-24 of sum |g|: held to
+# SUM_RTOL.  A real step's contributions to one slot share a sign in part
+# (p - y has a nonzero mean), so the atomics' partial sums grow with n; the
+# sums are held to sum_tol, the classical bound on the rounding of a
+# sequential sum (the atomics) plus that of a pairwise one (the fold),
+# which rounding cannot exceed.  It is tight where runs are short (most
+# slots), and it catches one lost or misplaced contribution of average
+# size, sum |g| / n, at every slot with n < 2,900.
+SUM_RTOL = 1e-6
+U32 = 2.0 ** -24                # float32 unit roundoff
+ADAGRAD_EPS = 1e-10             # optim.adagrad's default, as make_optimizer
 
 # Peak rates of one H100 SXM (NVIDIA's published figures; 700 W): 3.35 TB/s
 # of HBM, 67 TFLOP/s float32 outside the tensor cores.  NVIDIA publishes no
@@ -115,13 +159,60 @@ def graph_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+class PhaseTimer:
+    """CUDA events at the Trainer's phase marks; the median device time of
+    each phase over the steps after the first."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.steps: list[list] = []
+
+    def mark(self, name: str):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        if name == "start":
+            self.steps.append([])
+        self.steps[-1].append((name, ev))
+
+    def split_ms(self) -> dict:
+        self.torch.cuda.synchronize()
+        per = {}
+        for step in self.steps[1:]:
+            for (_, a), (name, b) in zip(step, step[1:]):
+                per.setdefault(name, []).append(a.elapsed_time(b))
+        return {k: float(np.median(v)) for k, v in per.items()}
+
+
+def events_ms(torch, fn):
+    """-> (fn(), ms between CUDA events recorded around the one call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def sum_tol(run, abs_sum):
+    """How far a sequential and a pairwise float32 sum of the same ``run``
+    contributions, whose absolute values sum to ``abs_sum``, can differ:
+    (gamma(n - 1) + gamma(ceil(log2 n))) * abs_sum, gamma(k) = k u / (1 - k u)
+    (Higham, Accuracy and Stability of Numerical Algorithms, 4.2)."""
+    def gamma(k):
+        return k * U32 / (1 - k * U32)
+    return (gamma(run - 1) + gamma(run.log2().ceil())) * abs_sum
+
+
 def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def lma_work(torch, p, rows, support, fallback: bool):
-    """(bytes, int32 ops) the lookup of these rows needs (see OPS_*)."""
+def hash_work(torch, p, rows, support, fallback: bool = True):
+    """(bytes read, int32 ops) of the slot function over these rows (see
+    OPS_*): the set rows of the hashed values in, plus ids and support when
+    the fallback applies (its rows take the hashed_elem columns instead)."""
     N, S = rows.shape
     valid = (rows != -1).sum(dim=1)
     lma = support >= p.min_support if fallback else torch.ones_like(support,
@@ -130,10 +221,15 @@ def lma_work(torch, p, rows, support, fallback: bool):
     ops = (p.n_raw_hashes * OPS_HASH * int(valid[lma].sum())
            + (N - n_fb) * p.d * (p.n_h * OPS_CHAIN_STEP + OPS_FINISH)
            + n_fb * p.d * OPS_FALLBACK)
-    nbytes = (N - n_fb) * S * 4 + N * p.d * 4          # sets in, d slots out
-    if fallback:
-        nbytes += N * 8 + N * p.d * 4     # ids + support in, gathered floats
-    return nbytes, ops
+    return (N - n_fb) * S * 4 + (N * 8 if fallback else 0), ops
+
+
+def lma_work(torch, p, rows, support, fallback: bool):
+    """(bytes, int32 ops) of the lookup (fallback) or of the locations
+    kernel without it: the hashing, the gathered floats, d slots out."""
+    nbytes, ops = hash_work(torch, p, rows, support, fallback)
+    N = rows.shape[0]
+    return nbytes + N * p.d * 4 + (N * p.d * 4 if fallback else 0), ops
 
 
 # -------------------------------------------------------------- requests
@@ -458,6 +554,596 @@ def measure(torch, cfg, model, bufs, dev) -> dict:
     return res
 
 
+# -------------------------------------------------------------- training
+
+def ctr_generator():
+    """The port's CTR data at the Criteo vocabularies.  n_clusters must not
+    exceed the smallest vocabulary (3): with more, the generator leaves
+    empty cluster pools (the reference's launcher has the same limit)."""
+    from repro_torch.configs._recsys_common import CRITEO_VOCABS
+    from repro_torch.data.synthetic_ctr import CTRGenerator, CTRSpec
+
+    t0 = time.perf_counter()
+    gen = CTRGenerator(CTRSpec(vocab_sizes=CRITEO_VOCABS, n_clusters=3,
+                               value_dist="uniform", seed=SEED))
+    log(f"CTR generator at the Criteo vocabularies (3 clusters, uniform "
+        f"values) built in {time.perf_counter() - t0:.1f} s")
+    return gen
+
+
+def on_card(torch, batch: dict, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def real_step_grad(torch, cfg, model, bufs, batch, dev):
+    """One B=65,536 step's forward and backward under the sparse capture:
+    -> the pool's SparseGrad (bucketed), nothing applied."""
+    from repro_torch.models.recsys import loss_fn
+    from repro_torch.optim import sparse as sp
+
+    with sp.capture() as cap:
+        loss, _ = loss_fn(model, on_card(torch, batch, dev), bufs)
+        loss.backward()
+    grads = cap.grads({"memory": model.embedding["memory"]})
+    for q in model.parameters():
+        q.grad = None
+    return grads["memory"]
+
+
+def check_training_kernels(torch, cfg, model, bufs, check_batch, sg,
+                           dev) -> dict:
+    """Rows 4-7 against their plain versions at full width."""
+    from repro_torch.kernels.fused_embed import ops as fe
+    from repro_torch.kernels.fused_embed import ref as fref
+    from repro_torch.kernels.fused_embed.kernel import (
+        fused_locations_cuda, fused_scatter_add_cuda, fused_weight_grad_cuda)
+    from repro_torch.kernels.sparse_update.kernel import sparse_adagrad_cuda
+    from repro_torch.kernels.sparse_update.ref import sparse_adagrad_ref
+    from repro_torch.optim.sparse import dedup_locations
+
+    p = cfg.embedding.lma
+    e = cfg.embedding
+    mem = model.embedding["memory"].detach()
+    gids = global_ids(torch, cfg, check_batch, dev)
+    rows, support = cfg.table.scheme.fused_inputs(e, bufs, gids)
+    n_fb = int((support < p.min_support).sum())
+    if n_fb == 0:
+        raise AssertionError("the check batch holds no fallback rows")
+    err = {"fused_locations": 0}
+    with torch.no_grad():
+        cases = [(fe.lma_spec(dataclasses.replace(p, striped=False)), True),
+                 (fe.lma_spec(p), True)]
+        cases += [(fe.hashed_spec(kind, e.dim, e.budget, e.seed), False)
+                  for kind in ("hashed_elem", "hashed_row")]
+        for spec, lma in cases:
+            inputs = (gids, rows, support) if lma else (gids,)
+            got = fused_locations_cuda(spec, *inputs)
+            want = fref.locations_ref(spec, *inputs)
+            err["fused_locations"] = max(err["fused_locations"], int(
+                (got.long() - want.long()).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{spec.scheme} locations differ "
+                                     f"(stripe {spec.stripe})")
+        spec = fe.lma_spec(p)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+        g = torch.randn((gids.numel(), p.d), generator=gen, device=dev) * 1e-3
+        got = fused_scatter_add_cuda(spec, g, gids, rows, support)
+        want = fref.scatter_add_ref(spec, g, gids, rows, support)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        err["fused_scatter_add"] = float((got - want).abs().max())
+        B, F = check_batch["sparse"].shape
+        bag = (gids.reshape(B, F), rows.reshape(B, F, -1),
+               support.reshape(B, F))
+        w = torch.rand((B, F), generator=gen, device=dev)
+        gb = torch.randn((B, p.d), generator=gen, device=dev) * 1e-3
+        got = fused_scatter_add_cuda(spec, gb, *bag, weights=w)
+        want = fref.scatter_add_ref(spec, gb, *bag, weights=w)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        err["fused_scatter_add"] = max(err["fused_scatter_add"],
+                                       float((got - want).abs().max()))
+        got = fused_weight_grad_cuda(spec, mem, gb, *bag)
+        want = fref.weight_grad_ref(spec, mem, gb, *bag)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        err["fused_weight_grad"] = float((got - want).abs().max())
+        del got, want
+
+        # row 7: a unique sentinel-padded stream, then the real step's
+        half = sg.indices.numel() // 16
+        uniq = dedup_locations(sg.indices[:half], sg.values[:half], (p.m,))
+        acc0 = torch.rand(p.m, generator=gen, device=dev) * 1e-6
+        err["sparse_adagrad"] = 0.0
+        exact = True
+        for stream in (uniq, sg):
+            acc_k, acc_p = acc0.clone(), acc0.clone()
+            u_k = sparse_adagrad_cuda(stream.indices, stream.values, acc_k,
+                                      lr=1e-2, unique=stream.unique)
+            u_p, _ = sparse_adagrad_ref(stream.indices, stream.values, acc_p,
+                                        lr=1e-2, unique=stream.unique)
+            torch.testing.assert_close(u_k, u_p, rtol=1e-5, atol=1e-9)
+            torch.testing.assert_close(acc_k, acc_p, rtol=1e-5, atol=1e-12)
+            exact = exact and torch.equal(u_k, u_p) and torch.equal(acc_k,
+                                                                    acc_p)
+            err["sparse_adagrad"] = max(err["sparse_adagrad"],
+                                        float((u_k - u_p).abs().max()),
+                                        float((acc_k - acc_p).abs().max()))
+            touched = torch.zeros(p.m, dtype=torch.bool, device=dev)
+            touched[stream.indices[stream.indices < p.m].long()] = True
+            if not torch.equal(acc_k[~touched].view(torch.int32),
+                               acc0[~touched].view(torch.int32)):
+                raise AssertionError("sparse Adagrad wrote untouched slots")
+            del acc_k, acc_p, touched
+        _, runs = torch.unique_consecutive(sg.indices, return_counts=True)
+    log(f"training kernels at B={B} ({gids.numel()} values, {n_fb} fallback "
+        "rows): locations bit-exact (lma flat and striped, hashed_elem, "
+        f"hashed_row); scatter-add max |err| {err['fused_scatter_add']:.3g} "
+        f"and weight grad {err['fused_weight_grad']:.3g} (tol 1e-6); sparse "
+        f"Adagrad on K={uniq.indices.numel()} unique (sentinel-padded) and "
+        f"K={sg.indices.numel()} bucketed entries ({runs.numel()} slots, "
+        f"longest run {int(runs.max())}): max |err| "
+        f"{err['sparse_adagrad']:.3g} (rtol 1e-5), bit-identical {exact}, "
+        "untouched accumulator slots bit-unchanged")
+    return err
+
+
+def check_full_batch(torch, cfg, bufs, batch, dev) -> dict:
+    """Rows 4 and 5 at the training shape, a B=65,536 batch, against their
+    plain versions run over chunks of FULL_CHUNK values (one plain call over
+    all 1.7M values needs tens of GB): locations bit-exact, dM within
+    SUM_RTOL * sum |g| at every slot.  -> errors and the plain versions'
+    summed device times."""
+    from repro_torch.kernels.fused_embed import ops as fe
+    from repro_torch.kernels.fused_embed import ref as fref
+    from repro_torch.kernels.fused_embed.kernel import (fused_locations_cuda,
+                                                        fused_scatter_add_cuda)
+
+    p = cfg.embedding.lma
+    spec = fe.lma_spec(p)
+    gids = global_ids(torch, cfg, batch, dev)
+    rows, support = cfg.table.scheme.fused_inputs(cfg.embedding, bufs, gids)
+    N = gids.numel()
+    n_fb = int((support < p.min_support).sum())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    g = torch.randn((N, p.d), generator=gen, device=dev) * 1e-3
+    plain = {"fused_locations": 0.0, "fused_scatter_add": 0.0}
+    loc_err = 0
+    with torch.no_grad():
+        loc = fused_locations_cuda(spec, gids, rows, support)
+        dm = fused_scatter_add_cuda(spec, g, gids, rows, support)
+        want, abs_sum = torch.zeros_like(dm), torch.zeros_like(dm)
+        for a in range(0, N, FULL_CHUNK):
+            part = (gids[a:a + FULL_CHUNK], rows[a:a + FULL_CHUNK],
+                    support[a:a + FULL_CHUNK])
+            g_part = g[a:a + FULL_CHUNK]
+            want_loc, ms = events_ms(
+                torch, lambda: fref.locations_ref(spec, *part))
+            plain["fused_locations"] += ms
+            loc_err = max(loc_err, int((loc[a:a + FULL_CHUNK].long()
+                                        - want_loc.long()).abs().max()))
+            dm_part, ms = events_ms(
+                torch, lambda: fref.scatter_add_ref(spec, g_part, *part))
+            plain["fused_scatter_add"] += ms
+            want += dm_part
+            abs_sum.index_add_(0, want_loc.reshape(-1).long(),
+                               g_part.abs().reshape(-1))
+            del want_loc, dm_part
+        if loc_err:
+            raise AssertionError(f"locations at B=65,536 differ (max |diff| "
+                                 f"{loc_err})")
+        diff = (dm - want).abs()
+        ratio = float((diff / abs_sum.clamp_min(1e-30)).max())
+        if bool((diff > SUM_RTOL * abs_sum).any()):
+            raise AssertionError(f"scatter-add at B=65,536: max |err| / "
+                                 f"sum |g| {ratio:.3g} > {SUM_RTOL}")
+        out = {"fused_locations": loc_err,
+               "fused_scatter_add": float(diff.max()), "ratio": ratio,
+               "plain_ms": plain, "slots": int((abs_sum > 0).sum())}
+    log(f"training kernels at B={N // cfg.n_fields} ({N} values, {n_fb} "
+        f"fallback rows, {out['slots']} slots touched): locations bit-exact; "
+        f"scatter-add max |err| {out['fused_scatter_add']:.3g}, max |err| / "
+        f"sum |g| {ratio:.3g} (tol {SUM_RTOL}); plain versions over "
+        f"{-(-N // FULL_CHUNK)} chunks: locations "
+        f"{plain['fused_locations']:.1f} ms, scatter-add "
+        f"{plain['fused_scatter_add']:.1f} ms")
+    return out
+
+
+class Recorder:
+    """An optimizer that keeps the gradients of the last update it made."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return self.opt.update(grads, state, params)
+
+
+def check_step(torch, n, p0, acc0, dense_p, params, states, opts, lr,
+               parity) -> None:
+    """One step taken both ways from (p0, acc0), held to each other:
+    - outside the pool the two paths had the same gradients, so the
+      parameters and accumulators are bit-identical;
+    - the dense pool gradient is 0 off the touched slots; at each touched
+      slot the sparse path's folded sum (the sparse Adagrad kernel's order,
+      which ``fold_duplicates`` reproduces bit for bit) is within
+      ``sum_tol`` of the dense path's;
+    - each path's pool and accumulator are exactly Adagrad of its own slot
+      sums from (p0, acc0), untouched slots unchanged.
+    So the paths differ only by the rounding of the slot sums.  Logs each
+    path's largest error against the float64 sum (a share of sum |g|), and,
+    for the elements that differ most, both sums, sum |g|, the run length
+    and the accumulator before the step."""
+    from repro_torch.kernels.sparse_update.ref import (fold_duplicates,
+                                                       ieee_sqrt)
+
+    pool = "embedding.memory"
+    gs, gd = opts["sparse"].grads, opts["dense"].grads
+    for k, q in params.items():
+        if k != pool and not (torch.equal(gs[k], gd[k])
+                              and torch.equal(q, dense_p[k])
+                              and torch.equal(states["sparse"][k],
+                                              states["dense"][k])):
+            raise AssertionError(
+                f"step {n}: {k} differs between the paths (|grad diff| "
+                f"{float((gs[k] - gd[k]).abs().max()):.3g})")
+    sg, g_dense = gs[pool], gd[pool]
+    m = g_dense.numel()
+    keep = sg.indices < m
+    idx, vals = sg.indices[keep], sg.values[keep]
+    head, folded = fold_duplicates(idx, vals)
+    _, run = torch.unique_consecutive(idx, return_counts=True)
+    slots = idx[head].long()
+    s = {"sparse": folded[head], "dense": g_dense[slots]}
+    del head, folded
+    abs_sum, exact = (torch.zeros(m, dtype=torch.float64, device=slots.device)
+                      .index_add_(0, idx.long(), v)[slots]
+                      for v in (vals.abs().double(), vals.double()))
+    del idx, vals, keep
+    touched = torch.zeros(m, dtype=torch.bool, device=slots.device)
+    touched[slots] = True
+    if bool((g_dense[~touched] != 0).any()):
+        raise AssertionError(f"step {n}: the dense pool gradient is not 0 "
+                             "off the touched slots")
+    ds = (s["sparse"] - s["dense"]).abs().double()
+    tol = sum_tol(run.double(), abs_sum)
+    ratio = float((ds / abs_sum.clamp_min(1e-30)).max())
+    share = float((ds / tol.clamp_min(1e-30)).max())
+    if share > 1:
+        raise AssertionError(f"step {n}: sparse and dense slot sums differ: "
+                             f"max |diff| / sum_tol {share:.3g}")
+    pools = {"sparse": params[pool].detach(), "dense": dense_p[pool]}
+    a0, q0 = acc0[slots], p0[pool][slots]
+    for name in ("sparse", "dense"):
+        a = a0 + s[name] * s[name]
+        want = q0 + -lr * s[name] / (ieee_sqrt(a) + ADAGRAD_EPS)
+        got, acc = pools[name], states[name][pool]
+        if not (torch.equal(got[slots], want) and torch.equal(acc[slots], a)
+                and torch.equal(got[~touched], p0[pool][~touched])
+                and torch.equal(acc[~touched], acc0[~touched])):
+            raise AssertionError(
+                f"step {n}: the {name} pool is not Adagrad of its own slot "
+                f"sums (max |diff| "
+                f"{float((got[slots] - want).abs().max()):.3g})")
+    dp = (pools["sparse"][slots] - pools["dense"][slots]).abs()
+    worst = [{"slot": int(slots[i]), "s_sparse": float(s["sparse"][i]),
+              "s_dense": float(s["dense"][i]), "sum_abs": float(abs_sum[i]),
+              "run": int(run[i]), "acc0": float(a0[i]),
+              "param_diff": float(dp[i])}
+             for i in torch.topk(dp, 3).indices.tolist()]
+    if float(dp.max()) >= parity["max_pool_param_diff"]:
+        parity["max_pool_param_diff"], parity["worst"] = float(dp.max()), worst
+    parity["max_sum_ratio"] = max(parity["max_sum_ratio"], ratio)
+    parity["max_tol_share"] = max(parity["max_tol_share"], share)
+    off = {name: (s[name].double() - exact).abs() / abs_sum.clamp_min(1e-300)
+           for name in s}
+    at = int(torch.argmax(ds / abs_sum.clamp_min(1e-300)))
+    for name in s:
+        parity[f"max_{name}_err"] = max(parity.get(f"max_{name}_err", 0.0),
+                                        float(off[name].max()))
+    log(f"  step {n}: {slots.numel()} slots, max |s diff| / sum |g| "
+        f"{ratio:.3g} (slot {int(slots[at])}, run {int(run[at])}, sum |g| "
+        f"{float(abs_sum[at]):.3g}, sum {float(exact[at]):.4g}), "
+        f"{share:.3g} of sum_tol; max |s - float64 sum| / sum |g|: sparse "
+        f"{float(off['sparse'].max()):.3g}, dense "
+        f"{float(off['dense'].max()):.3g}; max |param diff| "
+        f"{float(dp.max()):.3g}"
+        " at: " + "; ".join(
+            f"slot {w['slot']} s {w['s_sparse']:.4g} / {w['s_dense']:.4g}, "
+            f"sum |g| {w['sum_abs']:.3g}, run {w['run']}, acc0 "
+            f"{w['acc0']:.3g}, diff {w['param_diff']:.3g}" for w in worst))
+
+
+def train_full_width(torch, cfg, model, bufs, gen, dev, kernels) -> dict:
+    """TRAIN_STEPS steps through the port's Trainer with sparse pool
+    gradients; before each, the same step densely (a second Trainer with
+    sparse_grads=False) from the same parameters and accumulators, and the
+    two results held to each other (``check_step``).  -> launches per run,
+    throughput, phase split, parity."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs._recsys_common import RECSYS_SHAPE_TABLE
+    from repro_torch.launch.train import lookups_per_step, make_optimizer
+    from repro_torch.models.recsys import loss_fn
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    arch = get_config("dlrm-rm2")
+    B = RECSYS_SHAPE_TABLE["train_batch"]["batch"]
+    params = dict(model.named_parameters())
+    mem = params["embedding.memory"]
+    timers, trainers, opts, runs = {}, {}, {}, {}
+    for name in ("sparse", "dense"):
+        timers[name] = PhaseTimer(torch)
+        opts[name] = Recorder(make_optimizer(arch))
+        trainers[name] = Trainer(
+            TrainerConfig(total_steps=0, log_every=0,
+                          lookups_per_step=lookups_per_step(cfg, B)),
+            lambda m, b: loss_fn(m, b, bufs), model, opts[name],
+            lambda step: gen.batch(B, step), sparse_grads=name == "sparse",
+            on_phase=timers[name].mark, device=dev)
+        runs[name] = {"losses": [], "peak_gib": 0.0, "held_gib": 0.0,
+                      "launches": dict.fromkeys(kernels, 0)}
+    sparse_tr, dense_tr = trainers["sparse"], trainers["dense"]
+    parity = {"max_pool_param_diff": 0.0, "max_sum_ratio": 0.0,
+              "max_tol_share": 0.0}
+
+    def step(name, n):
+        tr, r = trainers[name], runs[name]
+        tr.step, tr.cfg.total_steps = n - 1, n
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r["held_gib"] = max(r["held_gib"],
+                            torch.cuda.memory_allocated() / 2**30)
+        before = {k: f.launches for k, f in kernels.items()}
+        r["losses"].append(tr.fit(log=lambda _: None)["loss"])
+        for k, f in kernels.items():
+            r["launches"][k] += f.launches - before[k]
+        r["peak_gib"] = max(r["peak_gib"],
+                            torch.cuda.max_memory_allocated() / 2**30)
+
+    for k in kernels.values():
+        k.launches = 0
+    for n in range(1, TRAIN_STEPS + 1):
+        with torch.no_grad():
+            p0 = {k: q.detach().clone() for k, q in params.items()}
+            acc0 = sparse_tr.opt_state["embedding.memory"].clone()
+            dense_tr.opt_state = {k: a.clone()
+                                  for k, a in sparse_tr.opt_state.items()}
+        step("dense", n)
+        with torch.no_grad():
+            p_dense = {k: q.detach().clone() for k, q in params.items()}
+            for k, q in params.items():
+                q.copy_(p0[k])
+        step("sparse", n)
+        if mem.grad is not None:
+            raise AssertionError("the pool has a dense .grad on the sparse "
+                                 "path")
+        states = {"sparse": sparse_tr.opt_state, "dense": dense_tr.opt_state}
+        with torch.no_grad():
+            check_step(torch, n, p0, acc0, p_dense, params, states, opts,
+                       arch.learning_rate, parity)
+        opts["sparse"].grads = opts["dense"].grads = None
+        del p0, acc0, p_dense
+    counts = {n: k.launches for n, k in kernels.items()}
+    for name, tr in trainers.items():
+        r = runs[name]
+        r.update(tr.throughput())
+        r["phase_ms"] = timers[name].split_ms()
+        r["end_to_end_steps_per_sec"] = 1.0 / (1.0 / r["steps_per_sec"]
+                                               + r["batch_sec"])
+        if not np.isfinite(r["losses"]).all():
+            raise AssertionError(f"{name}: non-finite loss {r['losses']}")
+        log(f"train {name}: B={B}, {TRAIN_STEPS} steps, losses "
+            + " ".join(f"{x:.5f}" for x in r["losses"])
+            + f"; {r['steps_per_sec']:.2f} steps/s, "
+            f"{r['lookups_per_sec']:,.0f} lookups/s; phases (ms, median) "
+            + ", ".join(f"{k} {v:.2f}" for k, v in r["phase_ms"].items())
+            + f"; host batch {r['batch_sec'] * 1e3:.1f} ms, with it "
+            f"{r['end_to_end_steps_per_sec']:.2f} steps/s end to end; peak "
+            f"{r['peak_gib']:.2f} GiB ({r['held_gib']:.2f} GiB held at the "
+            f"step's start, the check's copies included); launches "
+            f"{r['launches']}")
+    np.testing.assert_allclose(runs["sparse"]["losses"],
+                               runs["dense"]["losses"], rtol=1e-6)
+    runs["parity"] = parity
+    runs["launches"] = counts
+    log(f"sparse vs dense, each step from the same state: non-pool "
+        f"parameters and accumulators bit-identical; pool slot sums within "
+        f"{parity['max_sum_ratio']:.3g} of sum |g|, "
+        f"{parity['max_tol_share']:.3g} of sum_tol (against the float64 "
+        f"sum: sparse {parity['max_sparse_err']:.3g}, dense "
+        f"{parity['max_dense_err']:.3g}); each "
+        f"pool exactly Adagrad of its own sums; max |param diff| "
+        f"{parity['max_pool_param_diff']:.3g}; losses within rtol 1e-6 (the "
+        f"same forward)")
+    need = {"sparse": ("fused_locations", "sparse_adagrad", "fused_embed",
+                       "dot_interaction"),
+            "dense": ("fused_scatter_add", "fused_embed", "dot_interaction")}
+    never = {"sparse": "fused_scatter_add", "dense": "sparse_adagrad"}
+    for name, names in need.items():
+        got = runs[name]["launches"]
+        for k in names:
+            if got[k] == 0:
+                raise AssertionError(f"{k} was not launched in the {name} "
+                                     "run")
+        if got[never[name]]:
+            raise AssertionError(f"{never[name]} was launched in the {name} "
+                                 "run")
+    return runs
+
+
+def launcher_comparison(torch, kernels) -> dict:
+    """The port's run of examples/train_lma_dlrm.py: lma vs hashed_elem at
+    an equal budget through repro_torch.launch.train."""
+    from repro_torch.launch import train as launcher
+
+    out = {}
+    for kind in ("lma", "hashed_elem"):
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = launcher.main(["--arch", "lma-dlrm-criteo", "--embedding-kind",
+                             kind, "--steps", str(LAUNCHER_STEPS), "--batch",
+                             str(LAUNCHER_BATCH), "--device", "cuda"])
+        out[kind] = {"auc": res["eval"]["auc"],
+                     "steps_per_sec": res["train"]["steps_per_sec"],
+                     "seconds": time.perf_counter() - t0,
+                     "launches": {n: k.launches for n, k in kernels.items()}}
+        if not np.isfinite(res["train"]["loss"]):
+            raise AssertionError(f"launcher {kind}: non-finite loss")
+    out["auc_gap"] = out["lma"]["auc"] - out["hashed_elem"]["auc"]
+    log(f"launcher lma-dlrm-criteo, {LAUNCHER_STEPS} steps at "
+        f"B={LAUNCHER_BATCH}: eval AUC lma {out['lma']['auc']:.4f}, "
+        f"hashed_elem {out['hashed_elem']['auc']:.4f}, gap "
+        f"{out['auc_gap']:+.4f}; launches (lma) {out['lma']['launches']}")
+    return out
+
+
+def bag_backward(torch, cfg, model, bufs, dev, kernels) -> tuple:
+    """embed_bag on the full pool with weights that need a gradient: the
+    backward launches the scatter-add and weight-gradient kernels; dM and dw
+    against the plain versions."""
+    from repro_torch.kernels.fused_embed import ops as fe
+    from repro_torch.kernels.fused_embed import ref as fref
+
+    p = cfg.embedding.lma
+    mem = model.embedding["memory"]
+    rng = np.random.default_rng(SEED + 7)
+    B, L = 512, 26
+    ids = torch.from_numpy(rng.integers(0, cfg.embedding.vocab_sizes[0],
+                                        (B, L)).astype(np.int32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    w = torch.rand((B, L), generator=gen, device=dev).requires_grad_()
+    g = torch.randn((B, p.d), generator=gen, device=dev) * 1e-3
+    mem.grad = None
+    for k in kernels.values():
+        k.launches = 0
+    out = cfg.table.embed_bag(dict(model.embedding), bufs, 0, ids, w)
+    out.backward(g)
+    counts = {n: k.launches for n, k in kernels.items()}
+    for name in ("fused_embed", "fused_scatter_add", "fused_weight_grad"):
+        if counts[name] != 1:
+            raise AssertionError(f"bag backward: {name} launched "
+                                 f"{counts[name]} times")
+    with torch.no_grad():
+        rows, support = cfg.table.scheme.fused_inputs(cfg.embedding, bufs,
+                                                      ids.reshape(-1))
+        shaped = (ids, rows.reshape(B, L, -1), support.reshape(B, L))
+        spec = fe.lma_spec(p)
+        dm = fref.scatter_add_ref(spec, g, *shaped, weights=w.detach())
+        dw = fref.weight_grad_ref(spec, mem.detach(), g, *shaped)
+        torch.testing.assert_close(mem.grad, dm, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(w.grad, dw, rtol=1e-6, atol=1e-6)
+        err = {"scatter": float((mem.grad - dm).abs().max()),
+               "weights": float((w.grad - dw).abs().max())}
+    mem.grad = None
+    log(f"bag backward on the full pool (B={B}, L={L}): launches {counts}; "
+        f"dM max |err| {err['scatter']:.3g}, dw max |err| "
+        f"{err['weights']:.3g} (tol 1e-6)")
+    return counts, err
+
+
+def measure_training(torch, cfg, model, bufs, gen, train_batch, plain_full,
+                     sg, dev) -> dict:
+    """Rows 4-7 timed by CUDA-graph replay beside their bounds, plain
+    versions and (row 7) the library's sparse Adagrad.  At B=65,536 (the
+    training batch of phase 7) the plain times are phase 7's chunked
+    runs."""
+    from repro_torch.kernels.fused_embed import ops as fe
+    from repro_torch.kernels.fused_embed import ref as fref
+    from repro_torch.kernels.fused_embed.kernel import (
+        fused_locations_cuda, fused_scatter_add_cuda, fused_weight_grad_cuda)
+    from repro_torch.kernels.sparse_update.kernel import sparse_adagrad_cuda
+    from repro_torch.kernels.sparse_update.ref import sparse_adagrad_ref
+
+    p = cfg.embedding.lma
+    spec = fe.lma_spec(p)
+    mem = model.embedding["memory"].detach()
+    res = {"fused_locations": {}, "fused_scatter_add": {},
+           "fused_weight_grad": {}}
+    for B in (4096, 65536):
+        batch = train_batch if B == 65536 else gen.batch(B, 900_000 + B)
+        gids = global_ids(torch, cfg, batch, dev)
+        rows, support = cfg.table.scheme.fused_inputs(cfg.embedding, bufs,
+                                                      gids)
+        N = gids.numel()
+        g = torch.randn((N, p.d), device=dev) * 1e-3
+        in_bytes, ops = hash_work(torch, p, rows, support)
+        iters = 10 if B == 4096 else 3
+        small = B == 4096
+        with torch.no_grad():
+            r = res["fused_locations"][B] = {}
+            r["ms"] = graph_ms(torch, lambda: fused_locations_cuda(
+                spec, gids, rows, support), iters)
+            r["plain_ms"] = time_ms(torch, lambda: fref.locations_ref(
+                spec, gids, rows, support), 2, warmup=1) if small \
+                else plain_full["fused_locations"]
+            r["bound_ms"], r["bound_by"] = bound(in_bytes + N * p.d * 4, ops,
+                                                 INT32_OP_PER_S)
+            r["library_ms"] = None
+            r = res["fused_scatter_add"][B] = {}
+            r["ms"] = graph_ms(torch, lambda: fused_scatter_add_cuda(
+                spec, g, gids, rows, support), iters // 2 + 1)
+            r["plain_ms"] = time_ms(torch, lambda: fref.scatter_add_ref(
+                spec, g, gids, rows, support), 2, warmup=1) if small \
+                else plain_full["fused_scatter_add"]
+            r["bound_ms"], r["bound_by"] = bound(
+                in_bytes + N * p.d * 4 + N * p.d * 8 + p.m * 4, ops,
+                INT32_OP_PER_S)
+            r["library_ms"] = None
+            if small:
+                F = cfg.n_fields
+                bag = (gids.reshape(B, F), rows.reshape(B, F, -1),
+                       support.reshape(B, F))
+                gb = g[:B]
+                r = res["fused_weight_grad"][B] = {}
+                r["ms"] = graph_ms(torch, lambda: fused_weight_grad_cuda(
+                    spec, mem, gb, *bag), iters)
+                r["plain_ms"] = time_ms(torch, lambda: fref.weight_grad_ref(
+                    spec, mem, gb, *bag), 2, warmup=1)
+                r["bound_ms"], r["bound_by"] = bound(
+                    in_bytes + B * p.d * 4 + N * p.d * 4 + N * 4,
+                    ops + 2 * N * p.d, INT32_OP_PER_S)
+                r["library_ms"] = None
+        del g
+    K = sg.indices.numel()
+    heads = int(torch.unique_consecutive(sg.indices).numel())
+    acc = torch.zeros(p.m, device=dev)
+    r = res["sparse_adagrad"] = {}
+    r["ms"] = graph_ms(torch, lambda: sparse_adagrad_cuda(
+        sg.indices, sg.values, acc, lr=1e-2, unique=False), 5)
+    r["plain_ms"] = time_ms(torch, lambda: sparse_adagrad_ref(
+        sg.indices, sg.values, acc, lr=1e-2, unique=False), 2, warmup=1)
+    r["bound_ms"], r["bound_by"] = bound(12 * K + 8 * heads, 0, 1.0)
+    param = torch.nn.Parameter(mem.clone())
+    opt = torch.optim.Adagrad([param], lr=1e-2, eps=1e-10)
+    coo = torch.sparse_coo_tensor(sg.indices[None].long(), sg.values,
+                                  (p.m,), check_invariants=False)
+
+    def library_step():
+        param.grad = coo
+        opt.step()
+
+    r["library_ms"] = time_ms(torch, library_step, 2, warmup=1)
+    r["K"], r["slots"] = K, heads
+    del param, opt, coo, acc
+    for name in ("fused_locations", "fused_scatter_add", "fused_weight_grad"):
+        for B, r in res[name].items():
+            log(f"  {name} B={B}: {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"{r['bound_ms'] / r['ms']:.1%} of bound, plain "
+                f"{r['plain_ms']:.3f} ms"
+                + (f" ({-(-B * cfg.n_fields // FULL_CHUNK)} chunked calls)"
+                   if B == 65536 else ""))
+    r = res["sparse_adagrad"]
+    log(f"  sparse_adagrad K={K} ({heads} slots): {r['ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms (bytes), {r['bound_ms'] / r['ms']:.1%} of "
+        f"bound, plain {r['plain_ms']:.3f} ms, torch.optim.Adagrad (sparse) "
+        f"{r['library_ms']:.3f} ms")
+    return res
+
+
 # -------------------------------------------------------------------- main
 
 SOURCES = {
@@ -467,7 +1153,19 @@ SOURCES = {
                     "src/repro/kernels/fused_embed/kernel.py:356"),
     "dot_interaction": ("src/repro_torch/csrc/dot_interaction.cu",
                         "src/repro/kernels/dot_interaction/kernel.py:48"),
+    "fused_locations": ("src/repro_torch/csrc/fused_embed.cu",
+                        "src/repro/kernels/fused_embed/kernel.py:374"),
+    "fused_scatter_add": ("src/repro_torch/csrc/fused_embed.cu",
+                          "src/repro/kernels/fused_embed/kernel.py:404"),
+    "fused_weight_grad": ("src/repro_torch/csrc/fused_embed.cu",
+                          "src/repro/kernels/fused_embed/kernel.py:516"),
+    "sparse_adagrad": ("src/repro_torch/csrc/sparse_update.cu",
+                       "src/repro/kernels/sparse_update/kernel.py:120"),
 }
+
+# The batch of each kernel's JSON entry: the training batch for the rows the
+# training step launches at B=65,536; the smallest measured otherwise.
+MAIN_BATCH = {"fused_locations": 65536, "fused_scatter_add": 65536}
 
 
 def main() -> int:
@@ -478,8 +1176,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import KERNELS, build
     from repro_torch.kernels.dot_interaction.kernel import dot_interaction_cuda
-    from repro_torch.kernels.fused_embed.kernel import fused_lookup_cuda
+    from repro_torch.kernels.fused_embed.kernel import (
+        fused_locations_cuda, fused_lookup_cuda, fused_scatter_add_cuda,
+        fused_weight_grad_cuda)
     from repro_torch.kernels.lma_locations.kernel import lma_locations_cuda
+    from repro_torch.kernels.sparse_update.kernel import sparse_adagrad_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -497,7 +1198,11 @@ def main() -> int:
         log(f"  {name}: {'; '.join(regs)}")
     kernels = {"lma_locations": lma_locations_cuda,
                "fused_embed": fused_lookup_cuda,
-               "dot_interaction": dot_interaction_cuda}
+               "dot_interaction": dot_interaction_cuda,
+               "fused_locations": fused_locations_cuda,
+               "fused_scatter_add": fused_scatter_add_cuda,
+               "fused_weight_grad": fused_weight_grad_cuda,
+               "sparse_adagrad": sparse_adagrad_cuda}
 
     cfg, model, bufs = build_model(torch, dev)
     rng = np.random.default_rng(SEED)
@@ -508,26 +1213,54 @@ def main() -> int:
     counts["lma_locations"] = split_lookup(torch, cfg, model, bufs, served,
                                            dev, kernels)
     res = measure(torch, cfg, model, bufs, dev)
+
+    gen = ctr_generator()
+    train_batch = gen.batch(65536, 0)
+    sg = real_step_grad(torch, cfg, model, bufs, train_batch, dev)
+    err.update(check_training_kernels(torch, cfg, model, bufs, check_batch,
+                                      sg, dev))
+    full = check_full_batch(torch, cfg, bufs, train_batch, dev)
+    for name in ("fused_locations", "fused_scatter_add"):
+        err[name] = max(err[name], full[name])
+    train = train_full_width(torch, cfg, model, bufs, gen, dev, kernels)
+    for name in ("fused_locations", "fused_scatter_add", "sparse_adagrad"):
+        counts[name] = train["launches"][name]
+    launcher = launcher_comparison(torch, kernels)
+    bag_counts, bag_err = bag_backward(torch, cfg, model, bufs, dev, kernels)
+    counts["fused_weight_grad"] = bag_counts["fused_weight_grad"]
+    res.update(measure_training(torch, cfg, model, bufs, gen, train_batch,
+                                full["plain_ms"], sg, dev))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB")
 
     rows = []
     for name, (source, replaces) in SOURCES.items():
-        at512, at4096 = res[name][512], res[name][4096]
+        r = res[name]
+        if name == "sparse_adagrad":
+            main_r, extra = r, {"K": r["K"], "slots": r["slots"]}
+            where = f"K={r['K']}"
+        else:
+            at = MAIN_BATCH.get(name, min(r))
+            main_r, extra = r[at], {"batch": at}
+            where = f"B={at}"
+            for other in sorted(set(r) - {at}):
+                extra[f"at_batch_{other}"] = r[other]
+                where += (f" (B={other}: {r[other]['ms']:.4f} ms, bound "
+                          f"{r[other]['bound_ms']:.4f} ms)")
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
-            "max_abs_err": err[name], "ms": at512["ms"],
-            "plain_ms": at512["plain_ms"], "bound_ms": at512["bound_ms"],
-            "bound_by": at512["bound_by"],
-            "library_ms": at512["library_ms"],
-            "batch": 512, "at_batch_4096": at4096,
+            "max_abs_err": err[name], "ms": main_r["ms"],
+            "plain_ms": main_r["plain_ms"], "bound_ms": main_r["bound_ms"],
+            "bound_by": main_r["bound_by"],
+            "library_ms": main_r["library_ms"], **extra,
         })
         log(f"kernel {name}: launches {counts[name]}, max |err| "
-            f"{err[name]:.3g}; B=512 {at512['ms']:.4f} ms (bound "
-            f"{at512['bound_ms']:.4f} ms, {at512['bound_by']}); B=4096 "
-            f"{at4096['ms']:.4f} ms (bound {at4096['bound_ms']:.4f} ms, "
-            f"{at4096['bound_by']}); card {card}")
+            f"{err[name]:.3g}; {where} {main_r['ms']:.4f} ms (bound "
+            f"{main_r['bound_ms']:.4f} ms, {main_r['bound_by']}); card "
+            f"{card}")
+    log(json.dumps({"training": train, "launcher": launcher,
+                    "bag_backward": bag_err, "card": card}))
     log(json.dumps({"serving": runs, "card": card}))
     log(json.dumps({"kernels": rows}))
     log(card)

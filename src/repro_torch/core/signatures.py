@@ -6,14 +6,18 @@ PAD = 0xFFFFFFFF.  PyTorch has no usable uint32, so the sets are stored as
 int32 bit patterns (PAD = -1); the CUDA kernels reinterpret them as uint32
 and the plain versions widen them with ``hashing.u32``.
 
-The numpy builders are copies of the reference's, so the same seed gives the
-same store in both packages.  ``planted_dense_store`` builds the same
-planted-cluster structure directly on the device, for stores too large for
-the host (the numpy builder needs ~9 GB of float64 at Criteo scale).
+The numpy builders are copies of the reference's, so the same data or seed
+gives the same store in both packages.  ``build_signature_store`` builds the
+CSR store from data rows (the launcher's D'); ``densify_store`` turns it
+into the fixed-width form on the device.  ``planted_dense_store`` builds
+the same planted-cluster structure directly on the device, for stores too
+large for the host (the numpy builder needs ~9 GB of float64 at Criteo
+scale).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterable
 
 import numpy as np
 import torch
@@ -40,6 +44,44 @@ class DenseSignatureStore:
     @property
     def max_set(self) -> int:
         return self.sets.shape[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class SignatureStore:
+    """CSR ragged store of D_v per global value id, on the host."""
+
+    flat: np.ndarray       # [nnz] uint32 sample ids, concatenated per value
+    offsets: np.ndarray    # [n_values + 1] int32
+    lengths: np.ndarray    # [n_values] int32
+
+    @property
+    def n_values(self) -> int:
+        return self.lengths.shape[0]
+
+
+def build_signature_store(rows: Iterable[np.ndarray], n_values: int,
+                          max_per_value: int = 128,
+                          n_samples: int | None = None) -> SignatureStore:
+    """D' from a subsample of the data (copy of the reference).
+
+    ``rows`` yields, per sample, the *global* value ids present in it.
+    ``n_samples`` rows are used (all, if None); per-value sets keep the
+    first ``max_per_value`` sample ids."""
+    buckets: list[list[int]] = [[] for _ in range(n_values)]
+    for sample_id, row in enumerate(rows):
+        if n_samples is not None and sample_id >= n_samples:
+            break
+        for v in np.asarray(row).ravel():
+            b = buckets[int(v)]
+            if len(b) < max_per_value:
+                b.append(sample_id)
+    lengths = np.array([len(b) for b in buckets], dtype=np.int32)
+    offsets = np.zeros(n_values + 1, dtype=np.int32)
+    np.cumsum(lengths, out=offsets[1:])
+    flat = np.empty(int(offsets[-1]), dtype=np.uint32)
+    for v, b in enumerate(buckets):
+        flat[offsets[v]: offsets[v + 1]] = b
+    return SignatureStore(flat=flat, offsets=offsets, lengths=lengths)
 
 
 def _to_store(sets_u32: np.ndarray, lengths: np.ndarray,

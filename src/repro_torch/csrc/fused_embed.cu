@@ -1,28 +1,43 @@
-// Fused embedding lookup: value ids (+ D' sets and support for lma) ->
-// pool gather, optionally bag-pooled with weights, in one pass.
+// Fused embedding engine on Hopper: the lookup (value ids + D' sets and
+// support for lma -> pool gather, optionally bag-pooled with weights) and
+// the three backward-side entry points that share its slot function.
 //
-// Replaces the TPU kernel repro/kernels/fused_embed/kernel.py (_fwd_kernel,
-// launched by fused_lookup_fwd_pallas).  Same function: lma locations with
-// the very-sparse A_h fallback (support < min_support -> hash_pair(v, i)
-// under seed ^ 0x1234567, striped when stripe > 0), or hashed_elem /
-// hashed_row locations; then the gather M[loc] written as [N, d], or with
-// weights the bag sum over L accumulated on chip and written as [B, d].  The
-// [N, d] locations and the [B, L, d] pre-pool tensor never reach device
-// memory.
+// Replaces the TPU kernels of repro/kernels/fused_embed/kernel.py:
+//   fused_lookup_launch      <- _fwd_kernel (fused_lookup_fwd_pallas)
+//   fused_locations_launch   <- _locations_kernel (fused_locations_pallas)
+//   fused_scatter_add_launch <- _scatter_kernel (fused_scatter_add_pallas)
+//   fused_weight_grad_launch <- _weight_grad_kernel (fused_weight_grad_pallas)
+// Same function: lma locations with the very-sparse A_h fallback (support <
+// min_support -> hash_pair(v, i) under seed ^ 0x1234567, striped when
+// stripe > 0), or hashed_elem / hashed_row locations; then the gather M[loc]
+// written as [N, d], or with weights the bag sum over L accumulated on chip
+// and written as [B, d].  The [N, d] locations and the [B, L, d] pre-pool
+// tensor never reach device memory, except where the locations ARE the
+// output (fused_locations: the SparseGrad's indices).
 //
-// The TPU kernel held the whole pool in VMEM and so had a size gate; here
-// the gather reads device memory directly, so every pool size is served.
+// The TPU kernels held the whole pool (or the [m] gradient) in VMEM and so
+// had a size gate; here the gather reads device memory and the scatter adds
+// into it with atomics, so every pool size is served.
 //
 // What bounds it on Hopper: for lma, integer ALU issue.  Per looked-up
 // value it evaluates d*n_h*S hashes of ~15 int32 operations (8,192 hashes,
 // ~123K operations at dlrm-rm2's d=64, n_h=4, S=32) against ~650 bytes that
 // must move (the set row, id and support in; d gathered floats; d floats
-// out).  The design follows that: one warp per output row, the set
-// compacted into shared memory once (hash_core.cuh), the hash chain in
-// registers, fallback rows skip the minhash entirely (a warp-uniform
-// branch), and each lane gathers and writes its own columns, so a warp's
-// gathers and stores cover adjacent slots of a stripe row-wise.  hashed_*
-// schemes are gather-bound and take the same path with no minhash.
+// out).  The design follows that: one warp per value, the set compacted
+// into shared memory once (hash_core.cuh), the hash chain in registers,
+// fallback rows skip the minhash entirely (a warp-uniform branch), and each
+// lane owns its columns, so a warp's gathers, stores and atomics cover
+// adjacent slots of a stripe row-wise.  hashed_* schemes are gather-bound
+// and take the same path with no minhash.
+//
+// Backward, in the same one-warp-per-value shape:
+//   - locations: the slot function written to [N, d] int32 (no gather);
+//   - scatter-add: dM[loc] += g (bag: g * w, product first) with atomicAdd
+//     into a [m] buffer the wrapper zeroed.  The sum order over colliding
+//     values follows the atomics, so it is not deterministic; hot slots
+//     (small-vocabulary fields, LMA's shared slots) contend in L2;
+//   - weight grad: dw[b, l] = <g[b], M[loc[b, l]]>, products summed per
+//     lane, then across the warp by shuffles.
 #include <cuda_runtime.h>
 
 #include "hash_core.cuh"
@@ -52,6 +67,26 @@ __device__ __forceinline__ int32_t slot(const FusedArgs& f, bool fallback,
   return lma::lma_column(set, n, c, f.a);
 }
 
+// One value as the warp sees it: its id, whether the fallback applies, and
+// (lma, no fallback) its set staged at `set` with n elements.
+struct Value {
+  uint32_t gid;
+  bool fallback;
+  int n;
+};
+
+__device__ __forceinline__ Value load_value(const FusedArgs& f,
+                                            const uint32_t* sets,
+                                            const int32_t* gids,
+                                            const int32_t* support, size_t v,
+                                            int S, uint32_t* set, int lane) {
+  Value x{static_cast<uint32_t>(gids[v]),
+          f.scheme == LMA && support[v] < f.min_support, 0};
+  if (f.scheme == LMA && !x.fallback)   // warp-uniform branch
+    x.n = lma::stage_set(sets + v * S, S, set, lane);
+  return x;
+}
+
 // rows: B output rows of L values each (L = 1 and weights == nullptr for
 // the flat lookup).  sets [B*L, S] (lma only), gids/support [B*L].
 __global__ void fused_lookup_kernel(const uint32_t* __restrict__ sets,
@@ -72,15 +107,10 @@ __global__ void fused_lookup_kernel(const uint32_t* __restrict__ sets,
       for (int c = lane; c < d; c += lma::WARP) acc[c] = 0.0f;
     for (int l = 0; l < L; ++l) {
       const size_t v = static_cast<size_t>(b) * L + l;
-      const uint32_t gid = static_cast<uint32_t>(gids[v]);
-      const bool fallback = f.scheme == LMA && support[v] < f.min_support;
-      int n = 0;
-      if (f.scheme == LMA && !fallback) {   // warp-uniform branch
-        n = lma::stage_set(sets + v * S, S, set, lane);
-      }
+      const Value x = load_value(f, sets, gids, support, v, S, set, lane);
       const float w = weights ? weights[v] : 0.0f;
       for (int c = lane; c < d; c += lma::WARP) {
-        const float e = __ldg(mem + slot(f, fallback, set, n, gid, c));
+        const float e = __ldg(mem + slot(f, x.fallback, set, x.n, x.gid, c));
         if (weights)  // product, then sum: no fused multiply-add
           acc[c] = __fadd_rn(acc[c], __fmul_rn(w, e));
         else
@@ -92,6 +122,89 @@ __global__ void fused_lookup_kernel(const uint32_t* __restrict__ sets,
       for (int c = lane; c < d; c += lma::WARP)
         out[static_cast<size_t>(b) * d + c] = acc[c];
   }
+}
+
+// out [N, d] int32: the slot of every (value, column).
+__global__ void fused_locations_kernel(const uint32_t* __restrict__ sets,
+                                       const int32_t* __restrict__ gids,
+                                       const int32_t* __restrict__ support,
+                                       int N, int S, FusedArgs f,
+                                       int32_t* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  const int d = f.a.d;
+  const int warp = threadIdx.x / lma::WARP, lane = threadIdx.x % lma::WARP;
+  uint32_t* set = smem + warp * S;
+  const int stride = gridDim.x * WARPS_PER_BLOCK;
+  for (int v = blockIdx.x * WARPS_PER_BLOCK + warp; v < N; v += stride) {
+    const Value x = load_value(f, sets, gids, support, v, S, set, lane);
+    for (int c = lane; c < d; c += lma::WARP)
+      out[static_cast<size_t>(v) * d + c] = slot(f, x.fallback, set, x.n,
+                                                 x.gid, c);
+    __syncwarp();
+  }
+}
+
+// dmem[slot(b*L + l, c)] += g[b, c] (* weights[b, l]); dmem zeroed by the
+// caller.  Flat: L == 1, weights == nullptr.
+__global__ void fused_scatter_kernel(const uint32_t* __restrict__ sets,
+                                     const int32_t* __restrict__ gids,
+                                     const int32_t* __restrict__ support,
+                                     const float* __restrict__ weights,
+                                     const float* __restrict__ g, int B,
+                                     int L, int S, FusedArgs f,
+                                     float* __restrict__ dmem) {
+  extern __shared__ uint32_t smem[];
+  const int d = f.a.d;
+  const int warp = threadIdx.x / lma::WARP, lane = threadIdx.x % lma::WARP;
+  uint32_t* set = smem + warp * S;
+  const int stride = gridDim.x * WARPS_PER_BLOCK;
+  for (int b = blockIdx.x * WARPS_PER_BLOCK + warp; b < B; b += stride) {
+    for (int l = 0; l < L; ++l) {
+      const size_t v = static_cast<size_t>(b) * L + l;
+      const Value x = load_value(f, sets, gids, support, v, S, set, lane);
+      const float w = weights ? weights[v] : 1.0f;
+      for (int c = lane; c < d; c += lma::WARP) {
+        float gv = g[static_cast<size_t>(b) * d + c];
+        if (weights) gv = __fmul_rn(gv, w);
+        atomicAdd(dmem + slot(f, x.fallback, set, x.n, x.gid, c), gv);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// dw[b, l] = sum_c g[b, c] * mem[slot(b*L + l, c)].
+__global__ void fused_weight_grad_kernel(const uint32_t* __restrict__ sets,
+                                         const int32_t* __restrict__ gids,
+                                         const int32_t* __restrict__ support,
+                                         const float* __restrict__ mem,
+                                         const float* __restrict__ g, int B,
+                                         int L, int S, FusedArgs f,
+                                         float* __restrict__ dw) {
+  extern __shared__ uint32_t smem[];
+  const int d = f.a.d;
+  const int warp = threadIdx.x / lma::WARP, lane = threadIdx.x % lma::WARP;
+  uint32_t* set = smem + warp * S;
+  const int stride = gridDim.x * WARPS_PER_BLOCK;
+  for (int b = blockIdx.x * WARPS_PER_BLOCK + warp; b < B; b += stride) {
+    for (int l = 0; l < L; ++l) {
+      const size_t v = static_cast<size_t>(b) * L + l;
+      const Value x = load_value(f, sets, gids, support, v, S, set, lane);
+      float acc = 0.0f;
+      for (int c = lane; c < d; c += lma::WARP) {
+        const float e = __ldg(mem + slot(f, x.fallback, set, x.n, x.gid, c));
+        acc = __fadd_rn(acc, __fmul_rn(e, g[static_cast<size_t>(b) * d + c]));
+      }
+      for (int off = lma::WARP / 2; off > 0; off /= 2)
+        acc = __fadd_rn(acc, __shfl_xor_sync(0xFFFFFFFFu, acc, off));
+      if (lane == 0) dw[v] = acc;
+      __syncwarp();
+    }
+  }
+}
+
+int blocks_for(int rows) {
+  return (rows + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
 }
 
 }  // namespace
@@ -108,12 +221,73 @@ extern "C" int fused_lookup_launch(const void* sets, const void* gids,
                                    cudaStream_t stream) {
   if (B == 0) return 0;
   FusedArgs f{scheme, min_support, {d, n_h, independent, seed, m, stripe}};
-  const int blocks = (B + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
   const size_t shm = WARPS_PER_BLOCK * (S + d) * sizeof(uint32_t);
-  fused_lookup_kernel<<<blocks, WARPS_PER_BLOCK * lma::WARP, shm, stream>>>(
+  fused_lookup_kernel<<<blocks_for(B), WARPS_PER_BLOCK * lma::WARP, shm,
+                        stream>>>(
       static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
       static_cast<const int32_t*>(support),
       static_cast<const float*>(weights), static_cast<const float*>(mem), B,
       L, S, f, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Locations: out [N, d] int32.
+extern "C" int fused_locations_launch(const void* sets, const void* gids,
+                                      const void* support, int N, int S,
+                                      int scheme, int d, int n_h,
+                                      int independent, uint32_t seed,
+                                      uint32_t m, uint32_t stripe,
+                                      int min_support, void* out,
+                                      cudaStream_t stream) {
+  if (N == 0) return 0;
+  FusedArgs f{scheme, min_support, {d, n_h, independent, seed, m, stripe}};
+  const size_t shm = WARPS_PER_BLOCK * S * sizeof(uint32_t);
+  fused_locations_kernel<<<blocks_for(N), WARPS_PER_BLOCK * lma::WARP, shm,
+                           stream>>>(
+      static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
+      static_cast<const int32_t*>(support), N, S, f,
+      static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Scatter-add: g [B, d] (flat: weights == nullptr, L == 1) into dmem [m],
+// which the caller zeroed.
+extern "C" int fused_scatter_add_launch(const void* sets, const void* gids,
+                                        const void* support,
+                                        const void* weights, const void* g,
+                                        int B, int L, int S, int scheme,
+                                        int d, int n_h, int independent,
+                                        uint32_t seed, uint32_t m,
+                                        uint32_t stripe, int min_support,
+                                        void* dmem, cudaStream_t stream) {
+  if (B == 0) return 0;
+  FusedArgs f{scheme, min_support, {d, n_h, independent, seed, m, stripe}};
+  const size_t shm = WARPS_PER_BLOCK * S * sizeof(uint32_t);
+  fused_scatter_kernel<<<blocks_for(B), WARPS_PER_BLOCK * lma::WARP, shm,
+                         stream>>>(
+      static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
+      static_cast<const int32_t*>(support),
+      static_cast<const float*>(weights), static_cast<const float*>(g), B, L,
+      S, f, static_cast<float*>(dmem));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bag weight gradient: g [B, d], mem [m] -> dw [B, L].
+extern "C" int fused_weight_grad_launch(const void* sets, const void* gids,
+                                        const void* support, const void* mem,
+                                        const void* g, int B, int L, int S,
+                                        int scheme, int d, int n_h,
+                                        int independent, uint32_t seed,
+                                        uint32_t m, uint32_t stripe,
+                                        int min_support, void* dw,
+                                        cudaStream_t stream) {
+  if (B == 0) return 0;
+  FusedArgs f{scheme, min_support, {d, n_h, independent, seed, m, stripe}};
+  const size_t shm = WARPS_PER_BLOCK * S * sizeof(uint32_t);
+  fused_weight_grad_kernel<<<blocks_for(B), WARPS_PER_BLOCK * lma::WARP, shm,
+                             stream>>>(
+      static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
+      static_cast<const int32_t*>(support), static_cast<const float*>(mem),
+      static_cast<const float*>(g), B, L, S, f, static_cast<float*>(dw));
   return static_cast<int>(cudaGetLastError());
 }

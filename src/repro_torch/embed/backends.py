@@ -11,7 +11,8 @@
 The resolver picks by where the pool lies and nothing else: a CUDA pool
 takes the fused kernel, a CPU pool the split version.  There is no sharded
 or tiered backend yet, and no VMEM-style size gate (the kernel reads the
-pool from device memory at any size).
+pool from device memory at any size).  ``sparse_locations`` is the same
+choice for the locations a sparse gradient records.
 """
 from __future__ import annotations
 
@@ -64,6 +65,20 @@ class FusedBackend:
 
 SPLIT = SplitBackend()
 FUSED = FusedBackend()
+
+
+def sparse_locations(cfg: EmbeddingConfig, scheme: Scheme, params: dict,
+                     buffers: dict, gids: torch.Tensor) -> torch.Tensor:
+    """[N] gids -> [N, d] locations for a sparse gradient: the fused
+    locations kernel for a CUDA pool (the hash math the scatter kernel would
+    recompute to consume them), ``scheme.locations`` for a CPU pool; either
+    way bit-identical to ``scheme.locations``."""
+    if resolve_backend(cfg, params, scheme) is FUSED:
+        from repro_torch.kernels.fused_embed import ops as fe
+        spec = FUSED._spec(cfg, scheme, params)
+        extra = scheme.fused_inputs(cfg, buffers, gids)
+        return fe.fused_locations(spec, gids, *extra)
+    return scheme.locations(cfg, buffers, gids)
 
 
 def resolve_backend(cfg: EmbeddingConfig, params: dict,

@@ -25,6 +25,9 @@ class Scheme:
     kind: ClassVar[str]
     family: ClassVar[str] = "memory"       # "memory" | "table"
     needs_budget: ClassVar[bool] = True
+    # What make_buffers consumes: None, or "signatures" (a D' store, lma).
+    # Launchers key data preparation on this.
+    buffer_source: ClassVar[str | None] = None
 
     def validate(self, cfg: "EmbeddingConfig") -> None:
         if self.needs_budget and cfg.budget is None:
@@ -67,6 +70,14 @@ class Scheme:
                      gids: torch.Tensor) -> tuple:
         """Extra per-batch kernel inputs ((sets, support) for lma; () else)."""
         return ()
+
+    def sparse_buckets(self, cfg: "EmbeddingConfig") -> int:
+        """d when column j of ``locations`` always lies in stripe
+        ``[j*(m//d), (j+1)*(m//d))`` (striped lma), else 0.  Non-zero lets
+        the sparse-gradient capture build the pool's SparseGrad with d
+        per-stripe sorts (``optim.sparse.from_bucketed_locations``) and the
+        update fold the duplicates, instead of one global sort and dedup."""
+        return 0
 
     # -------------------------------------------- table-family embed hook
     def embed_rows(self, cfg: "EmbeddingConfig", params: dict, table: int,

@@ -82,6 +82,7 @@ class LMAScheme(Scheme):
     """The paper's semantically-constrained allocation A_L (section 4)."""
 
     kind = "lma"
+    buffer_source = "signatures"
 
     def validate(self, cfg):
         super().validate(cfg)
@@ -129,6 +130,9 @@ class LMAScheme(Scheme):
 
     def fused_spec(self, cfg):
         return fe.lma_spec(cfg.lma)
+
+    def sparse_buckets(self, cfg):
+        return cfg.lma.d if cfg.lma.stripe else 0
 
     def fused_inputs(self, cfg, buffers, gids):
         """D' rows (truncated to max_set) + support for a flat [N] batch."""

@@ -16,6 +16,7 @@ from repro_torch.device import make_generator, resolve_device
 from repro_torch.embed import backends as bke
 from repro_torch.embed.config import EmbeddingConfig
 from repro_torch.embed.registry import get_scheme
+from repro_torch.optim import sparse
 
 
 def _global_ids(cfg: EmbeddingConfig, table: int,
@@ -38,9 +39,21 @@ def make_buffers(cfg: EmbeddingConfig, store=None) -> dict:
 
 
 def _memory_lookup(cfg, params, buffers, gids):
+    """[N] global ids -> [N, d] through the resolved backend.
+
+    Under an active sparse-gradient capture (``repro_torch.optim.sparse``)
+    the lookup is recorded: its backward yields the [N, d] locations and the
+    incoming gradient instead of a dense [m] pool gradient."""
     scheme = get_scheme(cfg.kind)
     backend = bke.resolve_backend(cfg, params, scheme)
-    return backend.lookup(cfg, scheme, params, buffers, gids)
+    cap = sparse.active()
+    if cap is None:
+        return backend.lookup(cfg, scheme, params, buffers, gids)
+    return cap.lookup(
+        params["memory"],
+        lambda: backend.lookup(cfg, scheme, params, buffers, gids),
+        lambda: bke.sparse_locations(cfg, scheme, params, buffers, gids),
+        scheme.sparse_buckets(cfg))
 
 
 def embed(cfg: EmbeddingConfig, params: dict, buffers: dict, table: int,
@@ -82,12 +95,14 @@ def embed_bag(cfg: EmbeddingConfig, params: dict, buffers: dict, table: int,
     """Multi-hot pooling: ids [B, L], mask [B, L] -> [B, dim].
 
     A CUDA pool pools inside the fused kernel (bag mode); everything else is
-    gather + masked reduce."""
+    gather + masked reduce.  Under a sparse-gradient capture the bag
+    decomposes into embed + masked reduce, so the per-element lookup is the
+    one recorded and its gradient arrives already weighted (g[b] * w[b, l])."""
     if mode not in ("sum", "mean"):
         raise ValueError(mode)
     scheme = get_scheme(cfg.kind)
     backend = bke.resolve_backend(cfg, params, scheme)
-    if backend is bke.FUSED:
+    if backend is bke.FUSED and sparse.active() is None:
         w = mask.to(params["memory"].dtype)
         gids = _global_ids(cfg, table, ids.reshape(-1)).reshape(ids.shape)
         s = backend.bag(cfg, scheme, params, buffers, gids, w.contiguous())

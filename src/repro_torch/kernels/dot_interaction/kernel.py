@@ -1,8 +1,8 @@
 """Binding of ``csrc/dot_interaction.cu``: the DLRM interaction on Hopper.
 
 Replaces ``repro/kernels/dot_interaction/kernel.py`` (``_dot_kernel``); the
-source states the design and what bounds it.  Forward only: the backward
-comes with the training slice, so an input that needs a gradient raises.
+source states the design and what bounds it.  The raw forward launch; its
+gradient is ``ops.dot_interaction``'s.
 """
 from __future__ import annotations
 
@@ -26,9 +26,6 @@ def _launch():
 def dot_interaction_cuda(feats: torch.Tensor) -> torch.Tensor:
     """feats [B, F, d] float32 on the card -> [B, F(F-1)/2] float32."""
     build.require(feats, "feats", torch.float32, 3)
-    if torch.is_grad_enabled() and feats.requires_grad:
-        raise RuntimeError("dot_interaction_cuda has no backward kernel yet; "
-                           "call it under torch.no_grad() or inference_mode")
     B, F, d = feats.shape
     if F * (d + 1) * 4 > _MAX_SHARED:
         raise ValueError(f"[F={F}, d={d}] does not fit one block's shared "

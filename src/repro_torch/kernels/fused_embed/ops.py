@@ -1,11 +1,20 @@
-"""Public wrappers of the fused embed engine (forward).
+"""Public wrappers of the fused embed engine, with their gradients.
 
-``fused_lookup``   : value ids (+ D' set rows and support for lma) -> [N, d].
-``fused_embed_bag``: multi-hot [B, L] inputs -> [B, d] weighted-sum bags,
-                     pooled inside the kernel.
+``fused_lookup``    : value ids (+ D' set rows and support for lma) -> [N, d].
+``fused_embed_bag`` : multi-hot [B, L] inputs -> [B, d] weighted-sum bags,
+                      pooled inside the kernel.
+``fused_locations`` : the [N, d] int32 locations themselves (the indices of
+                      a sparse gradient).
 
-CUDA tensors go to the kernel, CPU tensors to the plain split version.  A
-scheme publishes a :class:`FusedSpec` (``Scheme.fused_spec``) and
+CUDA tensors go to the kernels, CPU tensors to the plain split versions
+(whose gradients PyTorch's autograd takes).  On the card the lookup and the
+bag are ``torch.autograd.Function``s mirroring the reference's custom VJPs
+(``repro/kernels/fused_embed/ops.py`` ``_lookup``/``_bag``): the forward is
+the lookup kernel, the backward the scatter-add kernel (locations
+recomputed, not saved), plus the weight-gradient kernel for a bag whose
+weights need a gradient; integer inputs get no gradient.
+
+A scheme publishes a :class:`FusedSpec` (``Scheme.fused_spec``) and
 ``repro_torch.embed.backends`` routes CUDA lookups here.  Unlike the TPU
 engine there is no VMEM gate (the gather reads device memory, so every pool
 size is served) and no power-of-two batch bucketing (that bounded JAX
@@ -18,9 +27,13 @@ import dataclasses
 import torch
 
 from repro_torch.core.allocation import LMAParams
-from repro_torch.kernels.fused_embed.kernel import fused_lookup_cuda
+from repro_torch.kernels.fused_embed.kernel import (fused_locations_cuda,
+                                                    fused_lookup_cuda,
+                                                    fused_scatter_add_cuda,
+                                                    fused_weight_grad_cuda)
 from repro_torch.kernels.fused_embed.ref import (fused_embed_bag_ref,
-                                                 fused_lookup_ref)
+                                                 fused_lookup_ref,
+                                                 locations_ref)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,13 +80,54 @@ def _on_cpu(t: torch.Tensor, what: str) -> bool:
     raise ValueError(f"{what}: unsupported device {t.device}")
 
 
+class _Lookup(torch.autograd.Function):
+    """Flat lookup on the card: kernel forward, scatter-add backward."""
+
+    @staticmethod
+    def forward(ctx, memory, spec, gids, sets, support):
+        ctx.spec = spec
+        ctx.save_for_backward(gids, sets, support)
+        return fused_lookup_cuda(spec, memory, gids, sets, support)
+
+    @staticmethod
+    def backward(ctx, g):
+        gids, sets, support = ctx.saved_tensors
+        dmem = fused_scatter_add_cuda(ctx.spec, g.contiguous(), gids, sets,
+                                      support)
+        return dmem, None, None, None, None
+
+
+class _Bag(torch.autograd.Function):
+    """Bag lookup on the card: kernel forward; backward the scatter-add
+    (g * w) for the pool and the weight-gradient kernel for the weights."""
+
+    @staticmethod
+    def forward(ctx, memory, weights, spec, gids, sets, support):
+        ctx.spec = spec
+        ctx.save_for_backward(memory, weights, gids, sets, support)
+        return fused_lookup_cuda(spec, memory, gids, sets, support, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        memory, weights, gids, sets, support = ctx.saved_tensors
+        g = g.contiguous()
+        dmem = dw = None
+        if ctx.needs_input_grad[0]:
+            dmem = fused_scatter_add_cuda(ctx.spec, g, gids, sets, support,
+                                          weights)
+        if ctx.needs_input_grad[1]:
+            dw = fused_weight_grad_cuda(ctx.spec, memory, g, gids, sets,
+                                        support)
+        return dmem, dw, None, None, None, None
+
+
 def fused_lookup(spec: FusedSpec, memory: torch.Tensor, gids: torch.Tensor,
                  sets: torch.Tensor | None = None,
                  support: torch.Tensor | None = None) -> torch.Tensor:
     """gids [N] (+ sets [N, S], support [N] for lma) -> [N, d]."""
     if _on_cpu(memory, "fused_lookup"):
         return fused_lookup_ref(spec, memory, gids, sets, support)
-    return fused_lookup_cuda(spec, memory, gids, sets, support)
+    return _Lookup.apply(memory, spec, gids, sets, support)
 
 
 def fused_embed_bag(spec: FusedSpec, memory: torch.Tensor, gids: torch.Tensor,
@@ -83,4 +137,15 @@ def fused_embed_bag(spec: FusedSpec, memory: torch.Tensor, gids: torch.Tensor,
     lma) -> [B, d] weighted-sum bags."""
     if _on_cpu(memory, "fused_embed_bag"):
         return fused_embed_bag_ref(spec, memory, gids, weights, sets, support)
-    return fused_lookup_cuda(spec, memory, gids, sets, support, weights)
+    return _Bag.apply(memory, weights, spec, gids, sets, support)
+
+
+def fused_locations(spec: FusedSpec, gids: torch.Tensor,
+                    sets: torch.Tensor | None = None,
+                    support: torch.Tensor | None = None) -> torch.Tensor:
+    """gids [N] (+ sets [N, S], support [N] for lma) -> [N, d] int32
+    locations, bit-identical to ``Scheme.locations``: the scatter kernel's
+    hash recomputation emitted instead of consumed."""
+    if _on_cpu(gids, "fused_locations"):
+        return locations_ref(spec, gids, sets, support)
+    return fused_locations_cuda(spec, gids, sets, support)

@@ -1,0 +1,136 @@
+"""Training launcher for the recsys archs (port of ``repro.launch.train``'s
+main path): synthetic CTR data with planted semantics, the D' signature
+store for lma, the arch's optimizer with the pool on sparse Adagrad, the
+:class:`~repro_torch.train.trainer.Trainer`, then a streaming AUC eval.  It
+is the port's form of ``examples/train_lma_dlrm.py``: run it once with lma
+and once with hashed_elem to compare the two at an equal budget.
+
+  python -m repro_torch.launch.train --arch lma-dlrm-criteo --steps 300
+  python -m repro_torch.launch.train --arch lma-dlrm-criteo \\
+      --embedding-kind hashed_elem --steps 300
+  python -m repro_torch.launch.train --device cpu --steps 20 --batch 64
+
+It runs on the card unless ``--device cpu`` is given (with ``src`` on
+``PYTHONPATH``).
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.signatures import build_signature_store, densify_store
+from repro_torch.data.metrics import StreamingEval
+from repro_torch.data.synthetic_ctr import CTRGenerator, CTRSpec
+from repro_torch.device import resolve_device
+from repro_torch.embed import get_scheme, make_buffers
+from repro_torch.models import recsys
+from repro_torch.optim import optimizers as opt_lib
+from repro_torch.optim import sparse as sparse_lib
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def make_optimizer(arch) -> opt_lib.Optimizer:
+    """The arch's optimizer: the pool (``memory``) routes to the sparse
+    optimizer by name and every other parameter to the dense one.  Whether
+    the pool's gradient is sparse is the Trainer's choice (``sparse_grads``);
+    the sparse optimizer takes either form.  Adagrad is the only one
+    ported."""
+    if arch.optimizer != "adagrad":
+        raise NotImplementedError(f"{arch.optimizer}: not ported yet")
+    lr = arch.learning_rate
+    return opt_lib.multi_transform(
+        [(r"(^|\.)memory$", sparse_lib.sparse_adagrad(lr))],
+        default=opt_lib.adagrad(lr))
+
+
+def lookups_per_step(cfg, batch: int) -> int:
+    """Embedding-row lookups one recsys step performs."""
+    return batch * recsys.lookups_per_example(cfg)
+
+
+def _recsys_setup(arch, cfg, n_s: int, batch: int, device):
+    """-> (generator, buffers, batch_fn, loss_fn).  Batches are host numpy
+    arrays (the trainer moves them); the D' store goes to ``device``."""
+    e = cfg.embedding
+    spec = CTRSpec(n_fields=cfg.n_fields, n_dense=cfg.n_dense,
+                   vocab_sizes=e.vocab_sizes, seed=0)
+    gen = CTRGenerator(spec)
+    bufs = {}
+    if get_scheme(e.kind).buffer_source == "signatures":
+        print(f"building D' ({n_s} rows)...")
+        store = build_signature_store(gen.rows_for_signatures(n_s),
+                                      e.total_vocab,
+                                      max_per_value=e.lma.max_set)
+        bufs = make_buffers(e, densify_store(store, e.lma.max_set,
+                                             device=device))
+
+    def batch_fn(step):
+        return gen.batch(batch, step)
+
+    def loss_fn(model, b):
+        return recsys.loss_fn(model, b, bufs)
+
+    return gen, bufs, batch_fn, loss_fn
+
+
+def evaluate(model, gen, bufs, n_batches: int, device) -> dict:
+    """Streaming AUC / logloss / accuracy over held-out batches."""
+    ev = StreamingEval()
+    with torch.no_grad():
+        for i in range(n_batches):
+            b = gen.batch(2048, 700_000 + i)
+            x = {k: torch.from_numpy(b[k]).to(device)
+                 for k in ("dense", "sparse")}
+            ev.add(b["label"], model(x, bufs).cpu().numpy())
+    return ev.compute()
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="lma-dlrm-criteo")
+    ap.add_argument("--embedding-kind", default=None,
+                    help="override the arch's embedding scheme (any "
+                         "registered kind, e.g. hashed_elem)")
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--batch", type=int, default=512)
+    ap.add_argument("--n-signatures", type=int, default=10_000)
+    ap.add_argument("--eval-batches", type=int, default=8)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = get_config(args.arch)
+    if arch.family != "recsys":
+        raise SystemExit(f"{args.arch}: only recsys archs are ported")
+    kind_kw = {} if args.embedding_kind is None \
+        else {"embedding_kind": args.embedding_kind}
+    cfg = arch.make_model(None, **kind_kw)
+    gen, bufs, batch_fn, loss_fn = _recsys_setup(
+        arch, cfg, args.n_signatures, args.batch, dev)
+    model = recsys.init(cfg, device=dev)
+    n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
+    print(f"{args.arch} ({cfg.embedding.kind}): {n_params:,} parameters on "
+          f"{dev}")
+    trainer = Trainer(
+        TrainerConfig(total_steps=args.steps,
+                      log_every=max(args.steps // 10, 1),
+                      lookups_per_step=lookups_per_step(cfg, args.batch)),
+        loss_fn, model, make_optimizer(arch), batch_fn, device=dev)
+    if trainer.sparse_grads:
+        print("sparse memory-pool updates ON (REPRO_SPARSE_GRADS=0 for the "
+              "dense oracle)")
+    out = trainer.fit()
+    print(f"done: {out}")
+    met = evaluate(model, gen, bufs, args.eval_batches, dev)
+    print(f"eval: {met}")
+    return {"train": out, "eval": met}
+
+
+if __name__ == "__main__":
+    main()

@@ -80,6 +80,12 @@ class Recsys(nn.Module):
         return self.top(torch.cat([bot, z], dim=-1))[:, 0]
 
 
+def lookups_per_example(cfg: RecsysConfig) -> int:
+    """Embedding-row lookups one example performs: one per field for DLRM
+    (the unit of the trainer's lookups_per_sec)."""
+    return cfg.n_fields
+
+
 def init(cfg: RecsysConfig, generator: torch.Generator | None = None,
          device=None) -> Recsys:
     return Recsys(cfg, generator, device)

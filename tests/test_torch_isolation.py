@@ -41,6 +41,7 @@ def test_no_jax_or_reference_imports(path):
 
 def _entry_points():
     import numpy as np
+    import torch
 
     from repro_torch.configs import get_config
     from repro_torch.convert import buffers_from_numpy, params_from_jax
@@ -50,6 +51,8 @@ def _entry_points():
                                              synthetic_dense_store)
     from repro_torch.embed import EmbeddingTable
     from repro_torch.models.recsys import Recsys
+    from repro_torch.optim.optimizers import adagrad
+    from repro_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = get_config("dlrm-rm2").make_smoke()
     return {
@@ -63,6 +66,9 @@ def _entry_points():
         "planted_dense_store": lambda: planted_dense_store(8, 2, 4),
         "EmbeddingTable.init": lambda: EmbeddingTable(cfg.embedding).init(),
         "Recsys": lambda: Recsys(cfg),
+        "Trainer": lambda: Trainer(TrainerConfig(1), None,
+                                   torch.nn.Linear(2, 2), adagrad(0.1),
+                                   None),
     }
 
 
@@ -70,7 +76,8 @@ def _entry_points():
                                   "params_from_jax", "init_memory",
                                   "synthetic_dense_store",
                                   "planted_dense_store",
-                                  "EmbeddingTable.init", "Recsys"])
+                                  "EmbeddingTable.init", "Recsys",
+                                  "Trainer"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """With no device named, tensors go to the card; without one, raise."""
     import torch
@@ -93,3 +100,37 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+class _OnCard:
+    """Stands for a tensor on the card (this test runs without one)."""
+    is_cuda = True
+    device = "cuda:0"
+
+
+@pytest.mark.parametrize("name", ["fused_locations", "sparse_update"])
+def test_card_tensors_go_to_the_kernels(name, monkeypatch):
+    """A tensor on the card goes to the CUDA kernel, never to the plain
+    version; a CPU tensor to the plain version."""
+    import torch
+
+    from repro_torch.kernels.fused_embed import ops as fe
+    from repro_torch.kernels.sparse_update import ops as su
+
+    calls = []
+    if name == "fused_locations":
+        monkeypatch.setattr(fe, "fused_locations_cuda",
+                            lambda *a: calls.append("kernel"))
+        monkeypatch.setattr(fe, "locations_ref",
+                            lambda *a: calls.append("plain"))
+        spec = fe.hashed_spec("hashed_elem", 4, 64, 0)
+        fe.fused_locations(spec, _OnCard())
+        fe.fused_locations(spec, torch.zeros(3, dtype=torch.int32))
+    else:
+        monkeypatch.setattr(su, "sparse_adagrad_cuda",
+                            lambda *a, **k: calls.append("kernel"))
+        monkeypatch.setattr(su, "sparse_adagrad_ref",
+                            lambda *a, **k: calls.append("plain"))
+        su.sparse_update("adagrad", None, None, (_OnCard(),), lr=0.1)
+        su.sparse_update("adagrad", None, None, (torch.zeros(4),), lr=0.1)
+    assert calls == ["kernel", "plain"]

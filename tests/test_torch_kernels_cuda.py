@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-These need an sm_90 device and skip elsewhere.  They cover what the serving
-path at full width does not: sliding windows, the hashed schemes, ragged set
-widths, empty sets, and keys and seeds >= 2^31.  On the card, with no JAX
+These need an sm_90 device and skip elsewhere.  They cover what the paths at
+full width do not: sliding windows, the hashed schemes, ragged set widths,
+empty sets, keys and seeds >= 2^31, bags, long duplicate runs, and that
+each autograd path launches its kernels.  On the card, with no JAX
 installed, run them as
 ``python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py``.
 """
@@ -22,6 +23,11 @@ from repro_torch.kernels.fused_embed import ref as fref  # noqa: E402
 from repro_torch.kernels.lma_locations import ops as loc_ops  # noqa: E402
 from repro_torch.kernels.lma_locations.ref import \
     lma_locations_ref  # noqa: E402
+from repro_torch.kernels.fused_embed import kernel as fk  # noqa: E402
+from repro_torch.kernels.sparse_update import kernel as sk  # noqa: E402
+from repro_torch.kernels.sparse_update import ops as su  # noqa: E402
+from repro_torch.kernels.sparse_update.ref import \
+    sparse_adagrad_ref  # noqa: E402
 
 M, D = 8192, 16
 
@@ -112,6 +118,128 @@ def test_dot_interaction_kernel_matches_plain(cuda, F, d):
                                dot_interaction_ref(x), rtol=1e-5, atol=1e-5)
 
 
+def _lma_case(cuda, rng, n, striped, S=24):
+    p = LMAParams(d=D, m=M, n_h=4, max_set=S, seed=0xF00D_0001,
+                  striped=striped, min_support=3)
+    sets = _sets(rng, n, S).to(cuda)
+    support = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32))
+    gids = torch.from_numpy(
+        rng.integers(2**31 - 5000, 2**31 - 1, n).astype(np.int32))
+    assert (support < p.min_support).any()
+    return fe.lma_spec(p), gids.to(cuda), sets, support.to(cuda)
+
+
+@pytest.mark.parametrize("scheme", ["lma", "lma_striped", "hashed_elem",
+                                    "hashed_row"])
+def test_fused_locations_kernel_matches_plain(cuda, scheme):
+    rng = np.random.default_rng(5)
+    if scheme.startswith("lma"):
+        spec, gids, sets, support = _lma_case(cuda, rng, 333,
+                                              scheme == "lma_striped")
+        extra = (sets, support)
+    else:
+        spec = fe.hashed_spec(scheme, D, M, 0x8765_4321)
+        gids = torch.from_numpy(
+            rng.integers(0, 2**31 - 1, 333).astype(np.int32)).to(cuda)
+        extra = ()
+    got = fe.fused_locations(spec, gids, *extra)
+    assert torch.equal(got, fref.locations_ref(spec, gids, *extra))
+
+
+@pytest.mark.parametrize("striped", [False, True])
+def test_scatter_add_and_weight_grad_match_plain(cuda, striped):
+    rng = np.random.default_rng(6)
+    B, L = 40, 7
+    spec, gids, sets, support = _lma_case(cuda, rng, B * L, striped)
+    mem = _mem(cuda)
+    g = torch.randn((B * L, D), device=cuda)
+    got = fk.fused_scatter_add_cuda(spec, g, gids, sets, support)
+    want = fref.scatter_add_ref(spec, g, gids, sets, support)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    gb = torch.randn((B, D), device=cuda)
+    w = torch.rand((B, L), device=cuda)
+    bag = (gids.reshape(B, L), sets.reshape(B, L, -1), support.reshape(B, L))
+    got = fk.fused_scatter_add_cuda(spec, gb, *bag, weights=w)
+    want = fref.scatter_add_ref(spec, gb, *bag, weights=w)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    got = fk.fused_weight_grad_cuda(spec, mem, gb, *bag)
+    want = fref.weight_grad_ref(spec, mem, gb, *bag)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _stream(rng, unique, m=M):
+    if unique:
+        live = np.sort(rng.choice(m, 900, replace=False)).astype(np.int32)
+        idx = np.concatenate([live, np.full(124, m, np.int32)])
+        vals = rng.normal(0, 1, idx.shape[0]).astype(np.float32)
+        vals[live.shape[0]:] = 0.0
+        return idx, vals
+    slots = np.sort(rng.choice(m, 700, replace=False))
+    runs = rng.geometric(0.05, slots.shape[0])          # runs of ~20, some > 32
+    runs[:3] = (1 << 15, 256 * 3, 33)                   # round edges too
+    idx = np.repeat(slots, runs).astype(np.int32)
+    vals = (rng.normal(0, 1, idx.shape[0])
+            * 10.0 ** rng.uniform(-6, 0, idx.shape[0])).astype(np.float32)
+    return idx, vals
+
+
+@pytest.mark.parametrize("unique", [True, False])
+def test_sparse_adagrad_kernel_matches_plain(cuda, unique):
+    """The kernel sums each run in fold_duplicates' order and rounds every
+    operation alone, so updates and accumulators are equal, not close."""
+    rng = np.random.default_rng(7)
+    idx, vals = _stream(rng, unique)
+    idx, vals = torch.from_numpy(idx).to(cuda), torch.from_numpy(vals).to(cuda)
+    acc0 = torch.rand(M, device=cuda) * 0.25
+    acc0[::2] = 0.0
+    acc_k, acc_p = acc0.clone(), acc0.clone()
+    u_k, _ = su.sparse_update("adagrad", idx, vals, (acc_k,), unique=unique,
+                              lr=0.01, eps=1e-10)
+    u_p, _ = sparse_adagrad_ref(idx, vals, acc_p, lr=0.01, eps=1e-10,
+                                unique=unique)
+    assert torch.equal(u_k, u_p)
+    assert torch.equal(acc_k, acc_p)
+    touched = torch.zeros(M, dtype=torch.bool, device=cuda)
+    touched[idx[idx < M].long()] = True
+    assert torch.equal(acc_k[~touched].view(torch.int32),
+                       acc0[~touched].view(torch.int32))
+
+
+def test_autograd_paths_launch_the_kernels(cuda):
+    from repro_torch.optim import sparse as sp
+    from repro_torch.optim.optimizers import adagrad, apply_updates
+
+    rng = np.random.default_rng(8)
+    B, L = 16, 5
+    spec, gids, sets, support = _lma_case(cuda, rng, B * L, True)
+    mem = _mem(cuda).requires_grad_()
+    counts = [fk.fused_lookup_cuda, fk.fused_scatter_add_cuda,
+              fk.fused_weight_grad_cuda, fk.fused_locations_cuda,
+              sk.sparse_adagrad_cuda]
+    before = [k.launches for k in counts]
+    fe.fused_lookup(spec, mem, gids, sets, support).sum().backward()
+    assert mem.grad is not None
+    w = torch.rand((B, L), device=cuda, requires_grad=True)
+    fe.fused_embed_bag(spec, mem, gids.reshape(B, L), w,
+                       sets.reshape(B, L, -1),
+                       support.reshape(B, L)).sum().backward()
+    assert w.grad is not None
+    mem.grad = None
+    with sp.capture() as cap:
+        cap.lookup(mem, lambda: fe.fused_lookup(spec, mem, gids, sets,
+                                                support),
+                   lambda: fe.fused_locations(spec, gids, sets, support),
+                   D).pow(2).sum().backward()
+    assert mem.grad is None
+    grads = cap.grads({"memory": mem})
+    opt = adagrad(0.1)
+    state = opt.init({"memory": mem})
+    updates, state = opt.update(grads, state, {"memory": mem})
+    apply_updates({"memory": mem}, updates)
+    launched = [k.launches - b for k, b in zip(counts, before)]
+    assert launched == [3, 2, 1, 1, 1]
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     p = LMAParams(d=D, m=M)
     sets = torch.zeros((8, 16), dtype=torch.int32, device=cuda)
@@ -119,8 +247,21 @@ def test_wrappers_reject_bad_inputs(cuda):
         loc_ops.lma_locations(p, sets[:, ::2])           # not contiguous
     with pytest.raises(TypeError):
         loc_ops.lma_locations(p, sets.float())
-    mem = _mem(cuda).requires_grad_()
     spec = fe.hashed_spec("hashed_elem", D, M, 1)
     gids = torch.zeros(4, dtype=torch.int32, device=cuda)
-    with pytest.raises(RuntimeError):                    # no backward yet
-        fe.fused_lookup(spec, mem, gids)
+    with pytest.raises(TypeError):
+        fk.fused_locations_cuda(spec, gids.long())
+    with pytest.raises(ValueError):                      # not on the card
+        fk.fused_locations_cuda(spec, gids.cpu())
+    with pytest.raises(ValueError):                      # g [N, d] expected
+        fk.fused_scatter_add_cuda(spec, torch.zeros((4, D + 1), device=cuda),
+                                  gids)
+    acc = torch.zeros(M, device=cuda)
+    with pytest.raises(TypeError):
+        sk.sparse_adagrad_cuda(gids.long(), torch.zeros(4, device=cuda), acc,
+                               lr=0.1)
+    with pytest.raises(ValueError):
+        sk.sparse_adagrad_cuda(gids, torch.zeros(4), acc, lr=0.1)
+    mem = _mem(cuda).requires_grad_()                    # gradients work now
+    out = fe.fused_lookup(spec, mem, gids)
+    assert out.requires_grad
