@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: serve and train
-full-width dlrm-rm2.
+full-width dlrm-rm2, then full-width xDeepFM.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 sm_90 card and ``nvcc``; it imports only torch, numpy and ``repro_torch``
@@ -18,7 +18,8 @@ Phases (any failure raises and ends the run with a non-zero code):
      tolerance);
   4. serve single requests through the port's BatchingScorer (max_batch
      512) at two offered rates; the fused lookup and dot kernels must have
-     launched; one served batch is recomputed from the plain versions;
+     launched once per device call; one served batch is recomputed from the
+     plain versions;
   5. the split lookup (locations kernel + gather) over the served batch;
      the locations kernel must have launched;
   6. time each serving kernel at B=512 and B=4096 (device time from
@@ -35,23 +36,43 @@ Phases (any failure raises and ends the run with a non-zero code):
   8. train dlrm-rm2 at full width for a few steps through the port's Trainer
      with sparse pool gradients, each step also taken densely (a second
      Trainer) from the same parameters and accumulators: finite losses,
-     the pool's .grad stays None on the sparse path, the sparse run launched
-     the locations and sparse Adagrad kernels and not the scatter-add, the
-     dense run the reverse; the two steps agree (``check_step``: bit-equal
-     outside the pool, pool slot sums within the rounding bound, each pool
-     exactly Adagrad of its own sums); steps/s, lookups/s, a per-phase split
-     from CUDA events, host batch time and peak memory;
+     the pools' .grad stays None on the sparse path, each run launched
+     exactly its kernels per step (sparse: lookup, locations, sparse
+     Adagrad; dense: lookup, scatter-add); the two steps agree
+     (``check_step``, for every pool: bit-equal outside the pools, pool
+     slot sums within the rounding bound, each pool exactly Adagrad of its
+     own sums); steps/s, lookups/s, a per-phase split from CUDA events,
+     host batch time and peak memory;
   9. the paper's comparison through the port's launcher: lma-dlrm-criteo,
      300 steps at B=512, lma and hashed_elem, eval AUC of each;
  10. a bag's backward on the full pool (scatter-add and weight-gradient
      kernels) against the plain versions;
  11. time the training kernels (CUDA-graph replay) beside their bounds,
      plain versions and, for sparse Adagrad, torch.optim.Adagrad on a
-     sparse gradient; print one line per kernel, the ``kernels`` JSON line,
-     the card line, and last the result line.
+     sparse gradient; then free dlrm-rm2 and its training state;
+ 12. build xDeepFM at full width on the card: the 21,102,592-slot flat
+     LMA pool (d=10), the 2,113,536-slot flat linear pool (d=1) and the
+     33,763,877 x 32 D' store, planted and made very sparse as in phase 2;
+ 13. hold the CIN kernel against its plain version on all three layers'
+     real inputs at B=512, B=4096 and a ragged B=333: every output within
+     1e-5 of its sum |terms|;
+ 14. hold the lookup and locations kernels against their plain versions
+     for both pools at B=512, bit-exact;
+ 15. serve xDeepFM requests (no dense features) through the BatchingScorer
+     at the two offered rates: the CIN kernel launched three times and the
+     lookup twice per device call; one served batch against the plain
+     versions;
+ 16. train xDeepFM at B=4096 for a few steps, sparse and dense, each step
+     taken both ways from one state and held together by ``check_step``
+     for both pools;
+ 17. time the CIN kernel (CUDA-graph replay) per layer at B=512 and B=4096
+     beside its bound, its plain version and one torch.einsum; print one
+     line per kernel, the ``kernels`` JSON line, the card line, and last
+     the result line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -70,6 +91,8 @@ TICK_S = 1e-3
 SPARSE_PERIOD = 50              # value v % 50 == 0: support 0, == 1: support 1
 N_CLUSTERS = 4096
 TRAIN_STEPS = 8                 # per run, sparse and dense
+XDEEPFM_TRAIN_BATCH = 4096      # the xDeepFM paper's mini-batch (section 4.1)
+CIN_CHECK_BATCHES = (512, 4096, 333)
 LAUNCHER_STEPS, LAUNCHER_BATCH = 300, 512
 FULL_CHUNK = 4096 * 26         # values per plain call over a B=65,536 batch
 # A pool slot's gradient is a float32 sum of its run of n contributions (n
@@ -86,6 +109,11 @@ FULL_CHUNK = 4096 * 26         # values per plain call over a B=65,536 batch
 # slots), and it catches one lost or misplaced contribution of average
 # size, sum |g| / n, at every slot with n < 2,900.
 SUM_RTOL = 1e-6
+# A CIN output is a float32 sum of Hk * F (up to 7,800) products; the kernel
+# and the plain version sum them in different orders, so each output is held
+# to a share of its sum |terms|, as the CPU tests hold the plain version to
+# the reference.
+SUM_RTOL_CIN = 1e-5
 U32 = 2.0 ** -24                # float32 unit roundoff
 ADAGRAD_EPS = 1e-10             # optim.adagrad's default, as make_optimizer
 
@@ -194,14 +222,17 @@ def events_ms(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def sum_tol(run, abs_sum):
-    """How far a sequential and a pairwise float32 sum of the same ``run``
-    contributions, whose absolute values sum to ``abs_sum``, can differ:
-    (gamma(n - 1) + gamma(ceil(log2 n))) * abs_sum, gamma(k) = k u / (1 - k u)
-    (Higham, Accuracy and Stability of Numerical Algorithms, 4.2)."""
+def sum_tol(run, abs_sum, pairwise: bool = True):
+    """How far a sequential float32 sum and a second float32 sum of the same
+    ``run`` contributions, whose absolute values sum to ``abs_sum``, can
+    differ: (gamma(n - 1) + gamma(ceil(log2 n))) * abs_sum when the second is
+    pairwise, 2 gamma(n - 1) * abs_sum when it is sequential too,
+    gamma(k) = k u / (1 - k u) (Higham, Accuracy and Stability of Numerical
+    Algorithms, 4.2)."""
     def gamma(k):
         return k * U32 / (1 - k * U32)
-    return (gamma(run - 1) + gamma(run.log2().ceil())) * abs_sum
+    second = run.log2().ceil() if pairwise else run - 1
+    return (gamma(run - 1) + gamma(second)) * abs_sum
 
 
 def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
@@ -236,13 +267,16 @@ def lma_work(torch, p, rows, support, fallback: bool):
 
 def draw_requests(rng, vocabs, n: int, n_dense: int) -> dict:
     """Ids skewed toward each field's head (P(id < k) = (k/V)^(1/3)),
-    dense features log-transformed counts, all from the seed."""
+    dense features log-transformed counts (none, and no ``dense`` key, for
+    a model without them), all from the seed."""
     v = np.asarray(vocabs)
     u = rng.random((n, len(vocabs)))
     sparse = np.minimum((u ** 3 * v).astype(np.int64), v - 1)
-    dense = np.log1p(rng.exponential(4.0, (n, n_dense)))
-    return {"sparse": sparse.astype(np.int32),
-            "dense": dense.astype(np.float32)}
+    out = {"sparse": sparse.astype(np.int32)}
+    if n_dense:
+        dense = np.log1p(rng.exponential(4.0, (n, n_dense)))
+        out["dense"] = dense.astype(np.float32)
+    return out
 
 
 def global_ids(torch, cfg, batch, dev):
@@ -255,12 +289,12 @@ def global_ids(torch, cfg, batch, dev):
 
 # ------------------------------------------------------------------ phases
 
-def build_model(torch, dev):
+def build_model(torch, dev, arch: str = "dlrm-rm2"):
     from repro_torch.configs import get_config
     from repro_torch.core.signatures import planted_dense_store
-    from repro_torch.models.recsys import Recsys
+    from repro_torch.models.recsys import Recsys, linear_config
 
-    cfg = get_config("dlrm-rm2").make_model()
+    cfg = get_config(arch).make_model()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = Recsys(cfg, gen, device=dev).eval()
@@ -276,7 +310,12 @@ def build_model(torch, dev):
     bufs = cfg.table.make_buffers(store)
     torch.cuda.synchronize()
     p = cfg.embedding.lma
-    log(f"model: dlrm-rm2, m={p.m} stripe={p.stripe} d={p.d} n_h={p.n_h} "
+    pools = f"m={p.m} stripe={p.stripe} d={p.d}"
+    if cfg.model == "xdeepfm":
+        q = linear_config(cfg).lma
+        pools += (f"; linear pool m={q.m} stripe={q.stripe} d={q.d}; CIN "
+                  f"{cfg.cin_layers}, deep MLP {cfg.deep_mlp}")
+    log(f"model: {arch}, {pools} n_h={p.n_h} "
         f"max_set={p.max_set} min_support={p.min_support}; D' store "
         f"{tuple(store.sets.shape)} int32 "
         f"({store.sets.numel() * 4 / 1e9:.2f} GB); very sparse share "
@@ -356,20 +395,57 @@ def check_kernels(torch, cfg, model, bufs, batch, dev) -> dict:
 
 
 def plain_forward(torch, cfg, model, bufs, batch, dev):
-    """The DLRM forward through the plain versions only (split lookup,
-    pairwise-product interaction)."""
+    """The forward through the plain versions only: split lookups, then the
+    pairwise-product interaction (DLRM) or the two-einsum CIN (xDeepFM)."""
     from repro_torch.embed import SPLIT
     from repro_torch.kernels.dot_interaction.ref import dot_interaction_ref
 
     gids = global_ids(torch, cfg, batch, dev)
     feats = SPLIT.lookup(cfg.embedding, cfg.table.scheme,
                          dict(model.embedding), bufs, gids)
+    if cfg.model == "xdeepfm":
+        return plain_xdeepfm(torch, cfg, model, bufs, gids, feats)
     bot = model.bot(torch.from_numpy(batch["dense"]).to(dev))
     allf = torch.cat([bot[:, None, :],
                       feats.reshape(-1, cfg.n_fields, cfg.embedding.dim)],
                      dim=1)
     z = dot_interaction_ref(allf)
     return model.top(torch.cat([bot, z], dim=-1))[:, 0]
+
+
+def plain_cin_inputs(torch, cfg, model, feats):
+    """x0 [B, F, d] and the three layers' inputs xk through the plain CIN."""
+    from repro_torch.kernels.cin.ref import cin_ref
+
+    x0 = feats.reshape(-1, cfg.n_fields, cfg.embedding.dim).contiguous()
+    xks, xk = [], x0
+    for i in range(len(cfg.cin_layers)):
+        xks.append(xk)
+        xk = torch.relu(cin_ref(xk, x0, model.cin[f"layer_{i}"].detach())
+                        ).contiguous()   # einsum may return a permuted view
+    return x0, xks, xk
+
+
+def plain_xdeepfm(torch, cfg, model, bufs, gids, feats):
+    """xDeepFM's logits from the plain versions: the CIN's pools, the deep
+    MLP and the linear table's split lookup, added as the model adds them."""
+    from repro_torch.embed import SPLIT
+    from repro_torch.models.recsys import linear_config
+
+    x0, xks, last = plain_cin_inputs(torch, cfg, model, feats)
+    pools = [xk.sum(dim=-1) for xk in xks[1:] + [last]]
+    B = x0.shape[0]
+    lin_cfg = linear_config(cfg)
+    lin = SPLIT.lookup(lin_cfg, cfg.table.scheme, dict(model.linear), bufs,
+                       gids)
+    return (model.cin_out(torch.cat(pools, dim=-1))[:, 0]
+            + model.deep(x0.reshape(B, -1))[:, 0]
+            + lin.reshape(B, -1).sum(dim=-1))
+
+
+# kernel launches per served batch (one forward) of each model
+SERVE_LAUNCHES = {"dlrm": {"fused_embed": 1, "dot_interaction": 1},
+                  "xdeepfm": {"fused_embed": 2, "cin": 3}}
 
 
 def serve(torch, cfg, model, bufs, dev, kernels) -> tuple:
@@ -413,10 +489,13 @@ def serve(torch, cfg, model, bufs, dev, kernels) -> tuple:
             "p50={p50:.3f} p99={p99:.3f}".format(**runs[-1]))
     counts = {name: k.launches for name, k in kernels.items()}
     runs.append({"forward_ms_b512": fwd_ms})
-    log(f"launches while serving: {counts}")
-    for name in ("fused_embed", "dot_interaction"):
-        if counts[name] == 0:
-            raise AssertionError(f"{name} was not launched while serving")
+    calls = len(served)
+    log(f"launches while serving ({calls} device calls): {counts}")
+    for name, per_call in SERVE_LAUNCHES[cfg.model].items():
+        if counts[name] != per_call * calls:
+            raise AssertionError(f"{name} launched {counts[name]} times in "
+                                 f"{calls} device calls, not {per_call} "
+                                 "per call")
     # the largest batch served, against the plain versions
     batch, out, _ = max(served, key=lambda s: len(s[1]))
     with torch.inference_mode():
@@ -556,18 +635,21 @@ def measure(torch, cfg, model, bufs, dev) -> dict:
 
 # -------------------------------------------------------------- training
 
-def ctr_generator():
-    """The port's CTR data at the Criteo vocabularies.  n_clusters must not
-    exceed the smallest vocabulary (3): with more, the generator leaves
-    empty cluster pools (the reference's launcher has the same limit)."""
-    from repro_torch.configs._recsys_common import CRITEO_VOCABS
+def ctr_generator(cfg):
+    """The port's CTR data at the model's (Criteo) vocabularies.  n_clusters
+    must not exceed the smallest vocabulary (3): with more, the generator
+    leaves empty cluster pools (the reference's launcher has the same
+    limit)."""
     from repro_torch.data.synthetic_ctr import CTRGenerator, CTRSpec
 
     t0 = time.perf_counter()
-    gen = CTRGenerator(CTRSpec(vocab_sizes=CRITEO_VOCABS, n_clusters=3,
+    e = cfg.embedding
+    gen = CTRGenerator(CTRSpec(n_fields=cfg.n_fields, n_dense=cfg.n_dense,
+                               vocab_sizes=e.vocab_sizes, n_clusters=3,
                                value_dist="uniform", seed=SEED))
-    log(f"CTR generator at the Criteo vocabularies (3 clusters, uniform "
-        f"values) built in {time.perf_counter() - t0:.1f} s")
+    log(f"CTR generator at {cfg.name}'s {cfg.n_fields} vocabularies "
+        f"({cfg.n_dense} dense features, 3 clusters, uniform values) built "
+        f"in {time.perf_counter() - t0:.1f} s")
     return gen
 
 
@@ -747,6 +829,34 @@ def check_full_batch(torch, cfg, bufs, batch, dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def raw_streams(torch, streams: dict):
+    """While active, keep the raw contributions (locations, values) of each
+    pool whose lookups record no stripe buckets, by parameter name, as a
+    sparse-gradient capture releases them: such a pool's SparseGrad is
+    deduped (``optim.sparse.from_locations``) and holds each slot's sum, not
+    its contributions, whose count and sum |g| ``check_step`` needs."""
+    from repro_torch.optim import sparse as sp
+
+    grads = sp.SparseCapture.grads
+
+    def tapped(cap, named_params):
+        for name, p in named_params.items():
+            recs = [r for r in cap.records
+                    if r.memory is p and r.grad is not None]
+            if recs and {r.n_buckets for r in recs} == {0}:
+                streams[name] = (torch.cat([r.loc.reshape(-1) for r in recs]),
+                                 torch.cat([r.grad.reshape(-1)
+                                            for r in recs]))
+        return grads(cap, named_params)
+
+    sp.SparseCapture.grads = tapped
+    try:
+        yield streams
+    finally:
+        sp.SparseCapture.grads = grads
+
+
 class Recorder:
     """An optimizer that keeps the gradients of the last update it made."""
 
@@ -762,69 +872,95 @@ class Recorder:
 
 
 def check_step(torch, n, p0, acc0, dense_p, params, states, opts, lr,
-               parity) -> None:
+               parity, streams) -> None:
     """One step taken both ways from (p0, acc0), held to each other:
-    - outside the pool the two paths had the same gradients, so the
+    - outside the pools the two paths had the same gradients, so the
       parameters and accumulators are bit-identical;
-    - the dense pool gradient is 0 off the touched slots; at each touched
-      slot the sparse path's folded sum (the sparse Adagrad kernel's order,
-      which ``fold_duplicates`` reproduces bit for bit) is within
-      ``sum_tol`` of the dense path's;
-    - each path's pool and accumulator are exactly Adagrad of its own slot
-      sums from (p0, acc0), untouched slots unchanged.
-    So the paths differ only by the rounding of the slot sums.  Logs each
-    path's largest error against the float64 sum (a share of sum |g|), and,
-    for the elements that differ most, both sums, sum |g|, the run length
-    and the accumulator before the step."""
-    from repro_torch.kernels.sparse_update.ref import (fold_duplicates,
-                                                       ieee_sqrt)
+    - for every pool the sparse path updated (a SparseGrad): the dense pool
+      gradient is 0 off the touched slots; at each touched slot the sparse
+      path's folded sum (the sparse Adagrad kernel's order, which
+      ``fold_duplicates`` reproduces bit for bit) is within ``sum_tol`` of
+      the dense path's; each path's pool and accumulator are exactly
+      Adagrad of its own slot sums from (p0, acc0), untouched slots
+      unchanged.
+    So the paths differ only by the rounding of the slot sums.  ``acc0``
+    holds each pool's accumulator before the step; ``streams`` the raw
+    contributions of each deduped SparseGrad (``raw_streams``); ``parity``
+    gathers one record per pool."""
+    from repro_torch.optim.sparse import is_sparse
 
-    pool = "embedding.memory"
     gs, gd = opts["sparse"].grads, opts["dense"].grads
+    pools = sorted(k for k, g in gs.items() if is_sparse(g))
+    if not pools or set(pools) != set(acc0):
+        raise AssertionError(f"step {n}: sparse pools {pools}, expected "
+                             f"{sorted(acc0)}")
     for k, q in params.items():
-        if k != pool and not (torch.equal(gs[k], gd[k])
-                              and torch.equal(q, dense_p[k])
-                              and torch.equal(states["sparse"][k],
-                                              states["dense"][k])):
+        if k not in pools and not (torch.equal(gs[k], gd[k])
+                                   and torch.equal(q, dense_p[k])
+                                   and torch.equal(states["sparse"][k],
+                                                   states["dense"][k])):
             raise AssertionError(
                 f"step {n}: {k} differs between the paths (|grad diff| "
                 f"{float((gs[k] - gd[k]).abs().max()):.3g})")
-    sg, g_dense = gs[pool], gd[pool]
+    for pool in pools:
+        check_pool(torch, n, pool, p0[pool], acc0[pool], dense_p[pool],
+                   params[pool].detach(), states, gs[pool], gd[pool], lr,
+                   parity.setdefault(pool, {"max_pool_param_diff": 0.0,
+                                            "max_sum_ratio": 0.0,
+                                            "max_tol_share": 0.0}),
+                   streams)
+
+
+def check_pool(torch, n, pool, q0_all, acc0, dense_q, sparse_q, states, sg,
+               g_dense, lr, parity, streams) -> None:
+    """``check_step``'s rules for one pool.  The sparse path's slot sum is
+    the fold of a bucketed SparseGrad (pairwise, as the sparse Adagrad
+    kernel adds) or the sum of a deduped one (``index_add_``, sequential);
+    the run length and sum |g| of a slot come from the raw contributions.
+    Logs each path's largest error against the float64 sum (a share of sum
+    |g|), and, for the elements that differ most, both sums, sum |g|, the
+    run length and the accumulator before the step."""
+    from repro_torch.kernels.sparse_update.ref import (fold_duplicates,
+                                                       ieee_sqrt)
+
     m = g_dense.numel()
     keep = sg.indices < m
     idx, vals = sg.indices[keep], sg.values[keep]
     head, folded = fold_duplicates(idx, vals)
-    _, run = torch.unique_consecutive(idx, return_counts=True)
     slots = idx[head].long()
     s = {"sparse": folded[head], "dense": g_dense[slots]}
     del head, folded
+    raw_loc, raw = streams[pool] if sg.unique else (idx, vals)
+    raw_loc = raw_loc.long()
+    run = torch.zeros(m, dtype=torch.int64, device=slots.device).index_add_(
+        0, raw_loc, torch.ones_like(raw_loc))[slots]
     abs_sum, exact = (torch.zeros(m, dtype=torch.float64, device=slots.device)
-                      .index_add_(0, idx.long(), v)[slots]
-                      for v in (vals.abs().double(), vals.double()))
-    del idx, vals, keep
+                      .index_add_(0, raw_loc, v)[slots]
+                      for v in (raw.abs().double(), raw.double()))
+    del idx, vals, keep, raw_loc, raw
     touched = torch.zeros(m, dtype=torch.bool, device=slots.device)
     touched[slots] = True
     if bool((g_dense[~touched] != 0).any()):
-        raise AssertionError(f"step {n}: the dense pool gradient is not 0 "
+        raise AssertionError(f"step {n}: the dense {pool} gradient is not 0 "
                              "off the touched slots")
     ds = (s["sparse"] - s["dense"]).abs().double()
-    tol = sum_tol(run.double(), abs_sum)
+    tol = sum_tol(run.double(), abs_sum, pairwise=not sg.unique)
     ratio = float((ds / abs_sum.clamp_min(1e-30)).max())
     share = float((ds / tol.clamp_min(1e-30)).max())
     if share > 1:
-        raise AssertionError(f"step {n}: sparse and dense slot sums differ: "
-                             f"max |diff| / sum_tol {share:.3g}")
-    pools = {"sparse": params[pool].detach(), "dense": dense_p[pool]}
-    a0, q0 = acc0[slots], p0[pool][slots]
+        raise AssertionError(f"step {n}: {pool}: sparse and dense slot sums "
+                             f"differ: max |diff| / sum_tol {share:.3g}")
+    pools = {"sparse": sparse_q, "dense": dense_q}
+    a0, q0 = acc0[slots], q0_all[slots]
     for name in ("sparse", "dense"):
         a = a0 + s[name] * s[name]
         want = q0 + -lr * s[name] / (ieee_sqrt(a) + ADAGRAD_EPS)
         got, acc = pools[name], states[name][pool]
         if not (torch.equal(got[slots], want) and torch.equal(acc[slots], a)
-                and torch.equal(got[~touched], p0[pool][~touched])
+                and torch.equal(got[~touched], q0_all[~touched])
                 and torch.equal(acc[~touched], acc0[~touched])):
             raise AssertionError(
-                f"step {n}: the {name} pool is not Adagrad of its own slot "
+                f"step {n}: the {name} {pool} is not Adagrad of its own slot "
                 f"sums (max |diff| "
                 f"{float((got[slots] - want).abs().max()):.3g})")
     dp = (pools["sparse"][slots] - pools["dense"][slots]).abs()
@@ -832,7 +968,7 @@ def check_step(torch, n, p0, acc0, dense_p, params, states, opts, lr,
               "s_dense": float(s["dense"][i]), "sum_abs": float(abs_sum[i]),
               "run": int(run[i]), "acc0": float(a0[i]),
               "param_diff": float(dp[i])}
-             for i in torch.topk(dp, 3).indices.tolist()]
+             for i in torch.topk(dp, min(3, dp.numel())).indices.tolist()]
     if float(dp.max()) >= parity["max_pool_param_diff"]:
         parity["max_pool_param_diff"], parity["worst"] = float(dp.max()), worst
     parity["max_sum_ratio"] = max(parity["max_sum_ratio"], ratio)
@@ -843,7 +979,7 @@ def check_step(torch, n, p0, acc0, dense_p, params, states, opts, lr,
     for name in s:
         parity[f"max_{name}_err"] = max(parity.get(f"max_{name}_err", 0.0),
                                         float(off[name].max()))
-    log(f"  step {n}: {slots.numel()} slots, max |s diff| / sum |g| "
+    log(f"  step {n} {pool}: {slots.numel()} slots, max |s diff| / sum |g| "
         f"{ratio:.3g} (slot {int(slots[at])}, run {int(run[at])}, sum |g| "
         f"{float(abs_sum[at]):.3g}, sum {float(exact[at]):.4g}), "
         f"{share:.3g} of sum_tol; max |s - float64 sum| / sum |g|: sparse "
@@ -856,22 +992,37 @@ def check_step(torch, n, p0, acc0, dense_p, params, states, opts, lr,
             f"{w['acc0']:.3g}, diff {w['param_diff']:.3g}" for w in worst))
 
 
-def train_full_width(torch, cfg, model, bufs, gen, dev, kernels) -> dict:
-    """TRAIN_STEPS steps through the port's Trainer with sparse pool
-    gradients; before each, the same step densely (a second Trainer with
-    sparse_grads=False) from the same parameters and accumulators, and the
-    two results held to each other (``check_step``).  -> launches per run,
-    throughput, phase split, parity."""
+# kernel launches per training step of each model and path (the lookup once
+# per pool; the pool gradient: locations + sparse Adagrad, or scatter-add)
+STEP_LAUNCHES = {
+    "dlrm": {"sparse": {"fused_embed": 1, "dot_interaction": 1,
+                        "fused_locations": 1, "sparse_adagrad": 1},
+             "dense": {"fused_embed": 1, "dot_interaction": 1,
+                       "fused_scatter_add": 1}},
+    "xdeepfm": {"sparse": {"fused_embed": 2, "cin": 3, "fused_locations": 2,
+                           "sparse_adagrad": 2},
+                "dense": {"fused_embed": 2, "cin": 3,
+                          "fused_scatter_add": 2}},
+}
+
+
+def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
+                     kernels) -> dict:
+    """TRAIN_STEPS steps of B examples through the port's Trainer with
+    sparse pool gradients; before each, the same step densely (a second
+    Trainer with sparse_grads=False) from the same parameters and
+    accumulators, and the two results held to each other (``check_step``).
+    Each run must launch exactly STEP_LAUNCHES per step.  -> launches per
+    run, throughput, phase split, parity."""
     from repro_torch.configs import get_config
-    from repro_torch.configs._recsys_common import RECSYS_SHAPE_TABLE
     from repro_torch.launch.train import lookups_per_step, make_optimizer
     from repro_torch.models.recsys import loss_fn
+    from repro_torch.optim.sparse import has_memory
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    arch = get_config("dlrm-rm2")
-    B = RECSYS_SHAPE_TABLE["train_batch"]["batch"]
+    arch = get_config(arch_id)
     params = dict(model.named_parameters())
-    mem = params["embedding.memory"]
+    pools = [k for k in params if has_memory({k: None})]
     timers, trainers, opts, runs = {}, {}, {}, {}
     for name in ("sparse", "dense"):
         timers[name] = PhaseTimer(torch)
@@ -885,8 +1036,7 @@ def train_full_width(torch, cfg, model, bufs, gen, dev, kernels) -> dict:
         runs[name] = {"losses": [], "peak_gib": 0.0, "held_gib": 0.0,
                       "launches": dict.fromkeys(kernels, 0)}
     sparse_tr, dense_tr = trainers["sparse"], trainers["dense"]
-    parity = {"max_pool_param_diff": 0.0, "max_sum_ratio": 0.0,
-              "max_tol_share": 0.0}
+    parity = {}
 
     def step(name, n):
         tr, r = trainers[name], runs[name]
@@ -907,7 +1057,7 @@ def train_full_width(torch, cfg, model, bufs, gen, dev, kernels) -> dict:
     for n in range(1, TRAIN_STEPS + 1):
         with torch.no_grad():
             p0 = {k: q.detach().clone() for k, q in params.items()}
-            acc0 = sparse_tr.opt_state["embedding.memory"].clone()
+            acc0 = {k: sparse_tr.opt_state[k].clone() for k in pools}
             dense_tr.opt_state = {k: a.clone()
                                   for k, a in sparse_tr.opt_state.items()}
         step("dense", n)
@@ -915,16 +1065,18 @@ def train_full_width(torch, cfg, model, bufs, gen, dev, kernels) -> dict:
             p_dense = {k: q.detach().clone() for k, q in params.items()}
             for k, q in params.items():
                 q.copy_(p0[k])
-        step("sparse", n)
-        if mem.grad is not None:
-            raise AssertionError("the pool has a dense .grad on the sparse "
-                                 "path")
+        with raw_streams(torch, {}) as streams:
+            step("sparse", n)
+        for k in pools:
+            if params[k].grad is not None:
+                raise AssertionError(f"{k} has a dense .grad on the sparse "
+                                     "path")
         states = {"sparse": sparse_tr.opt_state, "dense": dense_tr.opt_state}
         with torch.no_grad():
             check_step(torch, n, p0, acc0, p_dense, params, states, opts,
-                       arch.learning_rate, parity)
+                       arch.learning_rate, parity, streams)
         opts["sparse"].grads = opts["dense"].grads = None
-        del p0, acc0, p_dense
+        del p0, acc0, p_dense, streams
     counts = {n: k.launches for n, k in kernels.items()}
     for name, tr in trainers.items():
         r = runs[name]
@@ -934,7 +1086,7 @@ def train_full_width(torch, cfg, model, bufs, gen, dev, kernels) -> dict:
                                                + r["batch_sec"])
         if not np.isfinite(r["losses"]).all():
             raise AssertionError(f"{name}: non-finite loss {r['losses']}")
-        log(f"train {name}: B={B}, {TRAIN_STEPS} steps, losses "
+        log(f"train {arch_id} {name}: B={B}, {TRAIN_STEPS} steps, losses "
             + " ".join(f"{x:.5f}" for x in r["losses"])
             + f"; {r['steps_per_sec']:.2f} steps/s, "
             f"{r['lookups_per_sec']:,.0f} lookups/s; phases (ms, median) "
@@ -948,28 +1100,25 @@ def train_full_width(torch, cfg, model, bufs, gen, dev, kernels) -> dict:
                                runs["dense"]["losses"], rtol=1e-6)
     runs["parity"] = parity
     runs["launches"] = counts
-    log(f"sparse vs dense, each step from the same state: non-pool "
-        f"parameters and accumulators bit-identical; pool slot sums within "
-        f"{parity['max_sum_ratio']:.3g} of sum |g|, "
-        f"{parity['max_tol_share']:.3g} of sum_tol (against the float64 "
-        f"sum: sparse {parity['max_sparse_err']:.3g}, dense "
-        f"{parity['max_dense_err']:.3g}); each "
-        f"pool exactly Adagrad of its own sums; max |param diff| "
-        f"{parity['max_pool_param_diff']:.3g}; losses within rtol 1e-6 (the "
-        f"same forward)")
-    need = {"sparse": ("fused_locations", "sparse_adagrad", "fused_embed",
-                       "dot_interaction"),
-            "dense": ("fused_scatter_add", "fused_embed", "dot_interaction")}
-    never = {"sparse": "fused_scatter_add", "dense": "sparse_adagrad"}
-    for name, names in need.items():
+    for pool, par in parity.items():
+        w = par["worst"][0]
+        log(f"sparse vs dense {pool}, each step from the same state: "
+            f"non-pool parameters and accumulators bit-identical; slot sums "
+            f"within {par['max_sum_ratio']:.3g} of sum |g|, "
+            f"{par['max_tol_share']:.3g} of sum_tol (against the float64 "
+            f"sum: sparse {par['max_sparse_err']:.3g}, dense "
+            f"{par['max_dense_err']:.3g}); the pool exactly Adagrad of its "
+            f"own sums; max |param diff| {par['max_pool_param_diff']:.3g} "
+            f"(worst slot {w['slot']}: run {w['run']}, sum |g| "
+            f"{w['sum_abs']:.3g}, s {w['s_sparse']:.4g} / {w['s_dense']:.4g},"
+            f" acc0 {w['acc0']:.3g}); losses within rtol 1e-6 (the same "
+            "forward)")
+    for name, per_step in STEP_LAUNCHES[cfg.model].items():
         got = runs[name]["launches"]
-        for k in names:
-            if got[k] == 0:
-                raise AssertionError(f"{k} was not launched in the {name} "
-                                     "run")
-        if got[never[name]]:
-            raise AssertionError(f"{never[name]} was launched in the {name} "
-                                 "run")
+        want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in got}
+        if got != want:
+            raise AssertionError(f"{arch_id} {name} run launched {got}, "
+                                 f"expected {want}")
     return runs
 
 
@@ -1144,6 +1293,165 @@ def measure_training(torch, cfg, model, bufs, gen, train_batch, plain_full,
     return res
 
 
+# ---------------------------------------------------------------- xDeepFM
+
+def cin_layer_inputs(torch, cfg, model, bufs, B, seed, dev):
+    """Real inputs of the three CIN layers for B drawn requests: x0 from the
+    plain split lookup, each xk through the plain CIN; -> (x0, [(xk, w)])."""
+    from repro_torch.embed import SPLIT
+
+    batch = draw_requests(np.random.default_rng(seed),
+                          cfg.embedding.vocab_sizes, B, cfg.n_dense)
+    gids = global_ids(torch, cfg, batch, dev)
+    with torch.inference_mode():
+        feats = SPLIT.lookup(cfg.embedding, cfg.table.scheme,
+                             dict(model.embedding), bufs, gids)
+        x0, xks, _ = plain_cin_inputs(torch, cfg, model, feats)
+    ws = [model.cin[f"layer_{i}"].detach() for i in range(len(xks))]
+    return x0, list(zip(xks, ws))
+
+
+def abs_terms(torch, xk, x0, w, chunk: int = 512):
+    """sum_{h,f} |w[o,h,f] xk[b,h,e] x0[b,f,e]| per output, in float64."""
+    return torch.cat([torch.einsum(
+        "bhd,bfd,ohf->bod", xk[a:a + chunk].abs().double(),
+        x0[a:a + chunk].abs().double(), w.abs().double())
+        for a in range(0, xk.shape[0], chunk)])
+
+
+def check_cin(torch, cfg, model, bufs, dev) -> tuple:
+    """Row 14 against its plain version on the three layers' real inputs at
+    each of CIN_CHECK_BATCHES: every output within SUM_RTOL_CIN of its sum
+    |terms|.  -> (max |err|, the inputs by batch for the timings)."""
+    from repro_torch.kernels.cin.kernel import cin_cuda
+    from repro_torch.kernels.cin.ref import cin_ref
+
+    worst_abs, inputs = 0.0, {}
+    for B in CIN_CHECK_BATCHES:
+        x0, layers = cin_layer_inputs(torch, cfg, model, bufs, B, SEED + B,
+                                      dev)
+        inputs[B] = (x0, layers)
+        parts = []
+        with torch.inference_mode():
+            for i, (xk, w) in enumerate(layers):
+                got, want = cin_cuda(xk, x0, w), cin_ref(xk, x0, w)
+                err = (got - want).abs()
+                ratio = float((err.double()
+                               / abs_terms(torch, xk, x0, w).clamp_min(1e-30)
+                               ).max())
+                if not bool(torch.isfinite(got).all()) or \
+                        ratio > SUM_RTOL_CIN:
+                    raise AssertionError(f"cin B={B} layer {i}: max |err| / "
+                                         f"sum |terms| {ratio:.3g}")
+                worst_abs = max(worst_abs, float(err.max()))
+                parts.append(f"layer {i} [Hk={xk.shape[1]}] max |err| "
+                             f"{float(err.max()):.3g}, / sum |terms| "
+                             f"{ratio:.3g}")
+        log(f"cin at B={B}: " + "; ".join(parts)
+            + f" (tol {SUM_RTOL_CIN} of sum |terms|)")
+    return worst_abs, inputs
+
+
+def check_xdeepfm_lookups(torch, cfg, model, bufs, batch, dev) -> None:
+    """Rows 2 and 4 for both pools (flat, d=10 and d=1) at the served batch
+    size, bit-exact against their plain versions."""
+    from repro_torch.kernels.fused_embed import ops as fe
+    from repro_torch.kernels.fused_embed import ref as fref
+    from repro_torch.kernels.fused_embed.kernel import (fused_locations_cuda,
+                                                        fused_lookup_cuda)
+    from repro_torch.models.recsys import linear_config
+
+    gids = global_ids(torch, cfg, batch, dev)
+    out = []
+    with torch.inference_mode():
+        for e, params in ((cfg.embedding, model.embedding),
+                          (linear_config(cfg), model.linear)):
+            p = e.lma
+            rows, support = cfg.table.scheme.fused_inputs(e, bufs, gids)
+            n_fb = int((support < p.min_support).sum())
+            if n_fb == 0:
+                raise AssertionError("the check batch holds no fallback rows")
+            spec = fe.lma_spec(p)
+            mem = params["memory"].detach()
+            if not torch.equal(fused_lookup_cuda(spec, mem, gids, rows,
+                                                 support),
+                               fref.fused_lookup_ref(spec, mem, gids, rows,
+                                                     support)):
+                raise AssertionError(f"lookup differs (m={p.m}, d={p.d})")
+            if not torch.equal(fused_locations_cuda(spec, gids, rows,
+                                                    support),
+                               fref.locations_ref(spec, gids, rows,
+                                                  support)):
+                raise AssertionError(f"locations differ (m={p.m}, d={p.d})")
+            out.append(f"m={p.m} d={p.d} stripe={p.stripe}")
+    log(f"xdeepfm lookups at B={len(batch['sparse'])} ({gids.numel()} values, "
+        f"{n_fb} fallback rows): lookup and locations bit-exact for both "
+        f"pools ({'; '.join(out)})")
+
+
+def measure_cin(torch, inputs) -> dict:
+    """Row 14 per layer at B=512 (a served batch) and B=4096 (a training
+    batch): device time from CUDA-graph replay beside the bound, the plain
+    version and one torch.einsum over the same inputs; the entry of a batch
+    sums its three layers (one forward)."""
+    from repro_torch.kernels.cin.kernel import cin_cuda
+    from repro_torch.kernels.cin.ref import cin_ref
+
+    res = {}
+    for B in (512, 4096):
+        x0, layers = inputs[B]
+        F, d = x0.shape[1], x0.shape[2]
+        per = []
+        with torch.inference_mode():
+            for xk, w in layers:
+                Ho, Hk = w.shape[0], w.shape[1]
+                Q = Hk * F
+                r = {"Hk": Hk, "Ho": Ho}
+                r["ms"] = graph_ms(torch, lambda: cin_cuda(xk, x0, w),
+                                   20 if B == 512 else 5)
+                r["plain_ms"] = time_ms(torch, lambda: cin_ref(xk, x0, w), 3,
+                                        warmup=1)
+                r["library_ms"] = time_ms(torch, lambda: torch.einsum(
+                    "bhd,bfd,ohf->bod", xk, x0, w), 3, warmup=1)
+                r["bound_ms"], r["bound_by"] = bound(
+                    4 * (B * Hk * d + B * F * d + Ho * Q + B * Ho * d),
+                    2 * B * d * Ho * Q, FP32_FLOP_PER_S)
+                per.append(r)
+        tot = {k: sum(r[k] for r in per)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        tot["bound_by"] = per[0]["bound_by"]
+        tot["layers"] = per
+        res[B] = tot
+        log(f"  cin B={B}: {tot['ms']:.4f} ms over 3 layers ("
+            + ", ".join(f"Hk={r['Hk']} {r['ms']:.4f} ms / bound "
+                        f"{r['bound_ms']:.4f}" for r in per)
+            + f"), bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}), "
+            f"{tot['bound_ms'] / tot['ms']:.1%} of bound, plain "
+            f"{tot['plain_ms']:.3f} ms, torch.einsum {tot['library_ms']:.3f}"
+            " ms")
+    return res
+
+
+def run_xdeepfm(torch, dev, kernels) -> tuple:
+    """Phases 12-17: build, check, serve, train and time full-width
+    xDeepFM.  -> (launch counts of its main paths, the CIN's max |err|,
+    its timings, the serving and training records)."""
+    cfg, model, bufs = build_model(torch, dev, "xdeepfm")
+    cin_err, inputs = check_cin(torch, cfg, model, bufs, dev)
+    batch = draw_requests(np.random.default_rng(SEED + 11),
+                          cfg.embedding.vocab_sizes, 512, cfg.n_dense)
+    check_xdeepfm_lookups(torch, cfg, model, bufs, batch, dev)
+    serve_counts, serving, _ = serve(torch, cfg, model, bufs, dev, kernels)
+    gen = ctr_generator(cfg)
+    train = train_full_width(torch, "xdeepfm", cfg, model, bufs, gen,
+                             XDEEPFM_TRAIN_BATCH, dev, kernels)
+    counts = {"serve": serve_counts, "train_sparse":
+              train["sparse"]["launches"], "train_dense":
+              train["dense"]["launches"]}
+    res = measure_cin(torch, inputs)
+    return counts, cin_err, res, serving, train
+
+
 # -------------------------------------------------------------------- main
 
 SOURCES = {
@@ -1161,20 +1469,26 @@ SOURCES = {
                           "src/repro/kernels/fused_embed/kernel.py:516"),
     "sparse_adagrad": ("src/repro_torch/csrc/sparse_update.cu",
                        "src/repro/kernels/sparse_update/kernel.py:120"),
+    "cin": ("src/repro_torch/csrc/cin.cu", "src/repro/kernels/cin/kernel.py:39"),
 }
 
 # The batch of each kernel's JSON entry: the training batch for the rows the
-# training step launches at B=65,536; the smallest measured otherwise.
+# training step launches at B=65,536; the smallest measured otherwise (for
+# the CIN, B=512, a served batch; its entry sums the three layers).
 MAIN_BATCH = {"fused_locations": 65536, "fused_scatter_add": 65536}
 
 
 def main() -> int:
+    import gc
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs._recsys_common import RECSYS_SHAPE_TABLE
     from repro_torch.kernels import KERNELS, build
+    from repro_torch.kernels.cin.kernel import cin_cuda
     from repro_torch.kernels.dot_interaction.kernel import dot_interaction_cuda
     from repro_torch.kernels.fused_embed.kernel import (
         fused_locations_cuda, fused_lookup_cuda, fused_scatter_add_cuda,
@@ -1202,7 +1516,8 @@ def main() -> int:
                "fused_locations": fused_locations_cuda,
                "fused_scatter_add": fused_scatter_add_cuda,
                "fused_weight_grad": fused_weight_grad_cuda,
-               "sparse_adagrad": sparse_adagrad_cuda}
+               "sparse_adagrad": sparse_adagrad_cuda,
+               "cin": cin_cuda}
 
     cfg, model, bufs = build_model(torch, dev)
     rng = np.random.default_rng(SEED)
@@ -1210,28 +1525,52 @@ def main() -> int:
                                 cfg.n_dense)
     err = check_kernels(torch, cfg, model, bufs, check_batch, dev)
     counts, runs, served = serve(torch, cfg, model, bufs, dev, kernels)
+    paths = {"dlrm-rm2 serve": dict(counts)}
     counts["lma_locations"] = split_lookup(torch, cfg, model, bufs, served,
                                            dev, kernels)
+    paths["dlrm-rm2 split lookup"] = {"lma_locations":
+                                      counts["lma_locations"]}
     res = measure(torch, cfg, model, bufs, dev)
 
-    gen = ctr_generator()
-    train_batch = gen.batch(65536, 0)
+    gen = ctr_generator(cfg)
+    B_train = RECSYS_SHAPE_TABLE["train_batch"]["batch"]
+    train_batch = gen.batch(B_train, 0)
     sg = real_step_grad(torch, cfg, model, bufs, train_batch, dev)
     err.update(check_training_kernels(torch, cfg, model, bufs, check_batch,
                                       sg, dev))
     full = check_full_batch(torch, cfg, bufs, train_batch, dev)
     for name in ("fused_locations", "fused_scatter_add"):
         err[name] = max(err[name], full[name])
-    train = train_full_width(torch, cfg, model, bufs, gen, dev, kernels)
+    train = train_full_width(torch, "dlrm-rm2", cfg, model, bufs, gen,
+                             B_train, dev, kernels)
     for name in ("fused_locations", "fused_scatter_add", "sparse_adagrad"):
         counts[name] = train["launches"][name]
+    paths["dlrm-rm2 train sparse"] = train["sparse"]["launches"]
+    paths["dlrm-rm2 train dense"] = train["dense"]["launches"]
     launcher = launcher_comparison(torch, kernels)
     bag_counts, bag_err = bag_backward(torch, cfg, model, bufs, dev, kernels)
     counts["fused_weight_grad"] = bag_counts["fused_weight_grad"]
+    paths["dlrm-rm2 bag backward"] = bag_counts
     res.update(measure_training(torch, cfg, model, bufs, gen, train_batch,
                                 full["plain_ms"], sg, dev))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-        "GiB")
+        "GiB (dlrm-rm2 phases)")
+
+    # free dlrm-rm2 (pool, D' store, the step's SparseGrad) before xDeepFM
+    del cfg, model, bufs, sg, train_batch, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"after freeing dlrm-rm2: {torch.cuda.memory_allocated() / 2**30:.2f}"
+        " GiB allocated")
+    xcounts, err["cin"], xres, xserving, xtrain = run_xdeepfm(torch, dev,
+                                                              kernels)
+    res["cin"] = xres
+    counts["cin"] = xcounts["serve"]["cin"]
+    paths.update({f"xdeepfm {k.replace('_', ' ')}": c
+                  for k, c in xcounts.items()})
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        "GiB (xdeepfm phases)")
 
     rows = []
     for name, (source, replaces) in SOURCES.items():
@@ -1254,6 +1593,8 @@ def main() -> int:
             "plain_ms": main_r["plain_ms"], "bound_ms": main_r["bound_ms"],
             "bound_by": main_r["bound_by"],
             "library_ms": main_r["library_ms"], **extra,
+            "launches_by_path": {path: c[name] for path, c in paths.items()
+                                 if c.get(name)},
         })
         log(f"kernel {name}: launches {counts[name]}, max |err| "
             f"{err[name]:.3g}; {where} {main_r['ms']:.4f} ms (bound "
@@ -1262,6 +1603,8 @@ def main() -> int:
     log(json.dumps({"training": train, "launcher": launcher,
                     "bag_backward": bag_err, "card": card}))
     log(json.dumps({"serving": runs, "card": card}))
+    log(json.dumps({"xdeepfm": {"serving": xserving, "training": xtrain},
+                    "card": card}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

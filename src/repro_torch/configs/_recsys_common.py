@@ -14,6 +14,10 @@ CRITEO_VOCABS = (
     286181, 105, 142572,
 )  # sum = 33,762,577
 
+# xDeepFM uses all 39 Criteo fields (13 integer features bucketized into
+# 100-way categorical vocabularies + the 26 categorical fields)
+XDEEPFM_VOCABS = CRITEO_VOCABS + tuple([100] * 13)
+
 RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
 
 RECSYS_SHAPE_TABLE = {

@@ -39,4 +39,5 @@ def list_archs() -> list[str]:
 
 
 def _ensure_loaded():
-    from repro_torch.configs import dlrm_rm2, lma_dlrm_criteo  # noqa: F401
+    from repro_torch.configs import (dlrm_rm2, lma_dlrm_criteo,  # noqa: F401
+                                    xdeepfm)

@@ -18,24 +18,37 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
 
 
 def params_from_jax(np_params: dict, cfg: RecsysConfig, device=None) -> dict:
-    """Reference DLRM parameter pytree (numpy leaves) -> the port's
+    """Reference recsys parameter pytree (numpy leaves) -> the port's
     ``Recsys`` state dict, on the card unless ``device`` says otherwise.
 
     The embedding parameters copy straight across (``memory``,
-    ``table_{t}``); a dense ``kernel [in, out]`` becomes
-    ``Linear.weight [out, in]`` (transposed) and ``bias`` copies."""
-    if cfg.model != "dlrm":
+    ``table_{t}``; xDeepFM's ``linear`` table too), and so do xDeepFM's CIN
+    weights (``cin.layer_{i}``, [Ho, Hk, F]); a dense ``kernel [in, out]``
+    becomes ``Linear.weight [out, in]`` (transposed) and ``bias`` copies."""
+    if cfg.model not in ("dlrm", "xdeepfm"):
         raise NotImplementedError(cfg.model)
     dev = resolve_device(device)
-    state = {f"embedding.{k}": _tensor(v, dev)
-             for k, v in np_params["embedding"].items()}
-    for mlp in ("bot", "top"):
+    tables = ("embedding", "linear") if cfg.model == "xdeepfm" \
+        else ("embedding",)
+    state = {f"{t}.{k}": _tensor(v, dev)
+             for t in tables for k, v in np_params[t].items()}
+    if cfg.model == "xdeepfm":
+        for name, w in np_params["cin"].items():
+            state[f"cin.{name}"] = _tensor(w, dev)
+        _dense_into(state, "cin_out", np_params["cin_out"], dev)
+        mlps = ("deep",)
+    else:
+        mlps = ("bot", "top")
+    for mlp in mlps:
         for name, layer in np_params[mlp].items():
-            state[f"{mlp}.{name}.weight"] = _tensor(
-                np.asarray(layer["kernel"]).T, dev)
-            if "bias" in layer:
-                state[f"{mlp}.{name}.bias"] = _tensor(layer["bias"], dev)
+            _dense_into(state, f"{mlp}.{name}", layer, dev)
     return state
+
+
+def _dense_into(state: dict, prefix: str, layer: dict, dev) -> None:
+    state[f"{prefix}.weight"] = _tensor(np.asarray(layer["kernel"]).T, dev)
+    if "bias" in layer:
+        state[f"{prefix}.bias"] = _tensor(layer["bias"], dev)
 
 
 def buffers_from_numpy(np_buffers: dict, device=None) -> dict:

@@ -6,4 +6,5 @@ the plain PyTorch version, and ``ops.py`` dispatches: the plain version for
 CPU tensors, the kernel for CUDA tensors (or it raises; never a fallback).
 """
 
-KERNELS = ("lma_locations", "fused_embed", "dot_interaction", "sparse_update")
+KERNELS = ("lma_locations", "fused_embed", "dot_interaction", "sparse_update",
+           "cin")

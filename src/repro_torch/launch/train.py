@@ -9,6 +9,8 @@ and once with hashed_elem to compare the two at an equal budget.
   python -m repro_torch.launch.train --arch lma-dlrm-criteo \\
       --embedding-kind hashed_elem --steps 300
   python -m repro_torch.launch.train --device cpu --steps 20 --batch 64
+  python -m repro_torch.launch.train --arch xdeepfm --smoke --device cpu \\
+      --steps 20 --batch 64
 
 It runs on the card unless ``--device cpu`` is given (with ``src`` on
 ``PYTHONPATH``).
@@ -94,6 +96,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--embedding-kind", default=None,
                     help="override the arch's embedding scheme (any "
                          "registered kind, e.g. hashed_elem)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the arch's reduced config")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--n-signatures", type=int, default=10_000)
@@ -110,7 +114,8 @@ def main(argv=None) -> dict:
         raise SystemExit(f"{args.arch}: only recsys archs are ported")
     kind_kw = {} if args.embedding_kind is None \
         else {"embedding_kind": args.embedding_kind}
-    cfg = arch.make_model(None, **kind_kw)
+    cfg = arch.make_smoke(**kind_kw) if args.smoke \
+        else arch.make_model(None, **kind_kw)
     gen, bufs, batch_fn, loss_fn = _recsys_setup(
         arch, cfg, args.n_signatures, args.batch, dev)
     model = recsys.init(cfg, device=dev)

@@ -66,6 +66,8 @@ def _entry_points():
         "planted_dense_store": lambda: planted_dense_store(8, 2, 4),
         "EmbeddingTable.init": lambda: EmbeddingTable(cfg.embedding).init(),
         "Recsys": lambda: Recsys(cfg),
+        "Recsys xdeepfm": lambda: Recsys(
+            get_config("xdeepfm").make_smoke()),
         "Trainer": lambda: Trainer(TrainerConfig(1), None,
                                    torch.nn.Linear(2, 2), adagrad(0.1),
                                    None),
@@ -77,7 +79,7 @@ def _entry_points():
                                   "synthetic_dense_store",
                                   "planted_dense_store",
                                   "EmbeddingTable.init", "Recsys",
-                                  "Trainer"])
+                                  "Recsys xdeepfm", "Trainer"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """With no device named, tensors go to the card; without one, raise."""
     import torch
@@ -91,8 +93,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.configs as c, repro_torch.models.recsys\n"
             "import repro_torch.serve, repro_torch.convert\n"
             "import repro_torch.kernels.build\n"
-            "cfg = c.get_config('dlrm-rm2').make_smoke()\n"
-            "repro_torch.models.recsys.init(cfg, device='cpu')\n"
+            "for a in ('dlrm-rm2', 'xdeepfm'):\n"
+            "    cfg = c.get_config(a).make_smoke()\n"
+            "    repro_torch.models.recsys.init(cfg, device='cpu')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -108,17 +111,26 @@ class _OnCard:
     device = "cuda:0"
 
 
-@pytest.mark.parametrize("name", ["fused_locations", "sparse_update"])
+@pytest.mark.parametrize("name", ["fused_locations", "sparse_update", "cin"])
 def test_card_tensors_go_to_the_kernels(name, monkeypatch):
     """A tensor on the card goes to the CUDA kernel, never to the plain
     version; a CPU tensor to the plain version."""
+    import types
+
     import torch
 
+    from repro_torch.kernels.cin import ops as ci
     from repro_torch.kernels.fused_embed import ops as fe
     from repro_torch.kernels.sparse_update import ops as su
 
     calls = []
-    if name == "fused_locations":
+    if name == "cin":
+        monkeypatch.setattr(ci, "cin_cuda", lambda *a: calls.append("kernel"))
+        monkeypatch.setattr(ci, "cin_ref", lambda *a: calls.append("plain"))
+        ctx = types.SimpleNamespace(save_for_backward=lambda *a: None)
+        ci._CIN.forward(ctx, _OnCard(), None, None)
+        ci._CIN.forward(ctx, torch.zeros((2, 3, 4)), None, None)
+    elif name == "fused_locations":
         monkeypatch.setattr(fe, "fused_locations_cuda",
                             lambda *a: calls.append("kernel"))
         monkeypatch.setattr(fe, "locations_ref",

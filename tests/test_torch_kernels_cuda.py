@@ -2,8 +2,9 @@
 
 These need an sm_90 device and skip elsewhere.  They cover what the paths at
 full width do not: sliding windows, the hashed schemes, ragged set widths,
-empty sets, keys and seeds >= 2^31, bags, long duplicate runs, and that
-each autograd path launches its kernels.  On the card, with no JAX
+empty sets, keys and seeds >= 2^31, bags, long duplicate runs, flat pools
+at embedding widths below a warp (d = 10 and d = 1, xDeepFM's), the CIN
+layer at ragged shapes, and that each autograd path launches its kernels.  On the card, with no JAX
 installed, run them as
 ``python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py``.
 """
@@ -15,6 +16,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.allocation import LMAParams  # noqa: E402
+from repro_torch.kernels.cin import kernel as ck  # noqa: E402
+from repro_torch.kernels.cin import ops as cin_ops  # noqa: E402
+from repro_torch.kernels.cin.ref import cin_ref  # noqa: E402
 from repro_torch.kernels.dot_interaction import ops as dot_ops  # noqa: E402
 from repro_torch.kernels.dot_interaction.ref import \
     dot_interaction_ref  # noqa: E402
@@ -265,3 +269,76 @@ def test_wrappers_reject_bad_inputs(cuda):
     mem = _mem(cuda).requires_grad_()                    # gradients work now
     out = fe.fused_lookup(spec, mem, gids)
     assert out.requires_grad
+
+
+@pytest.mark.parametrize("d", [10, 1])
+def test_flat_lookup_and_locations_below_a_warp(cuda, d):
+    """xDeepFM's pools: flat (m % d != 0 for d = 10), lanes >= d idle."""
+    rng = np.random.default_rng(20 + d)
+    m = 21_102_592 if d == 10 else 2_113_536
+    p = LMAParams(d=d, m=m, n_h=4, max_set=32, seed=0, min_support=2)
+    assert p.stripe == 0
+    spec = fe.lma_spec(p)
+    n = 777
+    sets = _sets(rng, n, 32).to(cuda)
+    support = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32)).to(cuda)
+    gids = torch.from_numpy(
+        rng.integers(0, 33_763_877, n).astype(np.int32)).to(cuda)
+    mem = _mem(cuda, m)
+    assert torch.equal(fe.fused_lookup(spec, mem, gids, sets, support),
+                       fref.fused_lookup_ref(spec, mem, gids, sets, support))
+    assert torch.equal(fe.fused_locations(spec, gids, sets, support),
+                       fref.locations_ref(spec, gids, sets, support))
+
+
+def _cin_inputs(cuda, B, Hk, F, d, Ho, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xk = torch.randn((B, Hk, d), generator=g, device=cuda)
+    x0 = torch.randn((B, F, d), generator=g, device=cuda)
+    w = torch.randn((Ho, Hk, F), generator=g, device=cuda) / (Hk * F) ** 0.5
+    return xk, x0, w
+
+
+# xDeepFM's three layers at a ragged batch, the smoke shapes, F below the
+# kernel's chunk depth, d = 1, and channel counts off the kernel's tile
+@pytest.mark.parametrize("B,Hk,F,d,Ho", [
+    (333, 39, 39, 10, 200), (37, 200, 39, 10, 200), (64, 24, 12, 8, 24),
+    (16, 8, 8, 4, 16), (5, 13, 5, 3, 113), (70, 7, 40, 1, 1)])
+def test_cin_kernel_matches_plain(cuda, B, Hk, F, d, Ho):
+    """Within 1e-5 of each output's sum |terms| (float32 sums in another
+    order)."""
+    xk, x0, w = _cin_inputs(cuda, B, Hk, F, d, Ho, B)
+    got = ck.cin_cuda(xk, x0, w)
+    want = cin_ref(xk, x0, w)
+    scale = torch.einsum("bhd,bfd,ohf->bod", xk.abs().double(),
+                         x0.abs().double(), w.abs().double())
+    assert got.shape == (B, Ho, d)
+    assert float(((got - want).abs() / scale.clamp_min(1e-30)).max()) <= 1e-5
+
+
+def test_cin_autograd_launches_the_kernel(cuda):
+    """Forward on the card is one kernel launch; the plain backward gives
+    the CPU path's gradients."""
+    xk, x0, w = _cin_inputs(cuda, 9, 6, 5, 4, 7, 1)
+    g = torch.randn((9, 7, 4), device=cuda)
+    before = ck.cin_cuda.launches
+    leaves = [t.clone().requires_grad_() for t in (xk, x0, w)]
+    cin_ops.cin(*leaves).backward(g)
+    assert ck.cin_cuda.launches == before + 1
+    cpu = [t.cpu().requires_grad_() for t in (xk, x0, w)]
+    cin_ops.cin(*cpu).backward(g.cpu())
+    for a, b in zip(leaves, cpu):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_cin_wrapper_rejects_bad_inputs(cuda):
+    xk, x0, w = _cin_inputs(cuda, 4, 6, 5, 4, 7, 2)
+    with pytest.raises(ValueError):                      # not contiguous
+        ck.cin_cuda(xk.transpose(1, 2), x0, w)
+    with pytest.raises(TypeError):
+        ck.cin_cuda(xk.double(), x0, w)
+    with pytest.raises(ValueError):                      # w not [Ho, Hk, F]
+        ck.cin_cuda(xk, x0, w[:, :, :4].contiguous())
+    with pytest.raises(ValueError):                      # not on the card
+        ck.cin_cuda(xk.cpu(), x0, w)
