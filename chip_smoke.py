@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: serve and train
-full-width dlrm-rm2, then full-width xDeepFM.
+full-width dlrm-rm2 (Adagrad, momentum SGD and Adam; LMA and hashed_row),
+then full-width xDeepFM.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 sm_90 card and ``nvcc``; it imports only torch, numpy and ``repro_torch``
@@ -49,7 +50,30 @@ Phases (any failure raises and ends the run with a non-zero code):
      kernels) against the plain versions;
  11. time the training kernels (CUDA-graph replay) beside their bounds,
      plain versions and, for sparse Adagrad, torch.optim.Adagrad on a
-     sparse gradient; then free dlrm-rm2 and its training state;
+     sparse gradient;
+ 18. (run here, while dlrm-rm2 is on the card) build dlrm-rm2 with
+     hashed_row at the same budget (2,110,208 rows of 64) and take one
+     B=65,536 step's row-mode SparseGrad (one index per row, [K, 64]);
+ 19. hold sparse SGD and sparse Adam (and Adagrad's row layout) against
+     their plain versions on a sentinel-padded unique stream and the real
+     bucketed stream of the LMA pool and on the row-mode SparseGrad (Adam
+     also with a row-wise nu): updates and states bit-equal, untouched
+     state slots bit-unchanged;
+ 20. train full-width dlrm-rm2 with make_optimizer's sgd arm (momentum SGD,
+     lazy sparse SGD) and adam arm (Adam, lazy row-wise Adam) on the LMA
+     pool, and the adam arm on the hashed_row pool, 8 steps each, each step
+     taken sparse and dense from one state: exact launch counts per step
+     (the sparse optimizer's kernel once, no sparse Adagrad, no locations
+     kernel in row mode) and ``check_step`` with its lazy rule (the sparse
+     pool exactly the plain lazy optimizer of its SparseGrad, untouched
+     slots bit-unchanged; the dense pool the same update of its own sums at
+     the touched slots; the untouched slots the dense path moved counted);
+ 21. the embedding bag through ops.embedding_bag at the reference's bench
+     shape and on the hashed_row pool viewed as [2,110,208, 64] with a
+     B=4,096 batch's rows, within 1e-6 of sum |w T|;
+ 22. time sparse SGD and Adam (flat and row layout) and the bag (CUDA-graph
+     replay) beside their bounds, plain versions and torch.optim.SparseAdam
+     / F.embedding_bag; then free dlrm-rm2 and its training state;
  12. build xDeepFM at full width on the card: the 21,102,592-slot flat
      LMA pool (d=10), the 2,113,536-slot flat linear pool (d=1) and the
      33,763,877 x 32 D' store, planted and made very sparse as in phase 2;
@@ -115,7 +139,10 @@ SUM_RTOL = 1e-6
 # the reference.
 SUM_RTOL_CIN = 1e-5
 U32 = 2.0 ** -24                # float32 unit roundoff
+FLT_MIN = 2.0 ** -126           # the smallest normal float32
 ADAGRAD_EPS = 1e-10             # optim.adagrad's default, as make_optimizer
+MOMENTUM = 0.9                  # make_optimizer's sgd arm
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8   # adam's defaults, likewise
 
 # Peak rates of one H100 SXM (NVIDIA's published figures; 700 W): 3.35 TB/s
 # of HBM, 67 TFLOP/s float32 outside the tensor cores.  NVIDIA publishes no
@@ -124,6 +151,7 @@ ADAGRAD_EPS = 1e-10             # optim.adagrad's default, as make_optimizer
 # and min on the 64-lane INT pipe, IMAD on the FMA pipe), so 132 SMs x 128
 # x 1.98 GHz = 33.5 T int32 operations/s.
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20          # its L2 cache
 FP32_FLOP_PER_S = 67e12
 INT32_OP_PER_S = 132 * 128 * 1.98e9
 
@@ -187,6 +215,26 @@ def graph_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cold_graph_ms(torch, fn, iters: int, dev, repeats: int = 3) -> float:
+    """Device time per call with a cold L2: in one CUDA graph each call
+    follows a read of a buffer three times the L2's size, and the same reads
+    alone, replayed from a second graph, are subtracted; the median of
+    ``repeats`` such differences."""
+    junk = torch.ones(3 * L2_BYTES // 4, device=dev)
+    sink = torch.empty((), device=dev)
+
+    def flush():
+        torch.sum(junk, dim=0, out=sink)
+
+    def both():
+        flush()
+        fn()
+
+    diffs = [graph_ms(torch, both, iters) - graph_ms(torch, flush, iters)
+             for _ in range(repeats)]
+    return float(np.median(diffs))
+
+
 class PhaseTimer:
     """CUDA events at the Trainer's phase marks; the median device time of
     each phase over the steps after the first."""
@@ -228,11 +276,13 @@ def sum_tol(run, abs_sum, pairwise: bool = True):
     differ: (gamma(n - 1) + gamma(ceil(log2 n))) * abs_sum when the second is
     pairwise, 2 gamma(n - 1) * abs_sum when it is sequential too,
     gamma(k) = k u / (1 - k u) (Higham, Accuracy and Stability of Numerical
-    Algorithms, 4.2)."""
+    Algorithms, 4.2).  The sequential sums on the card are atomic adds,
+    which flush a subnormal input or result to zero, each losing less than
+    FLT_MIN: 2 n FLT_MIN more covers both sums."""
     def gamma(k):
         return k * U32 / (1 - k * U32)
     second = run.log2().ceil() if pairwise else run - 1
-    return (gamma(run - 1) + gamma(second)) * abs_sum
+    return (gamma(run - 1) + gamma(second)) * abs_sum + 2 * run * FLT_MIN
 
 
 def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
@@ -831,21 +881,28 @@ def check_full_batch(torch, cfg, bufs, batch, dev) -> dict:
 
 @contextlib.contextmanager
 def raw_streams(torch, streams: dict):
-    """While active, keep the raw contributions (locations, values) of each
-    pool whose lookups record no stripe buckets, by parameter name, as a
-    sparse-gradient capture releases them: such a pool's SparseGrad is
-    deduped (``optim.sparse.from_locations``) and holds each slot's sum, not
-    its contributions, whose count and sum |g| ``check_step`` needs."""
+    """While active, keep the raw contributions (element slots, values) of
+    each pool whose lookups record no stripe buckets, by parameter name, as
+    a sparse-gradient capture releases them (a row record's [N] rows become
+    its [N, d] element slots): such a pool's SparseGrad is deduped
+    (``optim.sparse.from_locations``) and holds each slot's sum, not its
+    contributions, whose count and sum |g| ``check_step`` needs."""
     from repro_torch.optim import sparse as sp
 
     grads = sp.SparseCapture.grads
+
+    def slots(r):
+        if not r.row_width:
+            return r.loc.reshape(-1)
+        cols = torch.arange(r.row_width, device=r.loc.device)
+        return (r.loc.long()[:, None] * r.row_width + cols).reshape(-1)
 
     def tapped(cap, named_params):
         for name, p in named_params.items():
             recs = [r for r in cap.records
                     if r.memory is p and r.grad is not None]
             if recs and {r.n_buckets for r in recs} == {0}:
-                streams[name] = (torch.cat([r.loc.reshape(-1) for r in recs]),
+                streams[name] = (torch.cat([slots(r) for r in recs]),
                                  torch.cat([r.grad.reshape(-1)
                                             for r in recs]))
         return grads(cap, named_params)
@@ -871,61 +928,118 @@ class Recorder:
         return self.opt.update(grads, state, params)
 
 
-def check_step(torch, n, p0, acc0, dense_p, params, states, opts, lr,
+def clone_state(torch, s):
+    """A copy of an optimizer state (tensors, dicts, tuples, NamedTuples)."""
+    if isinstance(s, torch.Tensor):
+        return s.clone()
+    if isinstance(s, dict):
+        return {k: clone_state(torch, v) for k, v in s.items()}
+    if isinstance(s, tuple):
+        parts = [clone_state(torch, v) for v in s]
+        return type(s)(*parts) if hasattr(s, "_fields") else tuple(parts)
+    return s
+
+
+def state_equal(torch, a, b) -> bool:
+    """Bit-equal optimizer states (the same structure, equal tensors)."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(state_equal(torch, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(state_equal(torch, x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def pool_moments(torch, state) -> list:
+    """A pool's moment tensors: Adagrad's accumulator or SGD's momentum
+    (the state itself), or Adam's mu and nu."""
+    return [state] if isinstance(state, torch.Tensor) else list(state[1:])
+
+
+def lazy_hyper(arch, step: int) -> dict:
+    """The sparse optimizer's hyper-parameters as make_optimizer sets them,
+    Adam's bias corrections at ``step``."""
+    from repro_torch.optim.optimizers import bias_correction
+
+    lr = arch.learning_rate
+    if arch.optimizer == "sgd":
+        return {"lr": lr, "momentum": MOMENTUM}
+    return {"lr": lr, "b1": ADAM_B1, "b2": ADAM_B2, "eps": ADAM_EPS,
+            "bc1": bias_correction(ADAM_B1, step),
+            "bc2": bias_correction(ADAM_B2, step)}
+
+
+def check_step(torch, n, p0, st0, dense_p, params, states, opts, arch,
                parity, streams) -> None:
-    """One step taken both ways from (p0, acc0), held to each other:
+    """One step taken both ways from (p0, st0), held to each other:
     - outside the pools the two paths had the same gradients, so the
-      parameters and accumulators are bit-identical;
+      parameters and optimizer states are bit-identical;
     - for every pool the sparse path updated (a SparseGrad): the dense pool
-      gradient is 0 off the touched slots; at each touched slot the sparse
-      path's folded sum (the sparse Adagrad kernel's order, which
+      gradient is 0 off the touched slots, and at each touched slot the
+      sparse path's folded sum (the sparse kernels' order, which
       ``fold_duplicates`` reproduces bit for bit) is within ``sum_tol`` of
-      the dense path's; each path's pool and accumulator are exactly
-      Adagrad of its own slot sums from (p0, acc0), untouched slots
-      unchanged.
-    So the paths differ only by the rounding of the slot sums.  ``acc0``
-    holds each pool's accumulator before the step; ``streams`` the raw
+      the dense path's (``check_pool`` then holds each path to the update
+      of its own sums).
+    So the paths differ only by the rounding of the slot sums.  ``st0``
+    holds each pool's optimizer state before the step; ``streams`` the raw
     contributions of each deduped SparseGrad (``raw_streams``); ``parity``
     gathers one record per pool."""
     from repro_torch.optim.sparse import is_sparse
 
     gs, gd = opts["sparse"].grads, opts["dense"].grads
     pools = sorted(k for k, g in gs.items() if is_sparse(g))
-    if not pools or set(pools) != set(acc0):
+    if not pools or set(pools) != set(st0):
         raise AssertionError(f"step {n}: sparse pools {pools}, expected "
-                             f"{sorted(acc0)}")
+                             f"{sorted(st0)}")
     for k, q in params.items():
         if k not in pools and not (torch.equal(gs[k], gd[k])
                                    and torch.equal(q, dense_p[k])
-                                   and torch.equal(states["sparse"][k],
+                                   and state_equal(torch, states["sparse"][k],
                                                    states["dense"][k])):
             raise AssertionError(
                 f"step {n}: {k} differs between the paths (|grad diff| "
                 f"{float((gs[k] - gd[k]).abs().max()):.3g})")
     for pool in pools:
-        check_pool(torch, n, pool, p0[pool], acc0[pool], dense_p[pool],
-                   params[pool].detach(), states, gs[pool], gd[pool], lr,
+        check_pool(torch, n, pool, p0[pool], st0[pool], dense_p[pool],
+                   params[pool].detach(), states, gs[pool], gd[pool], arch,
                    parity.setdefault(pool, {"max_pool_param_diff": 0.0,
                                             "max_sum_ratio": 0.0,
                                             "max_tol_share": 0.0}),
                    streams)
 
 
-def check_pool(torch, n, pool, q0_all, acc0, dense_q, sparse_q, states, sg,
-               g_dense, lr, parity, streams) -> None:
+def element_stream(torch, sg, m: int):
+    """A SparseGrad's live entries as element slots of the flat [m] pool:
+    (slots [k] sorted, values [k]); a row-mode gradient's rows expand to
+    their d columns."""
+    keep = sg.indices < sg.dense_shape[0]
+    idx, vals = sg.indices[keep], sg.values[keep]
+    if vals.dim() == 2:
+        d = vals.shape[1]
+        cols = torch.arange(d, device=idx.device)
+        idx = (idx.long()[:, None] * d + cols).reshape(-1).to(torch.int32)
+        vals = vals.reshape(-1)
+    return idx, vals
+
+
+def check_pool(torch, n, pool, q0_all, st0, dense_q, sparse_q, states, sg,
+               g_dense, arch, parity, streams) -> None:
     """``check_step``'s rules for one pool.  The sparse path's slot sum is
-    the fold of a bucketed SparseGrad (pairwise, as the sparse Adagrad
-    kernel adds) or the sum of a deduped one (``index_add_``, sequential);
-    the run length and sum |g| of a slot come from the raw contributions.
-    Logs each path's largest error against the float64 sum (a share of sum
-    |g|), and, for the elements that differ most, both sums, sum |g|, the
-    run length and the accumulator before the step."""
-    from repro_torch.kernels.sparse_update.ref import (fold_duplicates,
-                                                       ieee_sqrt)
+    the fold of a bucketed SparseGrad (pairwise, as the sparse kernels add)
+    or the sum of a deduped one (``index_add_``, sequential); the run length
+    and sum |g| of a slot come from the raw contributions.  Then each path
+    is held to the update of its own sums (``adagrad_rule`` /
+    ``lazy_rule``).  Logs each path's largest error against the float64 sum
+    (a share of sum |g|, where that is a normal float32), and, for the
+    elements that differ most, both sums, sum |g|, the run length and the
+    state before the step."""
+    from repro_torch.kernels.sparse_update.ref import fold_duplicates
 
     m = g_dense.numel()
-    keep = sg.indices < m
-    idx, vals = sg.indices[keep], sg.values[keep]
+    idx, vals = element_stream(torch, sg, m)
     head, folded = fold_duplicates(idx, vals)
     slots = idx[head].long()
     s = {"sparse": folded[head], "dense": g_dense[slots]}
@@ -937,7 +1051,7 @@ def check_pool(torch, n, pool, q0_all, acc0, dense_q, sparse_q, states, sg,
     abs_sum, exact = (torch.zeros(m, dtype=torch.float64, device=slots.device)
                       .index_add_(0, raw_loc, v)[slots]
                       for v in (raw.abs().double(), raw.double()))
-    del idx, vals, keep, raw_loc, raw
+    del idx, vals, raw_loc, raw
     touched = torch.zeros(m, dtype=torch.bool, device=slots.device)
     touched[slots] = True
     if bool((g_dense[~touched] != 0).any()):
@@ -951,10 +1065,62 @@ def check_pool(torch, n, pool, q0_all, acc0, dense_q, sparse_q, states, sg,
         raise AssertionError(f"step {n}: {pool}: sparse and dense slot sums "
                              f"differ: max |diff| / sum_tol {share:.3g}")
     pools = {"sparse": sparse_q, "dense": dense_q}
+    if arch.optimizer == "adagrad":
+        adagrad_rule(torch, n, pool, arch, q0_all, st0, pools, states, slots,
+                     touched, s)
+    else:
+        parity["dense_untouched_moved"] = max(
+            parity.get("dense_untouched_moved", 0),
+            lazy_rule(torch, n, pool, arch, sg, q0_all, st0, pools, states,
+                      slots, touched, s))
+    moment0 = pool_moments(torch, st0)[-1][slots]
+    dp = (pools["sparse"][slots] - pools["dense"][slots]).abs()
+    worst = [{"slot": int(slots[i]), "s_sparse": float(s["sparse"][i]),
+              "s_dense": float(s["dense"][i]), "sum_abs": float(abs_sum[i]),
+              "run": int(run[i]), "state0": float(moment0[i]),
+              "param_diff": float(dp[i])}
+             for i in torch.topk(dp, min(3, dp.numel())).indices.tolist()]
+    if float(dp.max()) >= parity["max_pool_param_diff"]:
+        parity["max_pool_param_diff"], parity["worst"] = float(dp.max()), worst
+    parity["max_sum_ratio"] = max(parity["max_sum_ratio"], ratio)
+    parity["max_tol_share"] = max(parity["max_tol_share"], share)
+    # each path's error against the float64 sum, over the slots whose sum
+    # |g| is a normal float32 (atomic adds flush subnormal sums to 0)
+    normal = abs_sum >= FLT_MIN
+    zero = torch.zeros(1, dtype=torch.float64, device=slots.device)
+    off = {name: float(torch.cat([zero, ((s[name].double() - exact).abs()
+                                         / abs_sum.clamp_min(1e-300))[normal]
+                                  ]).max()) for name in s}
+    at = int(torch.argmax(ds / abs_sum.clamp_min(1e-300)))
+    for name in s:
+        parity[f"max_{name}_err"] = max(parity.get(f"max_{name}_err", 0.0),
+                                        off[name])
+    log(f"  step {n} {pool}: {slots.numel()} slots, max |s diff| / sum |g| "
+        f"{ratio:.3g} (slot {int(slots[at])}, run {int(run[at])}, sum |g| "
+        f"{float(abs_sum[at]):.3g}, sum {float(exact[at]):.4g}), "
+        f"{share:.3g} of sum_tol; max |s - float64 sum| / sum |g|: sparse "
+        f"{off['sparse']:.3g}, dense {off['dense']:.3g}; max |param diff| "
+        f"{float(dp.max()):.3g}"
+        + (f"; {parity['dense_untouched_moved']} untouched slots moved on "
+           "the dense path" if arch.optimizer != "adagrad" else "")
+        + " at: " + "; ".join(
+            f"slot {w['slot']} s {w['s_sparse']:.4g} / {w['s_dense']:.4g}, "
+            f"sum |g| {w['sum_abs']:.3g}, run {w['run']}, state0 "
+            f"{w['state0']:.3g}, diff {w['param_diff']:.3g}" for w in worst))
+
+
+def adagrad_rule(torch, n, pool, arch, q0_all, acc0, pools, states, slots,
+                 touched, s) -> None:
+    """Adagrad is lazy and exact alike (a zero gradient moves nothing), so
+    each path's pool and accumulator are exactly Adagrad of its own slot
+    sums from (q0, acc0), and untouched slots are unchanged on both."""
+    from repro_torch.kernels.sparse_update.ref import ieee_sqrt
+
     a0, q0 = acc0[slots], q0_all[slots]
     for name in ("sparse", "dense"):
         a = a0 + s[name] * s[name]
-        want = q0 + -lr * s[name] / (ieee_sqrt(a) + ADAGRAD_EPS)
+        want = q0 + -arch.learning_rate * s[name] / (ieee_sqrt(a)
+                                                     + ADAGRAD_EPS)
         got, acc = pools[name], states[name][pool]
         if not (torch.equal(got[slots], want) and torch.equal(acc[slots], a)
                 and torch.equal(got[~touched], q0_all[~touched])
@@ -963,57 +1129,115 @@ def check_pool(torch, n, pool, q0_all, acc0, dense_q, sparse_q, states, sg,
                 f"step {n}: the {name} {pool} is not Adagrad of its own slot "
                 f"sums (max |diff| "
                 f"{float((got[slots] - want).abs().max()):.3g})")
-    dp = (pools["sparse"][slots] - pools["dense"][slots]).abs()
-    worst = [{"slot": int(slots[i]), "s_sparse": float(s["sparse"][i]),
-              "s_dense": float(s["dense"][i]), "sum_abs": float(abs_sum[i]),
-              "run": int(run[i]), "acc0": float(a0[i]),
-              "param_diff": float(dp[i])}
-             for i in torch.topk(dp, min(3, dp.numel())).indices.tolist()]
-    if float(dp.max()) >= parity["max_pool_param_diff"]:
-        parity["max_pool_param_diff"], parity["worst"] = float(dp.max()), worst
-    parity["max_sum_ratio"] = max(parity["max_sum_ratio"], ratio)
-    parity["max_tol_share"] = max(parity["max_tol_share"], share)
-    off = {name: (s[name].double() - exact).abs() / abs_sum.clamp_min(1e-300)
-           for name in s}
-    at = int(torch.argmax(ds / abs_sum.clamp_min(1e-300)))
-    for name in s:
-        parity[f"max_{name}_err"] = max(parity.get(f"max_{name}_err", 0.0),
-                                        float(off[name].max()))
-    log(f"  step {n} {pool}: {slots.numel()} slots, max |s diff| / sum |g| "
-        f"{ratio:.3g} (slot {int(slots[at])}, run {int(run[at])}, sum |g| "
-        f"{float(abs_sum[at]):.3g}, sum {float(exact[at]):.4g}), "
-        f"{share:.3g} of sum_tol; max |s - float64 sum| / sum |g|: sparse "
-        f"{float(off['sparse'].max()):.3g}, dense "
-        f"{float(off['dense'].max()):.3g}; max |param diff| "
-        f"{float(dp.max()):.3g}"
-        " at: " + "; ".join(
-            f"slot {w['slot']} s {w['s_sparse']:.4g} / {w['s_dense']:.4g}, "
-            f"sum |g| {w['sum_abs']:.3g}, run {w['run']}, acc0 "
-            f"{w['acc0']:.3g}, diff {w['param_diff']:.3g}" for w in worst))
+
+
+def lazy_rule(torch, n, pool, arch, sg, q0_all, st0, pools, states, slots,
+              touched, s) -> int:
+    """Momentum SGD and Adam: the dense path is not lazy (an untouched slot
+    with a momentum or moment moves there), the sparse path is.
+    - The sparse path's pool and moments equal the plain lazy optimizer
+      (``sparse_sgd_ref`` / ``sparse_adam_ref``) applied to the same
+      SparseGrad from (q0, st0), over all m slots, bit for bit; untouched
+      slots keep their bits.
+    - The dense path's pool at the touched slots equals that same lazy
+      update driven by the dense slot sums, bit for bit (so the pools differ
+      only through the sums, within ``sum_tol``); its moments and the rest
+      of its pool are exactly the dense formula of its gradient, 0 off the
+      touched slots.
+    -> how many untouched slots moved on the dense path."""
+    from repro_torch.kernels.sparse_update import ref as sref
+
+    algo, lr = arch.optimizer, arch.learning_rate
+    plain = {"sgd": sref.sparse_sgd_ref, "adam": sref.sparse_adam_ref}[algo]
+    hyper = lazy_hyper(arch, n)
+    t0 = pool_moments(torch, st0)
+    shape = sg.dense_shape
+    q, t = q0_all.clone(), [x.clone() for x in t0]
+    u, _ = plain(sg.indices, sg.values, *(x.view(shape) for x in t),
+                 unique=sg.unique, **hyper)
+    keep = sg.indices < shape[0]
+    q.view(shape).index_add_(0, sg.indices[keep].long(), u[keep])
+    got_t = pool_moments(torch, states["sparse"][pool])
+    if not (torch.equal(pools["sparse"], q)
+            and all(torch.equal(a, b) for a, b in zip(got_t, t))):
+        diffs = "; ".join(
+            f"{what}: {int((a != b).sum())} elements differ ("
+            f"{int((a != b)[touched].sum())} touched), max |diff| "
+            f"{float((a - b).abs().max()):.3g}"
+            for what, a, b in zip(("pool", "moment 1", "moment 2"),
+                                  [pools["sparse"]] + got_t, [q] + t))
+        raise AssertionError(f"step {n}: the sparse {pool} is not the plain "
+                             f"lazy {algo} of its SparseGrad: {diffs}")
+    if not (torch.equal(pools["sparse"][~touched], q0_all[~touched])
+            and all(torch.equal(a[~touched], b[~touched])
+                    for a, b in zip(got_t, t0))):
+        raise AssertionError(f"step {n}: sparse {algo} moved untouched "
+                             f"{pool} slots")
+    del q, t, u
+    ar = torch.arange(slots.numel(), dtype=torch.int32, device=slots.device)
+    u, _ = plain(ar, s["dense"], *(x[slots].clone() for x in t0),
+                 unique=True, **hyper)
+    if not torch.equal(pools["dense"][slots], q0_all[slots] + u):
+        raise AssertionError(f"step {n}: the dense {pool} at its touched "
+                             f"slots is not the lazy {algo} of its sums")
+    g = torch.zeros_like(q0_all)
+    g[slots] = s["dense"]
+    if algo == "sgd":
+        mo = MOMENTUM * t0[0] + g
+        want, want_t = q0_all + -lr * mo, [mo]
+    else:
+        mu = ADAM_B1 * t0[0] + (1 - ADAM_B1) * g
+        nu = ADAM_B2 * t0[1] + (1 - ADAM_B2) * (g * g)
+        want = q0_all + (-lr * sref.div(mu, hyper["bc1"])
+                         / (sref.ieee_sqrt(sref.div(nu, hyper["bc2"]))
+                            + ADAM_EPS))
+        want_t = [mu, nu]
+    if not (torch.equal(pools["dense"], want)
+            and all(torch.equal(a, b) for a, b in zip(
+                pool_moments(torch, states["dense"][pool]), want_t))):
+        raise AssertionError(f"step {n}: the dense {pool} is not dense "
+                             f"{algo} of its gradient")
+    return int((pools["dense"][~touched] != q0_all[~touched]).sum())
 
 
 # kernel launches per training step of each model and path (the lookup once
-# per pool; the pool gradient: locations + sparse Adagrad, or scatter-add)
+# per pool; the pool gradient: locations + the sparse optimizer's kernel, or
+# scatter-add); a row-mode pool records rows, no locations
 STEP_LAUNCHES = {
     "dlrm": {"sparse": {"fused_embed": 1, "dot_interaction": 1,
-                        "fused_locations": 1, "sparse_adagrad": 1},
+                        "fused_locations": 1, "sparse_update": 1},
              "dense": {"fused_embed": 1, "dot_interaction": 1,
                        "fused_scatter_add": 1}},
     "xdeepfm": {"sparse": {"fused_embed": 2, "cin": 3, "fused_locations": 2,
-                           "sparse_adagrad": 2},
+                           "sparse_update": 2},
                 "dense": {"fused_embed": 2, "cin": 3,
                           "fused_scatter_add": 2}},
 }
+SPARSE_KERNEL = {"adagrad": "sparse_adagrad", "sgd": "sparse_sgd",
+                 "adam": "sparse_adam"}
+
+
+def step_launches(cfg, optimizer: str, path: str) -> dict:
+    """The kernels one training step of ``path`` launches, by name."""
+    out = dict(STEP_LAUNCHES[cfg.model][path])
+    if "sparse_update" in out:
+        out[SPARSE_KERNEL[optimizer]] = out.pop("sparse_update")
+        scheme, e = cfg.table.scheme, cfg.embedding
+        if scheme.row_aligned and scheme.memory_slots(e) % e.dim == 0:
+            del out["fused_locations"]
+    return out
 
 
 def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
-                     kernels) -> dict:
+                     kernels, optimizer: str | None = None) -> dict:
     """TRAIN_STEPS steps of B examples through the port's Trainer with
-    sparse pool gradients; before each, the same step densely (a second
-    Trainer with sparse_grads=False) from the same parameters and
-    accumulators, and the two results held to each other (``check_step``).
-    Each run must launch exactly STEP_LAUNCHES per step.  -> launches per
-    run, throughput, phase split, parity."""
+    sparse pool gradients and the arch's optimizer (or ``optimizer``, as
+    ``dataclasses.replace(arch, optimizer=...)`` gives it to
+    make_optimizer); before each, the same step densely (a second Trainer
+    with sparse_grads=False) from the same parameters and optimizer state,
+    and the two results held to each other (``check_step``).  Each run must
+    launch exactly ``step_launches`` per step.  -> launches per run,
+    throughput, phase split, parity."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import lookups_per_step, make_optimizer
     from repro_torch.models.recsys import loss_fn
@@ -1021,6 +1245,9 @@ def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     arch = get_config(arch_id)
+    if optimizer is not None:
+        arch = dataclasses.replace(arch, optimizer=optimizer)
+    label = f"{arch_id} ({cfg.embedding.kind}, {arch.optimizer})"
     params = dict(model.named_parameters())
     pools = [k for k in params if has_memory({k: None})]
     timers, trainers, opts, runs = {}, {}, {}, {}
@@ -1057,9 +1284,9 @@ def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
     for n in range(1, TRAIN_STEPS + 1):
         with torch.no_grad():
             p0 = {k: q.detach().clone() for k, q in params.items()}
-            acc0 = {k: sparse_tr.opt_state[k].clone() for k in pools}
-            dense_tr.opt_state = {k: a.clone()
-                                  for k, a in sparse_tr.opt_state.items()}
+            st0 = {k: clone_state(torch, sparse_tr.opt_state[k])
+                   for k in pools}
+            dense_tr.opt_state = clone_state(torch, sparse_tr.opt_state)
         step("dense", n)
         with torch.no_grad():
             p_dense = {k: q.detach().clone() for k, q in params.items()}
@@ -1073,10 +1300,10 @@ def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
                                      "path")
         states = {"sparse": sparse_tr.opt_state, "dense": dense_tr.opt_state}
         with torch.no_grad():
-            check_step(torch, n, p0, acc0, p_dense, params, states, opts,
-                       arch.learning_rate, parity, streams)
+            check_step(torch, n, p0, st0, p_dense, params, states, opts,
+                       arch, parity, streams)
         opts["sparse"].grads = opts["dense"].grads = None
-        del p0, acc0, p_dense, streams
+        del p0, st0, p_dense, streams
     counts = {n: k.launches for n, k in kernels.items()}
     for name, tr in trainers.items():
         r = runs[name]
@@ -1086,7 +1313,7 @@ def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
                                                + r["batch_sec"])
         if not np.isfinite(r["losses"]).all():
             raise AssertionError(f"{name}: non-finite loss {r['losses']}")
-        log(f"train {arch_id} {name}: B={B}, {TRAIN_STEPS} steps, losses "
+        log(f"train {label} {name}: B={B}, {TRAIN_STEPS} steps, losses "
             + " ".join(f"{x:.5f}" for x in r["losses"])
             + f"; {r['steps_per_sec']:.2f} steps/s, "
             f"{r['lookups_per_sec']:,.0f} lookups/s; phases (ms, median) "
@@ -1100,24 +1327,32 @@ def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
                                runs["dense"]["losses"], rtol=1e-6)
     runs["parity"] = parity
     runs["launches"] = counts
+    rule = ("the pool exactly Adagrad of its own sums"
+            if arch.optimizer == "adagrad" else
+            f"the sparse pool exactly the plain lazy {arch.optimizer} of its "
+            "SparseGrad, untouched slots bit-unchanged; the dense pool "
+            "exactly the same update of its own sums at the touched slots")
     for pool, par in parity.items():
         w = par["worst"][0]
-        log(f"sparse vs dense {pool}, each step from the same state: "
-            f"non-pool parameters and accumulators bit-identical; slot sums "
-            f"within {par['max_sum_ratio']:.3g} of sum |g|, "
+        log(f"sparse vs dense {label} {pool}, each step from the same state: "
+            f"non-pool parameters and optimizer states bit-identical; slot "
+            f"sums within {par['max_sum_ratio']:.3g} of sum |g|, "
             f"{par['max_tol_share']:.3g} of sum_tol (against the float64 "
             f"sum: sparse {par['max_sparse_err']:.3g}, dense "
-            f"{par['max_dense_err']:.3g}); the pool exactly Adagrad of its "
-            f"own sums; max |param diff| {par['max_pool_param_diff']:.3g} "
-            f"(worst slot {w['slot']}: run {w['run']}, sum |g| "
-            f"{w['sum_abs']:.3g}, s {w['s_sparse']:.4g} / {w['s_dense']:.4g},"
-            f" acc0 {w['acc0']:.3g}); losses within rtol 1e-6 (the same "
-            "forward)")
-    for name, per_step in STEP_LAUNCHES[cfg.model].items():
+            f"{par['max_dense_err']:.3g}); {rule}; max |param diff| "
+            f"{par['max_pool_param_diff']:.3g} (worst slot {w['slot']}: run "
+            f"{w['run']}, sum |g| {w['sum_abs']:.3g}, s {w['s_sparse']:.4g} "
+            f"/ {w['s_dense']:.4g}, state0 {w['state0']:.3g})"
+            + (f"; up to {par['dense_untouched_moved']} untouched slots "
+               "moved on the dense path in a step"
+               if "dense_untouched_moved" in par else "")
+            + "; losses within rtol 1e-6 (the same forward)")
+    for name in ("sparse", "dense"):
+        per_step = step_launches(cfg, arch.optimizer, name)
         got = runs[name]["launches"]
         want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in got}
         if got != want:
-            raise AssertionError(f"{arch_id} {name} run launched {got}, "
+            raise AssertionError(f"{label} {name} run launched {got}, "
                                  f"expected {want}")
     return runs
 
@@ -1291,6 +1526,288 @@ def measure_training(torch, cfg, model, bufs, gen, train_batch, plain_full,
         f"bound, plain {r['plain_ms']:.3f} ms, torch.optim.Adagrad (sparse) "
         f"{r['library_ms']:.3f} ms")
     return res
+
+
+# ------------------------------------- rows 8, 9 (sparse SGD, Adam), 13 (bag)
+
+def build_hashed_row(torch, dev):
+    """dlrm-rm2 with hashed_row at the same budget: 135,053,312 / 64 =
+    2,110,208 pool rows, so its sparse gradient is row mode."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.recsys import Recsys
+
+    cfg = get_config("dlrm-rm2").make_model(embedding_kind="hashed_row")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    model = Recsys(cfg, gen, device=dev).eval()
+    e = cfg.embedding
+    log(f"model: dlrm-rm2 (hashed_row), m={e.budget}, "
+        f"{e.budget // e.dim} rows of d={e.dim}")
+    return cfg, model, cfg.table.make_buffers(None)
+
+
+def optimizer_cases(torch, gen, lead: int, shape: tuple) -> dict:
+    """Random states on a pool of ``shape`` (leading dim ``lead``) for SGD
+    and Adam, and for a row layout also Adagrad (row 7's flat layout is
+    phase 7's) and Adam with a row-wise [lead] nu."""
+    def rand(*sh):
+        return torch.rand(sh, generator=gen, device=gen.device)
+    cases = {"sgd": (rand(*shape) - 0.5,),
+             "adam": ((rand(*shape) - 0.5) * 1e-3, rand(*shape) * 1e-6)}
+    if len(shape) == 2:
+        cases["adagrad"] = (rand(*shape),)
+        cases["adam row-wise nu"] = (cases["adam"][0], rand(lead) * 1e-6)
+    return cases
+
+
+def check_optimizer_kernels(torch, p, sg, sg_rows, dev) -> dict:
+    """Rows 8 and 9 (and row 7's row layout) against their plain versions:
+    on a sentinel-padded unique stream and the real B=65,536 step's bucketed
+    stream of the LMA pool (flat [m] states), and on the hashed_row pool's
+    row-mode SparseGrad ([rows, 64] states, Adam also with a row-wise nu).
+    Updates and states bit-equal (row-wise nu: within 1e-6 relative, see
+    ``ref.row_mean``), untouched slots bit-unchanged.  -> max |err| by
+    kernel."""
+    from repro_torch.kernels.sparse_update import ops as su
+    from repro_torch.kernels.sparse_update import ref as sref
+    from repro_torch.optim.sparse import dedup_locations
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    hyper = {"sgd": {"lr": 1e-2, "momentum": MOMENTUM},
+             "adagrad": {"lr": 1e-2, "eps": ADAGRAD_EPS},
+             "adam": {"lr": 1e-3, "b1": ADAM_B1, "b2": ADAM_B2,
+                      "bc1": 0.271, "bc2": 0.00299, "eps": ADAM_EPS}}
+    half = sg.indices.numel() // 16
+    uniq = dedup_locations(sg.indices[:half], sg.values[:half], (p.m,))
+    err, lines = {}, []
+    streams = [("LMA unique", uniq, (p.m,)), ("LMA bucketed", sg, (p.m,)),
+               ("hashed_row rows", sg_rows, sg_rows.dense_shape)]
+    with torch.no_grad():
+        for where, stream, shape in streams:
+            lead = shape[0]
+            for case, states in optimizer_cases(torch, gen, lead,
+                                                shape).items():
+                algo = case.split()[0]
+                mine = tuple(x.clone() for x in states)
+                plain = tuple(x.clone() for x in states)
+                u_k, _ = su.sparse_update(algo, stream.indices, stream.values,
+                                          mine, unique=stream.unique,
+                                          **hyper[algo])
+                u_p, _ = getattr(sref, f"sparse_{algo}_ref")(
+                    stream.indices, stream.values, *plain,
+                    unique=stream.unique, **hyper[algo])
+                exact = torch.equal(u_k, u_p) and all(
+                    torch.equal(a, b) for a, b in zip(mine, plain))
+                rel = max(float(((a - b).abs() / b.abs().clamp_min(1e-30))
+                                .max()) for a, b in zip((u_k,) + mine,
+                                                        (u_p,) + plain))
+                if not exact and not (case.endswith("nu") and rel <= 1e-6):
+                    raise AssertionError(f"{SPARSE_KERNEL[algo]} on {where} "
+                                         f"({case}) differs: max rel {rel:.3g}")
+                touched = torch.zeros(lead, dtype=torch.bool, device=dev)
+                touched[stream.indices[stream.indices < lead].long()] = True
+                for x0, x in zip(states, mine):
+                    if not torch.equal(x[~touched].view(torch.int32),
+                                       x0[~touched].view(torch.int32)):
+                        raise AssertionError(f"{case} on {where} wrote "
+                                             "untouched slots")
+                name = SPARSE_KERNEL[algo]
+                err[name] = max(err.get(name, 0.0), float(
+                    (u_k - u_p).abs().max()), *(float((a - b).abs().max())
+                                                for a, b in zip(mine, plain)))
+                lines.append(f"{case} on {where} (K={stream.indices.numel()})"
+                             f": {'bit-identical' if exact else f'rel {rel:.3g}'}")
+                del mine, plain, u_k, u_p
+    log("sparse optimizer kernels vs plain versions, untouched state slots "
+        "bit-unchanged: " + "; ".join(lines))
+    return err
+
+
+def check_embedding_bag(torch, hr_model, hr_cfg, gen, dev, kernels) -> tuple:
+    """Row 13 through its entry point (``ops.embedding_bag``) at the
+    reference's bench shape (B=2,048, L=32, a 65,536 x 64 table) and on the
+    hashed_row pool viewed as its [2,110,208, 64] table with the rows of a
+    B=4,096 batch's 26 fields; each output within 1e-6 of its sum_l |w T|
+    of the plain version.  -> (launches, max |err|, the inputs by B)."""
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    table = torch.randn((65_536, 64), generator=g, device=dev)
+    ids = torch.randint(0, 65_536, (2048, 32), generator=g, device=dev,
+                        dtype=torch.int32)
+    e = hr_cfg.embedding
+    pool = hr_model.embedding["memory"].detach().view(-1, e.dim)
+    batch = gen.batch(4096, 800_000)
+    gids = global_ids(torch, hr_cfg, batch, dev)
+    rows = hr_cfg.table.scheme.sparse_row_ids(e, {}, gids).reshape(4096, -1)
+    inputs = {2048: (table, ids, torch.rand((2048, 32), generator=g,
+                                            device=dev) - 0.5),
+              4096: (pool, rows.contiguous(),
+                     torch.rand(rows.shape, generator=g, device=dev) - 0.5)}
+    for k in kernels.values():
+        k.launches = 0
+    with torch.no_grad():
+        outs = {B: eb.embedding_bag(*args) for B, args in inputs.items()}
+    n = kernels["embedding_bag"].launches
+    if n != len(inputs):
+        raise AssertionError(f"embedding_bag launched {n} times in "
+                             f"{len(inputs)} calls")
+    worst, parts = 0.0, []
+    with torch.no_grad():
+        for B, (t, i, w) in inputs.items():
+            want = embedding_bag_ref(t, i, w)
+            scale = torch.einsum("bl,bld->bd", w.abs().double(),
+                                 t[i.long()].abs().double())
+            err = (outs[B] - want).abs()
+            ratio = float((err.double() / scale.clamp_min(1e-30)).max())
+            if ratio > SUM_RTOL or outs[B].shape != want.shape:
+                raise AssertionError(f"embedding_bag B={B}: max |err| / sum "
+                                     f"|w T| {ratio:.3g}")
+            worst = max(worst, float(err.max()))
+            parts.append(f"B={B} L={i.shape[1]} table {tuple(t.shape)}: max "
+                         f"|err| {float(err.max()):.3g}, / sum |w T| "
+                         f"{ratio:.3g}")
+    log("embedding_bag through ops.embedding_bag, launches "
+        f"{n}: " + "; ".join(parts) + f" (tol {SUM_RTOL})")
+    return n, worst, inputs
+
+
+def measure_optimizers(torch, sg, sg_rows, dev) -> dict:
+    """Rows 8 and 9 timed by CUDA-graph replay on the LMA pool's real
+    bucketed K=109,051,904 stream (flat states) and on the hashed_row pool's
+    row-mode SparseGrad ([rows, 64]), beside their bytes bounds (each index
+    read and each update written, the live entries' values read -- a
+    sentinel's value is never read --, and each touched slot's states read
+    and written once), the plain
+    versions and, for Adam, torch.optim.SparseAdam on the COO gradient (no
+    single PyTorch call computes lazy momentum SGD: torch.optim.SGD applies
+    its momentum buffer to every slot)."""
+    from repro_torch.kernels.sparse_update import ref as sref
+    from repro_torch.kernels.sparse_update.kernel import (sparse_adam_cuda,
+                                                          sparse_sgd_cuda)
+
+    hyper = {"sgd": {"lr": 1e-2, "momentum": MOMENTUM},
+             "adam": {"lr": 1e-3, "b1": ADAM_B1, "b2": ADAM_B2, "bc1": 0.271,
+                      "bc2": 0.00299, "eps": ADAM_EPS}}
+    kernel = {"sgd": sparse_sgd_cuda, "adam": sparse_adam_cuda}
+    res = {}
+    for algo in ("sgd", "adam"):
+        n_states = 1 if algo == "sgd" else 2
+        r = {}
+        for where, stream in (("flat", sg), ("rows", sg_rows)):
+            shape = stream.dense_shape
+            states = tuple(torch.zeros(shape, device=dev)
+                           for _ in range(n_states))
+            K = stream.indices.numel()
+            live = stream.indices[stream.indices < shape[0]]
+            slots = int(torch.unique_consecutive(live).numel())
+            width = 1 if len(shape) == 1 else shape[1]
+            t = {"K": K, "live": live.numel(), "slots": slots,
+                 "row_width": width}
+            t["ms"] = graph_ms(torch, lambda: kernel[algo](
+                stream.indices, stream.values, *states, unique=stream.unique,
+                **hyper[algo]), 5)
+            t["plain_ms"] = time_ms(torch, lambda: getattr(
+                sref, f"sparse_{algo}_ref")(stream.indices, stream.values,
+                                            *states, unique=stream.unique,
+                                            **hyper[algo]), 2, warmup=1)
+            t["bound_ms"], t["bound_by"] = bound(
+                K * (4 + 4 * width) + live.numel() * 4 * width
+                + slots * width * 8 * n_states, 0, 1.0)
+            t["library_ms"] = None
+            if algo == "adam" and where == "flat":
+                param = torch.nn.Parameter(torch.zeros(shape, device=dev))
+                opt = torch.optim.SparseAdam([param], lr=1e-3)
+                coo = torch.sparse_coo_tensor(
+                    stream.indices[None].long(), stream.values, shape,
+                    check_invariants=False)
+
+                def library_step():
+                    param.grad = coo
+                    opt.step()
+
+                t["library_ms"] = time_ms(torch, library_step, 2, warmup=1)
+                del param, opt, coo
+            r[where] = t
+            del states
+            log(f"  {SPARSE_KERNEL[algo]} {where} K={K} ({slots} slots, "
+                f"width {width}): {t['ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms (bytes), "
+                f"{t['bound_ms'] / t['ms']:.1%} of bound, plain "
+                f"{t['plain_ms']:.3f} ms"
+                + (f", torch.optim.SparseAdam {t['library_ms']:.3f} ms"
+                   if t["library_ms"] is not None else ""))
+        res[SPARSE_KERNEL[algo]] = {**r["flat"], "rows": r["rows"]}
+    return res
+
+
+def measure_bag(torch, inputs, dev) -> dict:
+    """Row 13 by CUDA-graph replay with a cold L2 (``cold_graph_ms``: both
+    tables would otherwise stay in L2 across replays) at both of
+    ``check_embedding_bag``'s shapes, beside its bytes bound (each distinct
+    gathered row once, ids and weights in, the output out), its plain
+    version and F.embedding_bag with per-sample weights, timed the same
+    way."""
+    import torch.nn.functional as tf
+
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    res = {}
+    with torch.no_grad():
+        for B, (t, i, w) in inputs.items():
+            L, d = i.shape[1], t.shape[1]
+            valid = i[(i >= 0) & (i < t.shape[0])]
+            rows = int(torch.unique(valid).numel())
+            r = res[B] = {"L": L, "table_rows": t.shape[0], "d": d,
+                          "distinct_rows": rows}
+            r["ms"] = cold_graph_ms(torch, lambda: embedding_bag_cuda(t, i, w),
+                                    50, dev)
+            r["plain_ms"] = cold_graph_ms(
+                torch, lambda: embedding_bag_ref(t, i, w), 10, dev)
+            r["library_ms"] = cold_graph_ms(torch, lambda: tf.embedding_bag(
+                i, t, per_sample_weights=w, mode="sum"), 50, dev)
+            r["bound_ms"], r["bound_by"] = bound(
+                rows * d * 4 + B * L * 8 + B * d * 4, 2 * valid.numel() * d,
+                FP32_FLOP_PER_S)
+            log(f"  embedding_bag B={B} L={L} table {tuple(t.shape)} "
+                f"({rows} distinct rows), cold L2: "
+                f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of bound, "
+                f"plain {r['plain_ms']:.4f} ms, F.embedding_bag "
+                f"{r['library_ms']:.4f} ms")
+    return res
+
+
+def run_optimizers(torch, cfg, model, bufs, gen, B, sg, dev,
+                   kernels) -> dict:
+    """Phases 18-22: the hashed_row pool (row mode), rows 8 and 9 against
+    their plain versions, full-width training with the sgd and adam arms
+    (LMA) and the adam arm (hashed_row), row 13, and the timings.  -> the
+    launch counts by path, errors, timings and training records."""
+    hr_cfg, hr_model, hr_bufs = build_hashed_row(torch, dev)
+    sg_rows = real_step_grad(torch, hr_cfg, hr_model, hr_bufs,
+                             gen.batch(B, 0), dev)
+    if sg_rows.values.dim() != 2 or not sg_rows.unique:
+        raise AssertionError("hashed_row's SparseGrad is not row mode")
+    err = check_optimizer_kernels(torch, cfg.embedding.lma, sg, sg_rows, dev)
+    paths, train = {}, {}
+    for label, c, m, b, opt in (
+            ("dlrm-rm2 train sgd", cfg, model, bufs, "sgd"),
+            ("dlrm-rm2 train adam", cfg, model, bufs, "adam"),
+            ("dlrm-rm2 hashed_row train adam", hr_cfg, hr_model, hr_bufs,
+             "adam")):
+        train[label] = train_full_width(torch, "dlrm-rm2", c, m, b, gen, B,
+                                        dev, kernels, optimizer=opt)
+        paths[f"{label} sparse"] = train[label]["sparse"]["launches"]
+        paths[f"{label} dense"] = train[label]["dense"]["launches"]
+    n_bag, err["embedding_bag"], bag_inputs = check_embedding_bag(
+        torch, hr_model, hr_cfg, gen, dev, kernels)
+    paths["embedding_bag op"] = {"embedding_bag": n_bag}
+    res = measure_optimizers(torch, sg, sg_rows, dev)
+    res["embedding_bag"] = measure_bag(torch, bag_inputs, dev)
+    del hr_model, sg_rows, bag_inputs
+    return {"paths": paths, "err": err, "res": res, "train": train}
 
 
 # ---------------------------------------------------------------- xDeepFM
@@ -1470,12 +1987,21 @@ SOURCES = {
     "sparse_adagrad": ("src/repro_torch/csrc/sparse_update.cu",
                        "src/repro/kernels/sparse_update/kernel.py:120"),
     "cin": ("src/repro_torch/csrc/cin.cu", "src/repro/kernels/cin/kernel.py:39"),
+    "sparse_sgd": ("src/repro_torch/csrc/sparse_update.cu",
+                   "src/repro/kernels/sparse_update/kernel.py:120"),
+    "sparse_adam": ("src/repro_torch/csrc/sparse_update.cu",
+                    "src/repro/kernels/sparse_update/kernel.py:120"),
+    "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
+                      "src/repro/kernels/embedding_bag/kernel.py:56"),
 }
 
 # The batch of each kernel's JSON entry: the training batch for the rows the
 # training step launches at B=65,536; the smallest measured otherwise (for
-# the CIN, B=512, a served batch; its entry sums the three layers).
+# the CIN, B=512, a served batch; its entry sums the three layers; for the
+# embedding bag, the reference's bench shape, B=2,048).  The sparse
+# optimizers' entries are the LMA pool's K=109,051,904 stream.
 MAIN_BATCH = {"fused_locations": 65536, "fused_scatter_add": 65536}
+BY_STREAM = ("sparse_adagrad", "sparse_sgd", "sparse_adam")
 
 
 def main() -> int:
@@ -1494,7 +2020,10 @@ def main() -> int:
         fused_locations_cuda, fused_lookup_cuda, fused_scatter_add_cuda,
         fused_weight_grad_cuda)
     from repro_torch.kernels.lma_locations.kernel import lma_locations_cuda
-    from repro_torch.kernels.sparse_update.kernel import sparse_adagrad_cuda
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+    from repro_torch.kernels.sparse_update.kernel import (sparse_adagrad_cuda,
+                                                          sparse_adam_cuda,
+                                                          sparse_sgd_cuda)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1517,7 +2046,10 @@ def main() -> int:
                "fused_scatter_add": fused_scatter_add_cuda,
                "fused_weight_grad": fused_weight_grad_cuda,
                "sparse_adagrad": sparse_adagrad_cuda,
-               "cin": cin_cuda}
+               "cin": cin_cuda,
+               "sparse_sgd": sparse_sgd_cuda,
+               "sparse_adam": sparse_adam_cuda,
+               "embedding_bag": embedding_bag_cuda}
 
     cfg, model, bufs = build_model(torch, dev)
     rng = np.random.default_rng(SEED)
@@ -1553,6 +2085,16 @@ def main() -> int:
     paths["dlrm-rm2 bag backward"] = bag_counts
     res.update(measure_training(torch, cfg, model, bufs, gen, train_batch,
                                 full["plain_ms"], sg, dev))
+    opt = run_optimizers(torch, cfg, model, bufs, gen, B_train, sg, dev,
+                         kernels)
+    paths.update(opt["paths"])
+    for name, e in opt["err"].items():      # row 7 also on the row layout
+        err[name] = max(err.get(name, 0.0), e)
+    res.update(opt["res"])
+    counts["sparse_sgd"] = paths["dlrm-rm2 train sgd sparse"]["sparse_sgd"]
+    counts["sparse_adam"] = sum(c.get("sparse_adam", 0)
+                                for c in paths.values())
+    counts["embedding_bag"] = paths["embedding_bag op"]["embedding_bag"]
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB (dlrm-rm2 phases)")
 
@@ -1575,9 +2117,14 @@ def main() -> int:
     rows = []
     for name, (source, replaces) in SOURCES.items():
         r = res[name]
-        if name == "sparse_adagrad":
-            main_r, extra = r, {"K": r["K"], "slots": r["slots"]}
+        if name in BY_STREAM:
+            main_r = r
+            extra = {k: r[k] for k in ("K", "slots", "rows") if k in r}
             where = f"K={r['K']}"
+            if "rows" in r:
+                where += (f" (row layout K={r['rows']['K']}: "
+                          f"{r['rows']['ms']:.4f} ms, bound "
+                          f"{r['rows']['bound_ms']:.4f} ms)")
         else:
             at = MAIN_BATCH.get(name, min(r))
             main_r, extra = r[at], {"batch": at}
@@ -1602,6 +2149,7 @@ def main() -> int:
             f"{card}")
     log(json.dumps({"training": train, "launcher": launcher,
                     "bag_backward": bag_err, "card": card}))
+    log(json.dumps({"optimizer_training": opt["train"], "card": card}))
     log(json.dumps({"serving": runs, "card": card}))
     log(json.dumps({"xdeepfm": {"serving": xserving, "training": xtrain},
                     "card": card}))

@@ -25,6 +25,9 @@ class Scheme:
     kind: ClassVar[str]
     family: ClassVar[str] = "memory"       # "memory" | "table"
     needs_budget: ClassVar[bool] = True
+    # True when ``locations`` are d-aligned pool rows (``sparse_row_ids``
+    # gives them): a sparse gradient then carries one index per row
+    row_aligned: ClassVar[bool] = False
     # What make_buffers consumes: None, or "signatures" (a D' store, lma).
     # Launchers key data preparation on this.
     buffer_source: ClassVar[str | None] = None
@@ -78,6 +81,15 @@ class Scheme:
         per-stripe sorts (``optim.sparse.from_bucketed_locations``) and the
         update fold the duplicates, instead of one global sort and dedup."""
         return 0
+
+    def sparse_row_ids(self, cfg: "EmbeddingConfig", buffers: dict,
+                       gids: torch.Tensor) -> torch.Tensor | None:
+        """[N] int32 pool rows when this scheme's locations are d-aligned
+        rows (``locations == rows[:, None] * dim + arange(dim)``), else None.
+        With a budget that tiles into rows, the sparse-gradient capture then
+        records one index per row (the reference's ``record_rows``) and the
+        optimizers update ``[rows, d]`` states, d values an index."""
+        return None
 
     # -------------------------------------------- table-family embed hook
     def embed_rows(self, cfg: "EmbeddingConfig", params: dict, table: int,

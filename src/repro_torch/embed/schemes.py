@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core import allocation as alc
 from repro_torch.core.allocation import LMAParams
+from repro_torch.core.hashing import hash_u32, seed_stream
 from repro_torch.core.memory import init_memory
 from repro_torch.core.signatures import DenseSignatureStore
 from repro_torch.embed.config import EmbeddingConfig
@@ -72,9 +73,16 @@ class HashedElemScheme(_HashedBase):
 @register_scheme
 class HashedRowScheme(_HashedBase):
     kind = "hashed_row"
+    row_aligned = True
 
     def locations(self, cfg, buffers, gids):
         return alc.alloc_hashed_row(gids, cfg.dim, cfg.budget, cfg.seed)
+
+    def sparse_row_ids(self, cfg, buffers, gids):
+        # the row index of alloc_hashed_row, bit for bit
+        n_rows = max(cfg.budget // cfg.dim, 1)
+        seed = seed_stream(cfg.seed, 1, gids.device)[0]
+        return (hash_u32(gids, seed) % n_rows).to(torch.int32)
 
 
 @register_scheme

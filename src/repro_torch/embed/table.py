@@ -42,16 +42,27 @@ def _memory_lookup(cfg, params, buffers, gids):
     """[N] global ids -> [N, d] through the resolved backend.
 
     Under an active sparse-gradient capture (``repro_torch.optim.sparse``)
-    the lookup is recorded: its backward yields the [N, d] locations and the
-    incoming gradient instead of a dense [m] pool gradient."""
+    the lookup is recorded: its backward yields what the lookup touched and
+    the incoming gradient instead of a dense [m] pool gradient.  A
+    row-aligned scheme records its [N] pool rows when the budget tiles into
+    d-wide rows; a ragged budget (m % d != 0), and every other scheme,
+    records the [N, d] element locations."""
     scheme = get_scheme(cfg.kind)
     backend = bke.resolve_backend(cfg, params, scheme)
     cap = sparse.active()
     if cap is None:
         return backend.lookup(cfg, scheme, params, buffers, gids)
+
+    def lookup():
+        return backend.lookup(cfg, scheme, params, buffers, gids)
+
+    if scheme.row_aligned and scheme.memory_slots(cfg) % cfg.dim == 0:
+        return cap.lookup(
+            params["memory"], lookup,
+            lambda: scheme.sparse_row_ids(cfg, buffers, gids),
+            row_width=cfg.dim)
     return cap.lookup(
-        params["memory"],
-        lambda: backend.lookup(cfg, scheme, params, buffers, gids),
+        params["memory"], lookup,
         lambda: bke.sparse_locations(cfg, scheme, params, buffers, gids),
         scheme.sparse_buckets(cfg))
 

@@ -7,4 +7,4 @@ CPU tensors, the kernel for CUDA tensors (or it raises; never a fallback).
 """
 
 KERNELS = ("lma_locations", "fused_embed", "dot_interaction", "sparse_update",
-           "cin")
+           "cin", "embedding_bag")

@@ -1,8 +1,8 @@
 """Training launcher for the recsys archs (port of ``repro.launch.train``'s
 main path): synthetic CTR data with planted semantics, the D' signature
-store for lma, the arch's optimizer with the pool on sparse Adagrad, the
-:class:`~repro_torch.train.trainer.Trainer`, then a streaming AUC eval.  It
-is the port's form of ``examples/train_lma_dlrm.py``: run it once with lma
+store for lma, the arch's optimizer with the pool on its lazy sparse form,
+the :class:`~repro_torch.train.trainer.Trainer`, then a streaming AUC eval.
+It is the port's form of ``examples/train_lma_dlrm.py``: run it once with lma
 and once with hashed_elem to compare the two at an equal budget.
 
   python -m repro_torch.launch.train --arch lma-dlrm-criteo --steps 300
@@ -35,17 +35,21 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
 def make_optimizer(arch) -> opt_lib.Optimizer:
-    """The arch's optimizer: the pool (``memory``) routes to the sparse
-    optimizer by name and every other parameter to the dense one.  Whether
+    """The arch's optimizer, as the reference's ``make_optimizer`` builds it:
+    the pool (``memory``) routes to the sparse optimizer by name and every
+    other parameter to the dense one -- Adagrad and sparse Adagrad; momentum
+    SGD (0.9) and lazy momentum SGD; Adam and lazy row-wise Adam.  Whether
     the pool's gradient is sparse is the Trainer's choice (``sparse_grads``);
-    the sparse optimizer takes either form.  Adagrad is the only one
-    ported."""
-    if arch.optimizer != "adagrad":
-        raise NotImplementedError(f"{arch.optimizer}: not ported yet")
+    the sparse optimizer takes either form."""
     lr = arch.learning_rate
-    return opt_lib.multi_transform(
-        [(r"(^|\.)memory$", sparse_lib.sparse_adagrad(lr))],
-        default=opt_lib.adagrad(lr))
+    dense, sparse = {
+        "adagrad": (opt_lib.adagrad, sparse_lib.sparse_adagrad),
+        "sgd": (lambda lr: opt_lib.sgd(lr, momentum=0.9),
+                lambda lr: sparse_lib.sparse_sgd(lr, momentum=0.9)),
+        "adam": (opt_lib.adam, sparse_lib.sparse_rowwise_adam),
+    }[arch.optimizer]
+    return opt_lib.multi_transform([(r"(^|\.)memory$", sparse(lr))],
+                                   default=dense(lr))
 
 
 def lookups_per_step(cfg, batch: int) -> int:

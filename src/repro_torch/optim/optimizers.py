@@ -1,47 +1,86 @@
 """Optimizers over a model's named parameters (port of
-``repro.optim.optimizers``; Adagrad, the arch optimizer of the main path).
+``repro.optim.optimizers``: ``sgd``, ``adagrad``, ``adam``/``adamw``, the
+transforms ``scale``, ``scale_by_schedule``, ``clip_by_global_norm``,
+``chain`` and ``multi_transform``; ``adafactor`` comes with the LM slice).
 
 The port keeps the reference's explicit ``init`` / ``update`` pair instead of
 subclassing ``torch.optim.Optimizer``, for two reasons: the pool's gradient
 is a :class:`~repro_torch.optim.sparse.SparseGrad` (indices and values), which
 a ``.grad`` tensor cannot carry, and ``multi_transform`` routes by parameter
-name, which the pair expresses directly.  The trees are plain dicts keyed by
-``named_parameters()`` names:
+name, which the pair expresses directly.  A tree is a dict keyed by
+``named_parameters()`` names, or a single tensor (``multi_transform`` hands
+each routed optimizer one leaf, as the reference's does):
 
   state = opt.init(params)
   updates, state = opt.update(grads, state, params)
   apply_updates(params, updates)
 
-State and parameters are updated in place (the pool's accumulator is as
-large as the pool, so a functional copy per step would double it).  A
-parameter with no gradient is skipped, which for Adagrad is what a zero
-gradient does.  ``torch.optim.Adagrad`` is not used: its ``addcdiv_``
-rounds differently from the reference's ``-lr * g / (sqrt(acc) + eps)``.
+A state is what the reference's is: Adagrad's accumulators and SGD's
+momenta mirror the parameters; Adam's is ``AdamState(step, mu, nu)``, whose
+``step`` (a Python int, 0 before the first update) drives the bias
+corrections; ``chain``'s a tuple, ``multi_transform``'s a dict of each
+parameter's own state.  Moments and parameters are updated in place (the
+pool's moments are as large as the pool, so a functional copy per step
+would double them); the step counters are new values in the returned
+state.  A parameter with no gradient is skipped (the reference sees a zero
+gradient there; no model of the port leaves a parameter out of its loss).
+``torch.optim`` is not used: its fused updates (``addcdiv_`` and the like)
+round differently from the reference's formulas, which are kept here one
+rounded operation at a time.
 """
 from __future__ import annotations
 
 import re
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
 
-class Optimizer:
-    """Per-leaf ``init_leaf(p) -> state`` and ``update_leaf(g, state, p) ->
-    (update, state)``, mapped over dicts of named tensors."""
+class Optimizer(NamedTuple):
+    init: Callable      # params -> state
+    update: Callable    # (grads, state, params) -> (updates, state)
 
-    def __init__(self, init_leaf: Callable, update_leaf: Callable):
-        self.init_leaf = init_leaf
-        self.update_leaf = update_leaf
 
-    def init(self, params: dict) -> dict:
-        return {k: self.init_leaf(p) for k, p in params.items()}
+def _is_sparse(x) -> bool:
+    from repro_torch.optim.sparse import SparseGrad
+    return isinstance(x, SparseGrad)
 
-    def update(self, grads: dict, state: dict, params: dict):
-        updates = {}
-        for k, g in grads.items():
-            updates[k], state[k] = self.update_leaf(g, state[k], params[k])
-        return updates, state
+
+def _map(fn, tree, *rest):
+    """``fn`` over a dict of named leaves (the others looked up by name) or
+    over one leaf."""
+    if isinstance(tree, dict):
+        return {k: fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _unzip(out, *states):
+    """A tree of tuples -> (updates, *new states); a dict state keeps the
+    entries of parameters that had no gradient."""
+    if not isinstance(out, dict):
+        return out
+    n = len(states) + 1
+    parts = [{k: o[i] for k, o in out.items()} for i in range(n)]
+    return (parts[0],) + tuple({**s, **p} for s, p in zip(states,
+                                                          parts[1:]))
+
+
+def _scaled(x, factor):
+    """``x * factor``; a SparseGrad's values are scaled, its indices kept."""
+    if _is_sparse(x):
+        return x.map_values(lambda v: v * factor)
+    return x * factor
+
+
+def bias_correction(b: float, step: int) -> float:
+    """``1 - b ** step`` as the reference computes it (float32 ``b`` to the
+    power of the float32 step, then float32 ``1 -``), returned as the
+    float32 value.  PyTorch's CPU power of two 0-dim float32 tensors gives
+    XLA's bits at every step measured (1 to 20,000, b = 0.9 and 0.999); its
+    vectorized power and numpy's float32 power do not."""
+    p = torch.tensor(b, dtype=torch.float32) ** torch.tensor(
+        float(step), dtype=torch.float32)
+    return float(1 - p)
 
 
 @torch.no_grad()
@@ -55,46 +94,167 @@ def apply_updates(params: dict, updates: dict) -> None:
             params[k].add_(u.to(params[k].dtype))
 
 
+# ------------------------------------------------------------------ transforms
+
+def scale(factor: float) -> Optimizer:
+    return Optimizer(lambda params: (),
+                     lambda g, s, p=None: (_map(lambda x: _scaled(x, factor),
+                                                g), s))
+
+
+def scale_by_schedule(schedule: Callable[[int], float]) -> Optimizer:
+    """Scale by ``schedule(step)``, the step counted from 0 in the state."""
+
+    def update(g, step, p=None):
+        lr = schedule(step)
+        return _map(lambda x: _scaled(x, lr), g), step + 1
+
+    return Optimizer(lambda params: 0, update)
+
+
+def clip_by_global_norm(max_norm: float) -> Optimizer:
+    """Scale every leaf by ``min(1, max_norm / max(norm, 1e-9))``, the norm
+    over all leaves (a SparseGrad's values, as in the reference), summed
+    leaf by leaf in the order of their sorted names (the reference's tree
+    order)."""
+    from repro_torch.kernels.sparse_update.ref import ieee_sqrt
+
+    def update(g, s, p=None):
+        leaves = [g[k] for k in sorted(g)] if isinstance(g, dict) else [g]
+        vals = [x.values if _is_sparse(x) else x for x in leaves]
+        gn = ieee_sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                           for x in vals))
+        factor = torch.clamp(torch.full_like(gn, max_norm)
+                             / torch.clamp(gn, min=1e-9), max=1.0)
+        return _map(lambda x: _scaled(x, factor), g), s
+
+    return Optimizer(lambda params: (), update)
+
+
+def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
+    """``new = momentum * mo + g; u = -lr * new`` (no state without
+    momentum); SparseGrad leaves go to the lazy sparse kernel
+    (``optim.sparse.sgd_leaf``)."""
+
+    def init(params):
+        if momentum == 0.0:
+            return ()
+        return _map(torch.zeros_like, params)
+
+    @torch.no_grad()
+    def update(g, mo, p=None):
+        if momentum == 0.0:
+            return _map(lambda x: _scaled(x, -lr), g), mo
+        from repro_torch.optim.sparse import sgd_leaf
+        return _unzip(_map(lambda x, m: sgd_leaf(x, m, lr=lr,
+                                                 momentum=momentum), g, mo),
+                      mo)
+
+    return Optimizer(init, update)
+
+
 def adagrad(lr: float, eps: float = 1e-10,
             initial_acc: float = 0.0) -> Optimizer:
     """Adagrad with the reference's formula: ``acc += g * g;
     u = -lr * g / (sqrt(acc) + eps)``; SparseGrad leaves go to the sparse
     kernel (``optim.sparse.adagrad_leaf``)."""
 
-    def init_leaf(p):
-        return torch.full_like(p, initial_acc, dtype=torch.float32)
+    def init(params):
+        return _map(lambda p: torch.full_like(p, initial_acc,
+                                              dtype=torch.float32), params)
 
     @torch.no_grad()
-    def update_leaf(g, acc, p):
+    def update(g, acc, p=None):
         from repro_torch.optim.sparse import adagrad_leaf
-        return adagrad_leaf(g, acc, p, lr=lr, eps=eps)
+        return _unzip(_map(lambda x, a: adagrad_leaf(x, a, lr=lr, eps=eps),
+                           g, acc), acc)
 
-    return Optimizer(init_leaf, update_leaf)
+    return Optimizer(init, update)
 
 
-class _MultiTransform(Optimizer):
-    def __init__(self, rules: list[tuple[str, Optimizer]], default: Optimizer):
-        self.rules, self.default = rules, default
+class AdamState(NamedTuple):
+    step: int                      # the global step, 0 before the first
+    mu: object
+    nu: object
 
-    def route(self, name: str) -> Optimizer:
-        for pat, opt in self.rules:
-            if re.search(pat, name):
-                return opt
-        return self.default
 
-    def init(self, params: dict) -> dict:
-        return {k: self.route(k).init_leaf(p) for k, p in params.items()}
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0) -> Optimizer:
+    """Adam with global-step bias corrections and decoupled weight decay:
+    ``mu = b1 mu + (1-b1) g; nu = b2 nu + (1-b2) g^2;
+    u = -lr (mu / bc1) / (sqrt(nu / bc2) + eps) - lr wd p``.  A SparseGrad
+    leaf takes the lazy sparse kernel (``optim.sparse.adam_leaf``)."""
+    return _adam(lr, b1, b2, eps, weight_decay, AdamState, lambda x: x.shape)
 
-    def update(self, grads: dict, state: dict, params: dict):
-        updates = {}
-        for k, g in grads.items():
-            updates[k], state[k] = self.route(k).update_leaf(g, state[k],
-                                                             params[k])
-        return updates, state
+
+def _adam(lr, b1, b2, eps, weight_decay, state_cls, nu_shape) -> Optimizer:
+    """Adam's init and update; ``nu_shape(param)`` is the shape of a leaf's
+    second moment (``sparse_rowwise_adam`` gives a row-wise one) and
+    ``state_cls(step, mu, nu)`` the state."""
+
+    def init(params):
+        def zeros(shape_of):
+            return _map(lambda x: torch.zeros(shape_of(x), dtype=torch.float32,
+                                              device=x.device), params)
+        return state_cls(0, zeros(lambda x: x.shape), zeros(nu_shape))
+
+    @torch.no_grad()
+    def update(g, state, params=None):
+        from repro_torch.optim.sparse import adam_leaf
+        step = state.step + 1
+        bc1, bc2 = bias_correction(b1, step), bias_correction(b2, step)
+
+        def leaf(x, m, n, p):
+            return adam_leaf(x, m, n, None if _is_sparse(p) else p, lr=lr,
+                             b1=b1, b2=b2, bc1=bc1, bc2=bc2, eps=eps,
+                             weight_decay=weight_decay)
+
+        out = _map(leaf, g, state.mu, state.nu,
+                   params if params is not None else g)
+        updates, mu, nu = _unzip(out, state.mu, state.nu)
+        return updates, state_cls(step, mu, nu)
+
+    return Optimizer(init, update)
+
+
+def adamw(lr: float, weight_decay: float = 0.01, **kw) -> Optimizer:
+    return adam(lr, weight_decay=weight_decay, **kw)
+
+
+def chain(*transforms: Optimizer) -> Optimizer:
+    def init(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update(g, states, params=None):
+        new_states = []
+        for t, s in zip(transforms, states):
+            g, s = t.update(g, s, params)
+            new_states.append(s)
+        return g, tuple(new_states)
+
+    return Optimizer(init, update)
 
 
 def multi_transform(rules: list[tuple[str, Optimizer]],
                     default: Optimizer) -> Optimizer:
     """Route each parameter by name (first regex that matches wins), e.g.
-    ``[(r"(^|\\.)memory$", sparse_adagrad(lr))]`` for the pool."""
-    return _MultiTransform(rules, default)
+    ``[(r"(^|\\.)memory$", sparse_adagrad(lr))]`` for the pool.  Each
+    parameter keeps the state its optimizer builds for it alone (one Adam
+    step counter per parameter, as in the reference)."""
+
+    def route(name: str) -> Optimizer:
+        for pat, opt in rules:
+            if re.search(pat, name):
+                return opt
+        return default
+
+    def init(params: dict) -> dict:
+        return {k: route(k).init(p) for k, p in params.items()}
+
+    def update(grads: dict, states: dict, params: dict):
+        updates, states = {}, dict(states)
+        for k, g in grads.items():
+            updates[k], states[k] = route(k).update(g, states[k], params[k])
+        return updates, states
+
+    return Optimizer(init, update)

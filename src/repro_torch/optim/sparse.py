@@ -5,7 +5,7 @@ dense step materializes an ``[m]`` gradient and runs the optimizer over all
 of it.  This module replaces both with O(K) work.
 
 ``SparseGrad``
-    The gradient of one pool as sorted ``indices [K]`` and ``values [K]``,
+    The gradient of one pool as sorted ``indices [K]`` and ``values [K, ...]``,
     in one of the reference's two layouts: deduped (``unique=True``: sorted
     unique slots, sentinel-padded, summed values; ``dedup_locations``) or
     bucketed (``unique=False``: sorted with duplicates, built stripe-major by
@@ -17,21 +17,25 @@ of it.  This module replaces both with O(K) work.
     (``sparse_value_and_grad``).  While a capture is active, every memory
     lookup (``repro_torch/embed/table.py``) goes through an
     ``autograd.Function`` whose forward is the normal lookup and whose
-    backward computes the lookup's ``[N, d]`` locations (the fused locations
-    kernel on the card, ``scheme.locations`` on the CPU), keeps them with
-    the incoming ``[N, d]`` gradient in forward call order, and returns no
-    gradient for the pool.  So the pool's ``.grad`` stays ``None`` and no
-    ``[m]`` gradient is ever allocated.  After ``backward()``,
-    ``SparseCapture.grads`` builds one ``SparseGrad`` per pool by the
-    reference's rule (``sparse.py:394-426``): bucketed when the scheme
-    declares stripe buckets (striped lma), flat dedup otherwise.  Row mode
-    (``record_rows``: one index per pool row for hashed_row) is not ported;
-    hashed_row records element-level locations, as the reference does for a
-    ragged budget.
+    backward computes what the lookup touched (the ``[N, d]`` locations: the
+    fused locations kernel on the card, ``scheme.locations`` on the CPU; or,
+    for a row-aligned scheme whose budget tiles into rows, the ``[N]`` pool
+    rows, ``scheme.sparse_row_ids``), keeps it with the incoming ``[N, d]``
+    gradient in forward call order, and returns no gradient for the pool.
+    So the pool's ``.grad`` stays ``None`` and no ``[m]`` gradient is ever
+    allocated.  After ``backward()``, ``SparseCapture.grads`` builds one
+    ``SparseGrad`` per pool by the reference's rule (``sparse.py:394-426``):
+    row mode (one index per pool row, ``[K, d]`` values, ``dense_shape
+    (m // d, d)``) for row records, bucketed when the scheme declares stripe
+    buckets (striped lma), flat dedup otherwise.
 
-``sparse_adagrad``
-    Lazy Adagrad: the pool leaf's update is one pass over the K entries
-    (``repro_torch/kernels/sparse_update``), exactly the dense update.
+``sparse_sgd`` / ``sparse_adagrad`` / ``sparse_rowwise_adam``
+    Lazy optimizers: a pool leaf's update is one pass over the K entries
+    (``repro_torch/kernels/sparse_update``), in the SparseGrad's own layout
+    (the flat ``[m]`` states are viewed as ``[m // d, d]`` for a row-mode
+    gradient).  Untouched slots keep their moments and parameters bit for
+    bit; Adam's bias correction uses the global step.  Dense leaves get the
+    same formulas applied everywhere.
 
 Gate: ``REPRO_SPARSE_GRADS`` (default on; ``=0`` keeps the dense path as the
 oracle), as in the reference.
@@ -40,12 +44,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import os
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.optim.optimizers import Optimizer, adagrad
+from repro_torch.kernels.sparse_update.ref import div, ieee_sqrt, row_mean
+from repro_torch.optim.optimizers import Optimizer, _adam, adagrad, sgd
 
 
 def sparse_enabled() -> bool:
@@ -156,8 +162,10 @@ _STACK: list = []
 @dataclasses.dataclass
 class _Record:
     memory: torch.Tensor           # the pool looked up
-    locations: Callable            # () -> [N, d] int32, run in backward
+    locations: Callable            # () -> [N, d] slots or [N] rows, run in
+    #                                backward
     n_buckets: int                 # d for a striped layout, else 0
+    row_width: int = 0             # d when locations gives [N] pool rows
     loc: torch.Tensor | None = None
     grad: torch.Tensor | None = None
 
@@ -186,10 +194,13 @@ class SparseCapture:
         self.records: list[_Record] = []
 
     def lookup(self, memory: torch.Tensor, lookup: Callable,
-               locations: Callable, n_buckets: int = 0) -> torch.Tensor:
-        """``lookup() -> [N, d]`` run now; ``locations() -> [N, d]`` run in
-        backward, when the lookup's gradient arrives."""
-        rec = _Record(memory, locations, n_buckets)
+               locations: Callable, n_buckets: int = 0,
+               row_width: int = 0) -> torch.Tensor:
+        """``lookup() -> [N, d]`` run now; ``locations()`` run in backward,
+        when the lookup's gradient arrives: ``[N, d]`` element slots, or
+        with ``row_width=d`` the ``[N]`` pool rows of a row-aligned scheme
+        (the reference's ``record_rows``)."""
+        rec = _Record(memory, locations, n_buckets, row_width)
         self.records.append(rec)
         return _CaptureLookup.apply(memory, rec, lookup)
 
@@ -202,9 +213,19 @@ class SparseCapture:
                     if r.memory is p and r.grad is not None]
             if not recs:
                 continue
+            rws = {r.row_width for r in recs}
+            if len(rws) != 1:
+                raise ValueError(f"{name}: one memory pool mixes row- and "
+                                 "element-level sparse records")
+            (rw,) = rws
             nbs = {r.n_buckets for r in recs}
             nb = nbs.pop() if len(nbs) == 1 else 0
-            if nb and p.dim() == 1 and all(r.loc.dim() == 2
+            if rw:                                  # row-aligned pool
+                rows = torch.cat([r.loc.reshape(-1) for r in recs])
+                vals = torch.cat([r.grad.reshape(-1, rw) for r in recs])
+                out[name] = from_locations(rows, vals,
+                                           (int(p.shape[0]) // rw, rw))
+            elif nb and p.dim() == 1 and all(r.loc.dim() == 2
                                            and r.loc.shape[1] == nb
                                            for r in recs):
                 loc = torch.cat([r.loc for r in recs], dim=0)
@@ -243,21 +264,55 @@ def has_memory(named_params: dict) -> bool:
 
 # ------------------------------------------------------- sparse update + apply
 
+def _pool_view(arr: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """A flat ``[m]`` pool or state as the SparseGrad's ``(rows, d)`` layout:
+    a view, so an in-place update lands in ``arr``."""
+    shape = tuple(shape)
+    if tuple(arr.shape) == shape:
+        return arr
+    if arr.numel() != math.prod(shape):
+        raise ValueError(f"a {tuple(arr.shape)} state does not view as "
+                         f"{shape}")
+    return arr.view(shape)
+
+
 def _leaf_sparse_update(algo: str, g: SparseGrad, states: tuple, **hyper):
+    """One sparse leaf through the kernel, the states (updated in place)
+    viewed in the SparseGrad's layout.  -> (update SparseGrad, states)."""
     from repro_torch.kernels.sparse_update.ops import sparse_update
-    u, new_states = sparse_update(algo, g.indices, g.values, states,
-                                  unique=g.unique, **hyper)
-    return g.map_values(lambda _: u), new_states
+    views = tuple(_pool_view(s, g.dense_shape) for s in states)
+    u, _ = sparse_update(algo, g.indices, g.values, views, unique=g.unique,
+                         **hyper)
+    return g.map_values(lambda _: u), states
 
 
 def sparse_apply(p: torch.Tensor, u: SparseGrad) -> None:
     """``apply_updates`` for one sparse leaf: an O(K) scatter-add into ``p``
-    in place (sentinel entries dropped; non-head entries carry 0)."""
+    in place, in the SparseGrad's layout (sentinel entries dropped; non-head
+    entries carry 0)."""
     idx, vals = u.indices, u.values.to(p.dtype)
     if u.unique:
         keep = idx < u.sentinel
         idx, vals = idx[keep], vals[keep]
-    p.index_add_(0, idx.long(), vals)
+    _pool_view(p, u.dense_shape).index_add_(0, idx.long(), vals)
+
+
+# -------------------------------------------------- leaf update entry points
+# (shared by the sparse optimizers below and the dense optimizers of
+# optimizers.py, as in the reference)
+
+def sgd_leaf(g, mo, p=None, *, lr, momentum=0.0):
+    """One leaf of SGD: ``new = momentum * mo + g; u = -lr * new``; a
+    SparseGrad through the sparse kernel (lazy), ``mo`` updated in place."""
+    if is_sparse(g):
+        states = () if mo is None or momentum == 0.0 else (mo,)
+        u, _ = _leaf_sparse_update("sgd", g, states, lr=lr,
+                                   momentum=momentum)
+        return u, mo
+    if momentum == 0.0:
+        return -lr * g, mo
+    mo.mul_(momentum).add_(g)
+    return -lr * mo, mo
 
 
 def adagrad_leaf(g, acc, p=None, *, lr, eps=1e-10):
@@ -266,9 +321,57 @@ def adagrad_leaf(g, acc, p=None, *, lr, eps=1e-10):
     if is_sparse(g):
         u, (acc,) = _leaf_sparse_update("adagrad", g, (acc,), lr=lr, eps=eps)
         return u, acc
-    from repro_torch.kernels.sparse_update.ref import ieee_sqrt
     acc.add_(torch.square(g.to(torch.float32)))
     return (-lr * g / (ieee_sqrt(acc) + eps)).to(g.dtype), acc
+
+
+def adam_leaf(g, mu, nu, p=None, *, lr, b1=0.9, b2=0.999, bc1=1.0, bc2=1.0,
+              eps=1e-8, weight_decay=0.0):
+    """One leaf of Adam, ``mu``/``nu`` updated in place.  A SparseGrad is
+    lazy (SparseAdam semantics): the kernel moves only the touched slots,
+    and decoupled weight decay is lazy too, ``lr * weight_decay * p`` taken
+    off the touched slots' updates only (once per duplicate run).  A dense
+    gradient gets the same formulas everywhere, with a row-wise second
+    moment when ``nu`` is 1-D against a 2-D or wider gradient."""
+    if is_sparse(g):
+        u, _ = _leaf_sparse_update("adam", g, (mu, nu), lr=lr, b1=b1, b2=b2,
+                                   bc1=bc1, bc2=bc2, eps=eps)
+        if weight_decay and p is not None:
+            pv = _pool_view(p, g.dense_shape)
+            n = pv.shape[0]
+            rows = pv[torch.clamp(g.indices, max=n - 1).long()].to(
+                torch.float32)
+            keep = g.indices < n
+            if not g.unique:
+                keep = keep & torch.cat([
+                    torch.ones(1, dtype=torch.bool, device=keep.device),
+                    g.indices[1:] != g.indices[:-1]])
+            keep = keep.reshape((-1,) + (1,) * (u.values.dim() - 1))
+            u = u.map_values(lambda v: v - torch.where(
+                keep, lr * weight_decay * rows, 0))
+        return u, mu, nu
+    gf = g.to(torch.float32)
+    mu.mul_(b1).add_((1 - b1) * gf)
+    v2 = gf * gf
+    if nu.dim() == 1 and g.dim() > 1:                # row-wise second moment
+        nu.mul_(b2).add_((1 - b2) * row_mean(v2.reshape(v2.shape[0], -1)))
+        nu_b = nu.reshape(nu.shape + (1,) * (g.dim() - 1))
+    else:
+        nu.mul_(b2).add_((1 - b2) * v2)
+        nu_b = nu
+    u = -lr * div(mu, bc1) / (ieee_sqrt(div(nu_b, bc2)) + eps)
+    if weight_decay and p is not None:
+        u = u - lr * weight_decay * p.to(torch.float32)
+    return u.to(g.dtype), mu, nu
+
+
+# --------------------------------------------------------- sparse optimizers
+
+def sparse_sgd(lr: float, momentum: float = 0.0) -> Optimizer:
+    """Lazy momentum SGD: the dense ``optimizers.sgd`` contract, with an
+    O(K) step on a SparseGrad leaf whose untouched slots keep their
+    momentum (the reference's ``sparse_sgd`` is the same code)."""
+    return sgd(lr, momentum)
 
 
 def sparse_adagrad(lr: float, eps: float = 1e-10,
@@ -276,3 +379,19 @@ def sparse_adagrad(lr: float, eps: float = 1e-10,
     """Lazy Adagrad: the dense ``optimizers.adagrad`` contract (``initial_acc``
     and ``eps``), with an O(K) step on a SparseGrad leaf."""
     return adagrad(lr, eps, initial_acc)
+
+
+class RowwiseAdamState(NamedTuple):
+    step: int                      # the global step, 0 before the first
+    mu: object
+    nu: object
+
+
+def sparse_rowwise_adam(lr: float, b1: float = 0.9, b2: float = 0.999,
+                        eps: float = 1e-8) -> Optimizer:
+    """Lazy Adam with a row-wise second moment (one nu per leading index: for
+    the flat pool each slot is its own row, i.e. elementwise): ``adam``'s
+    update without weight decay.  Bias correction uses the global step;
+    untouched rows keep stale moments."""
+    return _adam(lr, b1, b2, eps, 0.0, RowwiseAdamState,
+                 lambda x: (x.shape[0],) if x.dim() > 1 else x.shape)

@@ -2,7 +2,9 @@
 
 The caller supplies ``loss_fn(model, batch) -> (loss, metrics)``, the model
 (an ``nn.Module``), an optimizer over its named parameters
-(``repro_torch.optim``) and a seekable ``batch_fn(step) -> batch`` of host
+(``repro_torch.optim``; its state, ``opt_state``, holds whatever the
+optimizer keeps: Adagrad's accumulators, SGD's momenta, or Adam's step
+counter with mu and nu) and a seekable ``batch_fn(step) -> batch`` of host
 arrays, which the trainer moves to its device (the card unless the caller
 names the CPU).  A step is the reference's unguarded step
 (``repro.resilience.guard.make_step`` with ``guard=False``; a clean guarded

@@ -93,6 +93,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.configs as c, repro_torch.models.recsys\n"
             "import repro_torch.serve, repro_torch.convert\n"
             "import repro_torch.kernels.build\n"
+            "import repro_torch.kernels.embedding_bag.ops\n"
+            "import repro_torch.kernels.sparse_update.ops\n"
+            "import repro_torch.launch.train, repro_torch.optim.sparse\n"
             "for a in ('dlrm-rm2', 'xdeepfm'):\n"
             "    cfg = c.get_config(a).make_smoke()\n"
             "    repro_torch.models.recsys.init(cfg, device='cpu')\n"
@@ -106,12 +109,17 @@ def test_importing_the_port_loads_no_jax():
 
 
 class _OnCard:
-    """Stands for a tensor on the card (this test runs without one)."""
+    """Stands for a 1-D tensor on the card (this test runs without one)."""
     is_cuda = True
     device = "cuda:0"
 
+    def dim(self):
+        return 1
 
-@pytest.mark.parametrize("name", ["fused_locations", "sparse_update", "cin"])
+
+@pytest.mark.parametrize("name", ["fused_locations", "sparse_update", "cin",
+                                  "sparse_sgd", "sparse_adam",
+                                  "embedding_bag"])
 def test_card_tensors_go_to_the_kernels(name, monkeypatch):
     """A tensor on the card goes to the CUDA kernel, never to the plain
     version; a CPU tensor to the plain version."""
@@ -138,11 +146,25 @@ def test_card_tensors_go_to_the_kernels(name, monkeypatch):
         spec = fe.hashed_spec("hashed_elem", 4, 64, 0)
         fe.fused_locations(spec, _OnCard())
         fe.fused_locations(spec, torch.zeros(3, dtype=torch.int32))
+    elif name == "embedding_bag":
+        from repro_torch.kernels.embedding_bag import ops as eb
+        monkeypatch.setattr(eb, "embedding_bag_cuda",
+                            lambda *a: calls.append("kernel"))
+        monkeypatch.setattr(eb, "embedding_bag_ref",
+                            lambda *a: calls.append("plain"))
+        eb.embedding_bag(_OnCard(), None, None)
+        eb.embedding_bag(torch.zeros((4, 2)), None, None)
     else:
-        monkeypatch.setattr(su, "sparse_adagrad_cuda",
+        algo = {"sparse_update": "adagrad", "sparse_sgd": "sgd",
+                "sparse_adam": "adam"}[name]
+        monkeypatch.setattr(su, f"sparse_{algo}_cuda",
                             lambda *a, **k: calls.append("kernel"))
-        monkeypatch.setattr(su, "sparse_adagrad_ref",
+        monkeypatch.setattr(su, f"sparse_{algo}_ref",
                             lambda *a, **k: calls.append("plain"))
-        su.sparse_update("adagrad", None, None, (_OnCard(),), lr=0.1)
-        su.sparse_update("adagrad", None, None, (torch.zeros(4),), lr=0.1)
+        n = 2 if algo == "adam" else 1
+        hyper = {"momentum": 0.9} if algo == "sgd" else {}
+        su.sparse_update(algo, None, torch.zeros(3), (_OnCard(),) * n,
+                         lr=0.1, **hyper)
+        su.sparse_update(algo, None, torch.zeros(3), (torch.zeros(4),) * n,
+                         lr=0.1, **hyper)
     assert calls == ["kernel", "plain"]

@@ -342,3 +342,154 @@ def test_cin_wrapper_rejects_bad_inputs(cuda):
         ck.cin_cuda(xk, x0, w[:, :, :4].contiguous())
     with pytest.raises(ValueError):                      # not on the card
         ck.cin_cuda(xk.cpu(), x0, w)
+
+
+# ------------------------------------ rows 8, 9 (sparse SGD / Adam), 13 (bag)
+
+def _row_stream(rng, unique, rows, d):
+    """The row layout: one index per row, values [K, d]; bucketed streams
+    carry runs up to 40 (a warp folds a run per column)."""
+    if unique:
+        live = np.sort(rng.choice(rows, 300, replace=False)).astype(np.int32)
+        idx = np.concatenate([live, np.full(37, rows, np.int32)])
+    else:
+        slots = np.sort(rng.choice(rows, 200, replace=False))
+        runs = rng.geometric(0.2, slots.shape[0])
+        runs[:2] = (40, 33)
+        idx = np.repeat(slots, runs).astype(np.int32)
+    vals = (rng.normal(0, 1, (idx.shape[0], d))
+            * 10.0 ** rng.uniform(-6, 0, (idx.shape[0], 1))).astype(np.float32)
+    vals[idx >= rows] = 0.0
+    return idx, vals
+
+
+def _states(cuda, algo, shape, rowwise=False):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    if algo == "sgd":
+        return (torch.randn(shape, generator=g, device=cuda),)
+    if algo == "adagrad":
+        return (torch.rand(shape, generator=g, device=cuda),)
+    nu_shape = shape[:1] if rowwise else shape
+    return (torch.randn(shape, generator=g, device=cuda) * 1e-3,
+            torch.rand(nu_shape, generator=g, device=cuda) * 1e-6)
+
+
+_HYPER = {"sgd": dict(lr=0.01, momentum=0.9),
+          "adagrad": dict(lr=0.01, eps=1e-10),
+          "adam": dict(lr=0.01, b1=0.9, b2=0.999, bc1=0.271, bc2=0.00299,
+                       eps=1e-8)}
+
+
+def _check_update(cuda, algo, idx, vals, states, unique):
+    """Kernel vs plain version on copies of the states: updates and states
+    bit-equal (row-wise nu within 1e-6 relative, the plain version's row
+    mean order kept by the kernel, so equal in practice), untouched slots
+    bit-unchanged."""
+    from repro_torch.kernels.sparse_update import ref as sref
+    idx, vals = torch.from_numpy(idx).to(cuda), torch.from_numpy(vals).to(cuda)
+    mine = tuple(s.clone() for s in states)
+    plain = tuple(s.clone() for s in states)
+    u_k, _ = su.sparse_update(algo, idx, vals, mine, unique=unique,
+                              **_HYPER[algo])
+    u_p, _ = getattr(sref, f"sparse_{algo}_ref")(idx, vals, *plain,
+                                                 unique=unique,
+                                                 **_HYPER[algo])
+    assert torch.equal(u_k, u_p)
+    lead = states[0].shape[0]
+    touched = torch.zeros(lead, dtype=torch.bool, device=cuda)
+    touched[idx[idx < lead].long()] = True
+    for s0, k, p in zip(states, mine, plain):
+        assert torch.equal(k, p)
+        assert torch.equal(k[~touched].view(torch.int32),
+                           s0[~touched].view(torch.int32))
+
+
+@pytest.mark.parametrize("unique", [True, False])
+@pytest.mark.parametrize("algo", ["sgd", "adam"])
+def test_sparse_sgd_adam_flat_match_plain(cuda, algo, unique):
+    """Flat [m] states: runs up to 2^15 (the warp pass) and sentinel tails."""
+    idx, vals = _stream(np.random.default_rng(9), unique)
+    _check_update(cuda, algo, idx, vals, _states(cuda, algo, (M,)), unique)
+
+
+@pytest.mark.parametrize("unique", [True, False])
+@pytest.mark.parametrize("algo,rowwise", [("sgd", False), ("adagrad", False),
+                                          ("adam", False), ("adam", True)])
+@pytest.mark.parametrize("d", [64, 8, 100])
+def test_sparse_update_row_layout_matches_plain(cuda, algo, rowwise, unique,
+                                                d):
+    """[rows, d] states with [K, d] values (the row-mode SparseGrad), at
+    dlrm-rm2's d = 64, below a warp and off a power of two; Adam's row-wise
+    nu too."""
+    rows = 1024
+    idx, vals = _row_stream(np.random.default_rng(d), unique, rows, d)
+    _check_update(cuda, algo, idx, vals,
+                  _states(cuda, algo, (rows, d), rowwise), unique)
+
+
+def test_optimizers_launch_sgd_and_adam(cuda):
+    """sparse_sgd and sparse_rowwise_adam on a SparseGrad launch their
+    kernels once a step, lazily: untouched parameters keep their bits."""
+    from repro_torch.optim import sparse as sp
+    from repro_torch.optim.optimizers import apply_updates
+
+    rng = np.random.default_rng(12)
+    for opt, kernel in ((sp.sparse_sgd(0.1, 0.9), sk.sparse_sgd_cuda),
+                        (sp.sparse_rowwise_adam(0.1), sk.sparse_adam_cuda)):
+        mem = _mem(cuda)
+        p0 = mem.clone()
+        state = opt.init({"memory": mem})
+        before = kernel.launches
+        loc = torch.from_numpy(rng.integers(0, M // 4, 500).astype(np.int32))
+        for _ in range(3):
+            g = sp.from_locations(loc.to(cuda), torch.randn(500, device=cuda),
+                                  (M,))
+            updates, state = opt.update({"memory": g}, state, {"memory": mem})
+            apply_updates({"memory": mem}, updates)
+        assert kernel.launches == before + 3
+        assert torch.equal(mem[M // 4:], p0[M // 4:])
+
+
+@pytest.mark.parametrize("B,L,V,d", [(2048, 32, 65_536, 64), (333, 26, 5000, 64),
+                                     (130, 7, 300, 10), (5, 40, 100, 256),
+                                     (64, 0, 10, 8)])
+def test_embedding_bag_kernel_matches_plain(cuda, B, L, V, d):
+    """Within 1e-6 of each output's sum_l |w T| (float32 sums in another
+    order); B off 128, L past a warp, d below a warp and at its limit."""
+    from repro_torch.kernels.embedding_bag import kernel as ek
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    g = torch.Generator(device=cuda).manual_seed(B)
+    table = torch.randn((V, d), generator=g, device=cuda)
+    ids = torch.randint(0, V, (B, L), generator=g, device=cuda,
+                        dtype=torch.int32)
+    w = torch.rand((B, L), generator=g, device=cuda) - 0.5
+    before = ek.embedding_bag_cuda.launches
+    got = eb.embedding_bag(table, ids, w)
+    assert ek.embedding_bag_cuda.launches == before + 1
+    want = embedding_bag_ref(table, ids, w)
+    scale = torch.einsum("bl,bld->bd", w.abs().double(),
+                         table[ids.long()].abs().double())
+    assert got.shape == (B, d)
+    assert float(((got - want).abs() / scale.clamp_min(1e-30)).max()) <= 1e-6
+    with pytest.raises(ValueError):                      # not on the card
+        ek.embedding_bag_cuda(table, ids.cpu(), w)
+
+
+def test_subnormal_moments_match_plain(cuda):
+    """A gradient of 3e-20 gives Adam a subnormal second moment (about
+    9e-43): kernel and plain version both keep it (PyTorch's index_add_
+    on the card, an atomic add, would flush it to zero)."""
+    from repro_torch.kernels.sparse_update import ref as sref
+    idx = torch.arange(0, 64, 2, dtype=torch.int32, device=cuda)
+    vals = torch.full((32,), 3e-20, device=cuda)
+    mine = (torch.zeros(M, device=cuda), torch.zeros(M, device=cuda))
+    plain = (torch.zeros(M, device=cuda), torch.zeros(M, device=cuda))
+    u_k, _ = su.sparse_update("adam", idx, vals, mine, **_HYPER["adam"])
+    u_p, _ = sref.sparse_adam_ref(idx, vals, *plain, **_HYPER["adam"])
+    nu = mine[1][idx.long()]
+    assert bool((nu > 0).all()) and bool((nu < 1.17e-38).all())
+    assert torch.equal(u_k, u_p)
+    for a, b in zip(mine, plain):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

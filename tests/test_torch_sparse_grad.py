@@ -5,10 +5,14 @@ JAX reference (``repro.optim.sparse``) on the CPU.
   indices exact, values exact (the same stable sort, the same left-to-right
   segment sums).
 - The capture's SparseGrad against ``sparse_value_and_grad``'s for lma
-  (striped, so bucketed) and hashed_elem (flat dedup): indices exact, values
-  within 1e-7 absolute (the gradients themselves come from two autograd
-  engines, which may round the loss's mean and product differently), and
-  the pool's ``.grad`` stays None.
+  (striped, so bucketed), hashed_elem (flat dedup) and hashed_row (row
+  mode: one index per pool row, [K, d] values, dense_shape (m // d, d)):
+  indices exact, values within 1e-7 absolute (the gradients themselves come
+  from two autograd engines, which may round the loss's mean and product
+  differently), and the pool's ``.grad`` stays None.
+- Row mode's edges: hashed_row's row ids bit-exact (ids and seeds >= 2^31),
+  a ragged budget falls back to element-level records as the reference's
+  does, and one pool with row and element records is an error.
 """
 from __future__ import annotations
 
@@ -89,7 +93,8 @@ def _setup(kind):
 
 
 @pytest.mark.parametrize("kind,bucketed", [("lma", True),
-                                           ("hashed_elem", False)])
+                                           ("hashed_elem", False),
+                                           ("hashed_row", False)])
 def test_capture_matches_sparse_value_and_grad(kind, bucketed):
     jt, jbufs, jp, tt, tbufs, mem = _setup(kind)
     rng = np.random.default_rng(7)
@@ -119,6 +124,7 @@ def test_capture_matches_sparse_value_and_grad(kind, bucketed):
     tsg = cap.grads({"embedding.memory": mem})["embedding.memory"]
     assert not cap.records
     assert (tsg.unique, tsg.buckets) == (jsg.unique, jsg.buckets)
+    assert tsg.dense_shape == jsg.dense_shape
     assert tsg.unique is not bucketed
     np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-6)
     assert np.array_equal(np.asarray(jsg.indices), tsg.indices.numpy())
@@ -134,3 +140,65 @@ def test_no_capture_gives_a_dense_pool_gradient():
     out.sum().backward()
     assert mem.grad is not None and mem.grad.shape == (4096,)
     assert tsp.active() is None
+
+
+def test_sparse_row_ids_bit_exact():
+    """hashed_row's row index, ids and seeds >= 2^31 included, and the
+    element locations it implies."""
+    rng = np.random.default_rng(4)
+    gids = rng.integers(0, 2**32, 3000, dtype=np.uint64).astype(np.uint32)
+    gids[:5] = (0, 1, 2**31, 2**32 - 1, 2**31 - 1)
+    for seed in (0, 0x9000_0001, 2**32 - 7):
+        jt = jscheme("hashed_row")
+        cfg = jt.build_config((1000,), 64, 135_053_312, seed=seed)
+        want = np.asarray(jt.sparse_row_ids(cfg, {}, jnp.asarray(gids)))
+        tcfg = tscheme("hashed_row").build_config((1000,), 64, 135_053_312,
+                                                  seed=seed)
+        tg = torch.from_numpy(gids.view(np.int32))
+        got = tscheme("hashed_row").sparse_row_ids(tcfg, {}, tg)
+        assert got.dtype == torch.int32
+        assert np.array_equal(want, got.numpy())
+        loc = tscheme("hashed_row").locations(tcfg, {}, tg)
+        assert torch.equal(loc, got[:, None] * 64 + torch.arange(64))
+    assert tscheme("lma").sparse_row_ids(None, {}, tg) is None
+
+
+def test_ragged_budget_falls_back_to_element_mode():
+    """m % d != 0 cannot tile into rows: hashed_row records element-level
+    locations, as the reference's test of the same name demands."""
+    jt = JTable(jscheme("hashed_row").build_config((128,), 4, 66, seed=1))
+    tt = TTable(tscheme("hashed_row").build_config((128,), 4, 66, seed=1))
+    jp = {"embedding": jt.init(jax.random.key(0))}
+    mem = torch.nn.Parameter(torch.from_numpy(
+        np.array(jp["embedding"]["memory"])))
+    ids = np.arange(8, dtype=np.int32)
+
+    def jloss(p, _):
+        return jnp.mean(jt.embed(p["embedding"], {}, 0,
+                                 jnp.asarray(ids)) ** 2), {}
+
+    (_, _), jg = jsp.sparse_value_and_grad(jloss)(jp, None)
+    jsg = jg["embedding"]["memory"]
+    with tsp.capture() as cap:
+        torch.mean(tt.embed({"memory": mem}, {}, 0,
+                            torch.from_numpy(ids)) ** 2).backward()
+    tsg = cap.grads({"memory": mem})["memory"]
+    assert tsg.dense_shape == jsg.dense_shape == (66,)
+    assert tsg.values.dim() == 1 and tsg.unique
+    assert np.array_equal(np.asarray(jsg.indices), tsg.indices.numpy())
+    np.testing.assert_allclose(tsg.values.numpy(), np.asarray(jsg.values),
+                               rtol=0, atol=1e-7)
+
+
+def test_one_pool_mixing_row_and_element_records_raises():
+    mem = torch.nn.Parameter(torch.zeros(64))
+    with tsp.capture() as cap:
+        a = cap.lookup(mem, lambda: mem[:8].reshape(2, 4),
+                       lambda: torch.tensor([0, 3], dtype=torch.int32),
+                       row_width=4)
+        b = cap.lookup(mem, lambda: mem[8:16].reshape(2, 4),
+                       lambda: torch.arange(8, dtype=torch.int32).reshape(2,
+                                                                          4))
+        (a.sum() + b.sum()).backward()
+    with pytest.raises(ValueError, match="mixes row- and element-level"):
+        cap.grads({"memory": mem})
