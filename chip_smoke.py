@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: serve and train
 full-width dlrm-rm2 (Adagrad, momentum SGD and Adam; LMA and hashed_row),
-then full-width xDeepFM.
+then full-width xDeepFM, then dlrm-rm2 with its pool and D' store sharded
+over 4 ranks on the same card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 sm_90 card and ``nvcc``; it imports only torch, numpy and ``repro_torch``
@@ -90,15 +91,42 @@ Phases (any failure raises and ends the run with a non-zero code):
      taken both ways from one state and held together by ``check_step``
      for both pools;
  17. time the CIN kernel (CUDA-graph replay) per layer at B=512 and B=4096
-     beside its bound, its plain version and one torch.einsum; print one
-     line per kernel, the ``kernels`` JSON line, the card line, and last
-     the result line.
+     beside its bound, its plain version and one torch.einsum; then free
+     xDeepFM;
+ 23. the one-card oracle: rebuild dlrm-rm2 from the seed, record the
+     logits of a 512-request batch, hashed_row's lookup of it, and 4
+     Adagrad steps at B=65,536 taken sparse and dense from one state
+     (losses, the final pool and dense parameters); save them on the host
+     and free the card;
+ 24. spawn 4 ranks on this card with the gloo backend (``run_ranks``: a
+     FileStore, the ``spawn`` start method; every collective staged through
+     host memory, counted and timed, so its times are not NVLink's); each
+     rank builds its slab of the pool and its rows of the store (padded to
+     ``store_rows``) from the same seed;
+ 25. on every rank, rows 10-12 and the slab mode of rows 2 and 5 against
+     their plain versions at the 512-request and B=65,536 chunk shapes:
+     rows 10, 11 and the slab lookup bit-exact, rows 12 and 5 within 1e-6
+     of each slot's sum |g|;
+ 26. the sharded forward of the 512 batch under psum, ring and all_to_all,
+     every rank's logits bit-equal to the oracle's, with exact launches per
+     rank; hashed_row's lookup under ring bit-equal to its one-card lookup;
+ 27. under each strategy, 4 steps through each rank's Trainer, sparse and
+     dense from one state (``check_step`` on the rank's slab, exact
+     launches): the sparse run's losses, slabs and dense parameters
+     bit-equal to the oracle's, the dense losses too; losses and dense
+     parameters bit-equal across ranks; steps/s, the phase split, each
+     rank's peak memory and its host-staged collective time;
+ 28. on rank 0, time rows 10-12 (CUDA-graph replay) at the B=65,536 chunk
+     shapes beside their bounds and plain versions; print one line per
+     kernel, the ``kernels`` JSON line, the card line, and last the result
+     line.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -339,7 +367,10 @@ def global_ids(torch, cfg, batch, dev):
 
 # ------------------------------------------------------------------ phases
 
-def build_model(torch, dev, arch: str = "dlrm-rm2"):
+def build_model(torch, dev, arch: str = "dlrm-rm2", mesh=None):
+    """The model at full width from the seed, and its D' store planted and
+    made very sparse.  With a mesh, this rank's share: the pool's slab and
+    the rows of the store padded to ``store_rows`` (length 0, empty sets)."""
     from repro_torch.configs import get_config
     from repro_torch.core.signatures import planted_dense_store
     from repro_torch.models.recsys import Recsys, linear_config
@@ -347,7 +378,7 @@ def build_model(torch, dev, arch: str = "dlrm-rm2"):
     cfg = get_config(arch).make_model()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    model = Recsys(cfg, gen, device=dev).eval()
+    model = Recsys(cfg, gen, device=dev, mesh=mesh).eval()
     store = planted_dense_store(cfg.embedding.total_vocab, N_CLUSTERS,
                                 max_set=cfg.embedding.lma.max_set, seed=SEED,
                                 device=dev)
@@ -357,7 +388,18 @@ def build_model(torch, dev, arch: str = "dlrm-rm2"):
     store.sets[one, 1:] = -1
     store.lengths[zero] = 0
     store.lengths[one] = 1
-    bufs = cfg.table.make_buffers(store)
+    if mesh is None:
+        bufs = cfg.table.make_buffers(store)
+    else:
+        # this rank's rows of the store padded to store_rows (the pad rows,
+        # length 0 and empty sets, all on the last rank), cut before the
+        # padding so that the whole store is never copied
+        from repro_torch.dist.sharding import pad_rows, store_rows
+        c = store_rows(store.n_values) // mesh.model
+        lo = mesh.rank * c
+        hi = min(lo + c, store.n_values)
+        bufs = {"store_sets": pad_rows(store.sets[lo:hi], c, -1),
+                "store_lengths": pad_rows(store.lengths[lo:hi], c, 0)}
     torch.cuda.synchronize()
     p = cfg.embedding.lma
     pools = f"m={p.m} stripe={p.stripe} d={p.d}"
@@ -1229,14 +1271,18 @@ def step_launches(cfg, optimizer: str, path: str) -> dict:
 
 
 def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
-                     kernels, optimizer: str | None = None) -> dict:
-    """TRAIN_STEPS steps of B examples through the port's Trainer with
+                     kernels, optimizer: str | None = None,
+                     steps: int = TRAIN_STEPS, per_step: dict | None = None,
+                     localize=None, tag: str = "") -> dict:
+    """``steps`` steps of B examples through the port's Trainer with
     sparse pool gradients and the arch's optimizer (or ``optimizer``, as
     ``dataclasses.replace(arch, optimizer=...)`` gives it to
     make_optimizer); before each, the same step densely (a second Trainer
     with sparse_grads=False) from the same parameters and optimizer state,
     and the two results held to each other (``check_step``).  Each run must
-    launch exactly ``step_launches`` per step.  -> launches per run,
+    launch exactly ``step_launches`` (or ``per_step[path]``) per step.  On a
+    rank of a sharded pool, ``localize(grads)`` cuts the sparse path's
+    SparseGrads to the rank's slab before the check.  -> launches per run,
     throughput, phase split, parity."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import lookups_per_step, make_optimizer
@@ -1247,7 +1293,7 @@ def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
     arch = get_config(arch_id)
     if optimizer is not None:
         arch = dataclasses.replace(arch, optimizer=optimizer)
-    label = f"{arch_id} ({cfg.embedding.kind}, {arch.optimizer})"
+    label = f"{arch_id} ({cfg.embedding.kind}, {arch.optimizer}){tag}"
     params = dict(model.named_parameters())
     pools = [k for k in params if has_memory({k: None})]
     timers, trainers, opts, runs = {}, {}, {}, {}
@@ -1281,7 +1327,7 @@ def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
 
     for k in kernels.values():
         k.launches = 0
-    for n in range(1, TRAIN_STEPS + 1):
+    for n in range(1, steps + 1):
         with torch.no_grad():
             p0 = {k: q.detach().clone() for k, q in params.items()}
             st0 = {k: clone_state(torch, sparse_tr.opt_state[k])
@@ -1299,6 +1345,8 @@ def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
                 raise AssertionError(f"{k} has a dense .grad on the sparse "
                                      "path")
         states = {"sparse": sparse_tr.opt_state, "dense": dense_tr.opt_state}
+        if localize is not None:
+            opts["sparse"].grads = localize(opts["sparse"].grads)
         with torch.no_grad():
             check_step(torch, n, p0, st0, p_dense, params, states, opts,
                        arch, parity, streams)
@@ -1313,7 +1361,7 @@ def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
                                                + r["batch_sec"])
         if not np.isfinite(r["losses"]).all():
             raise AssertionError(f"{name}: non-finite loss {r['losses']}")
-        log(f"train {label} {name}: B={B}, {TRAIN_STEPS} steps, losses "
+        log(f"train {label} {name}: B={B}, {steps} steps, losses "
             + " ".join(f"{x:.5f}" for x in r["losses"])
             + f"; {r['steps_per_sec']:.2f} steps/s, "
             f"{r['lookups_per_sec']:,.0f} lookups/s; phases (ms, median) "
@@ -1348,9 +1396,10 @@ def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
                if "dense_untouched_moved" in par else "")
             + "; losses within rtol 1e-6 (the same forward)")
     for name in ("sparse", "dense"):
-        per_step = step_launches(cfg, arch.optimizer, name)
+        one = (step_launches(cfg, arch.optimizer, name) if per_step is None
+               else per_step[name])
         got = runs[name]["launches"]
-        want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in got}
+        want = {k: one.get(k, 0) * steps for k in got}
         if got != want:
             raise AssertionError(f"{label} {name} run launched {got}, "
                                  f"expected {want}")
@@ -1530,15 +1579,16 @@ def measure_training(torch, cfg, model, bufs, gen, train_batch, plain_full,
 
 # ------------------------------------- rows 8, 9 (sparse SGD, Adam), 13 (bag)
 
-def build_hashed_row(torch, dev):
+def build_hashed_row(torch, dev, mesh=None):
     """dlrm-rm2 with hashed_row at the same budget: 135,053,312 / 64 =
-    2,110,208 pool rows, so its sparse gradient is row mode."""
+    2,110,208 pool rows, so its sparse gradient is row mode (with a mesh,
+    this rank's slab of the pool)."""
     from repro_torch.configs import get_config
     from repro_torch.models.recsys import Recsys
 
     cfg = get_config("dlrm-rm2").make_model(embedding_kind="hashed_row")
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
-    model = Recsys(cfg, gen, device=dev).eval()
+    model = Recsys(cfg, gen, device=dev, mesh=mesh).eval()
     e = cfg.embedding
     log(f"model: dlrm-rm2 (hashed_row), m={e.budget}, "
         f"{e.budget // e.dim} rows of d={e.dim}")
@@ -1969,6 +2019,570 @@ def run_xdeepfm(torch, dev, kernels) -> tuple:
     return counts, cin_err, res, serving, train
 
 
+# ------------------------------------------- dlrm-rm2 sharded over 4 ranks
+
+SHARD_RANKS = 4
+SHARD_STEPS = 4                 # per strategy, sparse and dense
+STRATEGIES = ("psum", "ring", "all_to_all")
+# the launches of one sharded forward on each rank (the lookup, then the
+# dot): psum's slab-mode lookup over the whole batch; ring's chunk lookup
+# and three visiting-chunk gathers; all_to_all's chunk locations and one
+# whole-batch gather
+SHARD_FORWARD = {
+    "psum": {"fused_embed": 1, "dot_interaction": 1},
+    "ring": {"fused_chunk_lookup": 1, "fused_chunk_gather": 3,
+             "dot_interaction": 1},
+    "all_to_all": {"fused_locations": 1, "fused_chunk_gather": 1,
+                   "dot_interaction": 1},
+}
+# a training step adds the pool gradient: sparse, psum's locations on its
+# reconstructed rows (ring and all_to_all reuse the exchange's) and the
+# slab's sparse Adagrad; dense, the slab's scatter (psum's recomputes its
+# locations, the chunk scatter takes the exchange's)
+SHARD_STEP = {
+    s: {"sparse": dict(f, sparse_adagrad=1,
+                       **({"fused_locations": f.get("fused_locations", 0)
+                           + 1} if s == "psum" else {})),
+        "dense": dict(f, **({"fused_scatter_add": 1} if s == "psum"
+                            else {"fused_chunk_scatter": 1}))}
+    for s, f in SHARD_FORWARD.items()}
+
+
+def shard_kernels() -> dict:
+    """Every kernel wrapper of the JSON line, by name (a rank's counters)."""
+    from repro_torch.kernels.cin.kernel import cin_cuda
+    from repro_torch.kernels.dot_interaction.kernel import dot_interaction_cuda
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+    from repro_torch.kernels.fused_embed import kernel as fk
+    from repro_torch.kernels.lma_locations.kernel import lma_locations_cuda
+    from repro_torch.kernels.sparse_update import kernel as sk
+
+    return {"lma_locations": lma_locations_cuda,
+            "fused_embed": fk.fused_lookup_cuda,
+            "dot_interaction": dot_interaction_cuda,
+            "fused_locations": fk.fused_locations_cuda,
+            "fused_scatter_add": fk.fused_scatter_add_cuda,
+            "fused_weight_grad": fk.fused_weight_grad_cuda,
+            "sparse_adagrad": sk.sparse_adagrad_cuda,
+            "cin": cin_cuda,
+            "sparse_sgd": sk.sparse_sgd_cuda,
+            "sparse_adam": sk.sparse_adam_cuda,
+            "embedding_bag": embedding_bag_cuda,
+            "fused_chunk_lookup": fk.fused_chunk_lookup_cuda,
+            "fused_chunk_gather": fk.fused_chunk_gather_cuda,
+            "fused_chunk_scatter": fk.fused_chunk_scatter_cuda}
+
+
+class HostBatches:
+    """Training batches made once on the host, served by step."""
+
+    def __init__(self, batches: list):
+        self.batches = batches
+
+    def batch(self, B: int, step: int) -> dict:
+        return self.batches[step]
+
+
+def sharded_oracle(torch, dev, kernels, check_batch, batches, path) -> dict:
+    """Phase 23: dlrm-rm2 rebuilt from the seed on one card: the logits of
+    the 512-request batch, hashed_row's lookup of it, and SHARD_STEPS steps
+    at B=65,536 taken sparse and dense from one state (``train_full_width``:
+    losses, then the final pool and dense parameters).  Saved to ``path``
+    on the host; the card is freed."""
+    import gc
+
+    cfg, model, bufs = build_model(torch, dev)
+    with torch.no_grad():
+        logits = model(on_card(torch, check_batch, dev), bufs).cpu()
+    hr_cfg, hr_model, _ = build_hashed_row(torch, dev)
+    with torch.no_grad():
+        hr = hr_cfg.table.embed_fields(
+            dict(hr_model.embedding), {},
+            torch.from_numpy(check_batch["sparse"]).to(dev)).cpu()
+    del hr_model
+    B = batches[0]["label"].shape[0]
+    train = train_full_width(torch, "dlrm-rm2", cfg, model, bufs,
+                             HostBatches(batches), B, dev, kernels,
+                             steps=SHARD_STEPS, tag=" one-card oracle")
+    oracle = {"logits": logits, "hr": hr,
+              "losses": {k: train[k]["losses"] for k in ("sparse", "dense")},
+              "params": {k: q.detach().cpu()
+                         for k, q in model.named_parameters()},
+              "launches": {k: train[k]["launches"]
+                           for k in ("sparse", "dense")}}
+    torch.save(oracle, path)
+    del cfg, model, bufs, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"one-card oracle saved ({Path(path).stat().st_size / 2**30:.2f} "
+        "GiB on the host); card freed: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return oracle
+
+
+def slab_of(mesh, n: int) -> tuple[int, int]:
+    """(base, length) of this rank's slab of an [n] pool."""
+    m_local = n // mesh.model
+    return mesh.rank * m_local, m_local
+
+
+def chunk_inputs(torch, mesh, cfg, bufs, gids):
+    """This rank's chunk of the ids and its D' rows and support, through
+    the exchange's set reconstruction (the chunk engine's own)."""
+    from repro_torch.dist import exchange as exl
+
+    p = cfg.embedding.lma
+    c = gids.numel() // mesh.model
+    chunk = gids[mesh.rank * c:(mesh.rank + 1) * c]
+    sets = bufs["store_sets"][:, : p.max_set]
+    packed = torch.cat([sets, bufs["store_lengths"][:, None]], dim=1)
+    rows, = exl.ALL_TO_ALL.set_lookup_many((packed,), chunk, mesh)
+    return (chunk, rows[:, : p.max_set].contiguous(),
+            rows[:, p.max_set].contiguous())
+
+
+def held_to_sum_abs(torch, got, want, abs_sum) -> float:
+    """max |got - want| / sum |g| over the slots, raising above SUM_RTOL."""
+    diff = (got - want).abs().double()
+    ratio = float((diff / abs_sum.clamp_min(1e-30)).max())
+    if bool((diff > SUM_RTOL * abs_sum).any()):
+        raise AssertionError(f"max |err| / sum |g| {ratio:.3g} > {SUM_RTOL}")
+    return ratio
+
+
+def check_chunk_kernels(torch, mesh, cfg, model, bufs, batch, dev) -> dict:
+    """Phase 25 on one batch: rows 10 and 11 and the slab-mode lookup (row
+    2) bit-exact against their plain versions (over FULL_CHUNK pieces),
+    rows 12 and 5 in slab mode within SUM_RTOL of each slot's sum |g|.
+    Shapes: this rank's chunk (row 10, the slab lookup, row 11's ring step,
+    row 5) and the whole batch (row 11's all_to_all gather, row 12).  ->
+    errors, the plain versions' times and the inputs, for the timings."""
+    from repro_torch.dist import collectives as col
+    from repro_torch.kernels.fused_embed import ops as fe
+    from repro_torch.kernels.fused_embed import kernel as fk
+    from repro_torch.kernels.fused_embed import ref as fref
+
+    p = cfg.embedding.lma
+    spec = fe.lma_spec(p)
+    slab = model.embedding["memory"].detach()
+    base, m_local = slab_of(mesh, p.m)
+    gids = global_ids(torch, cfg, batch, dev)
+    chunk, rows, support = chunk_inputs(torch, mesh, cfg, bufs, gids)
+    c, N = chunk.numel(), gids.numel()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30 + mesh.rank)
+    plain = {"fused_chunk_lookup": 0.0, "fused_chunk_gather": 0.0,
+             "fused_chunk_scatter": 0.0}
+    err = {}
+    with torch.no_grad():
+        part, loc = fk.fused_chunk_lookup_cuda(spec, slab, chunk, rows,
+                                               support, base)
+        slab_lookup = fk.fused_lookup_cuda(spec, slab, chunk, rows, support,
+                                           base=base)
+        g_c = torch.randn((c, p.d), generator=gen, device=dev) * 1e-3
+        dm5 = fk.fused_scatter_add_cuda(spec, g_c, chunk, rows, support,
+                                        base=base, m_local=m_local)
+        want5 = torch.zeros_like(dm5)
+        abs5 = torch.zeros(m_local, dtype=torch.float64, device=dev)
+        for a in range(0, c, FULL_CHUNK):
+            sl = slice(a, a + FULL_CHUNK)
+            piece = (chunk[sl], rows[sl], support[sl])
+            (w_part, w_loc), ms = events_ms(torch, lambda: fref.chunk_lookup_ref(
+                spec, slab, *piece, base=base))
+            plain["fused_chunk_lookup"] += ms
+            if not (torch.equal(loc[sl], w_loc) and torch.equal(part[sl], w_part)
+                    and torch.equal(slab_lookup[sl], w_part)):
+                raise AssertionError(f"rank {mesh.rank}: chunk lookup or the "
+                                     f"slab-mode lookup differ at B={N}")
+            want5 += fref.scatter_add_ref(spec, g_c[sl], *piece, base=base,
+                                          m_local=m_local)
+            rel = w_loc.reshape(-1).long() - base
+            inb = (rel >= 0) & (rel < m_local)
+            abs5.index_add_(0, rel[inb], g_c[sl].reshape(-1)[inb].abs().double())
+            del w_part, w_loc, rel, inb
+        err["fused_scatter_add"] = held_to_sum_abs(torch, dm5, want5, abs5)
+        del dm5, want5, abs5, slab_lookup
+        full = col.all_gather(loc, mesh).reshape(-1, p.d)
+        for locs in (loc, full):
+            got = fk.fused_chunk_gather_cuda(slab, locs, base)
+            want, ms = events_ms(torch, lambda: fref.chunk_gather_ref(
+                slab, locs, base))
+            if locs is loc:
+                if not torch.equal(got, part):
+                    raise AssertionError("chunk gather differs from the "
+                                         "chunk lookup's partial")
+            else:
+                plain["fused_chunk_gather"] = ms
+            if not torch.equal(got, want):
+                raise AssertionError(f"rank {mesh.rank}: chunk gather "
+                                     f"differs at {tuple(locs.shape)}")
+            del got, want
+        g = torch.randn((N, p.d), generator=gen, device=dev) * 1e-3
+        dm = fk.fused_chunk_scatter_cuda(full, g, base, m_local)
+        want, plain["fused_chunk_scatter"] = events_ms(
+            torch, lambda: fref.chunk_scatter_ref(full, g, base, m_local))
+        rel = full.reshape(-1).long() - base
+        inb = (rel >= 0) & (rel < m_local)
+        abs_sum = torch.zeros(m_local, dtype=torch.float64, device=dev
+                              ).index_add_(0, rel[inb],
+                                           g.reshape(-1)[inb].abs().double())
+        err["fused_chunk_scatter"] = held_to_sum_abs(torch, dm, want, abs_sum)
+        in_slab = int(inb.sum())
+        del dm, want, rel, inb, abs_sum
+    err["fused_chunk_lookup"] = err["fused_chunk_gather"] = 0
+    log(f"rank {mesh.rank} chunk kernels at B={N // cfg.n_fields} (chunk "
+        f"{c} values, slab {base}..{base + m_local}): rows 10 and 11 and the "
+        f"slab-mode lookup bit-exact; row 12 max |err| / sum |g| "
+        f"{err['fused_chunk_scatter']:.3g}, row 5 (slab) "
+        f"{err['fused_scatter_add']:.3g} (tol {SUM_RTOL}); {in_slab} of "
+        f"{N * p.d} whole-batch locations in the slab")
+    return {"err": err, "plain_ms": plain,
+            "inputs": (spec, slab, base, m_local, chunk, rows, support, loc,
+                       full, g, in_slab)}
+
+
+def measure_chunk_kernels(torch, inputs, plain: dict, p) -> dict:
+    """Phase 28 (rank 0, the other ranks idle): rows 10-12 by CUDA-graph
+    replay at the B=65,536 chunk shapes beside their bounds and plain
+    versions; no single PyTorch call computes a slab-masked gather or
+    scatter, so there is no library time."""
+    from repro_torch.kernels.fused_embed import kernel as fk
+
+    (spec, slab, base, m_local, chunk, rows, support, loc, full, g,
+     in_slab) = inputs
+    c, N, d = chunk.numel(), full.shape[0], p.d
+    res = {}
+    with torch.no_grad():
+        nbytes, ops = lma_work(torch, p, rows, support, fallback=True)
+        in_c = int(((loc >= base) & (loc < base + m_local)).sum())
+        # the locations are written too; only in-slab values are read
+        nbytes += c * d * 4 - (c * d - in_c) * 4
+        r = res["fused_chunk_lookup"] = {"batch": c}
+        r["ms"] = graph_ms(torch, lambda: fk.fused_chunk_lookup_cuda(
+            spec, slab, chunk, rows, support, base), 5)
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops, INT32_OP_PER_S)
+        r = res["fused_chunk_gather"] = {"batch": N}
+        r["ms"] = graph_ms(torch, lambda: fk.fused_chunk_gather_cuda(
+            slab, full, base), 10)
+        r["bound_ms"], r["bound_by"] = bound(N * d * 8 + in_slab * 4, 0,
+                                             INT32_OP_PER_S)
+        r["at_chunk"] = {"batch": c, "ms": graph_ms(
+            torch, lambda: fk.fused_chunk_gather_cuda(slab, loc, base), 20)}
+        r["at_chunk"]["bound_ms"] = bound(c * d * 8 + in_c * 4, 0,
+                                          INT32_OP_PER_S)[0]
+        r = res["fused_chunk_scatter"] = {"batch": N}
+        r["ms"] = graph_ms(torch, lambda: fk.fused_chunk_scatter_cuda(
+            full, g, base, m_local), 10)
+        r["bound_ms"], r["bound_by"] = bound(
+            N * d * 8 + in_slab * 8 + m_local * 4, 0, INT32_OP_PER_S)
+    for name, r in res.items():
+        r["plain_ms"] = plain[name]
+        r["library_ms"] = None
+        log(f"  {name} at {r['batch']} rows: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of bound; "
+            "library: none (no PyTorch call masks by slab)"
+            + (f"; at the chunk ({r['at_chunk']['batch']} rows) "
+               f"{r['at_chunk']['ms']:.4f} ms, bound "
+               f"{r['at_chunk']['bound_ms']:.4f} ms" if "at_chunk" in r
+               else ""))
+    return res
+
+
+def zero(kernels):
+    for k in kernels.values():
+        k.launches = 0
+
+
+def counts(kernels) -> dict:
+    return {n: k.launches for n, k in kernels.items() if k.launches}
+
+
+def sharded_forward(torch, mesh, cfg, model, bufs, batch, oracle, kernels,
+                    dev) -> dict:
+    """Phase 26: the 512-request forward under each strategy, each rank's
+    logits bit-equal to the one-card oracle's, with exact launches."""
+    from repro_torch.dist import exchange as exl
+    from repro_torch.dist.context import use_mesh
+
+    out = {}
+    b = on_card(torch, batch, dev)
+    for strategy in STRATEGIES:
+        zero(kernels)
+        exl.FORCED = strategy
+        with torch.no_grad(), use_mesh(mesh):
+            logits = model(b, bufs).cpu()
+        exl.FORCED = None
+        got = counts(kernels)
+        if got != SHARD_FORWARD[strategy]:
+            raise AssertionError(f"{strategy} forward launched {got}, "
+                                 f"expected {SHARD_FORWARD[strategy]}")
+        if not torch.equal(logits, oracle["logits"]):
+            raise AssertionError(f"rank {mesh.rank}: {strategy} logits differ "
+                                 "from one card's (max |diff| "
+                                 f"{float((logits - oracle['logits']).abs().max()):.3g})")
+        out[strategy] = got
+    log(f"sharded forward at B=512: logits bit-equal to one card's under "
+        f"{', '.join(STRATEGIES)}; launches per rank {out}")
+    return out
+
+
+def hashed_row_forward(torch, mesh, batch, oracle, kernels, dev) -> dict:
+    """Phase 26b: hashed_row's lookup of the 512 batch under ring (rows 10
+    and 11 with a hashed spec), bit-equal to its one-card lookup."""
+    from repro_torch.dist import exchange as exl
+    from repro_torch.dist.context import use_mesh
+
+    cfg, model, _ = build_hashed_row(torch, dev, mesh=mesh)
+    zero(kernels)
+    exl.FORCED = "ring"
+    with torch.no_grad(), use_mesh(mesh):
+        out = cfg.table.embed_fields(dict(model.embedding), {},
+                                     torch.from_numpy(batch["sparse"]).to(dev))
+    exl.FORCED = None
+    got = counts(kernels)
+    if got != {"fused_chunk_lookup": 1, "fused_chunk_gather": 3}:
+        raise AssertionError(f"hashed_row ring lookup launched {got}")
+    if not torch.equal(out.cpu(), oracle["hr"]):
+        raise AssertionError(f"rank {mesh.rank}: hashed_row ring lookup "
+                             "differs from one card's")
+    log(f"hashed_row sharded lookup under ring at B=512 bit-equal to one "
+        f"card's; launches {got}")
+    return got
+
+
+def localizer(torch, mesh):
+    """``localize`` for train_full_width: each SparseGrad cut to this
+    rank's K/P slice, which is its slab's whole stream (slab-aligned), with
+    slab-relative indices."""
+    from repro_torch.dist.sharded_memory import slab_aligned
+    from repro_torch.optim.sparse import SparseGrad, is_sparse
+
+    def localize(grads):
+        out = dict(grads)
+        for k, g in grads.items():
+            if not is_sparse(g):
+                continue
+            K = g.indices.numel()
+            if not slab_aligned(g.unique, g.buckets, K, mesh.model):
+                raise AssertionError(f"{k}: the stream is not slab-aligned")
+            k_r = K // mesh.model
+            base, m_local = slab_of(mesh, g.dense_shape[0])
+            sl = slice(mesh.rank * k_r, (mesh.rank + 1) * k_r)
+            out[k] = SparseGrad(g.indices[sl] - base, g.values[sl],
+                                (m_local,), unique=False, buckets=g.buckets)
+        return out
+
+    return localize
+
+
+def train_sharded(torch, mesh, cfg, model, bufs, batches, oracle, kernels,
+                  dev) -> dict:
+    """Phase 27: under each strategy, from the seed's state, SHARD_STEPS
+    steps at B=65,536 through each rank's Trainer, sparse and dense from
+    one state (``train_full_width``: check_step on this rank's slab, exact
+    launches).  The sparse run bit-equal to the oracle's (losses, the
+    rank's slab of the final pool, the dense parameters), the dense losses
+    too (the same forward).  -> per strategy: the runs' records and the
+    final dense parameters (host), for the cross-rank check."""
+    from repro_torch.dist import exchange as exl
+    from repro_torch.dist.context import use_mesh
+
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        init = {k: q.detach().clone() for k, q in params.items()}
+    B = batches[0]["label"].shape[0]
+    base, m_local = slab_of(mesh, cfg.embedding.lma.m)
+    out = {}
+    for strategy in STRATEGIES:
+        with torch.no_grad():
+            for k, q in params.items():
+                q.copy_(init[k])
+        exl.FORCED = strategy
+        t0 = time.perf_counter()
+        s0, b0 = sum(mesh.staged_s.values()), mesh.staged_bytes
+        with use_mesh(mesh):
+            runs = train_full_width(
+                torch, "dlrm-rm2", cfg, model, bufs, HostBatches(batches), B,
+                dev, kernels, steps=SHARD_STEPS,
+                per_step=SHARD_STEP[strategy],
+                localize=localizer(torch, mesh),
+                tag=f" {strategy}, rank {mesh.rank} of {mesh.model}")
+        exl.FORCED = None
+        wall = time.perf_counter() - t0
+        n = 2 * SHARD_STEPS
+        coll = {"s_per_step": (sum(mesh.staged_s.values()) - s0) / n,
+                "gib_per_step": (mesh.staged_bytes - b0) / n / 2**30}
+        for name in ("sparse", "dense"):
+            if runs[name]["losses"] != oracle["losses"][name]:
+                raise AssertionError(
+                    f"rank {mesh.rank} {strategy}: {name} losses "
+                    f"{runs[name]['losses']} differ from one card's "
+                    f"{oracle['losses'][name]}")
+        final = {k: q.detach().cpu() for k, q in params.items()}
+        for k, q in final.items():
+            want = oracle["params"][k]
+            if k.endswith("memory"):
+                want = want[base:base + m_local]
+            if not torch.equal(q, want):
+                raise AssertionError(f"rank {mesh.rank} {strategy}: {k} after "
+                                     f"{SHARD_STEPS} sparse steps differs "
+                                     "from one card's")
+        log(f"sharded {strategy}: {SHARD_STEPS} sparse steps bit-equal to one "
+            "card's (losses, this rank's slab, dense parameters); dense "
+            f"losses equal too; {wall:.1f} s for the {n} steps and their "
+            f"checks; host-staged collectives {coll['s_per_step']:.3f} s "
+            f"and {coll['gib_per_step']:.3f} GiB a step (host clock)")
+        out[strategy] = {
+            "runs": {k: runs[k] for k in ("sparse", "dense", "parity")},
+            "dense_params": {k: q for k, q in final.items()
+                             if not k.endswith("memory")},
+            "wall_s": wall, "collectives": coll}
+    return out
+
+
+def shard_rank(mesh, oracle_path: str, check_batch: dict,
+               batches: list) -> dict:
+    """One rank of phases 24-28 (run by ``run_ranks``): build this rank's
+    share of dlrm-rm2 from the seed, check rows 10-12 and the slab mode of
+    rows 2 and 5, the sharded forward and training against the one-card
+    oracle, and on rank 0 time rows 10-12.  Only rank 0 prints; the others'
+    records come back to the parent."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(
+            sink if mesh.rank else sys.stdout):
+        return _shard_rank(torch, mesh, oracle_path, check_batch, batches)
+
+
+def _shard_rank(torch, mesh, oracle_path, check_batch, batches) -> dict:
+    from repro_torch.dist import collectives as col
+
+    dev = mesh.device
+    oracle = torch.load(oracle_path, mmap=True, weights_only=False)
+    kernels = shard_kernels()
+    t0 = time.perf_counter()
+    cfg, model, bufs = build_model(torch, dev, mesh=mesh)
+    rec = {"rank": mesh.rank, "device": str(dev),
+           "device_name": torch.cuda.get_device_name(dev),
+           "build_s": time.perf_counter() - t0,
+           "backend": col.dist.get_backend(mesh.group)}
+    small = check_chunk_kernels(torch, mesh, cfg, model, bufs, check_batch,
+                                dev)
+    big = check_chunk_kernels(torch, mesh, cfg, model, bufs, batches[0], dev)
+    rec["err"] = {k: max(small["err"][k], big["err"][k]) for k in big["err"]}
+    rec["forward"] = sharded_forward(torch, mesh, cfg, model, bufs,
+                                     check_batch, oracle, kernels, dev)
+    rec["hashed_row_forward"] = hashed_row_forward(torch, mesh, check_batch,
+                                                   oracle, kernels, dev)
+    torch.cuda.reset_peak_memory_stats()
+    rec["train"] = train_sharded(torch, mesh, cfg, model, bufs, batches,
+                                 oracle, kernels, dev)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["staged"] = dict(mesh.staged)
+    rec["staged_gib"] = mesh.staged_bytes / 2**30
+    rec["staged_s"] = dict(mesh.staged_s)
+    col.psum(torch.zeros(1, device=dev), mesh)        # every rank is done
+    if mesh.rank == 0:
+        rec["res"] = measure_chunk_kernels(torch, big["inputs"],
+                                           big["plain_ms"], cfg.embedding.lma)
+    return rec
+
+
+def run_sharded(torch, dev, kernels, card: str) -> dict:
+    """Phases 23-28: the one-card oracle, then SHARD_RANKS gloo ranks on
+    this card (``shard_rank``); the ranks' losses and dense parameters held
+    equal.  -> launch counts by path, errors and timings."""
+    import tempfile
+
+    from repro_torch.dist.collectives import run_ranks
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs._recsys_common import RECSYS_SHAPE_TABLE
+
+    rng = np.random.default_rng(SEED + 40)
+    cfg = get_config("dlrm-rm2").make_model()
+    check_batch = draw_requests(rng, cfg.embedding.vocab_sizes, 512,
+                                cfg.n_dense)
+    gen = ctr_generator(cfg)
+    B = RECSYS_SHAPE_TABLE["train_batch"]["batch"]
+    batches = [gen.batch(B, s) for s in range(SHARD_STEPS)]
+    del gen
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "oracle.pt")
+        sharded_oracle(torch, dev, kernels, check_batch, batches, path)
+        log(f"spawning {SHARD_RANKS} ranks (world size {SHARD_RANKS}, mesh "
+            f"data=1 x model={SHARD_RANKS}) on {torch.cuda.get_device_name(0)}"
+            " with the gloo backend: every collective is staged through host "
+            "memory (a gloo all-reduce over loopback), so the exchange times "
+            "below are host-staged, not NVLink's")
+        t0 = time.perf_counter()
+        ranks = run_ranks(shard_rank, SHARD_RANKS, path, check_batch,
+                          batches, backend="gloo", device="cuda:0")
+        wall = time.perf_counter() - t0
+    for r in ranks:
+        log(f"rank {r['rank']}: {r['backend']} on {r['device']} "
+            f"({r['device_name']}); built in {r['build_s']:.1f} s; peak "
+            f"{r['peak_gib']:.2f} GiB while training; host-staged "
+            f"collectives {r['staged']} ({r['staged_gib']:.2f} GiB)")
+    for s in STRATEGIES:
+        ref = ranks[0]["train"][s]
+        for r in ranks[1:]:
+            t = r["train"][s]
+            for name in ("sparse", "dense"):
+                if t["runs"][name]["losses"] != ref["runs"][name]["losses"]:
+                    raise AssertionError(f"{s}: rank {r['rank']}'s {name} "
+                                         "losses differ from rank 0's")
+            for k, q in t["dense_params"].items():
+                if not torch.equal(q, ref["dense_params"][k]):
+                    raise AssertionError(f"{s}: rank {r['rank']}'s {k} "
+                                         "differs from rank 0's")
+    log(f"{SHARD_RANKS} ranks in {wall:.1f} s: losses and dense parameters "
+        "bit-equal across ranks under every strategy; card " + card)
+    paths = {}
+    for s in STRATEGIES:
+        paths[f"dlrm-rm2 sharded {s} forward (rank 0)"] = ranks[0]["forward"][s]
+        for name in ("sparse", "dense"):
+            paths[f"dlrm-rm2 sharded {s} train {name} (rank 0)"] = {
+                k: v for k, v in ranks[0]["train"][s]["runs"][name]
+                ["launches"].items() if v}
+    paths["dlrm-rm2 hashed_row sharded ring forward (rank 0)"] = \
+        ranks[0]["hashed_row_forward"]
+    err = {k: max(r["err"][k] for r in ranks) for k in ranks[0]["err"]}
+    log(f"chunk kernels, the largest over {SHARD_RANKS} ranks and both "
+        f"batches: row 12 max |err| / sum |g| "
+        f"{err['fused_chunk_scatter']:.4g}, row 5 (slab) "
+        f"{err['fused_scatter_add']:.4g} (tol {SUM_RTOL})")
+    train = {s: {"wall_s": [r["train"][s]["wall_s"] for r in ranks],
+                 "collectives": [r["train"][s]["collectives"] for r in ranks],
+                 **{name: {k: ranks[0]["train"][s]["runs"][name][k]
+                           for k in ("losses", "steps_per_sec", "phase_ms",
+                                     "peak_gib", "batch_sec")}
+                    for name in ("sparse", "dense")}}
+             for s in STRATEGIES}
+    summary = {"ranks": SHARD_RANKS, "backend": "gloo",
+               "collectives": "host-staged (not NVLink)", "wall_s": wall,
+               "peak_gib": [r["peak_gib"] for r in ranks],
+               "staged": ranks[0]["staged"],
+               "staged_gib": ranks[0]["staged_gib"],
+               "staged_s": ranks[0]["staged_s"], "train": train}
+    for s, t in train.items():
+        c = t["collectives"][0]
+        log(f"sharded train {s} (4 ranks on one card, gloo host-staged "
+            f"collectives): sparse {t['sparse']['steps_per_sec']:.2f} "
+            f"steps/s, dense {t['dense']['steps_per_sec']:.2f} steps/s; "
+            f"rank 0's host-staged collectives {c['s_per_step']:.3f} s and "
+            f"{c['gib_per_step']:.3f} GiB a step; "
+            "phases (ms, median, rank 0) sparse "
+            + ", ".join(f"{k} {v:.1f}" for k, v in
+                        t["sparse"]["phase_ms"].items())
+            + "; dense " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                     t["dense"]["phase_ms"].items()))
+    return {"paths": paths, "err": err, "res": ranks[0]["res"],
+            "summary": summary}
+
+
 # -------------------------------------------------------------------- main
 
 SOURCES = {
@@ -1993,15 +2607,24 @@ SOURCES = {
                     "src/repro/kernels/sparse_update/kernel.py:120"),
     "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag/kernel.py:56"),
+    "fused_chunk_lookup": ("src/repro_torch/csrc/fused_embed.cu",
+                           "src/repro/kernels/fused_embed/kernel.py:454"),
+    "fused_chunk_gather": ("src/repro_torch/csrc/fused_embed.cu",
+                           "src/repro/kernels/fused_embed/kernel.py:472"),
+    "fused_chunk_scatter": ("src/repro_torch/csrc/fused_embed.cu",
+                            "src/repro/kernels/fused_embed/kernel.py:490"),
 }
 
 # The batch of each kernel's JSON entry: the training batch for the rows the
 # training step launches at B=65,536; the smallest measured otherwise (for
 # the CIN, B=512, a served batch; its entry sums the three layers; for the
 # embedding bag, the reference's bench shape, B=2,048).  The sparse
-# optimizers' entries are the LMA pool's K=109,051,904 stream.
+# optimizers' entries are the LMA pool's K=109,051,904 stream; the chunk
+# kernels' (rows 10-12) rank 0's shapes of a sharded B=65,536 step.
 MAIN_BATCH = {"fused_locations": 65536, "fused_scatter_add": 65536}
 BY_STREAM = ("sparse_adagrad", "sparse_sgd", "sparse_adam")
+CHUNK_KERNELS = ("fused_chunk_lookup", "fused_chunk_gather",
+                 "fused_chunk_scatter")
 
 
 def main() -> int:
@@ -2014,16 +2637,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs._recsys_common import RECSYS_SHAPE_TABLE
     from repro_torch.kernels import KERNELS, build
-    from repro_torch.kernels.cin.kernel import cin_cuda
-    from repro_torch.kernels.dot_interaction.kernel import dot_interaction_cuda
-    from repro_torch.kernels.fused_embed.kernel import (
-        fused_locations_cuda, fused_lookup_cuda, fused_scatter_add_cuda,
-        fused_weight_grad_cuda)
-    from repro_torch.kernels.lma_locations.kernel import lma_locations_cuda
-    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
-    from repro_torch.kernels.sparse_update.kernel import (sparse_adagrad_cuda,
-                                                          sparse_adam_cuda,
-                                                          sparse_sgd_cuda)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2039,17 +2652,7 @@ def main() -> int:
     for name, rep in reports.items():
         regs = [ln.strip() for ln in rep.splitlines() if "Used" in ln]
         log(f"  {name}: {'; '.join(regs)}")
-    kernels = {"lma_locations": lma_locations_cuda,
-               "fused_embed": fused_lookup_cuda,
-               "dot_interaction": dot_interaction_cuda,
-               "fused_locations": fused_locations_cuda,
-               "fused_scatter_add": fused_scatter_add_cuda,
-               "fused_weight_grad": fused_weight_grad_cuda,
-               "sparse_adagrad": sparse_adagrad_cuda,
-               "cin": cin_cuda,
-               "sparse_sgd": sparse_sgd_cuda,
-               "sparse_adam": sparse_adam_cuda,
-               "embedding_bag": embedding_bag_cuda}
+    kernels = shard_kernels()
 
     cfg, model, bufs = build_model(torch, dev)
     rng = np.random.default_rng(SEED)
@@ -2114,10 +2717,25 @@ def main() -> int:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB (xdeepfm phases)")
 
+    # free xDeepFM, then dlrm-rm2 sharded over 4 ranks on this card
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shard = run_sharded(torch, dev, kernels, card)
+    paths.update(shard["paths"])
+    for name, e in shard["err"].items():
+        err[name] = max(err.get(name, 0.0), e)
+    res.update(shard["res"])
+    for name in CHUNK_KERNELS:
+        counts[name] = sum(c.get(name, 0) for c in shard["paths"].values())
+
     rows = []
     for name, (source, replaces) in SOURCES.items():
         r = res[name]
-        if name in BY_STREAM:
+        if name in CHUNK_KERNELS:
+            main_r, where = r, f"{r['batch']} rows"
+            extra = {k: r[k] for k in ("batch", "at_chunk") if k in r}
+        elif name in BY_STREAM:
             main_r = r
             extra = {k: r[k] for k in ("K", "slots", "rows") if k in r}
             where = f"K={r['K']}"
@@ -2153,6 +2771,7 @@ def main() -> int:
     log(json.dumps({"serving": runs, "card": card}))
     log(json.dumps({"xdeepfm": {"serving": xserving, "training": xtrain},
                     "card": card}))
+    log(json.dumps({"sharded": shard["summary"], "card": card}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import row_slab
 from repro_torch.models.recsys import RecsysConfig
 
 
@@ -17,14 +18,16 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)   # a writable, contiguous copy
 
 
-def params_from_jax(np_params: dict, cfg: RecsysConfig, device=None) -> dict:
+def params_from_jax(np_params: dict, cfg: RecsysConfig, device=None,
+                    mesh=None) -> dict:
     """Reference recsys parameter pytree (numpy leaves) -> the port's
     ``Recsys`` state dict, on the card unless ``device`` says otherwise.
 
     The embedding parameters copy straight across (``memory``,
     ``table_{t}``; xDeepFM's ``linear`` table too), and so do xDeepFM's CIN
     weights (``cin.layer_{i}``, [Ho, Hk, F]); a dense ``kernel [in, out]``
-    becomes ``Linear.weight [out, in]`` (transposed) and ``bias`` copies."""
+    becomes ``Linear.weight [out, in]`` (transposed) and ``bias`` copies.
+    With a mesh, each ``memory`` pool is this rank's slab of it."""
     if cfg.model not in ("dlrm", "xdeepfm"):
         raise NotImplementedError(cfg.model)
     dev = resolve_device(device)
@@ -32,6 +35,9 @@ def params_from_jax(np_params: dict, cfg: RecsysConfig, device=None) -> dict:
         else ("embedding",)
     state = {f"{t}.{k}": _tensor(v, dev)
              for t in tables for k, v in np_params[t].items()}
+    for t in tables:
+        if "memory" in np_params[t]:
+            state[f"{t}.memory"] = row_slab(state[f"{t}.memory"], mesh)
     if cfg.model == "xdeepfm":
         for name, w in np_params["cin"].items():
             state[f"cin.{name}"] = _tensor(w, dev)
@@ -51,15 +57,16 @@ def _dense_into(state: dict, prefix: str, layer: dict, dev) -> None:
         state[f"{prefix}.bias"] = _tensor(layer["bias"], dev)
 
 
-def buffers_from_numpy(np_buffers: dict, device=None) -> dict:
+def buffers_from_numpy(np_buffers: dict, device=None, mesh=None) -> dict:
     """Reference buffers (numpy) -> the port's, on the card unless
     ``device`` says otherwise: ``store_sets`` uint32 become int32 bit
-    patterns (PAD = -1), ``store_lengths`` stay int32."""
+    patterns (PAD = -1), ``store_lengths`` stay int32.  With a mesh, this
+    rank's rows of each (P must divide them)."""
     dev = resolve_device(device)
     out = {}
     for k, v in np_buffers.items():
         a = np.asarray(v)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
-        out[k] = _tensor(a, dev)
+        out[k] = row_slab(_tensor(a, dev), mesh)
     return out

@@ -1,23 +1,34 @@
 // Fused embedding engine on Hopper: the lookup (value ids + D' sets and
-// support for lma -> pool gather, optionally bag-pooled with weights) and
-// the three backward-side entry points that share its slot function.
+// support for lma -> pool gather, optionally bag-pooled with weights), the
+// three backward-side entry points that share its slot function, and the
+// three of the chunked exchange (a pool sharded over the 'model' axis).
 //
 // Replaces the TPU kernels of repro/kernels/fused_embed/kernel.py:
-//   fused_lookup_launch      <- _fwd_kernel (fused_lookup_fwd_pallas)
-//   fused_locations_launch   <- _locations_kernel (fused_locations_pallas)
-//   fused_scatter_add_launch <- _scatter_kernel (fused_scatter_add_pallas)
-//   fused_weight_grad_launch <- _weight_grad_kernel (fused_weight_grad_pallas)
+//   fused_lookup_launch        <- _fwd_kernel (fused_lookup_fwd_pallas)
+//   fused_locations_launch     <- _locations_kernel (fused_locations_pallas)
+//   fused_scatter_add_launch   <- _scatter_kernel (fused_scatter_add_pallas)
+//   fused_weight_grad_launch   <- _weight_grad_kernel (fused_weight_grad_pallas)
+//   fused_chunk_lookup_launch  <- _chunk_fwd_kernel (fused_chunk_fwd_pallas)
+//   fused_chunk_gather_launch  <- _gather_loc_kernel (fused_chunk_gather_pallas)
+//   fused_chunk_scatter_launch <- _scatter_loc_kernel (fused_chunk_scatter_pallas)
 // Same function: lma locations with the very-sparse A_h fallback (support <
 // min_support -> hash_pair(v, i) under seed ^ 0x1234567, striped when
 // stripe > 0), or hashed_elem / hashed_row locations; then the gather M[loc]
 // written as [N, d], or with weights the bag sum over L accumulated on chip
 // and written as [B, d].  The [N, d] locations and the [B, L, d] pre-pool
 // tensor never reach device memory, except where the locations ARE the
-// output (fused_locations: the SparseGrad's indices).
+// output (fused_locations: the SparseGrad's indices; the chunk lookup: the
+// locations the ring circulates).
 //
-// The TPU kernels held the whole pool (or the [m] gradient) in VMEM and so
-// had a size gate; here the gather reads device memory and the scatter adds
-// into it with atomics, so every pool size is served.
+// Slab mode (the lookup, the scatter-add and the three chunk entry points):
+// `mem` / `dmem` is one rank's [m_local] slab of the pool, starting at
+// global slot `base`.  A location outside [base, base + m_local) gathers an
+// exact 0 and scatters nothing (the reference's mask-local-gather).  The
+// single-card callers pass base = 0 and m_local = m, where the mask is all
+// true.  The TPU kernels tiled the slab into VMEM-sized blocks (a second
+// grid axis) so that an over-budget slab still fused; here the gather reads
+// device memory directly, so each element is one masked load and there is
+// no slab tiling.
 //
 // What bounds it on Hopper: for lma, integer ALU issue.  Per looked-up
 // value it evaluates d*n_h*S hashes of ~15 int32 operations (8,192 hashes,
@@ -28,7 +39,9 @@
 // fallback rows skip the minhash entirely (a warp-uniform branch), and each
 // lane owns its columns, so a warp's gathers, stores and atomics cover
 // adjacent slots of a stripe row-wise.  hashed_* schemes are gather-bound
-// and take the same path with no minhash.
+// and take the same path with no minhash.  The chunk gather and scatter
+// (given locations, no hashing) are bound by bytes: one thread per element,
+// neighbouring threads on neighbouring locations and outputs.
 //
 // Backward, in the same one-warp-per-value shape:
 //   - locations: the slot function written to [N, d] int32 (no gather);
@@ -37,7 +50,9 @@
 //     values follows the atomics, so it is not deterministic; hot slots
 //     (small-vocabulary fields, LMA's shared slots) contend in L2;
 //   - weight grad: dw[b, l] = <g[b], M[loc[b, l]]>, products summed per
-//     lane, then across the warp by shuffles.
+//     lane, then across the warp by shuffles;
+//   - chunk scatter: dM[loc - base] += g by given locations, atomicAdd into
+//     the zeroed [m_local] slab, one thread per element.
 #include <cuda_runtime.h>
 
 #include "hash_core.cuh"
@@ -52,6 +67,21 @@ struct FusedArgs {
   int min_support;
   lma::LmaArgs a;
 };
+
+// mem[loc - base] when loc lies in the [m_local] slab from base, else 0
+__device__ __forceinline__ float slab_read(const float* __restrict__ mem,
+                                           int32_t loc, int base,
+                                           int m_local) {
+  const unsigned rel = static_cast<unsigned>(loc - base);
+  return rel < static_cast<unsigned>(m_local) ? __ldg(mem + rel) : 0.0f;
+}
+
+// dmem[loc - base] += g when loc lies in the [m_local] slab from base
+__device__ __forceinline__ void slab_add(float* dmem, int32_t loc, int base,
+                                         int m_local, float g) {
+  const unsigned rel = static_cast<unsigned>(loc - base);
+  if (rel < static_cast<unsigned>(m_local)) atomicAdd(dmem + rel, g);
+}
 
 // one pool slot of value v, column c; `n` is the staged set size
 __device__ __forceinline__ int32_t slot(const FusedArgs& f, bool fallback,
@@ -94,8 +124,8 @@ __global__ void fused_lookup_kernel(const uint32_t* __restrict__ sets,
                                     const int32_t* __restrict__ support,
                                     const float* __restrict__ weights,
                                     const float* __restrict__ mem, int B,
-                                    int L, int S, FusedArgs f,
-                                    float* __restrict__ out) {
+                                    int L, int S, int base, int m_local,
+                                    FusedArgs f, float* __restrict__ out) {
   extern __shared__ uint32_t smem[];
   const int d = f.a.d;
   const int warp = threadIdx.x / lma::WARP, lane = threadIdx.x % lma::WARP;
@@ -110,7 +140,8 @@ __global__ void fused_lookup_kernel(const uint32_t* __restrict__ sets,
       const Value x = load_value(f, sets, gids, support, v, S, set, lane);
       const float w = weights ? weights[v] : 0.0f;
       for (int c = lane; c < d; c += lma::WARP) {
-        const float e = __ldg(mem + slot(f, x.fallback, set, x.n, x.gid, c));
+        const float e = slab_read(
+            mem, slot(f, x.fallback, set, x.n, x.gid, c), base, m_local);
         if (weights)  // product, then sum: no fused multiply-add
           acc[c] = __fadd_rn(acc[c], __fmul_rn(w, e));
         else
@@ -144,15 +175,15 @@ __global__ void fused_locations_kernel(const uint32_t* __restrict__ sets,
   }
 }
 
-// dmem[slot(b*L + l, c)] += g[b, c] (* weights[b, l]); dmem zeroed by the
-// caller.  Flat: L == 1, weights == nullptr.
+// dmem[slot(b*L + l, c) - base] += g[b, c] (* weights[b, l]) for in-slab
+// slots; dmem zeroed by the caller.  Flat: L == 1, weights == nullptr.
 __global__ void fused_scatter_kernel(const uint32_t* __restrict__ sets,
                                      const int32_t* __restrict__ gids,
                                      const int32_t* __restrict__ support,
                                      const float* __restrict__ weights,
                                      const float* __restrict__ g, int B,
-                                     int L, int S, FusedArgs f,
-                                     float* __restrict__ dmem) {
+                                     int L, int S, int base, int m_local,
+                                     FusedArgs f, float* __restrict__ dmem) {
   extern __shared__ uint32_t smem[];
   const int d = f.a.d;
   const int warp = threadIdx.x / lma::WARP, lane = threadIdx.x % lma::WARP;
@@ -166,7 +197,8 @@ __global__ void fused_scatter_kernel(const uint32_t* __restrict__ sets,
       for (int c = lane; c < d; c += lma::WARP) {
         float gv = g[static_cast<size_t>(b) * d + c];
         if (weights) gv = __fmul_rn(gv, w);
-        atomicAdd(dmem + slot(f, x.fallback, set, x.n, x.gid, c), gv);
+        slab_add(dmem, slot(f, x.fallback, set, x.n, x.gid, c), base,
+                 m_local, gv);
       }
       __syncwarp();
     }
@@ -203,6 +235,65 @@ __global__ void fused_weight_grad_kernel(const uint32_t* __restrict__ sets,
   }
 }
 
+// The chunked exchange's step 0: the chunk's locations written to loc
+// [N, d] int32 and their slab-masked gather to part [N, d].
+__global__ void fused_chunk_lookup_kernel(const uint32_t* __restrict__ sets,
+                                          const int32_t* __restrict__ gids,
+                                          const int32_t* __restrict__ support,
+                                          const float* __restrict__ mem,
+                                          int N, int S, int base, int m_local,
+                                          FusedArgs f,
+                                          float* __restrict__ part,
+                                          int32_t* __restrict__ loc) {
+  extern __shared__ uint32_t smem[];
+  const int d = f.a.d;
+  const int warp = threadIdx.x / lma::WARP, lane = threadIdx.x % lma::WARP;
+  uint32_t* set = smem + warp * S;
+  const int stride = gridDim.x * WARPS_PER_BLOCK;
+  for (int v = blockIdx.x * WARPS_PER_BLOCK + warp; v < N; v += stride) {
+    const Value x = load_value(f, sets, gids, support, v, S, set, lane);
+    for (int c = lane; c < d; c += lma::WARP) {
+      const size_t o = static_cast<size_t>(v) * d + c;
+      const int32_t s = slot(f, x.fallback, set, x.n, x.gid, c);
+      loc[o] = s;
+      part[o] = slab_read(mem, s, base, m_local);
+    }
+    __syncwarp();
+  }
+}
+
+// out[i] = mem[loc[i] - base] in the slab, else 0; i over all n elements.
+__global__ void chunk_gather_kernel(const int32_t* __restrict__ loc,
+                                    int64_t n, const float* __restrict__ mem,
+                                    int base, int m_local,
+                                    float* __restrict__ out) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride)
+    out[i] = slab_read(mem, loc[i], base, m_local);
+}
+
+// dmem[loc[i] - base] += g[i] in the slab; dmem zeroed by the caller.
+__global__ void chunk_scatter_kernel(const int32_t* __restrict__ loc,
+                                     const float* __restrict__ g, int64_t n,
+                                     int base, int m_local,
+                                     float* __restrict__ dmem) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride)
+    slab_add(dmem, loc[i], base, m_local, g[i]);
+}
+
+constexpr int ELEM_THREADS = 256;
+constexpr int64_t MAX_ELEM_BLOCKS = 132 * 64;
+
+int elem_blocks(int64_t n) {
+  const int64_t b = (n + ELEM_THREADS - 1) / ELEM_THREADS;
+  return static_cast<int>(b < MAX_ELEM_BLOCKS ? b : MAX_ELEM_BLOCKS);
+}
+
 int blocks_for(int rows) {
   return (rows + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
 }
@@ -211,9 +302,12 @@ int blocks_for(int rows) {
 
 // Flat lookup: weights == nullptr, L == 1, out [N, d].
 // Bag lookup: weights [B, L], out [B, d].
+// mem is the [m_local] slab from global slot base (base 0, m_local m: the
+// whole pool).
 extern "C" int fused_lookup_launch(const void* sets, const void* gids,
                                    const void* support, const void* weights,
                                    const void* mem, int B, int L, int S,
+                                   int base, int m_local,
                                    int scheme, int d, int n_h,
                                    int independent, uint32_t seed,
                                    uint32_t m, uint32_t stripe,
@@ -227,7 +321,7 @@ extern "C" int fused_lookup_launch(const void* sets, const void* gids,
       static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
       static_cast<const int32_t*>(support),
       static_cast<const float*>(weights), static_cast<const float*>(mem), B,
-      L, S, f, static_cast<float*>(out));
+      L, S, base, m_local, f, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -250,12 +344,13 @@ extern "C" int fused_locations_launch(const void* sets, const void* gids,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Scatter-add: g [B, d] (flat: weights == nullptr, L == 1) into dmem [m],
-// which the caller zeroed.
+// Scatter-add: g [B, d] (flat: weights == nullptr, L == 1) into the
+// [m_local] slab dmem from global slot base, which the caller zeroed.
 extern "C" int fused_scatter_add_launch(const void* sets, const void* gids,
                                         const void* support,
                                         const void* weights, const void* g,
-                                        int B, int L, int S, int scheme,
+                                        int B, int L, int S, int base,
+                                        int m_local, int scheme,
                                         int d, int n_h, int independent,
                                         uint32_t seed, uint32_t m,
                                         uint32_t stripe, int min_support,
@@ -268,7 +363,7 @@ extern "C" int fused_scatter_add_launch(const void* sets, const void* gids,
       static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
       static_cast<const int32_t*>(support),
       static_cast<const float*>(weights), static_cast<const float*>(g), B, L,
-      S, f, static_cast<float*>(dmem));
+      S, base, m_local, f, static_cast<float*>(dmem));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -289,5 +384,51 @@ extern "C" int fused_weight_grad_launch(const void* sets, const void* gids,
       static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
       static_cast<const int32_t*>(support), static_cast<const float*>(mem),
       static_cast<const float*>(g), B, L, S, f, static_cast<float*>(dw));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Chunk lookup: loc [N, d] int32 and part [N, d] f32 out, mem the [m_local]
+// slab from global slot base.
+extern "C" int fused_chunk_lookup_launch(const void* sets, const void* gids,
+                                         const void* support, const void* mem,
+                                         int N, int S, int base, int m_local,
+                                         void* loc, int scheme, int d,
+                                         int n_h, int independent,
+                                         uint32_t seed, uint32_t m,
+                                         uint32_t stripe, int min_support,
+                                         void* part, cudaStream_t stream) {
+  if (N == 0) return 0;
+  FusedArgs f{scheme, min_support, {d, n_h, independent, seed, m, stripe}};
+  const size_t shm = WARPS_PER_BLOCK * S * sizeof(uint32_t);
+  fused_chunk_lookup_kernel<<<blocks_for(N), WARPS_PER_BLOCK * lma::WARP, shm,
+                              stream>>>(
+      static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
+      static_cast<const int32_t*>(support), static_cast<const float*>(mem), N,
+      S, base, m_local, f, static_cast<float*>(part),
+      static_cast<int32_t*>(loc));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Chunk gather: loc [n] int32 (n = rows * d) -> out [n] f32.
+extern "C" int fused_chunk_gather_launch(const void* loc, int64_t n,
+                                         const void* mem, int base,
+                                         int m_local, void* out,
+                                         cudaStream_t stream) {
+  if (n == 0) return 0;
+  chunk_gather_kernel<<<elem_blocks(n), ELEM_THREADS, 0, stream>>>(
+      static_cast<const int32_t*>(loc), n, static_cast<const float*>(mem),
+      base, m_local, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Chunk scatter: g [n] f32 at loc [n] int32 into the [m_local] slab dmem
+// from global slot base, which the caller zeroed.
+extern "C" int fused_chunk_scatter_launch(const void* loc, const void* g,
+                                          int64_t n, int base, int m_local,
+                                          void* dmem, cudaStream_t stream) {
+  if (n == 0) return 0;
+  chunk_scatter_kernel<<<elem_blocks(n), ELEM_THREADS, 0, stream>>>(
+      static_cast<const int32_t*>(loc), static_cast<const float*>(g), n, base,
+      m_local, static_cast<float*>(dmem));
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,11 +8,22 @@
     The CUDA kernel (``repro_torch/kernels/fused_embed``): locations and the
     pool gather (and bag pooling) in one launch.
 
-The resolver picks by where the pool lies and nothing else: a CUDA pool
-takes the fused kernel, a CPU pool the split version.  There is no sharded
-or tiered backend yet, and no VMEM-style size gate (the kernel reads the
-pool from device memory at any size).  ``sparse_locations`` is the same
-choice for the locations a sparse gradient records.
+``sharded``
+    The pool (and LMA's D' store) sharded over the 'model' axis of an
+    installed mesh (``repro_torch/dist``): this rank's slab, lookups
+    through an exchange strategy (psum | ring | all_to_all), chosen per
+    lookup by the cost model or pinned by ``REPRO_DIST_EXCHANGE``.  Its
+    ``assemble`` gives the whole
+    :class:`~repro_torch.dist.sharded_memory.SlabLookup`, whose locations
+    are what a sparse gradient records under a mesh: the exchange already
+    assembled them in the forward, and nothing is recomputed through the
+    sharded store.
+
+The resolver takes the reference's priority: sharded when a mesh is
+installed, else fused for a CUDA pool, else split.  There is no tiered
+backend yet, and no VMEM-style size gate (the kernel reads the pool from
+device memory at any size).  ``sparse_locations`` is the same choice for
+the locations a sparse gradient records on one device.
 """
 from __future__ import annotations
 
@@ -63,6 +74,24 @@ class FusedBackend:
                                   *extra)
 
 
+class ShardedBackend:
+    name = "sharded"
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def assemble(self, cfg: EmbeddingConfig, scheme: Scheme, params: dict,
+                 buffers: dict, gids: torch.Tensor):
+        """The scheme's sharded lookup (a ``SlabLookup``)."""
+        return scheme.sharded_lookup(cfg, params, buffers, gids, self.mesh)
+
+    def lookup(self, cfg: EmbeddingConfig, scheme: Scheme, params: dict,
+               buffers: dict, gids: torch.Tensor) -> torch.Tensor:
+        from repro_torch.dist.sharded_memory import attach
+        return attach(params["memory"], lambda: self.assemble(
+            cfg, scheme, params, buffers, gids))
+
+
 SPLIT = SplitBackend()
 FUSED = FusedBackend()
 
@@ -83,9 +112,14 @@ def sparse_locations(cfg: EmbeddingConfig, scheme: Scheme, params: dict,
 
 def resolve_backend(cfg: EmbeddingConfig, params: dict,
                     scheme: Scheme | None = None):
-    """FUSED for a CUDA pool, SPLIT for a CPU pool, None for table-family
-    schemes (they embed directly)."""
+    """A ShardedBackend when a mesh is installed, else FUSED for a CUDA
+    pool and SPLIT for a CPU pool; None for table-family schemes (they
+    embed directly)."""
+    from repro_torch.dist.context import current_mesh
     scheme = get_scheme(cfg.kind) if scheme is None else scheme
     if scheme.family != "memory":
         return None
+    mesh = current_mesh()
+    if mesh is not None:
+        return ShardedBackend(mesh)
     return FUSED if params["memory"].is_cuda else SPLIT

@@ -74,6 +74,14 @@ class Scheme:
         """Extra per-batch kernel inputs ((sets, support) for lma; () else)."""
         return ()
 
+    def sharded_lookup(self, cfg: "EmbeddingConfig", params: dict,
+                       buffers: dict, gids: torch.Tensor, mesh):
+        """This scheme's sharded lookup on a rank's slab (a
+        ``repro_torch.dist.sharded_memory.SlabLookup``).  The reference
+        falls back to a generic location-based lookup; every memory scheme
+        of the port has its own, so the default refuses."""
+        raise NotImplementedError(f"{self.kind} has no sharded lookup")
+
     def sparse_buckets(self, cfg: "EmbeddingConfig") -> int:
         """d when column j of ``locations`` always lies in stripe
         ``[j*(m//d), (j+1)*(m//d))`` (striped lma), else 0.  Non-zero lets

@@ -61,6 +61,12 @@ class _HashedBase(Scheme):
     def fused_spec(self, cfg):
         return fe.hashed_spec(self.kind, cfg.dim, cfg.budget, cfg.seed)
 
+    def sharded_lookup(self, cfg, params, buffers, gids, mesh):
+        from repro_torch.dist.sharded_memory import sharded_hashed_lookup
+        return sharded_hashed_lookup(params["memory"], gids, cfg.dim,
+                                     cfg.budget, cfg.seed, mesh,
+                                     kind=self.kind)
+
 
 @register_scheme
 class HashedElemScheme(_HashedBase):
@@ -143,7 +149,22 @@ class LMAScheme(Scheme):
         return cfg.lma.d if cfg.lma.stripe else 0
 
     def fused_inputs(self, cfg, buffers, gids):
-        """D' rows (truncated to max_set) + support for a flat [N] batch."""
+        """D' rows (truncated to max_set) + support for a flat [N] batch.
+        A local gather by global id: under a mesh the store holds only this
+        rank's rows, and the sets come from the exchange instead
+        (``sharded_lookup``)."""
+        from repro_torch.dist.context import current_mesh
+        mesh = current_mesh()
+        if mesh is not None and mesh.model > 1:
+            raise RuntimeError("under a mesh the D' rows come from the "
+                               "exchange (sharded_lookup), not a local "
+                               "gather")
         g = gids.long()
         rows = buffers["store_sets"][g, : cfg.lma.max_set].contiguous()
         return rows, buffers["store_lengths"][g]
+
+    def sharded_lookup(self, cfg, params, buffers, gids, mesh):
+        from repro_torch.dist.sharded_memory import sharded_lma_lookup
+        return sharded_lma_lookup(params["memory"], buffers["store_sets"],
+                                  buffers["store_lengths"], gids, cfg.lma,
+                                  mesh)

@@ -5,6 +5,10 @@ Port of ``repro.embed.table``.  A frozen dataclass over an
 ``embed_fields`` / ``embed_bag``; parameters and buffers are plain dicts of
 tensors that the caller owns (a model keeps the parameters in an
 ``nn.ParameterDict``).  Scheme and backend are resolved per call.
+
+Given a mesh (``repro_torch.dist``), ``init`` and ``make_buffers`` keep
+only this rank's slab of the pool and its rows of the D' store; lookups
+under that installed mesh take the sharded backend.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import dataclasses
 import torch
 
 from repro_torch.device import make_generator, resolve_device
+from repro_torch.dist.sharding import row_slab
 from repro_torch.embed import backends as bke
 from repro_torch.embed.config import EmbeddingConfig
 from repro_torch.embed.registry import get_scheme
@@ -26,16 +31,26 @@ def _global_ids(cfg: EmbeddingConfig, table: int,
 
 def init_embedding(cfg: EmbeddingConfig,
                    generator: torch.Generator | None = None,
-                   device=None) -> dict:
-    """Trainable parameters for the configured scheme, drawn on ``device``."""
+                   device=None, mesh=None) -> dict:
+    """Trainable parameters for the configured scheme, drawn on ``device``;
+    with a mesh, a memory scheme's pool is this rank's slab.  The whole
+    pool is drawn first, so the slabs are those of the single-device pool
+    and the generator moves on as it would there."""
     dev = resolve_device(device)
     gen = make_generator(cfg.seed, dev) if generator is None else generator
-    return get_scheme(cfg.kind).init_params(cfg, gen, dev)
+    scheme = get_scheme(cfg.kind)
+    params = scheme.init_params(cfg, gen, dev)
+    if scheme.family == "memory":
+        params["memory"] = row_slab(params["memory"], mesh)
+    return params
 
 
-def make_buffers(cfg: EmbeddingConfig, store=None) -> dict:
-    """Non-trainable buffers (the D' store for lma; empty otherwise)."""
-    return get_scheme(cfg.kind).make_buffers(cfg, store)
+def make_buffers(cfg: EmbeddingConfig, store=None, mesh=None) -> dict:
+    """Non-trainable buffers (the D' store for lma; empty otherwise); with
+    a mesh, this rank's rows of them (their rows must divide by P: pad the
+    store to ``repro_torch.dist.sharding.store_rows``)."""
+    bufs = get_scheme(cfg.kind).make_buffers(cfg, store)
+    return {k: row_slab(v, mesh) for k, v in bufs.items()}
 
 
 def _memory_lookup(cfg, params, buffers, gids):
@@ -46,25 +61,37 @@ def _memory_lookup(cfg, params, buffers, gids):
     the incoming gradient instead of a dense [m] pool gradient.  A
     row-aligned scheme records its [N] pool rows when the budget tiles into
     d-wide rows; a ragged budget (m % d != 0), and every other scheme,
-    records the [N, d] element locations."""
+    records the [N, d] element locations (under a mesh, those the sharded
+    lookup assembled)."""
     scheme = get_scheme(cfg.kind)
     backend = bke.resolve_backend(cfg, params, scheme)
     cap = sparse.active()
     if cap is None:
         return backend.lookup(cfg, scheme, params, buffers, gids)
+    slots = scheme.memory_slots(cfg)
+    if isinstance(backend, bke.ShardedBackend):
+        held = []
 
-    def lookup():
-        return backend.lookup(cfg, scheme, params, buffers, gids)
+        def lookup():
+            held.append(backend.assemble(cfg, scheme, params, buffers, gids))
+            return held[0].out
 
-    if scheme.row_aligned and scheme.memory_slots(cfg) % cfg.dim == 0:
+        def locations():
+            return held[0].locations()
+    else:
+        def lookup():
+            return backend.lookup(cfg, scheme, params, buffers, gids)
+
+        def locations():
+            return bke.sparse_locations(cfg, scheme, params, buffers, gids)
+
+    if scheme.row_aligned and slots % cfg.dim == 0:
         return cap.lookup(
             params["memory"], lookup,
             lambda: scheme.sparse_row_ids(cfg, buffers, gids),
-            row_width=cfg.dim)
-    return cap.lookup(
-        params["memory"], lookup,
-        lambda: bke.sparse_locations(cfg, scheme, params, buffers, gids),
-        scheme.sparse_buckets(cfg))
+            row_width=cfg.dim, slots=slots)
+    return cap.lookup(params["memory"], lookup, locations,
+                      scheme.sparse_buckets(cfg), slots=slots)
 
 
 def embed(cfg: EmbeddingConfig, params: dict, buffers: dict, table: int,
@@ -141,11 +168,11 @@ class EmbeddingTable:
         return self.config.param_count()
 
     def init(self, generator: torch.Generator | None = None,
-             device=None) -> dict:
-        return init_embedding(self.config, generator, device)
+             device=None, mesh=None) -> dict:
+        return init_embedding(self.config, generator, device, mesh)
 
-    def make_buffers(self, store=None) -> dict:
-        return make_buffers(self.config, store)
+    def make_buffers(self, store=None, mesh=None) -> dict:
+        return make_buffers(self.config, store, mesh)
 
     def embed(self, params: dict, buffers: dict, table: int,
               ids: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,17 @@
 """Binding of ``csrc/fused_embed.cu``: the fused embedding engine on Hopper.
 
 Replaces ``repro/kernels/fused_embed/kernel.py``: ``_fwd_kernel`` (flat and
-bag-pooled lookup), ``_locations_kernel``, ``_scatter_kernel`` and
-``_weight_grad_kernel``; the source states the design and what bounds it.
-These are the raw launches (no autograd); ``ops.py`` builds the gradients
-from them.  Each wrapper counts its launches in ``<fn>.launches``.
+bag-pooled lookup), ``_locations_kernel``, ``_scatter_kernel``,
+``_weight_grad_kernel`` and the chunked exchange's ``_chunk_fwd_kernel``,
+``_gather_loc_kernel`` and ``_scatter_loc_kernel``; the source states the
+design and what bounds it.  These are the raw launches (no autograd);
+``ops.py`` builds the gradients from them.  Each wrapper counts its launches
+in ``<fn>.launches``.
+
+Slab mode: the lookup, the scatter-add and the chunk kernels take the pool
+(or its gradient) as one rank's ``[m_local]`` slab starting at global slot
+``base``; out-of-slab locations gather 0 and scatter nothing.  ``base=0``
+with the whole ``[spec.m]`` pool is the single-card case.
 """
 from __future__ import annotations
 
@@ -46,22 +53,39 @@ def _value_inputs(spec, gids, sets, support, rank: int):
     return sets, support, sets.shape[-1]
 
 
-def _check_pool(spec, memory):
+def _check_pool(spec, memory, base: int | None = None) -> int:
+    """The whole ``[spec.m]`` pool (``base`` None), or a slab that lies in
+    it; -> the slab's base."""
     build.require(memory, "memory", torch.float32, 1)
-    if memory.shape[0] != spec.m:
-        raise ValueError(f"memory has {memory.shape[0]} slots, spec {spec.m}")
+    if base is None:
+        if memory.shape[0] != spec.m:
+            raise ValueError(f"memory has {memory.shape[0]} slots, spec "
+                             f"{spec.m}")
+        return 0
+    _check_slab(spec.m, memory.shape[0], base)
+    return base
+
+
+def _check_slab(m: int, m_local: int, base: int):
+    """A slab of ``m_local`` slots from ``base`` within a pool of ``m``;
+    the whole pool when base is 0 and m_local is m."""
+    if not (0 <= base and 0 < m_local and base + m_local <= m):
+        raise ValueError(f"a slab of {m_local} slots from {base} does not "
+                         f"lie in a pool of {m}")
 
 
 def fused_lookup_cuda(spec, memory: torch.Tensor, gids: torch.Tensor,
                       sets: torch.Tensor | None = None,
                       support: torch.Tensor | None = None,
-                      weights: torch.Tensor | None = None) -> torch.Tensor:
+                      weights: torch.Tensor | None = None,
+                      base: int | None = None) -> torch.Tensor:
     """Flat: gids [N] (+ sets [N, S], support [N]) -> [N, d].
     Bag: gids [B, L] (+ sets [B, L, S], support [B, L]), weights [B, L]
     -> [B, d].  Ids, sets (int32 bit patterns, PAD = -1) and support are
-    int32; memory [spec.m] and weights float32; all contiguous on the card."""
+    int32; memory [spec.m] (or the [m_local] slab from ``base``) and
+    weights float32; all contiguous on the card."""
     pool = weights is not None
-    _check_pool(spec, memory)
+    base = _check_pool(spec, memory, base)
     sets, support, S = _value_inputs(spec, gids, sets, support,
                                      2 if pool else 1)
     B, L = gids.shape if pool else (gids.shape[0], 1)
@@ -71,10 +95,11 @@ def fused_lookup_cuda(spec, memory: torch.Tensor, gids: torch.Tensor,
             raise ValueError("weights do not match gids")
     out = torch.empty((B, spec.d), dtype=torch.float32, device=memory.device)
     with torch.cuda.device(memory.device):
-        code = _entry("fused_lookup_launch", (_P,) * 5 + (_I,) * 3)(
+        code = _entry("fused_lookup_launch", (_P,) * 5 + (_I,) * 5)(
             build.ptr(sets), build.ptr(gids), build.ptr(support),
-            build.ptr(weights), build.ptr(memory), B, L, S,
-            *_spec_args(spec), build.ptr(out), build.stream(memory.device))
+            build.ptr(weights), build.ptr(memory), B, L, S, base,
+            memory.shape[0], *_spec_args(spec), build.ptr(out),
+            build.stream(memory.device))
     build.check(code, "fused_lookup")
     fused_lookup_cuda.launches += 1
     return out
@@ -99,12 +124,17 @@ def fused_locations_cuda(spec, gids: torch.Tensor,
 def fused_scatter_add_cuda(spec, g: torch.Tensor, gids: torch.Tensor,
                            sets: torch.Tensor | None = None,
                            support: torch.Tensor | None = None,
-                           weights: torch.Tensor | None = None
+                           weights: torch.Tensor | None = None,
+                           base: int = 0, m_local: int | None = None
                            ) -> torch.Tensor:
     """The lookup's pool gradient, locations recomputed: flat g [N, d] with
     gids [N] (+ sets, support), or bag g [B, d] with gids [B, L] and
     weights [B, L] -> dM [spec.m] float32 (``dM[loc] += g``, bag
-    ``+= g * w``)."""
+    ``+= g * w``); in slab mode dM [m_local] from ``base``, in-slab
+    locations only."""
+    if m_local is None:
+        m_local = spec.m
+    _check_slab(spec.m, m_local, base)
     pool = weights is not None
     sets, support, S = _value_inputs(spec, gids, sets, support,
                                      2 if pool else 1)
@@ -116,12 +146,12 @@ def fused_scatter_add_cuda(spec, g: torch.Tensor, gids: torch.Tensor,
         build.require(weights, "weights", torch.float32, 2)
         if weights.shape != gids.shape:
             raise ValueError("weights do not match gids")
-    dmem = torch.zeros(spec.m, dtype=torch.float32, device=g.device)
+    dmem = torch.zeros(m_local, dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
-        code = _entry("fused_scatter_add_launch", (_P,) * 5 + (_I,) * 3)(
+        code = _entry("fused_scatter_add_launch", (_P,) * 5 + (_I,) * 5)(
             build.ptr(sets), build.ptr(gids), build.ptr(support),
-            build.ptr(weights), build.ptr(g), B, L, S, *_spec_args(spec),
-            build.ptr(dmem), build.stream(g.device))
+            build.ptr(weights), build.ptr(g), B, L, S, base, m_local,
+            *_spec_args(spec), build.ptr(dmem), build.stream(g.device))
     build.check(code, "fused_scatter_add")
     fused_scatter_add_cuda.launches += 1
     return dmem
@@ -151,7 +181,74 @@ def fused_weight_grad_cuda(spec, memory: torch.Tensor, g: torch.Tensor,
     return dw
 
 
+def fused_chunk_lookup_cuda(spec, memory: torch.Tensor, gids: torch.Tensor,
+                            sets: torch.Tensor | None = None,
+                            support: torch.Tensor | None = None,
+                            base: int = 0):
+    """One exchange chunk: gids [c] (+ sets [c, S], support [c]) -> (the
+    slab-masked partial [c, d] float32, the locations [c, d] int32), memory
+    the [m_local] slab from ``base``."""
+    _check_pool(spec, memory, base)
+    sets, support, S = _value_inputs(spec, gids, sets, support, 1)
+    N = gids.shape[0]
+    part = torch.empty((N, spec.d), dtype=torch.float32, device=gids.device)
+    loc = torch.empty((N, spec.d), dtype=torch.int32, device=gids.device)
+    with torch.cuda.device(gids.device):
+        code = _entry("fused_chunk_lookup_launch",
+                      (_P,) * 4 + (_I,) * 4 + (_P,))(
+            build.ptr(sets), build.ptr(gids), build.ptr(support),
+            build.ptr(memory), N, S, base, memory.shape[0], build.ptr(loc),
+            *_spec_args(spec), build.ptr(part), build.stream(gids.device))
+    build.check(code, "fused_chunk_lookup")
+    fused_chunk_lookup_cuda.launches += 1
+    return part, loc
+
+
+def fused_chunk_gather_cuda(memory: torch.Tensor, loc: torch.Tensor,
+                            base: int = 0) -> torch.Tensor:
+    """loc [c, d] int32 global locations -> [c, d] float32, the slab-masked
+    gather from the [m_local] slab ``memory`` that starts at ``base``."""
+    build.require(memory, "memory", torch.float32, 1)
+    build.require(loc, "loc", torch.int32, 2)
+    if base < 0:
+        raise ValueError(f"slab base {base} < 0")
+    out = torch.empty(loc.shape, dtype=torch.float32, device=loc.device)
+    with torch.cuda.device(loc.device):
+        code = build.entry("fused_embed", "fused_chunk_gather_launch",
+                           [_P, ctypes.c_int64, _P, _I, _I, _P, _P])(
+            build.ptr(loc), loc.numel(), build.ptr(memory), base,
+            memory.shape[0], build.ptr(out), build.stream(loc.device))
+    build.check(code, "fused_chunk_gather")
+    fused_chunk_gather_cuda.launches += 1
+    return out
+
+
+def fused_chunk_scatter_cuda(loc: torch.Tensor, g: torch.Tensor, base: int,
+                             m_local: int) -> torch.Tensor:
+    """g [c, d] float32 at the locations loc [c, d] int32 -> dM [m_local]
+    float32, ``dM[loc - base] += g`` for in-slab locations only."""
+    build.require(loc, "loc", torch.int32, 2)
+    build.require(g, "g", torch.float32, 2)
+    if g.shape != loc.shape:
+        raise ValueError(f"g {tuple(g.shape)} does not match loc "
+                         f"{tuple(loc.shape)}")
+    if base < 0 or m_local <= 0:
+        raise ValueError(f"a slab of {m_local} slots from {base}")
+    dmem = torch.zeros(m_local, dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        code = build.entry("fused_embed", "fused_chunk_scatter_launch",
+                           [_P, _P, ctypes.c_int64, _I, _I, _P, _P])(
+            build.ptr(loc), build.ptr(g), loc.numel(), base, m_local,
+            build.ptr(dmem), build.stream(g.device))
+    build.check(code, "fused_chunk_scatter")
+    fused_chunk_scatter_cuda.launches += 1
+    return dmem
+
+
 fused_lookup_cuda.launches = 0
 fused_locations_cuda.launches = 0
 fused_scatter_add_cuda.launches = 0
 fused_weight_grad_cuda.launches = 0
+fused_chunk_lookup_cuda.launches = 0
+fused_chunk_gather_cuda.launches = 0
+fused_chunk_scatter_cuda.launches = 0

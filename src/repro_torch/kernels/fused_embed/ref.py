@@ -5,6 +5,14 @@ weighted reduce); backward, the scatter-add by ``index_add_`` and the bag
 weight gradient by gather and sum.  The kernels are bit-identical to
 ``locations_ref`` and ``fused_lookup_ref``, and within float32 summation
 order of the bag, the scatter-add and the weight gradient.
+
+Slab mode: ``memory`` may be one rank's ``[m_local]`` slab of a pool sharded
+over the 'model' axis, ``base`` its first global slot.  A location outside
+``[base, base + m_local)`` gathers an exact 0 and scatters nothing: the
+mask-local-gather of ``repro_torch/dist/exchange.py``.  With ``base = 0``
+and the whole pool the mask is all true.  The chunked exchange's three
+(``chunk_lookup_ref``, ``chunk_gather_ref``, ``chunk_scatter_ref``) take and
+give the ``[N, d]`` global locations themselves.
 """
 from __future__ import annotations
 
@@ -39,9 +47,32 @@ def _bag_locations(spec, gids, sets, support) -> torch.Tensor:
                          flat_sup).reshape(B, L, spec.d)
 
 
-def fused_lookup_ref(spec, memory, gids, sets=None,
-                     support=None) -> torch.Tensor:
-    return lookup(memory, locations_ref(spec, gids, sets, support))
+def slab_gather(memory, loc, base: int = 0) -> torch.Tensor:
+    """``memory[loc - base]`` where that lies in the slab, exact 0
+    elsewhere (``repro/kernels/fused_embed/kernel.py:_slab_gather``)."""
+    n = memory.shape[0]
+    rel = loc.long() - base
+    inb = (rel >= 0) & (rel < n)
+    vals = memory[torch.clamp(rel, 0, n - 1)]
+    return torch.where(inb, vals, torch.zeros((), dtype=memory.dtype,
+                                              device=memory.device))
+
+
+def slab_scatter(loc, g, base: int, m_local: int) -> torch.Tensor:
+    """``dM[loc - base] += g`` for the in-slab entries into a zeroed
+    ``[m_local]``; out-of-slab entries add nothing."""
+    rel = loc.reshape(-1).long() - base
+    inb = (rel >= 0) & (rel < m_local)
+    dmem = torch.zeros(m_local, dtype=g.dtype, device=g.device)
+    return dmem.index_add_(0, rel[inb], g.reshape(-1)[inb])
+
+
+def fused_lookup_ref(spec, memory, gids, sets=None, support=None,
+                     base: int = 0) -> torch.Tensor:
+    loc = locations_ref(spec, gids, sets, support)
+    if base == 0 and memory.shape[0] == spec.m:
+        return lookup(memory, loc)
+    return slab_gather(memory, loc, base)
 
 
 def fused_embed_bag_ref(spec, memory, gids, weights, sets=None,
@@ -53,16 +84,39 @@ def fused_embed_bag_ref(spec, memory, gids, weights, sets=None,
 
 
 def scatter_add_ref(spec, g, gids, sets=None, support=None,
-                    weights=None) -> torch.Tensor:
-    """dM [m]: flat g [N, d] at the [N, d] locations, or bag g [B, d] times
-    weights [B, L] at the [B, L, d] locations."""
+                    weights=None, base: int = 0,
+                    m_local: int | None = None) -> torch.Tensor:
+    """dM [m] (slab mode: [m_local] from ``base``): flat g [N, d] at the
+    [N, d] locations, or bag g [B, d] times weights [B, L] at the [B, L, d]
+    locations."""
     if weights is None:
         loc, vals = locations_ref(spec, gids, sets, support), g
     else:
         loc = _bag_locations(spec, gids, sets, support)
         vals = g[:, None, :] * weights.to(g.dtype)[:, :, None]
+    if m_local is not None and (base, m_local) != (0, spec.m):
+        return slab_scatter(loc, vals, base, m_local)
     dmem = torch.zeros(spec.m, dtype=g.dtype, device=g.device)
     return dmem.index_add_(0, loc.reshape(-1).long(), vals.reshape(-1))
+
+
+def chunk_lookup_ref(spec, memory, gids, sets=None, support=None,
+                     base: int = 0):
+    """One exchange chunk: gids [c] (+ sets, support) -> (partial [c, d],
+    loc [c, d] int32), the partial the slab-masked gather of the emitted
+    locations."""
+    loc = locations_ref(spec, gids, sets, support)
+    return slab_gather(memory, loc, base), loc
+
+
+def chunk_gather_ref(memory, loc, base: int = 0) -> torch.Tensor:
+    """loc [c, d] global locations -> [c, d] slab-masked partial."""
+    return slab_gather(memory, loc, base)
+
+
+def chunk_scatter_ref(loc, g, base: int, m_local: int) -> torch.Tensor:
+    """g [c, d] at the locations loc [c, d] -> dM [m_local], in-slab only."""
+    return slab_scatter(loc, g, base, m_local)
 
 
 def weight_grad_ref(spec, memory, g, gids, sets=None,

@@ -85,14 +85,18 @@ class Recsys(nn.Module):
     logits added."""
 
     def __init__(self, cfg: RecsysConfig,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 mesh=None):
+        """``mesh`` (``repro_torch.dist``): keep only this rank's slab of
+        each pool; everything else is drawn and held whole, as on one
+        device."""
         super().__init__()
         if cfg.model not in ("dlrm", "xdeepfm"):
             raise NotImplementedError(f"{cfg.model}: not ported yet")
         dev = resolve_device(device)
         gen = make_generator(0, dev) if generator is None else generator
         self.cfg = cfg
-        self.embedding = nn.ParameterDict(cfg.table.init(gen, dev))
+        self.embedding = nn.ParameterDict(cfg.table.init(gen, dev, mesh))
         if cfg.model == "dlrm":
             self.bot = MLP([cfg.n_dense, *cfg.bot_mlp], gen, dev,
                            final_act=torch.relu, dtype=cfg.tdtype)
@@ -111,7 +115,8 @@ class Recsys(nn.Module):
                              dtype=cfg.tdtype)
         self.deep = MLP([F * d, *cfg.deep_mlp, 1], gen, dev, dtype=cfg.tdtype)
         self.linear_table = EmbeddingTable(linear_config(cfg))
-        self.linear = nn.ParameterDict(self.linear_table.init(gen, dev))
+        self.linear = nn.ParameterDict(self.linear_table.init(gen, dev,
+                                                              mesh))
 
     def forward(self, batch: dict, buffers: dict | None = None
                 ) -> torch.Tensor:
@@ -150,8 +155,8 @@ def lookups_per_example(cfg: RecsysConfig) -> int:
 
 
 def init(cfg: RecsysConfig, generator: torch.Generator | None = None,
-         device=None) -> Recsys:
-    return Recsys(cfg, generator, device)
+         device=None, mesh=None) -> Recsys:
+    return Recsys(cfg, generator, device, mesh)
 
 
 def loss_fn(model: Recsys, batch: dict, buffers: dict | None = None):

@@ -37,6 +37,12 @@ of it.  This module replaces both with O(K) work.
     bit; Adam's bias correction uses the global step.  Dense leaves get the
     same formulas applied everywhere.
 
+Under a mesh (``repro_torch.dist``) a pool parameter is this rank's
+``[m / P]`` slab.  Its SparseGrad still has the pool's global shape and the
+whole batch's entries (the same on every rank), and its leaf update and
+apply go through ``sharded_sparse_update`` / ``sharded_sparse_apply`` on the
+slab states, as the reference's ``_model_mesh`` routes them.
+
 Gate: ``REPRO_SPARSE_GRADS`` (default on; ``=0`` keeps the dense path as the
 oracle), as in the reference.
 """
@@ -166,6 +172,7 @@ class _Record:
     #                                backward
     n_buckets: int                 # d for a striped layout, else 0
     row_width: int = 0             # d when locations gives [N] pool rows
+    slots: int = 0                 # the pool's global slots (a slab's too)
     loc: torch.Tensor | None = None
     grad: torch.Tensor | None = None
 
@@ -195,12 +202,14 @@ class SparseCapture:
 
     def lookup(self, memory: torch.Tensor, lookup: Callable,
                locations: Callable, n_buckets: int = 0,
-               row_width: int = 0) -> torch.Tensor:
+               row_width: int = 0, slots: int | None = None) -> torch.Tensor:
         """``lookup() -> [N, d]`` run now; ``locations()`` run in backward,
         when the lookup's gradient arrives: ``[N, d]`` element slots, or
         with ``row_width=d`` the ``[N]`` pool rows of a row-aligned scheme
-        (the reference's ``record_rows``)."""
-        rec = _Record(memory, locations, n_buckets, row_width)
+        (the reference's ``record_rows``).  ``slots`` is the pool's global
+        size when ``memory`` is a rank's slab of it."""
+        rec = _Record(memory, locations, n_buckets, row_width,
+                      int(memory.shape[0]) if slots is None else slots)
         self.records.append(rec)
         return _CaptureLookup.apply(memory, rec, lookup)
 
@@ -218,25 +227,24 @@ class SparseCapture:
                 raise ValueError(f"{name}: one memory pool mixes row- and "
                                  "element-level sparse records")
             (rw,) = rws
+            m = recs[0].slots
             nbs = {r.n_buckets for r in recs}
             nb = nbs.pop() if len(nbs) == 1 else 0
             if rw:                                  # row-aligned pool
                 rows = torch.cat([r.loc.reshape(-1) for r in recs])
                 vals = torch.cat([r.grad.reshape(-1, rw) for r in recs])
-                out[name] = from_locations(rows, vals,
-                                           (int(p.shape[0]) // rw, rw))
+                out[name] = from_locations(rows, vals, (m // rw, rw))
             elif nb and p.dim() == 1 and all(r.loc.dim() == 2
                                            and r.loc.shape[1] == nb
                                            for r in recs):
                 loc = torch.cat([r.loc for r in recs], dim=0)
                 vals = torch.cat([r.grad.reshape(-1, nb) for r in recs],
                                  dim=0)
-                out[name] = from_bucketed_locations(loc, vals,
-                                                    tuple(p.shape))
+                out[name] = from_bucketed_locations(loc, vals, (m,))
             else:
                 loc = torch.cat([r.loc.reshape(-1) for r in recs])
                 vals = torch.cat([r.grad.reshape(-1) for r in recs])
-                out[name] = from_locations(loc, vals, tuple(p.shape))
+                out[name] = from_locations(loc, vals, (m,))
         self.records.clear()
         return out
 
@@ -276,10 +284,36 @@ def _pool_view(arr: torch.Tensor, shape: tuple) -> torch.Tensor:
     return arr.view(shape)
 
 
+def _model_mesh(arr: torch.Tensor, dense_shape: tuple):
+    """The installed mesh when ``arr`` is a rank's slab of a parameter (or
+    state) of ``dense_shape`` (a 'model' axis P > 1 that divides its rows),
+    else None."""
+    from repro_torch.dist.context import current_mesh
+    mesh = current_mesh()
+    if mesh is None or mesh.model <= 1 or dense_shape[0] % mesh.model:
+        return None
+    return mesh if arr.numel() * mesh.model == math.prod(dense_shape) \
+        else None
+
+
+def _slab_shape(dense_shape: tuple, mesh) -> tuple:
+    return (dense_shape[0] // mesh.model,) + tuple(dense_shape[1:])
+
+
 def _leaf_sparse_update(algo: str, g: SparseGrad, states: tuple, **hyper):
-    """One sparse leaf through the kernel, the states (updated in place)
-    viewed in the SparseGrad's layout.  -> (update SparseGrad, states)."""
+    """One sparse leaf through the kernel (a rank's slab: the sharded
+    update), the states (updated in place) viewed in the SparseGrad's
+    layout.  -> (update SparseGrad, states)."""
     from repro_torch.kernels.sparse_update.ops import sparse_update
+    mesh = _model_mesh(states[0], g.dense_shape) if states else None
+    if mesh is not None:
+        from repro_torch.dist.sharded_memory import sharded_sparse_update
+        shape = _slab_shape(g.dense_shape, mesh)
+        views = tuple(_pool_view(s, shape) for s in states)
+        idx, u, _ = sharded_sparse_update(algo, g.indices, g.values, views,
+                                          hyper, mesh, unique=g.unique,
+                                          buckets=g.buckets)
+        return dataclasses.replace(g, indices=idx, values=u), states
     views = tuple(_pool_view(s, g.dense_shape) for s in states)
     u, _ = sparse_update(algo, g.indices, g.values, views, unique=g.unique,
                          **hyper)
@@ -289,7 +323,13 @@ def _leaf_sparse_update(algo: str, g: SparseGrad, states: tuple, **hyper):
 def sparse_apply(p: torch.Tensor, u: SparseGrad) -> None:
     """``apply_updates`` for one sparse leaf: an O(K) scatter-add into ``p``
     in place, in the SparseGrad's layout (sentinel entries dropped; non-head
-    entries carry 0)."""
+    entries carry 0); into a rank's slab, the masked sharded apply."""
+    mesh = _model_mesh(p, u.dense_shape)
+    if mesh is not None:
+        from repro_torch.dist.sharded_memory import sharded_sparse_apply
+        sharded_sparse_apply(_pool_view(p, _slab_shape(u.dense_shape, mesh)),
+                             u.indices, u.values, mesh)
+        return
     idx, vals = u.indices, u.values.to(p.dtype)
     if u.unique:
         keep = idx < u.sentinel
@@ -337,6 +377,9 @@ def adam_leaf(g, mu, nu, p=None, *, lr, b1=0.9, b2=0.999, bc1=1.0, bc2=1.0,
         u, _ = _leaf_sparse_update("adam", g, (mu, nu), lr=lr, b1=b1, b2=b2,
                                    bc1=bc1, bc2=bc2, eps=eps)
         if weight_decay and p is not None:
+            if _model_mesh(p, g.dense_shape) is not None:
+                raise NotImplementedError("lazy weight decay on a sharded "
+                                          "pool is not ported")
             pv = _pool_view(p, g.dense_shape)
             n = pv.shape[0]
             rows = pv[torch.clamp(g.indices, max=n - 1).long()].to(

@@ -19,6 +19,11 @@ gradient is a ``SparseGrad`` over the K touched slots, its ``.grad`` stays
 ``None``, and the optimizer routes it to the O(K) lazy update.
 ``sparse_grads=False`` keeps the dense O(m) path as the oracle.
 
+Under an installed mesh (``repro_torch.dist``) the Trainer runs unchanged
+on every rank: the pool is the rank's slab and its lookups and updates take
+the sharded paths, while with a 'data' axis of 1 the dense parameters see
+the same batch on every rank and need no collective.  Only rank 0 logs.
+
 Throughput: steps/s from the median step time (host clock around work that
 ends in a device sync, the loss read back), lookups/s scaled by
 ``lookups_per_step``; host batch time is kept apart, and steps slower than
@@ -60,6 +65,10 @@ class TrainerConfig:
     # embedding-row lookups one step performs (B * F for field models);
     # feeds the lookups_per_sec throughput stat when set
     lookups_per_step: int = 0
+
+
+def _quiet(_: str) -> None:
+    pass
 
 
 class Trainer:
@@ -119,6 +128,10 @@ class Trainer:
         return loss.detach()
 
     def fit(self, log: Callable[[str], None] = print) -> dict:
+        from repro_torch.dist.context import current_mesh
+        mesh = current_mesh()
+        if mesh is not None and mesh.rank != 0:
+            log = _quiet
         last_loss = float("nan")
         while self.step < self.cfg.total_steps:
             t0 = time.perf_counter()

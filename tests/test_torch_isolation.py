@@ -96,6 +96,10 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.kernels.embedding_bag.ops\n"
             "import repro_torch.kernels.sparse_update.ops\n"
             "import repro_torch.launch.train, repro_torch.optim.sparse\n"
+            "import repro_torch.dist.sharded_memory as sm\n"
+            "from repro_torch.dist.context import Mesh, use_mesh\n"
+            "with use_mesh(Mesh(model=4, rank=1)) as mesh:\n"
+            "    assert mesh.shape == {'data': 1, 'model': 4}\n"
             "for a in ('dlrm-rm2', 'xdeepfm'):\n"
             "    cfg = c.get_config(a).make_smoke()\n"
             "    repro_torch.models.recsys.init(cfg, device='cpu')\n"

@@ -4,7 +4,9 @@ These need an sm_90 device and skip elsewhere.  They cover what the paths at
 full width do not: sliding windows, the hashed schemes, ragged set widths,
 empty sets, keys and seeds >= 2^31, bags, long duplicate runs, flat pools
 at embedding widths below a warp (d = 10 and d = 1, xDeepFM's), the CIN
-layer at ragged shapes, and that each autograd path launches its kernels.  On the card, with no JAX
+layer at ragged shapes, the chunk kernels and the slab mode of the lookup
+and scatter-add on every scheme, and that each autograd path launches its
+kernels.  On the card, with no JAX
 installed, run them as
 ``python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py``.
 """
@@ -493,3 +495,101 @@ def test_subnormal_moments_match_plain(cuda):
     assert torch.equal(u_k, u_p)
     for a, b in zip(mine, plain):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# --------------------------------------------- the chunked exchange (10-12)
+
+def _slab_case(cuda, scheme, rank, P=4, n=333):
+    """(spec, the whole pool, gids, extra inputs, base, m_local) for one
+    rank's slab of a P-way split."""
+    rng = np.random.default_rng(10 + rank)
+    if scheme.startswith("lma"):
+        spec, gids, sets, support = _lma_case(cuda, rng, n,
+                                              scheme == "lma_striped")
+        extra = (sets, support)
+    else:
+        spec = fe.hashed_spec(scheme, D, M, 0x8765_4321)
+        gids = torch.from_numpy(
+            rng.integers(0, 2**31 - 1, n).astype(np.int32)).to(cuda)
+        extra = ()
+    return spec, _mem(cuda), gids, extra, rank * (M // P), M // P
+
+
+def _held_to_sum_abs(got, want, loc, g, base, m_local):
+    """Per slot within 1e-6 of its sum |g| (atomics add in any order)."""
+    rel = loc.reshape(-1).long() - base
+    inb = (rel >= 0) & (rel < m_local)
+    abs_sum = torch.zeros(m_local, dtype=torch.float64, device=g.device)
+    abs_sum.index_add_(0, rel[inb], g.reshape(-1)[inb].abs().double())
+    assert bool(((got - want).abs().double() <= 1e-6 * abs_sum).all())
+
+
+SLAB_SCHEMES = ["lma", "lma_striped", "hashed_elem", "hashed_row"]
+
+
+@pytest.mark.parametrize("rank", [0, 3])
+@pytest.mark.parametrize("scheme", SLAB_SCHEMES)
+def test_chunk_kernels_match_plain(cuda, scheme, rank):
+    """Rows 10 and 11 bit-exact, row 12 within 1e-6 of sum |g|."""
+    spec, mem, gids, extra, base, m_local = _slab_case(cuda, scheme, rank)
+    slab = mem[base:base + m_local].contiguous()
+    part, loc = fk.fused_chunk_lookup_cuda(spec, slab, gids, *extra,
+                                           base=base)
+    want_part, want_loc = fref.chunk_lookup_ref(spec, slab, gids, *extra,
+                                                base=base)
+    assert torch.equal(loc, want_loc) and torch.equal(part, want_part)
+    inb = (loc >= base) & (loc < base + m_local)
+    assert inb.any() and (~inb).any()
+    got = fk.fused_chunk_gather_cuda(slab, loc, base)
+    assert torch.equal(got, fref.chunk_gather_ref(slab, loc, base))
+    g = torch.randn(loc.shape, device=cuda)
+    dm = fk.fused_chunk_scatter_cuda(loc, g, base, m_local)
+    _held_to_sum_abs(dm, fref.chunk_scatter_ref(loc, g, base, m_local), loc,
+                     g, base, m_local)
+
+
+@pytest.mark.parametrize("rank", [1, 2])
+@pytest.mark.parametrize("scheme", SLAB_SCHEMES)
+def test_slab_mode_lookup_and_scatter_add_match_plain(cuda, scheme, rank):
+    """Rows 2 and 5 with ``base``: the lookup bit-exact, the scatter-add
+    within 1e-6 of sum |g| of the whole pool's gradient cut to the slab."""
+    spec, mem, gids, extra, base, m_local = _slab_case(cuda, scheme, rank)
+    slab = mem[base:base + m_local].contiguous()
+    got = fk.fused_lookup_cuda(spec, slab, gids, *extra, base=base)
+    assert torch.equal(got, fref.fused_lookup_ref(spec, slab, gids, *extra,
+                                                  base=base))
+    g = torch.randn((gids.numel(), D), device=cuda)
+    dm = fk.fused_scatter_add_cuda(spec, g, gids, *extra, base=base,
+                                   m_local=m_local)
+    loc = fref.locations_ref(spec, gids, *extra)
+    _held_to_sum_abs(dm, fref.scatter_add_ref(spec, g, gids, *extra, base=base,
+                                              m_local=m_local),
+                     loc, g, base, m_local)
+
+
+def test_chunk_autograd_launches_the_kernels(cuda):
+    spec, mem, gids, extra, base, m_local = _slab_case(cuda, "lma", 1)
+    slab = mem[base:base + m_local].contiguous().requires_grad_()
+    counts = [fk.fused_chunk_lookup_cuda, fk.fused_chunk_gather_cuda,
+              fk.fused_chunk_scatter_cuda]
+    before = [k.launches for k in counts]
+    part, loc = fe.fused_chunk_lookup(spec, slab, gids, *extra, base=base)
+    (part + fe.fused_chunk_gather(slab, loc, base)).sum().backward()
+    assert slab.grad is not None and slab.grad.shape == (m_local,)
+    assert [k.launches - b for k, b in zip(counts, before)] == [1, 1, 2]
+
+
+def test_chunk_wrappers_reject_bad_inputs(cuda):
+    spec = fe.hashed_spec("hashed_elem", D, M, 1)
+    gids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    slab = torch.zeros(M // 4, device=cuda)
+    with pytest.raises(ValueError):          # the slab overruns the pool
+        fk.fused_chunk_lookup_cuda(spec, slab, gids, base=M - 10)
+    with pytest.raises(ValueError):          # a slab with no base
+        fk.fused_lookup_cuda(spec, slab, gids)
+    loc = torch.zeros((4, D), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        fk.fused_chunk_gather_cuda(slab, loc.long())
+    with pytest.raises(ValueError):
+        fk.fused_chunk_scatter_cuda(loc, torch.zeros((4, D + 1), device=cuda),
+                                    0, M // 4)
