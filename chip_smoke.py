@@ -51,13 +51,17 @@ Phases (any failure raises and ends the run with a non-zero code):
      kernels) against the plain versions;
  11. time the training kernels (CUDA-graph replay) beside their bounds,
      plain versions and, for sparse Adagrad, torch.optim.Adagrad on a
-     sparse gradient;
+     sparse gradient (its device time from the profiler: a sparse step
+     synchronises, so no graph captures it), and trace the sparse
+     Adagrad kernel's two passes;
  18. (run here, while dlrm-rm2 is on the card) build dlrm-rm2 with
      hashed_row at the same budget (2,110,208 rows of 64) and take one
      B=65,536 step's row-mode SparseGrad (one index per row, [K, 64]);
  19. hold sparse SGD and sparse Adam (and Adagrad's row layout) against
      their plain versions on a sentinel-padded unique stream and the real
-     bucketed stream of the LMA pool and on the row-mode SparseGrad (Adam
+     bucketed stream of the LMA pool, all three flat on a tile-edge stress
+     stream (runs of every length 1..4,097 across the fold's tile edges,
+     one of 2^15, a sentinel tail) and on the row-mode SparseGrad (Adam
      also with a row-wise nu): updates and states bit-equal, untouched
      state slots bit-unchanged;
  20. train full-width dlrm-rm2 with make_optimizer's sgd arm (momentum SGD,
@@ -74,7 +78,8 @@ Phases (any failure raises and ends the run with a non-zero code):
      B=4,096 batch's rows, within 1e-6 of sum |w T|;
  22. time sparse SGD and Adam (flat and row layout) and the bag (CUDA-graph
      replay) beside their bounds, plain versions and torch.optim.SparseAdam
-     / F.embedding_bag; then free dlrm-rm2 and its training state;
+     (profiled device time) / F.embedding_bag; then free dlrm-rm2 and its
+     training state;
  12. build xDeepFM at full width on the card: the 21,102,592-slot flat
      LMA pool (d=10), the 2,113,536-slot flat linear pool (d=1) and the
      33,763,877 x 32 D' store, planted and made very sparse as in phase 2;
@@ -90,8 +95,10 @@ Phases (any failure raises and ends the run with a non-zero code):
  16. train xDeepFM at B=4096 for a few steps, sparse and dense, each step
      taken both ways from one state and held together by ``check_step``
      for both pools;
- 17. time the CIN kernel (CUDA-graph replay) per layer at B=512 and B=4096
-     beside its bound, its plain version and one torch.einsum; then free
+ 17. time the CIN kernel, its plain version and one torch.einsum (all by
+     CUDA-graph replay) per layer at B=512 and B=4096, beside two bounds:
+     float32 FMAs on the CUDA cores and three TF32 passes on the tensor
+     cores (the lower, the card's floor, is the row's bound); then free
      xDeepFM;
  23. the one-card oracle: rebuild dlrm-rm2 from the seed, record the
      logits of a 512-request batch, hashed_row's lookup of it, and 4
@@ -177,10 +184,12 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8   # adam's defaults, likewise
 # int32 ALU rate; the ceiling no mix of int32 instructions can pass is the
 # dispatch limit, 4 schedulers x 32 lanes per SM per clock (logic, shifts
 # and min on the 64-lane INT pipe, IMAD on the FMA pipe), so 132 SMs x 128
-# x 1.98 GHz = 33.5 T int32 operations/s.
+# x 1.98 GHz = 33.5 T int32 operations/s.  The tensor cores do 494.7
+# TFLOP/s of dense TF32; three TF32 passes make a float32-exact product.
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20          # its L2 cache
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 494.7e12     # dense, on the tensor cores
 INT32_OP_PER_S = 132 * 128 * 1.98e9
 
 # int32 operations per unit of work, counted from csrc/hash_core.cuh
@@ -296,6 +305,36 @@ def events_ms(torch, fn):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def profile_ms(torch, fn, iters: int = 3) -> dict:
+    """Device time per call of each CUDA kernel that ``fn`` launches, by
+    kernel name, from ``torch.profiler`` over ``iters`` calls after a
+    warm-up call: the trace of a kernel's passes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        if us > 0:
+            out[ev.key[:60]] = us / 1e3 / iters
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def device_ms(torch, fn, iters: int = 3) -> float:
+    """Device time per call of everything ``fn`` launches (the profiler's
+    kernel times summed): the yardstick for a library call that synchronises
+    with the host (a sparse COO optimizer step), which no CUDA graph can
+    capture; for graph-captured kernels it agrees with ``graph_ms``."""
+    return sum(profile_ms(torch, fn, iters).values())
 
 
 def sum_tol(run, abs_sum, pairwise: bool = True):
@@ -847,6 +886,13 @@ def check_training_kernels(torch, cfg, model, bufs, check_batch, sg,
                 raise AssertionError("sparse Adagrad wrote untouched slots")
             del acc_k, acc_p, touched
         _, runs = torch.unique_consecutive(sg.indices, return_counts=True)
+        K = sg.indices.numel()
+        shares = ", ".join(
+            f"{lo}-{hi}: {int(((runs >= lo) & (runs <= hi)).sum())} runs, "
+            f"{float(runs[(runs >= lo) & (runs <= hi)].sum()) / K:.1%} of "
+            "entries" for lo, hi in ((1, 32), (33, 64), (65, 256),
+                                     (257, 1024), (1025, 1 << 30)))
+    log(f"bucketed stream's run lengths (K={K}): {shares}")
     log(f"training kernels at B={B} ({gids.numel()} values, {n_fb} fallback "
         "rows): locations bit-exact (lma flat and striped, hashed_elem, "
         f"hashed_row); scatter-add max |err| {err['fused_scatter_add']:.3g} "
@@ -1558,7 +1604,9 @@ def measure_training(torch, cfg, model, bufs, gen, train_batch, plain_full,
         param.grad = coo
         opt.step()
 
-    r["library_ms"] = time_ms(torch, library_step, 2, warmup=1)
+    r["library_ms"] = device_ms(torch, library_step)
+    r["passes_ms"] = profile_ms(torch, lambda: sparse_adagrad_cuda(
+        sg.indices, sg.values, acc, lr=1e-2, unique=False))
     r["K"], r["slots"] = K, heads
     del param, opt, coo, acc
     for name in ("fused_locations", "fused_scatter_add", "fused_weight_grad"):
@@ -1573,7 +1621,8 @@ def measure_training(torch, cfg, model, bufs, gen, train_batch, plain_full,
     log(f"  sparse_adagrad K={K} ({heads} slots): {r['ms']:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms (bytes), {r['bound_ms'] / r['ms']:.1%} of "
         f"bound, plain {r['plain_ms']:.3f} ms, torch.optim.Adagrad (sparse) "
-        f"{r['library_ms']:.3f} ms")
+        f"{r['library_ms']:.3f} ms of device time; its passes "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in r["passes_ms"].items()))
     return res
 
 
@@ -1595,6 +1644,28 @@ def build_hashed_row(torch, dev, mesh=None):
     return cfg, model, cfg.table.make_buffers(None)
 
 
+def stress_stream(torch, m: int, dev, tile: int = 2048, halo: int = 2048):
+    """A bucketed flat stream against the flat fold's tiles: runs of every
+    length 1..tile + halo + 1 in random order (run ends on and around every
+    tile edge, runs that fill the halo and go to the second pass), one of
+    2^15, then a tail of sentinels (= m); slots spread over [0, m), values
+    of both signs over seven decades, 1% -0."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(SEED + 23)
+    lengths = np.concatenate([np.arange(1, tile + halo + 2), [1 << 15]])
+    rng.shuffle(lengths)
+    slots = np.sort(rng.choice(m, lengths.shape[0], replace=False))
+    idx = np.concatenate([np.repeat(slots, lengths),
+                          np.full(1000, m)]).astype(np.int32)
+    vals = (rng.normal(0, 1, idx.shape[0])
+            * 10.0 ** rng.uniform(-6, 1, idx.shape[0])).astype(np.float32)
+    vals[rng.random(idx.shape[0]) < 0.01] = -0.0
+    return SimpleNamespace(indices=torch.from_numpy(idx).to(dev),
+                           values=torch.from_numpy(vals).to(dev),
+                           unique=False)
+
+
 def optimizer_cases(torch, gen, lead: int, shape: tuple) -> dict:
     """Random states on a pool of ``shape`` (leading dim ``lead``) for SGD
     and Adam, and for a row layout also Adagrad (row 7's flat layout is
@@ -1611,8 +1682,9 @@ def optimizer_cases(torch, gen, lead: int, shape: tuple) -> dict:
 
 def check_optimizer_kernels(torch, p, sg, sg_rows, dev) -> dict:
     """Rows 8 and 9 (and row 7's row layout) against their plain versions:
-    on a sentinel-padded unique stream and the real B=65,536 step's bucketed
-    stream of the LMA pool (flat [m] states), and on the hashed_row pool's
+    on a sentinel-padded unique stream, the real B=65,536 step's bucketed
+    stream of the LMA pool and (rows 7-9) the tile-edge stress stream (flat
+    [m] states), and on the hashed_row pool's
     row-mode SparseGrad ([rows, 64] states, Adam also with a row-wise nu).
     Updates and states bit-equal (row-wise nu: within 1e-6 relative, see
     ``ref.row_mean``), untouched slots bit-unchanged.  -> max |err| by
@@ -1630,12 +1702,16 @@ def check_optimizer_kernels(torch, p, sg, sg_rows, dev) -> dict:
     uniq = dedup_locations(sg.indices[:half], sg.values[:half], (p.m,))
     err, lines = {}, []
     streams = [("LMA unique", uniq, (p.m,)), ("LMA bucketed", sg, (p.m,)),
+               ("tile-edge stress", stress_stream(torch, p.m, dev), (p.m,)),
                ("hashed_row rows", sg_rows, sg_rows.dense_shape)]
     with torch.no_grad():
         for where, stream, shape in streams:
             lead = shape[0]
-            for case, states in optimizer_cases(torch, gen, lead,
-                                                shape).items():
+            cases = optimizer_cases(torch, gen, lead, shape)
+            if where == "tile-edge stress":     # row 7's flat fold too
+                cases["adagrad"] = (torch.rand(shape, generator=gen,
+                                               device=dev),)
+            for case, states in cases.items():
                 algo = case.split()[0]
                 mine = tuple(x.clone() for x in states)
                 plain = tuple(x.clone() for x in states)
@@ -1776,8 +1852,12 @@ def measure_optimizers(torch, sg, sg_rows, dev) -> dict:
                     param.grad = coo
                     opt.step()
 
-                t["library_ms"] = time_ms(torch, library_step, 2, warmup=1)
+                t["library_ms"] = device_ms(torch, library_step)
                 del param, opt, coo
+            if where == "flat":
+                t["passes_ms"] = profile_ms(torch, lambda: kernel[algo](
+                    stream.indices, stream.values, *states,
+                    unique=stream.unique, **hyper[algo]))
             r[where] = t
             del states
             log(f"  {SPARSE_KERNEL[algo]} {where} K={K} ({slots} slots, "
@@ -1785,8 +1865,10 @@ def measure_optimizers(torch, sg, sg_rows, dev) -> dict:
                 f"{t['bound_ms']:.4f} ms (bytes), "
                 f"{t['bound_ms'] / t['ms']:.1%} of bound, plain "
                 f"{t['plain_ms']:.3f} ms"
-                + (f", torch.optim.SparseAdam {t['library_ms']:.3f} ms"
-                   if t["library_ms"] is not None else ""))
+                + (f", torch.optim.SparseAdam {t['library_ms']:.3f} ms of "
+                   "device time" if t["library_ms"] is not None else "")
+                + "".join(f"; {k} {v:.4f} ms"
+                          for k, v in t.get("passes_ms", {}).items()))
         res[SPARSE_KERNEL[algo]] = {**r["flat"], "rows": r["rows"]}
     return res
 
@@ -1958,9 +2040,12 @@ def check_xdeepfm_lookups(torch, cfg, model, bufs, batch, dev) -> None:
 
 def measure_cin(torch, inputs) -> dict:
     """Row 14 per layer at B=512 (a served batch) and B=4096 (a training
-    batch): device time from CUDA-graph replay beside the bound, the plain
-    version and one torch.einsum over the same inputs; the entry of a batch
-    sums its three layers (one forward)."""
+    batch): device time from CUDA-graph replay of the kernel, its plain
+    version and one torch.einsum over the same inputs, beside two bounds:
+    the float32 flops on the CUDA cores (67 TFLOP/s) and three TF32 passes
+    on the tensor cores (494.7 TFLOP/s); the lower is the card's floor for
+    float32-exact work and the row's bound.  The entry of a batch sums its
+    three layers (one forward)."""
     from repro_torch.kernels.cin.kernel import cin_cuda
     from repro_torch.kernels.cin.ref import cin_ref
 
@@ -1974,28 +2059,37 @@ def measure_cin(torch, inputs) -> dict:
                 Ho, Hk = w.shape[0], w.shape[1]
                 Q = Hk * F
                 r = {"Hk": Hk, "Ho": Ho}
-                r["ms"] = graph_ms(torch, lambda: cin_cuda(xk, x0, w),
-                                   20 if B == 512 else 5)
-                r["plain_ms"] = time_ms(torch, lambda: cin_ref(xk, x0, w), 3,
-                                        warmup=1)
-                r["library_ms"] = time_ms(torch, lambda: torch.einsum(
-                    "bhd,bfd,ohf->bod", xk, x0, w), 3, warmup=1)
-                r["bound_ms"], r["bound_by"] = bound(
-                    4 * (B * Hk * d + B * F * d + Ho * Q + B * Ho * d),
-                    2 * B * d * Ho * Q, FP32_FLOP_PER_S)
+                iters = 20 if B == 512 else 5
+                r["ms"] = graph_ms(torch, lambda: cin_cuda(xk, x0, w), iters)
+                r["plain_ms"] = graph_ms(torch, lambda: cin_ref(xk, x0, w),
+                                         iters)
+                r["library_ms"] = graph_ms(torch, lambda: torch.einsum(
+                    "bhd,bfd,ohf->bod", xk, x0, w), iters)
+                nbytes = 4 * (B * Hk * d + B * F * d + Ho * Q + B * Ho * d)
+                flops = 2 * B * d * Ho * Q
+                r["bound_fp32_ms"], _ = bound(nbytes, flops, FP32_FLOP_PER_S)
+                r["bound_3xtf32_ms"], by = bound(nbytes, 3 * flops,
+                                                 TF32_FLOP_PER_S)
+                # the card's floor for float32-exact work: the lower
+                r["bound_ms"], r["bound_by"] = min(
+                    (r["bound_3xtf32_ms"], by), bound(nbytes, flops,
+                                                      FP32_FLOP_PER_S))
                 per.append(r)
         tot = {k: sum(r[k] for r in per)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_fp32_ms", "bound_3xtf32_ms")}
         tot["bound_by"] = per[0]["bound_by"]
         tot["layers"] = per
         res[B] = tot
         log(f"  cin B={B}: {tot['ms']:.4f} ms over 3 layers ("
             + ", ".join(f"Hk={r['Hk']} {r['ms']:.4f} ms / bound "
                         f"{r['bound_ms']:.4f}" for r in per)
-            + f"), bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}), "
-            f"{tot['bound_ms'] / tot['ms']:.1%} of bound, plain "
-            f"{tot['plain_ms']:.3f} ms, torch.einsum {tot['library_ms']:.3f}"
-            " ms")
+            + f"), bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}, 3xTF32"
+            f" on the tensor cores; {tot['bound_ms'] / tot['ms']:.1%} of it), "
+            f"float32 FMA bound {tot['bound_fp32_ms']:.4f} ms "
+            f"({tot['bound_fp32_ms'] / tot['ms']:.1%} of it), plain "
+            f"{tot['plain_ms']:.4f} ms, torch.einsum {tot['library_ms']:.4f}"
+            " ms (all by CUDA-graph replay)")
     return res
 
 
@@ -2651,7 +2745,10 @@ def main() -> int:
     log(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         regs = [ln.strip() for ln in rep.splitlines() if "Used" in ln]
-        log(f"  {name}: {'; '.join(regs)}")
+        frames = [int(ln.split()[0]) for ln in rep.splitlines()
+                  if "bytes stack frame" in ln]
+        log(f"  {name}: {'; '.join(regs)}; largest stack frame "
+            f"{max(frames, default=0)} bytes")
     kernels = shard_kernels()
 
     cfg, model, bufs = build_model(torch, dev)
@@ -2737,7 +2834,8 @@ def main() -> int:
             extra = {k: r[k] for k in ("batch", "at_chunk") if k in r}
         elif name in BY_STREAM:
             main_r = r
-            extra = {k: r[k] for k in ("K", "slots", "rows") if k in r}
+            extra = {k: r[k] for k in ("K", "slots", "rows", "passes_ms")
+                     if k in r}
             where = f"K={r['K']}"
             if "rows" in r:
                 where += (f" (row layout K={r['rows']['K']}: "
@@ -2746,6 +2844,9 @@ def main() -> int:
         else:
             at = MAIN_BATCH.get(name, min(r))
             main_r, extra = r[at], {"batch": at}
+            extra.update({k: main_r[k] for k in ("bound_fp32_ms",
+                                                 "bound_3xtf32_ms")
+                          if k in main_r})
             where = f"B={at}"
             for other in sorted(set(r) - {at}):
                 extra[f"at_batch_{other}"] = r[other]

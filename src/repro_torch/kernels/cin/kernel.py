@@ -19,7 +19,15 @@ _I, _P = ctypes.c_int, ctypes.c_void_p
 @functools.cache
 def _launch():
     return build.entry("cin", "cin_launch", [_P, _P, _P, _I, _I, _I, _I, _I,
-                                             _P, _P])
+                                             _P, _P, _P])
+
+
+@functools.cache
+def _scratch_floats():
+    fn = getattr(build.load("cin"), "cin_scratch_floats")
+    fn.argtypes = [_I] * 5
+    fn.restype = ctypes.c_int64
+    return fn
 
 
 def cin_cuda(xk: torch.Tensor, x0: torch.Tensor,
@@ -38,12 +46,18 @@ def cin_cuda(xk: torch.Tensor, x0: torch.Tensor,
                          f"{tuple(xk.shape)}")
     if tuple(w.shape[1:]) != (Hk, F):
         raise ValueError(f"w {tuple(w.shape)} is not [Ho, {Hk}, {F}]")
+    if max(xk.numel(), x0.numel(), w.numel()) >= 2**31:
+        raise ValueError("cin: an operand of 2^31 or more elements")
     if not (xk.device == x0.device == w.device):
         raise ValueError("xk, x0 and w lie on different devices")
     out = torch.empty((B, Ho, d), dtype=torch.float32, device=xk.device)
+    n_scratch = _scratch_floats()(B, Hk, F, d, Ho)   # W's tiles, partials
+    scratch = torch.empty(n_scratch, dtype=torch.float32,
+                          device=xk.device) if n_scratch else None
     with torch.cuda.device(xk.device):
         code = _launch()(build.ptr(xk), build.ptr(x0), build.ptr(w), B, Hk,
-                         F, d, Ho, build.ptr(out), build.stream(xk.device))
+                         F, d, Ho, build.ptr(out), build.ptr(scratch),
+                         build.stream(xk.device))
     build.check(code, "cin")
     cin_cuda.launches += 1
     return out

@@ -19,14 +19,14 @@ import torch
 from repro_torch.kernels import build
 
 _I, _L, _F, _P = ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_void_p
-SHORT_RUN = 32       # csrc/sparse_update.cu: longer flat runs take a warp
+TILE = 2048          # csrc/sparse_update.cu: flat entries a pass-1 block owns
 MAX_D = 256          # csrc/sparse_update.cu: MAX_COLS * 32
 
 
 @functools.cache
 def _launch(symbol: str):
     head = [_P, _P, _L, _I, _I, _I]            # idx, val, K, m, d, unique
-    tail = [_P, _P, _P]                        # u, long_heads, n_long
+    tail = [_P, _P]                            # u, long_head
     scalars = {"sparse_adagrad_launch": [_F, _F, _P],
                "sparse_sgd_launch": [_F, _F, _P],
                "sparse_adam_launch": [_I] + [_F] * 8 + [_P, _P]}[symbol]
@@ -59,17 +59,14 @@ def _run(symbol: str, indices, values, states: tuple, scalars: list,
     d = _layout(indices, values, states)
     K, dev = indices.shape[0], values.device
     u = torch.empty_like(values)
-    long_heads = n_long = None         # only flat runs can be long
+    long_head = None                   # a flat fold's runs past a tile
     if d == 0 and not unique:
-        long_heads = torch.empty(K // (SHORT_RUN + 1) + 1, dtype=torch.int64,
-                                 device=dev)
-        n_long = torch.zeros(1, dtype=torch.int32, device=dev)
+        long_head = torch.empty(-(-K // TILE), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         code = _launch(symbol)(
             build.ptr(indices), build.ptr(values), K, states[0].shape[0], d,
             int(unique), *scalars, *(build.ptr(s) for s in states),
-            build.ptr(u), build.ptr(long_heads), build.ptr(n_long),
-            build.stream(dev))
+            build.ptr(u), build.ptr(long_head), build.stream(dev))
     build.check(code, symbol)
     return u
 

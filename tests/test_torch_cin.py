@@ -123,3 +123,53 @@ def test_params_from_jax_xdeepfm():
         np.testing.assert_array_equal(state[f"deep.{name}.weight"].numpy(),
                                       layer["kernel"].T)
     assert tuple(state["cin.layer_1"].shape) == (24, 24, 12)
+
+
+# ------------------------------ the 3xTF32 split of csrc/cin.cu, emulated
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32: float32 rounded to 10 mantissa bits, to nearest
+    with ties away from zero (the low 13 bits cleared)."""
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _tensor_core_cin(xk, x0, w, passes: int) -> np.ndarray:
+    """The kernel's arithmetic: Z = xk * x0 rounded to float32, Z and W each
+    split into big = tf32(x) and small = tf32(x - big), and each k8 step
+    (one h, eight f; f-blocks outer, h inner, as the kernel walks Q) adds
+    small*big, then big*small, then big*big to a float32 accumulator (the
+    TF32 products are exact; each step's sum is rounded once).  passes=1
+    keeps big*big alone, a plain TF32 product."""
+    B, Hk, d = xk.shape
+    F, Ho = x0.shape[1], w.shape[0]
+    z = (xk[:, :, None, :] * x0[:, None, :, :]).astype(np.float32)
+    z = z.transpose(0, 3, 1, 2).reshape(B * d, Hk * F)        # [N, Q]
+    wq = w.reshape(Ho, Hk * F).T.astype(np.float32)            # [Q, Ho]
+    zb, wb = _tf32(z), _tf32(wq)
+    zs, ws = _tf32(z - zb), _tf32(wq - wb)
+    parts = [(zs, wb), (zb, ws), (zb, wb)][3 - passes:]
+    acc = np.zeros((B * d, Ho), np.float32)
+    for f0 in range(0, F, 8):
+        for h in range(Hk):
+            q = slice(h * F + f0, h * F + min(f0 + 8, F))
+            for a, b in parts:
+                step = a[:, q].astype(np.float64) @ b[q].astype(np.float64)
+                acc = (acc.astype(np.float64) + step).astype(np.float32)
+    return acc.reshape(B, d, Ho).transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("Hk", [39, 200])
+def test_three_tf32_passes_keep_float32_accuracy(Hk):
+    """At xDeepFM's F = 39, d = 10, Ho = 200 (Q = 1,521 and 7,800), the
+    3xTF32 product stays within 1e-5 of each output's sum |terms| of the
+    float64 einsum, and well inside one TF32 pass's error."""
+    xk, x0, w = _inputs(3, Hk, 39, 10, 200, Hk)
+    exact = np.einsum("bhd,bfd,ohf->bod", xk.astype(np.float64),
+                      x0.astype(np.float64), w.astype(np.float64))
+    scale = _abs_terms(xk, x0, w)
+    err3 = np.abs(_tensor_core_cin(xk, x0, w, 3) - exact) / scale
+    err1 = np.abs(_tensor_core_cin(xk, x0, w, 1) - exact) / scale
+    assert err3.max() <= RTOL_ABS
+    assert err3.max() * 10 < err1.max()

@@ -305,7 +305,9 @@ def _cin_inputs(cuda, B, Hk, F, d, Ho, seed):
 # kernel's chunk depth, d = 1, and channel counts off the kernel's tile
 @pytest.mark.parametrize("B,Hk,F,d,Ho", [
     (333, 39, 39, 10, 200), (37, 200, 39, 10, 200), (64, 24, 12, 8, 24),
-    (16, 8, 8, 4, 16), (5, 13, 5, 3, 113), (70, 7, 40, 1, 1)])
+    (16, 8, 8, 4, 16), (5, 13, 5, 3, 113), (70, 7, 40, 1, 1),
+    (50, 1, 1, 10, 200), (3, 1, 1, 1, 7), (2000, 8, 5, 10, 200),
+    (1000, 13, 7, 40, 201), (3500, 39, 39, 10, 200), (4001, 3, 2, 1, 9)])
 def test_cin_kernel_matches_plain(cuda, B, Hk, F, d, Ho):
     """Within 1e-5 of each output's sum |terms| (float32 sums in another
     order)."""
@@ -316,6 +318,15 @@ def test_cin_kernel_matches_plain(cuda, B, Hk, F, d, Ho):
                          x0.abs().double(), w.abs().double())
     assert got.shape == (B, Ho, d)
     assert float(((got - want).abs() / scale.clamp_min(1e-30)).max()) <= 1e-5
+
+
+def test_cin_kernel_gives_the_same_bits_twice(cuda):
+    """No atomics and no split K: the same inputs give the same bits (the
+    trainer's check_step compares two forwards bit for bit)."""
+    for B in (512, 4096):
+        xk, x0, w = _cin_inputs(cuda, B, 200, 39, 10, 200, B)
+        a, b = ck.cin_cuda(xk, x0, w), ck.cin_cuda(xk, x0, w)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_cin_autograd_launches_the_kernel(cuda):
@@ -412,6 +423,29 @@ def test_sparse_sgd_adam_flat_match_plain(cuda, algo, unique):
     """Flat [m] states: runs up to 2^15 (the warp pass) and sentinel tails."""
     idx, vals = _stream(np.random.default_rng(9), unique)
     _check_update(cuda, algo, idx, vals, _states(cuda, algo, (M,)), unique)
+
+
+def _tile_edge_stream(rng, tile=2048, halo=2048):
+    """Runs of every length 1..tile + halo + 1 in random order (so run ends
+    fall on and around every tile edge), one of 2^15, then a sentinel tail;
+    values of both signs and many scales, some -0."""
+    lengths = np.concatenate([np.arange(1, tile + halo + 2), [1 << 15]])
+    rng.shuffle(lengths)
+    m = 2 * lengths.shape[0] + 1
+    idx = np.concatenate([np.repeat(np.arange(lengths.shape[0]) * 2, lengths),
+                          np.full(777, m)]).astype(np.int32)
+    vals = (rng.normal(0, 1, idx.shape[0])
+            * 10.0 ** rng.uniform(-6, 1, idx.shape[0])).astype(np.float32)
+    vals[rng.random(idx.shape[0]) < 0.01] = -0.0
+    return idx, vals, m
+
+
+@pytest.mark.parametrize("algo", ["adagrad", "sgd", "adam"])
+def test_flat_fold_at_tile_edges_matches_plain(cuda, algo):
+    """The flat fold's tiles, halo and pass 2 against the plain versions,
+    bit for bit, on runs that end on every tile edge and cover the halo."""
+    idx, vals, m = _tile_edge_stream(np.random.default_rng(11))
+    _check_update(cuda, algo, idx, vals, _states(cuda, algo, (m,)), False)
 
 
 @pytest.mark.parametrize("unique", [True, False])

@@ -267,3 +267,230 @@ def test_sparse_update_matches_pallas_interpret(algo, rowwise):
     for a, b in zip(tst, jst):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
     _untouched_unchanged(idx, states, [s.numpy() for s in tst])
+
+
+# ------------------------- the flat fold's schedule (csrc/sparse_update.cu)
+#
+# A plain-PyTorch emulation of the CUDA fold's order of additions: tiles of
+# warps * lanes * span entries with a halo read in steps of warps * lanes,
+# windows of `lanes` entries folded by the reference's masked doubling
+# (shuffle-down semantics), for a run that leaves its window one lane an
+# entry if it ends within `lanes` entries, else head-aligned rounds of
+# lanes * span entries (span-trees, then a lane tree, then a carry stack),
+# and pass 2's chunks of warps rounds for a run that covers the
+# halo.  The kernel's constants are lanes 32, span 8, warps 8, halo 2,048.
+
+class _Carry:
+    """The kernel's carry stack: slot k holds a block of 2^k leaves."""
+
+    def __init__(self):
+        self.c, self.count = {}, 0
+
+    def push(self, x):
+        k = 0
+        while (self.count >> k) & 1:
+            x = self.c[k] + x
+            k += 1
+        self.c[k] = x
+        self.count += 1
+
+    def finish(self):
+        acc = None
+        for k in sorted(self.c):
+            if (self.count >> k) & 1:
+                acc = self.c[k] if acc is None else self.c[k] + acc
+        return acc
+
+
+def _tree(leaves: list, n: int):
+    """Truncated aligned tree of leaves[0:n] (len(leaves) a power of two):
+    leaf i + step joins leaf i where i is a multiple of 2 step."""
+    leaves = list(leaves)
+    step = 1
+    while step < len(leaves):
+        for i in range(0, len(leaves), 2 * step):
+            if i + step < n:
+                leaves[i] = leaves[i] + leaves[i + step]
+        step *= 2
+    return leaves[0]
+
+
+def _round(vals, lanes: int, span: int, cnt: int):
+    """One warp's fold of cnt entries (vals, a float32 tensor, zero past
+    cnt) as span-trees a lane, then the shuffle tree over the lanes."""
+    lane_sums = [_tree(list(vals[span * ln:span * (ln + 1)]),
+                       min(max(cnt - span * ln, 0), span))
+                 for ln in range(lanes)]
+    return _tree(lane_sums, -(-cnt // span))
+
+
+def _as_reference(s, n: int, K: int):
+    return s if n == K and n & (n - 1) == 0 else s + torch.zeros((),
+                                                                 dtype=s.dtype)
+
+
+def _in_run(idx, vals, start: int, width: int, slot: int, limit: int):
+    """Entries [start, start + width) of the run of `slot` (those before
+    limit), zero past it; -> (values, count)."""
+    seg = idx[start:min(start + width, limit)]
+    same = seg == slot
+    cnt = int(same.cumprod(0).sum()) if seg.numel() else 0
+    out = torch.zeros(width, dtype=vals.dtype)
+    out[:cnt] = vals[start:start + cnt]
+    return out, cnt
+
+
+def _schedule_fold(idx, vals, lanes=32, span=8, warps=8, halo=2048):
+    """-> (head, folded) as ``fold_duplicates`` gives them, computed in the
+    CUDA fold's order."""
+    K = idx.numel()
+    rnd, threads = lanes * span, warps * lanes
+    tile = warps * rnd
+    head = torch.ones(K, dtype=torch.bool)
+    head[1:] = idx[1:] != idx[:-1]
+    out = torch.zeros(K, dtype=vals.dtype)
+    long_heads = []
+    for ts in range(0, K, tile):
+        n_tile = min(tile, K - ts)
+        n_buf, long_run = n_tile, False
+        tail = int(idx[ts + n_tile - 1])
+        if n_tile == tile and ts + tile < K and int(idx[ts + tile]) == tail:
+            long_run, q0 = True, tile
+            while q0 < tile + halo and long_run:
+                seg = idx[ts + q0:ts + q0 + threads]
+                long_run = seg.numel() == threads and bool((seg == tail).all())
+                n_buf = min(K - ts, q0 + threads)
+                q0 += threads
+        tile_heads = torch.nonzero(head[ts:ts + n_tile]).flatten()
+        last = int(tile_heads[-1]) if tile_heads.numel() else -1
+        long_lh = last if long_run else -1
+        if long_lh >= 0:
+            long_heads.append(ts + long_lh)
+        for w0 in range(0, n_tile, lanes):
+            nv = min(lanes, n_tile - w0)
+            hm = head[ts + w0:ts + w0 + nv]
+            if not hm.any():
+                continue
+            lane_heads = [ln for ln in range(nv) if hm[ln]]
+            x = torch.zeros(lanes, dtype=vals.dtype)
+            x[:nv] = vals[ts + w0:ts + w0 + nv]
+            hl = torch.tensor([max([h for h in lane_heads if h <= ln],
+                                   default=-1) for ln in range(lanes)])
+            end = torch.tensor([min([h for h in lane_heads if h > ln],
+                                    default=nv) for ln in range(lanes)])
+            r, rem = torch.arange(lanes) - hl, end - torch.arange(lanes)
+            off = 1
+            while off < lanes:
+                y = torch.cat([x[off:], x[lanes - off:]])
+                x = torch.where((hl >= 0) & ((r & (2 * off - 1)) == 0)
+                                & (off < rem), x + y, x)
+                off *= 2
+            p_last = ts + w0 + nv - 1
+            goes_on = p_last + 1 < K and int(idx[p_last + 1]) == int(
+                idx[p_last])
+            hc = lane_heads[-1]
+            for ln in lane_heads:
+                if ln == hc and goes_on:
+                    continue
+                out[ts + w0 + ln] = _as_reference(x[ln], int(rem[ln]), K)
+            if goes_on and w0 + hc != long_lh:
+                slot, carry, n = int(idx[ts + w0 + hc]), _Carry(), 0
+                base = ts + w0 + hc
+                seg, cnt = _in_run(idx, vals, base, lanes + 1, slot,
+                                   ts + n_buf)
+                if cnt <= lanes:              # a lane an entry
+                    out[base] = _as_reference(_round(seg, lanes, 1, cnt),
+                                              cnt, K)
+                    continue
+                while True:
+                    seg, cnt = _in_run(idx, vals, base, rnd, slot, ts + n_buf)
+                    if cnt == 0:
+                        break
+                    carry.push(_round(seg, lanes, span, cnt))
+                    n += cnt
+                    if cnt < rnd:
+                        break
+                    base += rnd
+                out[ts + w0 + hc] = _as_reference(carry.finish(), n, K)
+    for h in long_heads:                                    # pass 2
+        slot, carry, n, base = int(idx[h]), _Carry(), 0, h
+        while True:
+            sums, total = [], 0
+            for w in range(warps):
+                seg, cnt = _in_run(idx, vals, base + w * rnd, rnd, slot, K)
+                sums.append(_round(seg, lanes, span, cnt))
+                total += cnt
+            if total > 0:
+                carry.push(_tree(sums, -(-total // rnd)))
+                n += total
+            if total < tile:
+                break
+            base += tile
+        out[h] = _as_reference(carry.finish(), n, K)
+    return head, out
+
+
+def _edge_stream(seed: int, edge: int, longest: int, n_runs: int):
+    """Sorted slots whose runs take every length 1..longest + 1 with run
+    ends placed on and around every multiple of `edge`, values of both
+    signs and scales, some -0 and +0."""
+    rng = np.random.default_rng(seed)
+    lengths = list(range(1, longest + 2)) + list(rng.integers(
+        1, 2 * longest, n_runs))
+    rng.shuffle(lengths)
+    lengths = [int(n) for n in lengths]
+    idx = np.repeat(np.arange(len(lengths), dtype=np.int32) * 3, lengths)
+    vals = (rng.normal(0, 1, idx.shape[0])
+            * 10.0 ** rng.uniform(-6, 2, idx.shape[0])).astype(np.float32)
+    vals[rng.random(idx.shape[0]) < 0.05] = -0.0
+    vals[rng.random(idx.shape[0]) < 0.02] = 0.0
+    return idx, vals
+
+
+def _fold_bits(fold, idx, vals):
+    h, v = fold(idx, vals)
+    return np.asarray(h), np.asarray(v).view(np.int32)
+
+
+@pytest.mark.parametrize("case", ["small", "kernel", "one", "whole",
+                                  "negzero_pow2", "negzero_odd"])
+def test_flat_fold_schedule_matches_fold_duplicates(case):
+    """The CUDA flat fold's order of additions, emulated, gives the bits of
+    the reference's and the port's ``fold_duplicates`` (signed zeros too):
+    small lanes and tiles make runs cross every tile edge, fill the halo
+    and go to pass 2 over many rounds; the kernel's own constants on a
+    stream with runs past its 2,048-entry halo; K = 1; one run as the
+    whole stream; all -0 runs."""
+    lanes, span, warps, halo = (4, 2, 2, 16) if case == "small" else \
+        (32, 8, 8, 2048)
+    if case in ("small", "kernel"):
+        tile = lanes * span * warps
+        idx, vals = _edge_stream(7, tile, 3 * (tile + halo) if case ==
+                                 "small" else 300, 60 if case == "small"
+                                 else 40)
+        if case == "kernel":          # runs across the halo, to pass 2
+            idx = np.concatenate([idx, np.repeat(np.int32(idx[-1] + 3),
+                                                 5000),
+                                  np.repeat(np.int32(idx[-1] + 6), 2049)])
+            vals = np.concatenate([vals, np.random.default_rng(8).normal(
+                0, 1, 7049).astype(np.float32)])
+    elif case == "one":
+        idx, vals = np.array([4], np.int32), np.array([-0.0], np.float32)
+    elif case == "whole":
+        idx = np.full(700, 9, np.int32)
+        vals = np.random.default_rng(2).normal(0, 1, 700).astype(np.float32)
+    else:
+        n = 64 if case == "negzero_pow2" else 63
+        idx, vals = np.full(n, 1, np.int32), np.full(n, -0.0, np.float32)
+    want = _fold_bits(lambda i, v: jref.fold_duplicates(jnp.asarray(i),
+                                                        jnp.asarray(v)),
+                      idx, vals)
+    port = _fold_bits(lambda i, v: tref.fold_duplicates(torch.from_numpy(i),
+                                                        torch.from_numpy(v)),
+                      idx, vals)
+    mine = _fold_bits(lambda i, v: _schedule_fold(
+        torch.from_numpy(i), torch.from_numpy(v), lanes, span, warps, halo),
+        idx, vals)
+    for got in (port, mine):
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
