@@ -11,7 +11,8 @@ no card or no port beside it.
 
 Phases (any failure raises and ends the run with a non-zero code):
   1. print the card's name and power limit; build the CUDA kernels (one
-     nvcc per source, in parallel);
+     nvcc per source, in parallel) and log each kernel's registers, stack
+     frame and spill stores from ptxas;
   2. build dlrm-rm2 at full width on the card: the 135,053,312-slot striped
      LMA pool and the 33,762,577 x 32 D' store with planted clusters, a
      share of values made very sparse (support 0 or 1) so the fallback runs;
@@ -25,8 +26,10 @@ Phases (any failure raises and ends the run with a non-zero code):
   5. the split lookup (locations kernel + gather) over the served batch;
      the locations kernel must have launched;
   6. time each serving kernel at B=512 and B=4096 (device time from
-     CUDA-graph replay) beside its bound, its plain version and, for the
-     dot, torch.bmm;
+     CUDA-graph replay) beside its bound and its plain version; the dot
+     interaction also at B=16 and the training batch B=65,536, beside
+     torch.bmm with the triangle's index, checked against its plain version
+     (the same bits twice) and traced by torch.profiler at each batch;
   7. hold the training kernels against their plain versions at full width:
      locations bit-exact (lma flat and striped with fallback rows,
      hashed_elem, hashed_row), scatter-add and weight gradient within 1e-6,
@@ -53,7 +56,7 @@ Phases (any failure raises and ends the run with a non-zero code):
      plain versions and, for sparse Adagrad, torch.optim.Adagrad on a
      sparse gradient (its device time from the profiler: a sparse step
      synchronises, so no graph captures it), and trace the sparse
-     Adagrad kernel's two passes;
+     Adagrad kernel's two passes and the weight gradient;
  18. (run here, while dlrm-rm2 is on the card) build dlrm-rm2 with
      hashed_row at the same budget (2,110,208 rows of 64) and take one
      B=65,536 step's row-mode SparseGrad (one index per row, [K, 64]);
@@ -134,6 +137,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -152,6 +156,9 @@ N_CLUSTERS = 4096
 TRAIN_STEPS = 8                 # per run, sparse and dense
 XDEEPFM_TRAIN_BATCH = 4096      # the xDeepFM paper's mini-batch (section 4.1)
 CIN_CHECK_BATCHES = (512, 4096, 333)
+# row 3's batches: about the 5K/s path's mean, the largest served, 4,096 and
+# the training batch
+DOT_BATCHES = (16, 512, 4096, 65536)
 LAUNCHER_STEPS, LAUNCHER_BATCH = 300, 512
 FULL_CHUNK = 4096 * 26         # values per plain call over a B=65,536 batch
 # A pool slot's gradient is a float32 sum of its run of n contributions (n
@@ -350,6 +357,36 @@ def sum_tol(run, abs_sum, pairwise: bool = True):
         return k * U32 / (1 - k * U32)
     second = run.log2().ceil() if pairwise else run - 1
     return (gamma(run - 1) + gamma(second)) * abs_sum + 2 * run * FLT_MIN
+
+
+def ptxas_table(report: str) -> dict:
+    """Registers, stack frame and spill stores of each kernel in one
+    source's ``ptxas -v`` report, by the kernel's name."""
+    table, fn = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = kernel_name(m.group(1))
+            table[fn] = {"registers": 0, "stack": 0, "spill": 0}
+        elif fn and "bytes stack frame" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            table[fn]["stack"], table[fn]["spill"] = nums[0], nums[1]
+        elif fn and (m := re.search(r"Used (\d+) registers", ln)):
+            table[fn]["registers"] = int(m.group(1))
+    return table
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name with its template arguments, demangled by c++filt
+    less the anonymous namespace and the parameter list (the mangled symbol
+    where c++filt is missing)."""
+    try:
+        out = subprocess.run(["c++filt", mangled], capture_output=True,
+                             text=True, timeout=30).stdout.strip()
+    except OSError:
+        return mangled
+    out = out.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return out[:out.rindex("(")] if out.endswith(")") else out or mangled
 
 
 def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
@@ -702,9 +739,6 @@ def split_lookup(torch, cfg, model, bufs, batch, dev, kernels) -> int:
 
 
 def measure(torch, cfg, model, bufs, dev) -> dict:
-    from repro_torch.kernels.dot_interaction.kernel import dot_interaction_cuda
-    from repro_torch.kernels.dot_interaction.ref import (dot_interaction_ref,
-                                                         tril_pairs)
     from repro_torch.kernels.fused_embed import ops as fe
     from repro_torch.kernels.fused_embed.kernel import fused_lookup_cuda
     from repro_torch.kernels.fused_embed.ref import fused_lookup_ref
@@ -714,7 +748,7 @@ def measure(torch, cfg, model, bufs, dev) -> dict:
     p = cfg.embedding.lma
     spec = fe.lma_spec(p)
     mem = model.embedding["memory"].detach()
-    res = {"lma_locations": {}, "fused_embed": {}, "dot_interaction": {}}
+    res = {"lma_locations": {}, "fused_embed": {}}
     rng = np.random.default_rng(SEED + 4)
     for B in (512, 4096):
         batch = draw_requests(rng, cfg.embedding.vocab_sizes, B, cfg.n_dense)
@@ -741,26 +775,83 @@ def measure(torch, cfg, model, bufs, dev) -> dict:
                 *lma_work(torch, p, rows, support, fallback=True),
                 INT32_OP_PER_S)
             r["library_ms"] = None
-
-            r = res["dot_interaction"][B] = {}
-            Bx, F, d = allf.shape
-            P = F * (F - 1) // 2
-            ii, jj = tril_pairs(F, dev)
-            r["ms"] = graph_ms(torch, lambda: dot_interaction_cuda(allf),
-                               iters * 10)
-            r["plain_ms"] = time_ms(torch, lambda: dot_interaction_ref(allf),
-                                    iters)
-            r["library_ms"] = graph_ms(torch, lambda: torch.bmm(
-                allf, allf.transpose(1, 2))[:, ii, jj], iters * 10)
-            r["bound_ms"], r["bound_by"] = bound(
-                (Bx * F * d + Bx * P) * 4, 2 * Bx * P * d, FP32_FLOP_PER_S)
         for name in res:
             r = res[name][B]
             log(f"  {name} B={B}: {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-                f"{r['bound_ms'] / r['ms']:.1%} of bound"
-                + (f", library {r['library_ms']:.4f} ms"
-                   if r["library_ms"] is not None else ""))
+                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of bound")
+    return res
+
+
+def dot_inputs(torch, cfg, model, bufs, B: int, rng, dev):
+    """The interaction's input for B drawn requests, [B, 1 + 26, 64]: the
+    bottom MLP's output beside the fused lookup's rows, as the model
+    concatenates them."""
+    from repro_torch.kernels.fused_embed import ops as fe
+    from repro_torch.kernels.fused_embed.kernel import fused_lookup_cuda
+
+    batch = draw_requests(rng, cfg.embedding.vocab_sizes, B, cfg.n_dense)
+    gids = global_ids(torch, cfg, batch, dev)
+    rows, support = cfg.table.scheme.fused_inputs(cfg.embedding, bufs, gids)
+    with torch.inference_mode():
+        feats = fused_lookup_cuda(fe.lma_spec(cfg.embedding.lma),
+                                  model.embedding["memory"], gids, rows,
+                                  support)
+        bot = model.bot(torch.from_numpy(batch["dense"]).to(dev))
+        return torch.cat([bot[:, None, :], feats.reshape(B, cfg.n_fields, -1)],
+                         dim=1).contiguous()
+
+
+def measure_dot(torch, cfg, model, bufs, dev) -> dict:
+    """Row 3 at the served batches (16, about the 5K/s path's mean; 512,
+    the largest) and at 4,096 and the training batch 65,536: checked against
+    its plain version (the same bits on a second call), then timed by
+    CUDA-graph replay beside its bound, its plain version and torch.bmm with
+    the triangle's index, and traced by torch.profiler."""
+    from repro_torch.kernels.dot_interaction.kernel import dot_interaction_cuda
+    from repro_torch.kernels.dot_interaction.ref import (dot_interaction_ref,
+                                                         tril_pairs)
+
+    res = {}
+    rng = np.random.default_rng(SEED + 9)
+    for B in DOT_BATCHES:
+        allf = dot_inputs(torch, cfg, model, bufs, B, rng, dev)
+        _, F, d = allf.shape
+        P = F * (F - 1) // 2
+        ii, jj = tril_pairs(F, dev)
+        chunks = allf.split(4096)    # the plain version's [B, P, d] operands
+
+        def plain():
+            return torch.cat([dot_interaction_ref(c) for c in chunks])
+
+        r = res[B] = {}
+        iters = 20 if B == 65536 else 200
+        with torch.inference_mode():
+            z = dot_interaction_cuda(allf)
+            if not torch.equal(z, dot_interaction_cuda(allf)):
+                raise AssertionError(f"dot_interaction B={B}: two calls "
+                                     "gave different bits")
+            want = plain()
+            torch.testing.assert_close(z, want, rtol=1e-5, atol=1e-6)
+            r["max_abs_err"] = float((z - want).abs().max())
+            del z, want
+            r["ms"] = graph_ms(torch, lambda: dot_interaction_cuda(allf),
+                               iters)
+            r["plain_ms"] = time_ms(torch, plain, 2 if B == 65536 else 20)
+            r["library_ms"] = graph_ms(torch, lambda: torch.bmm(
+                allf, allf.transpose(1, 2))[:, ii, jj], iters)
+            r["bound_ms"], r["bound_by"] = bound(
+                (B * F * d + B * P) * 4, 2 * B * P * d, FP32_FLOP_PER_S)
+            r["profile_ms"] = profile_ms(
+                torch, lambda: dot_interaction_cuda(allf))
+        log(f"  dot_interaction B={B}: {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['bound_ms'] / r['ms']:.1%} of bound, plain "
+            f"{r['plain_ms']:.3f} ms, torch.bmm + index "
+            f"{r['library_ms']:.4f} ms; max |err| {r['max_abs_err']:.3g} "
+            "(rtol 1e-5), the same bits twice; profiler "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in r["profile_ms"].items()))
+        del allf, chunks
     return res
 
 
@@ -855,6 +946,9 @@ def check_training_kernels(torch, cfg, model, bufs, check_batch, sg,
         err["fused_scatter_add"] = max(err["fused_scatter_add"],
                                        float((got - want).abs().max()))
         got = fused_weight_grad_cuda(spec, mem, gb, *bag)
+        if not torch.equal(got, fused_weight_grad_cuda(spec, mem, gb, *bag)):
+            raise AssertionError("weight grad: two calls gave different "
+                                 "bits")
         want = fref.weight_grad_ref(spec, mem, gb, *bag)
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
         err["fused_weight_grad"] = float((got - want).abs().max())
@@ -896,7 +990,8 @@ def check_training_kernels(torch, cfg, model, bufs, check_batch, sg,
     log(f"training kernels at B={B} ({gids.numel()} values, {n_fb} fallback "
         "rows): locations bit-exact (lma flat and striped, hashed_elem, "
         f"hashed_row); scatter-add max |err| {err['fused_scatter_add']:.3g} "
-        f"and weight grad {err['fused_weight_grad']:.3g} (tol 1e-6); sparse "
+        f"and weight grad {err['fused_weight_grad']:.3g} (tol 1e-6, the same "
+        "bits twice); sparse "
         f"Adagrad on K={uniq.indices.numel()} unique (sentinel-padded) and "
         f"K={sg.indices.numel()} bucketed entries ({runs.numel()} slots, "
         f"longest run {int(runs.max())}): max |err| "
@@ -1585,6 +1680,8 @@ def measure_training(torch, cfg, model, bufs, gen, train_batch, plain_full,
                     in_bytes + B * p.d * 4 + N * p.d * 4 + N * 4,
                     ops + 2 * N * p.d, INT32_OP_PER_S)
                 r["library_ms"] = None
+                r["profile_ms"] = profile_ms(torch, lambda: (
+                    fused_weight_grad_cuda(spec, mem, gb, *bag)))
         del g
     K = sg.indices.numel()
     heads = int(torch.unique_consecutive(sg.indices).numel())
@@ -1616,7 +1713,10 @@ def measure_training(torch, cfg, model, bufs, gen, train_batch, plain_full,
                 f"{r['bound_ms'] / r['ms']:.1%} of bound, plain "
                 f"{r['plain_ms']:.3f} ms"
                 + (f" ({-(-B * cfg.n_fields // FULL_CHUNK)} chunked calls)"
-                   if B == 65536 else ""))
+                   if B == 65536 else "")
+                + ("; profiler " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in r["profile_ms"].items())
+                   if "profile_ms" in r else ""))
     r = res["sparse_adagrad"]
     log(f"  sparse_adagrad K={K} ({heads} slots): {r['ms']:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms (bytes), {r['bound_ms'] / r['ms']:.1%} of "
@@ -2710,12 +2810,15 @@ SOURCES = {
 }
 
 # The batch of each kernel's JSON entry: the training batch for the rows the
-# training step launches at B=65,536; the smallest measured otherwise (for
+# training step launches at B=65,536; for the dot interaction B=512, the
+# largest served batch (its other batches, 65,536 included, beside it); the
+# smallest measured otherwise (for
 # the CIN, B=512, a served batch; its entry sums the three layers; for the
 # embedding bag, the reference's bench shape, B=2,048).  The sparse
 # optimizers' entries are the LMA pool's K=109,051,904 stream; the chunk
 # kernels' (rows 10-12) rank 0's shapes of a sharded B=65,536 step.
-MAIN_BATCH = {"fused_locations": 65536, "fused_scatter_add": 65536}
+MAIN_BATCH = {"fused_locations": 65536, "fused_scatter_add": 65536,
+              "dot_interaction": 512}
 BY_STREAM = ("sparse_adagrad", "sparse_sgd", "sparse_adam")
 CHUNK_KERNELS = ("fused_chunk_lookup", "fused_chunk_gather",
                  "fused_chunk_scatter")
@@ -2744,11 +2847,9 @@ def main() -> int:
     reports = build.build_all(list(KERNELS))
     log(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
-        regs = [ln.strip() for ln in rep.splitlines() if "Used" in ln]
-        frames = [int(ln.split()[0]) for ln in rep.splitlines()
-                  if "bytes stack frame" in ln]
-        log(f"  {name}: {'; '.join(regs)}; largest stack frame "
-            f"{max(frames, default=0)} bytes")
+        for fn, st in ptxas_table(rep).items():
+            log(f"  {name}: {fn}: {st['registers']} registers, "
+                f"{st['stack']} B stack, {st['spill']} B spill stores")
     kernels = shard_kernels()
 
     cfg, model, bufs = build_model(torch, dev)
@@ -2763,6 +2864,9 @@ def main() -> int:
     paths["dlrm-rm2 split lookup"] = {"lma_locations":
                                       counts["lma_locations"]}
     res = measure(torch, cfg, model, bufs, dev)
+    res["dot_interaction"] = measure_dot(torch, cfg, model, bufs, dev)
+    err["dot_interaction"] = max([err["dot_interaction"]] + [
+        r["max_abs_err"] for r in res["dot_interaction"].values()])
 
     gen = ctr_generator(cfg)
     B_train = RECSYS_SHAPE_TABLE["train_batch"]["batch"]

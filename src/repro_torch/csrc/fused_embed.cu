@@ -49,8 +49,8 @@
 //     into a [m] buffer the wrapper zeroed.  The sum order over colliding
 //     values follows the atomics, so it is not deterministic; hot slots
 //     (small-vocabulary fields, LMA's shared slots) contend in L2;
-//   - weight grad: dw[b, l] = <g[b], M[loc[b, l]]>, products summed per
-//     lane, then across the warp by shuffles;
+//   - weight grad: dw[b, l] = <g[b], M[loc[b, l]]>, a warp per value (b,
+//     l), products summed per lane, then across the warp by shuffles;
 //   - chunk scatter: dM[loc - base] += g by given locations, atomicAdd into
 //     the zeroed [m_local] slab, one thread per element.
 #include <cuda_runtime.h>
@@ -205,12 +205,17 @@ __global__ void fused_scatter_kernel(const uint32_t* __restrict__ sets,
   }
 }
 
-// dw[b, l] = sum_c g[b, c] * mem[slot(b*L + l, c)].
+// dw[b, l] = sum_c g[b, c] * mem[slot(b*L + l, c)], one warp per value
+// v = b*L + l, as the locations kernel takes them.  Each lane
+// sums its columns c = lane, lane + 32, ... (product, then sum: no fused
+// multiply-add), then the warp adds the lanes by the xor-shuffle tree 16, 8,
+// 4, 2, 1; lanes past d add 0.  g[b] is read once a value, from L2 after the
+// first of a sample's L values.
 __global__ void fused_weight_grad_kernel(const uint32_t* __restrict__ sets,
                                          const int32_t* __restrict__ gids,
                                          const int32_t* __restrict__ support,
                                          const float* __restrict__ mem,
-                                         const float* __restrict__ g, int B,
+                                         const float* __restrict__ g, int N,
                                          int L, int S, FusedArgs f,
                                          float* __restrict__ dw) {
   extern __shared__ uint32_t smem[];
@@ -218,20 +223,18 @@ __global__ void fused_weight_grad_kernel(const uint32_t* __restrict__ sets,
   const int warp = threadIdx.x / lma::WARP, lane = threadIdx.x % lma::WARP;
   uint32_t* set = smem + warp * S;
   const int stride = gridDim.x * WARPS_PER_BLOCK;
-  for (int b = blockIdx.x * WARPS_PER_BLOCK + warp; b < B; b += stride) {
-    for (int l = 0; l < L; ++l) {
-      const size_t v = static_cast<size_t>(b) * L + l;
-      const Value x = load_value(f, sets, gids, support, v, S, set, lane);
-      float acc = 0.0f;
-      for (int c = lane; c < d; c += lma::WARP) {
-        const float e = __ldg(mem + slot(f, x.fallback, set, x.n, x.gid, c));
-        acc = __fadd_rn(acc, __fmul_rn(e, g[static_cast<size_t>(b) * d + c]));
-      }
-      for (int off = lma::WARP / 2; off > 0; off /= 2)
-        acc = __fadd_rn(acc, __shfl_xor_sync(0xFFFFFFFFu, acc, off));
-      if (lane == 0) dw[v] = acc;
-      __syncwarp();
+  for (int v = blockIdx.x * WARPS_PER_BLOCK + warp; v < N; v += stride) {
+    const float* gb = g + static_cast<size_t>(v / L) * d;
+    const Value x = load_value(f, sets, gids, support, v, S, set, lane);
+    float acc = 0.0f;
+    for (int c = lane; c < d; c += lma::WARP) {
+      const float e = __ldg(mem + slot(f, x.fallback, set, x.n, x.gid, c));
+      acc = __fadd_rn(acc, __fmul_rn(e, gb[c]));
     }
+    for (int off = lma::WARP / 2; off > 0; off /= 2)
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xFFFFFFFFu, acc, off));
+    if (lane == 0) dw[v] = acc;
+    __syncwarp();
   }
 }
 
@@ -376,14 +379,15 @@ extern "C" int fused_weight_grad_launch(const void* sets, const void* gids,
                                         uint32_t m, uint32_t stripe,
                                         int min_support, void* dw,
                                         cudaStream_t stream) {
-  if (B == 0) return 0;
+  const int N = B * L;
+  if (N == 0) return 0;
   FusedArgs f{scheme, min_support, {d, n_h, independent, seed, m, stripe}};
   const size_t shm = WARPS_PER_BLOCK * S * sizeof(uint32_t);
-  fused_weight_grad_kernel<<<blocks_for(B), WARPS_PER_BLOCK * lma::WARP, shm,
+  fused_weight_grad_kernel<<<blocks_for(N), WARPS_PER_BLOCK * lma::WARP, shm,
                              stream>>>(
       static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
       static_cast<const int32_t*>(support), static_cast<const float*>(mem),
-      static_cast<const float*>(g), B, L, S, f, static_cast<float*>(dw));
+      static_cast<const float*>(g), N, L, S, f, static_cast<float*>(dw));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,7 +3,8 @@ JAX fused engine (Pallas in interpret mode): locations bit-identical to
 ``fused_locations``; the scatter-add and the bag weight gradient within
 1e-6 of ``jax.grad`` through ``fused_lookup`` / ``fused_embed_bag`` (float32
 sums in another order).  Also the autograd of the port's CPU lookup and bag
-against the same gradients."""
+against the same gradients; and the CUDA weight-gradient kernel's order of
+sums, emulated, against the plain version."""
 from __future__ import annotations
 
 import numpy as np
@@ -17,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core.allocation import LMAParams as JParams  # noqa: E402
 from repro.core.signatures import synthetic_dense_store  # noqa: E402
 from repro.kernels.fused_embed import ops as jfe  # noqa: E402
+from kernel_schedules import weight_grad_lanes  # noqa: E402
 from repro_torch.core.allocation import LMAParams  # noqa: E402
 from repro_torch.kernels.fused_embed import ops as fe  # noqa: E402
 from repro_torch.kernels.fused_embed import ref as fref  # noqa: E402
@@ -116,3 +118,27 @@ def test_bag_gradients_match(scheme):
     fe.fused_embed_bag(tspec, tm, _t(gids), tw, *targs).backward(_t(g))
     np.testing.assert_allclose(tm.grad.numpy(), np.asarray(dm), **TOL)
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(dw), **TOL)
+
+
+@pytest.mark.parametrize("L", [1, 26])
+@pytest.mark.parametrize("d", [8, 32, 64])
+def test_weight_grad_lane_order_matches_plain(d, L):
+    """fused_weight_grad_kernel's order (each lane's columns, product then
+    sum, then the xor-shuffle tree; lanes past d add 0), emulated with
+    every operation rounded alone, agrees with weight_grad_ref."""
+    rng = np.random.default_rng(d * L)
+    B = 13
+    kw = dict(d=d, m=M, n_h=4, max_set=16, seed=0x8000_0007, striped=True)
+    spec = fe.lma_spec(LMAParams(**kw))
+    store = synthetic_dense_store(N_VALUES, 8, max_set=16, seed=1)
+    support = np.asarray(store.lengths).copy()
+    support[::7] = 0                                 # fallback values
+    gids = rng.integers(0, N_VALUES, (B, L)).astype(np.int32)
+    sets, sup = np.asarray(store.sets)[gids], support[gids]
+    mem = _t(rng.normal(0, 0.1, M).astype(np.float32))
+    g = _t(rng.normal(0, 1, (B, d)).astype(np.float32))
+    loc = fref.locations_ref(spec, _t(gids).reshape(-1),
+                             _t(sets).reshape(B * L, -1), _t(sup).reshape(-1))
+    e = mem[loc.long()].reshape(B, L, d)
+    want = fref.weight_grad_ref(spec, mem, g, _t(gids), _t(sets), _t(sup))
+    torch.testing.assert_close(weight_grad_lanes(e, g), want, **TOL)

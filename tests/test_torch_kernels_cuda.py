@@ -3,7 +3,8 @@
 These need an sm_90 device and skip elsewhere.  They cover what the paths at
 full width do not: sliding windows, the hashed schemes, ragged set widths,
 empty sets, keys and seeds >= 2^31, bags, long duplicate runs, flat pools
-at embedding widths below a warp (d = 10 and d = 1, xDeepFM's), the CIN
+at embedding widths below a warp (d = 10 and d = 1, xDeepFM's), the dot
+interaction's edge shapes, the weight gradient's order of sums, the CIN
 layer at ragged shapes, the chunk kernels and the slab mode of the lookup
 and scatter-add on every scheme, and that each autograd path launches its
 kernels.  On the card, with no JAX
@@ -21,6 +22,8 @@ from repro_torch.core.allocation import LMAParams  # noqa: E402
 from repro_torch.kernels.cin import kernel as ck  # noqa: E402
 from repro_torch.kernels.cin import ops as cin_ops  # noqa: E402
 from repro_torch.kernels.cin.ref import cin_ref  # noqa: E402
+from kernel_schedules import weight_grad_lanes  # noqa: E402
+from repro_torch.kernels.dot_interaction import kernel as dk  # noqa: E402
 from repro_torch.kernels.dot_interaction import ops as dot_ops  # noqa: E402
 from repro_torch.kernels.dot_interaction.ref import \
     dot_interaction_ref  # noqa: E402
@@ -124,8 +127,29 @@ def test_dot_interaction_kernel_matches_plain(cuda, F, d):
                                dot_interaction_ref(x), rtol=1e-5, atol=1e-5)
 
 
-def _lma_case(cuda, rng, n, striped, S=24):
-    p = LMAParams(d=D, m=M, n_h=4, max_set=S, seed=0xF00D_0001,
+@pytest.mark.parametrize("B,F,d,offset", [
+    (1, 27, 64, 0),        # one sample
+    (8451, 27, 64, 0),     # groups of 4 samples, the last one of 3
+    (4099, 27, 64, 0),     # groups of 1 over a persistent grid
+    (37, 2, 64, 0),        # one pair a sample
+    (8450, 27, 7, 0),      # d % 4 != 0: scalar fragments, groups of 4
+    (9, 100, 128, 0),      # a sample past the 48 KB static shared memory
+    (333, 27, 64, 1),      # x not 16-byte aligned: scalar fragments
+])
+def test_dot_interaction_kernel_edge_shapes(cuda, B, F, d, offset):
+    g = torch.Generator(device=cuda).manual_seed(B)
+    buf = torch.randn(B * F * d + offset, generator=g, device=cuda)
+    x = buf[offset:].view(B, F, d).mul_(d ** -0.5)   # keeps the offset
+    before = dk.dot_interaction_cuda.launches
+    got = dot_ops.dot_interaction(x)
+    assert dk.dot_interaction_cuda.launches == before + 1
+    torch.testing.assert_close(got, dot_interaction_ref(x), rtol=1e-5,
+                               atol=1e-6)
+    assert torch.equal(got, dot_ops.dot_interaction(x))
+
+
+def _lma_case(cuda, rng, n, striped, S=24, d=D):
+    p = LMAParams(d=d, m=M, n_h=4, max_set=S, seed=0xF00D_0001,
                   striped=striped, min_support=3)
     sets = _sets(rng, n, S).to(cuda)
     support = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32))
@@ -171,6 +195,36 @@ def test_scatter_add_and_weight_grad_match_plain(cuda, striped):
     got = fk.fused_weight_grad_cuda(spec, mem, gb, *bag)
     want = fref.weight_grad_ref(spec, mem, gb, *bag)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [D, 64])
+@pytest.mark.parametrize("L", [1, 7])
+@pytest.mark.parametrize("scheme", ["lma", "lma_striped", "hashed_elem",
+                                    "hashed_row"])
+def test_weight_grad_kernel_matches_lane_order(cuda, scheme, L, d):
+    """The kernel's bits are those of its order of sums (emulated, every
+    operation rounded alone), and within 1e-6 of the plain version; B is
+    not a multiple of a block's 8 warps."""
+    rng = np.random.default_rng(10 + L + d)
+    B = 37
+    if scheme.startswith("lma"):
+        spec, gids, sets, support = _lma_case(
+            cuda, rng, B * L, scheme == "lma_striped", d=d)
+        flat = (gids, sets, support)
+        bag = (gids.reshape(B, L), sets.reshape(B, L, -1),
+               support.reshape(B, L))
+    else:
+        spec = fe.hashed_spec(scheme, d, M, 0x8765_4321)
+        gids = torch.from_numpy(
+            rng.integers(0, 2**31 - 1, B * L).astype(np.int32)).to(cuda)
+        flat, bag = (gids,), (gids.reshape(B, L),)
+    mem = _mem(cuda) * 0.1
+    g = torch.randn((B, d), device=cuda)
+    got = fk.fused_weight_grad_cuda(spec, mem, g, *bag)
+    e = mem[fref.locations_ref(spec, *flat).long()].reshape(B, L, d)
+    assert torch.equal(got, weight_grad_lanes(e, g))
+    torch.testing.assert_close(got, fref.weight_grad_ref(spec, mem, g, *bag),
+                               rtol=1e-6, atol=1e-6)
 
 
 def _stream(rng, unique, m=M):
