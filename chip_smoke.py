@@ -64,9 +64,13 @@ Phases (any failure raises and ends the run with a non-zero code):
      their plain versions on a sentinel-padded unique stream and the real
      bucketed stream of the LMA pool, all three flat on a tile-edge stress
      stream (runs of every length 1..4,097 across the fold's tile edges,
-     one of 2^15, a sentinel tail) and on the row-mode SparseGrad (Adam
-     also with a row-wise nu): updates and states bit-equal, untouched
-     state slots bit-unchanged;
+     one of 2^15, a sentinel tail), on the row-mode SparseGrad (Adam also
+     with a row-wise nu) and on a bucketed row stress stream [K, 64] (runs
+     of every length 1..300 and one of 5,000 across the row kernel's
+     32-entry spans, -0 values, lone -0 entries, runs whose column is all
+     -0, a sentinel tail; states a tenth -0): updates and states bit-equal
+     as int32 bit patterns, untouched state slots bit-unchanged; a
+     mismatch fails the run after phase 22;
  20. train full-width dlrm-rm2 with make_optimizer's sgd arm (momentum SGD,
      lazy sparse SGD) and adam arm (Adam, lazy row-wise Adam) on the LMA
      pool, and the adam arm on the hashed_row pool, 8 steps each, each step
@@ -78,11 +82,15 @@ Phases (any failure raises and ends the run with a non-zero code):
      the touched slots; the untouched slots the dense path moved counted);
  21. the embedding bag through ops.embedding_bag at the reference's bench
      shape and on the hashed_row pool viewed as [2,110,208, 64] with a
-     B=4,096 batch's rows, within 1e-6 of sum |w T|;
- 22. time sparse SGD and Adam (flat and row layout) and the bag (CUDA-graph
-     replay) beside their bounds, plain versions and torch.optim.SparseAdam
-     (profiled device time) / F.embedding_bag; then free dlrm-rm2 and its
-     training state;
+     B=4,096 batch's rows, within 1e-6 of sum |w T|, the same bits twice,
+     with sha256 digests of inputs and outputs (two versions of the kernel
+     run on one card compare their bits by them);
+ 22. time sparse SGD and Adam (flat and row layout) and Adagrad's row
+     layout (CUDA-graph replay) beside their bounds, plain versions and torch.optim.Adagrad /
+     SparseAdam on the live entries' COO gradient (hybrid in the row
+     layout; profiled device time), the bag (cold L2) beside its bound,
+     plain version, F.embedding_bag and the launch floor (a one-element
+     fill timed the same way); then free dlrm-rm2 and its training state;
  12. build xDeepFM at full width on the card: the 21,102,592-slot flat
      LMA pool (d=10), the 2,113,536-slot flat linear pool (d=1) and the
      33,763,877 x 32 D' store, planted and made very sparse as in phase 2;
@@ -1692,20 +1700,12 @@ def measure_training(torch, cfg, model, bufs, gen, train_batch, plain_full,
     r["plain_ms"] = time_ms(torch, lambda: sparse_adagrad_ref(
         sg.indices, sg.values, acc, lr=1e-2, unique=False), 2, warmup=1)
     r["bound_ms"], r["bound_by"] = bound(12 * K + 8 * heads, 0, 1.0)
-    param = torch.nn.Parameter(mem.clone())
-    opt = torch.optim.Adagrad([param], lr=1e-2, eps=1e-10)
-    coo = torch.sparse_coo_tensor(sg.indices[None].long(), sg.values,
-                                  (p.m,), check_invariants=False)
-
-    def library_step():
-        param.grad = coo
-        opt.step()
-
-    r["library_ms"] = device_ms(torch, library_step)
+    r["library_ms"] = library_sparse_ms(torch, torch.optim.Adagrad, sg,
+                                        (p.m,), dev, lr=1e-2, eps=1e-10)
     r["passes_ms"] = profile_ms(torch, lambda: sparse_adagrad_cuda(
         sg.indices, sg.values, acc, lr=1e-2, unique=False))
     r["K"], r["slots"] = K, heads
-    del param, opt, coo, acc
+    del acc
     for name in ("fused_locations", "fused_scatter_add", "fused_weight_grad"):
         for B, r in res[name].items():
             log(f"  {name} B={B}: {r['ms']:.4f} ms, bound "
@@ -1766,6 +1766,55 @@ def stress_stream(torch, m: int, dev, tile: int = 2048, halo: int = 2048):
                            unique=False)
 
 
+def row_stress_stream(torch, rows: int, d: int, dev, longest: int = 300,
+                      long_run: int = 5000):
+    """A bucketed row-layout stream [K, d] against the row kernel's spans of
+    32 entries: runs of every length 1..longest and one of long_run in
+    random order (run ends at every offset of a span, runs across many
+    spans), then a tail of sentinels (= rows); row scales over seven
+    decades, both signs, 1% of the values -0, every fourth run of length 1
+    all -0, and one column -0 through every entry of every tenth run (the
+    reference folds each such sum to +0)."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(SEED + 24)
+    lengths = np.concatenate([np.arange(1, longest + 1), [long_run]])
+    rng.shuffle(lengths)
+    slots = np.sort(rng.choice(rows, lengths.shape[0], replace=False))
+    idx = np.concatenate([np.repeat(slots, lengths),
+                          np.full(1000, rows)]).astype(np.int32)
+    vals = (rng.normal(0, 1, (idx.shape[0], d))
+            * 10.0 ** rng.uniform(-6, 1, (idx.shape[0], 1))).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.01] = -0.0
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    lone = starts[lengths == 1]
+    vals[lone[::4]] = -0.0
+    for r in range(0, lengths.shape[0], 10):
+        vals[starts[r]:starts[r] + lengths[r], rng.integers(d)] = -0.0
+    vals[idx >= rows] = 0.0
+    return SimpleNamespace(indices=torch.from_numpy(idx).to(dev),
+                           values=torch.from_numpy(vals).to(dev),
+                           unique=False, dense_shape=(rows, d))
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Equal as float32 values and as bit patterns (so -0 differs from
+    +0)."""
+    return torch.equal(a, b) and torch.equal(a.view(torch.int32),
+                                             b.view(torch.int32))
+
+
+def digest(torch, *tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
 def optimizer_cases(torch, gen, lead: int, shape: tuple) -> dict:
     """Random states on a pool of ``shape`` (leading dim ``lead``) for SGD
     and Adam, and for a row layout also Adagrad (row 7's flat layout is
@@ -1780,15 +1829,21 @@ def optimizer_cases(torch, gen, lead: int, shape: tuple) -> dict:
     return cases
 
 
-def check_optimizer_kernels(torch, p, sg, sg_rows, dev) -> dict:
+def check_optimizer_kernels(torch, p, sg, sg_rows, dev) -> tuple:
     """Rows 8 and 9 (and row 7's row layout) against their plain versions:
     on a sentinel-padded unique stream, the real B=65,536 step's bucketed
     stream of the LMA pool and (rows 7-9) the tile-edge stress stream (flat
-    [m] states), and on the hashed_row pool's
-    row-mode SparseGrad ([rows, 64] states, Adam also with a row-wise nu).
-    Updates and states bit-equal (row-wise nu: within 1e-6 relative, see
-    ``ref.row_mean``), untouched slots bit-unchanged.  -> max |err| by
-    kernel."""
+    [m] states), on the hashed_row pool's row-mode SparseGrad ([rows, 64]
+    states, Adam also with a row-wise nu) and (rows 7-9, Adam both ways) on
+    the bucketed row stress stream (``row_stress_stream``, with a tenth of
+    every state's elements -0, so a -0 where the reference folds to +0
+    shows in SGD's and Adam's updates too).  Updates and states bit-equal,
+    compared as int32 bit patterns (the earlier streams' row-wise nu may
+    instead be within 1e-6 relative, see ``ref.row_mean``; the stress
+    stream's may not), untouched slots bit-unchanged.  A mismatch is
+    recorded and the checks go on, so one run shows every stream and op;
+    ``run_optimizers`` raises after phase 22.  -> (max |err| by kernel,
+    the mismatches)."""
     from repro_torch.kernels.sparse_update import ops as su
     from repro_torch.kernels.sparse_update import ref as sref
     from repro_torch.optim.sparse import dedup_locations
@@ -1800,10 +1855,14 @@ def check_optimizer_kernels(torch, p, sg, sg_rows, dev) -> dict:
                       "bc1": 0.271, "bc2": 0.00299, "eps": ADAM_EPS}}
     half = sg.indices.numel() // 16
     uniq = dedup_locations(sg.indices[:half], sg.values[:half], (p.m,))
-    err, lines = {}, []
+    err, lines, failures = {}, [], []
+    rows_shape = tuple(sg_rows.dense_shape)
     streams = [("LMA unique", uniq, (p.m,)), ("LMA bucketed", sg, (p.m,)),
                ("tile-edge stress", stress_stream(torch, p.m, dev), (p.m,)),
-               ("hashed_row rows", sg_rows, sg_rows.dense_shape)]
+               ("hashed_row rows", sg_rows, rows_shape),
+               ("row stress", row_stress_stream(torch, rows_shape[0],
+                                                rows_shape[1], dev),
+                rows_shape)]
     with torch.no_grad():
         for where, stream, shape in streams:
             lead = shape[0]
@@ -1811,6 +1870,11 @@ def check_optimizer_kernels(torch, p, sg, sg_rows, dev) -> dict:
             if where == "tile-edge stress":     # row 7's flat fold too
                 cases["adagrad"] = (torch.rand(shape, generator=gen,
                                                device=dev),)
+            if where == "row stress":
+                for x in {id(x): x for c in cases.values() for x in c
+                          }.values():
+                    x[torch.rand(x.shape, generator=gen, device=dev)
+                      < 0.1] = -0.0
             for case, states in cases.items():
                 algo = case.split()[0]
                 mine = tuple(x.clone() for x in states)
@@ -1821,21 +1885,27 @@ def check_optimizer_kernels(torch, p, sg, sg_rows, dev) -> dict:
                 u_p, _ = getattr(sref, f"sparse_{algo}_ref")(
                     stream.indices, stream.values, *plain,
                     unique=stream.unique, **hyper[algo])
-                exact = torch.equal(u_k, u_p) and all(
-                    torch.equal(a, b) for a, b in zip(mine, plain))
+                exact = all(bits_equal(torch, a, b) for a, b in
+                            zip((u_k,) + mine, (u_p,) + plain))
                 rel = max(float(((a - b).abs() / b.abs().clamp_min(1e-30))
                                 .max()) for a, b in zip((u_k,) + mine,
                                                         (u_p,) + plain))
-                if not exact and not (case.endswith("nu") and rel <= 1e-6):
-                    raise AssertionError(f"{SPARSE_KERNEL[algo]} on {where} "
-                                         f"({case}) differs: max rel {rel:.3g}")
+                if not exact and not (case.endswith("nu") and rel <= 1e-6
+                                      and where != "row stress"):
+                    n_bits = sum(int((a.view(torch.int32)
+                                      != b.view(torch.int32)).sum())
+                                 for a, b in zip((u_k,) + mine,
+                                                 (u_p,) + plain))
+                    failures.append(f"{SPARSE_KERNEL[algo]} on {where} "
+                                    f"({case}): {n_bits} elements differ in "
+                                    f"their bits, max rel {rel:.3g}")
                 touched = torch.zeros(lead, dtype=torch.bool, device=dev)
                 touched[stream.indices[stream.indices < lead].long()] = True
                 for x0, x in zip(states, mine):
                     if not torch.equal(x[~touched].view(torch.int32),
                                        x0[~touched].view(torch.int32)):
-                        raise AssertionError(f"{case} on {where} wrote "
-                                             "untouched slots")
+                        failures.append(f"{case} on {where} wrote untouched "
+                                        "slots")
                 name = SPARSE_KERNEL[algo]
                 err[name] = max(err.get(name, 0.0), float(
                     (u_k - u_p).abs().max()), *(float((a - b).abs().max())
@@ -1843,9 +1913,11 @@ def check_optimizer_kernels(torch, p, sg, sg_rows, dev) -> dict:
                 lines.append(f"{case} on {where} (K={stream.indices.numel()})"
                              f": {'bit-identical' if exact else f'rel {rel:.3g}'}")
                 del mine, plain, u_k, u_p
-    log("sparse optimizer kernels vs plain versions, untouched state slots "
-        "bit-unchanged: " + "; ".join(lines))
-    return err
+    log("sparse optimizer kernels vs plain versions (int32 bit patterns): "
+        + "; ".join(lines))
+    for f in failures:
+        log(f"MISMATCH: {f}")
+    return err, failures
 
 
 def check_embedding_bag(torch, hr_model, hr_cfg, gen, dev, kernels) -> tuple:
@@ -1881,6 +1953,14 @@ def check_embedding_bag(torch, hr_model, hr_cfg, gen, dev, kernels) -> tuple:
     worst, parts = 0.0, []
     with torch.no_grad():
         for B, (t, i, w) in inputs.items():
+            if not bits_equal(torch, outs[B], eb.embedding_bag(t, i, w)):
+                raise AssertionError(f"embedding_bag B={B}: two calls gave "
+                                     "different bits")
+            # the digests let two runs (two versions of the kernel) compare
+            # their bits: equal inputs and equal outputs give equal digests
+            parts.append(f"B={B} sha256 of ids, weights, table "
+                         f"{digest(torch, i, w, t)}, of the output "
+                         f"{digest(torch, outs[B])}")
             want = embedding_bag_ref(t, i, w)
             scale = torch.einsum("bl,bld->bd", w.abs().double(),
                                  t[i.long()].abs().double())
@@ -1894,34 +1974,66 @@ def check_embedding_bag(torch, hr_model, hr_cfg, gen, dev, kernels) -> tuple:
                          f"|err| {float(err.max()):.3g}, / sum |w T| "
                          f"{ratio:.3g}")
     log("embedding_bag through ops.embedding_bag, launches "
-        f"{n}: " + "; ".join(parts) + f" (tol {SUM_RTOL})")
+        f"{n}, the same bits twice: " + "; ".join(parts)
+        + f" (tol {SUM_RTOL})")
     return n, worst, inputs
+
+
+def library_sparse_ms(torch, opt_cls, stream, shape, dev, **kw):
+    """Device time of one step of ``opt_cls`` (torch.optim.Adagrad or
+    SparseAdam) on a COO gradient of the stream's live entries: a flat
+    stream's [K] values, or the row layout's [n, d] rows as a hybrid COO
+    tensor (one sparse dim); the profiler's, as no CUDA graph captures a
+    sparse step."""
+    live = stream.indices < shape[0]
+    idx, vals = stream.indices[live], stream.values[live]
+    param = torch.nn.Parameter(torch.zeros(shape, device=dev))
+    opt = opt_cls([param], **kw)
+    coo = torch.sparse_coo_tensor(idx[None].long(), vals, shape,
+                                  check_invariants=False)
+
+    def library_step():
+        param.grad = coo
+        opt.step()
+
+    return device_ms(torch, library_step)
 
 
 def measure_optimizers(torch, sg, sg_rows, dev) -> dict:
     """Rows 8 and 9 timed by CUDA-graph replay on the LMA pool's real
-    bucketed K=109,051,904 stream (flat states) and on the hashed_row pool's
-    row-mode SparseGrad ([rows, 64]), beside their bytes bounds (each index
-    read and each update written, the live entries' values read -- a
-    sentinel's value is never read --, and each touched slot's states read
-    and written once), the plain
-    versions and, for Adam, torch.optim.SparseAdam on the COO gradient (no
+    bucketed K=109,051,904 stream (flat states), and rows 7-9 on the
+    hashed_row pool's row-mode SparseGrad ([rows, 64], element-wise
+    states), beside their bytes bounds (each index read and each update
+    written, the live entries' values read -- a sentinel's value is never
+    read --, and each touched slot's states read and written once), the
+    plain versions and one PyTorch call for the same function where there
+    is one: torch.optim.Adagrad and SparseAdam on the COO gradient of the
+    live entries (hybrid in the row layout; profiled device time).  No
     single PyTorch call computes lazy momentum SGD: torch.optim.SGD applies
-    its momentum buffer to every slot)."""
+    its momentum buffer to every slot.  Row 7's flat layout is phase
+    11's."""
     from repro_torch.kernels.sparse_update import ref as sref
-    from repro_torch.kernels.sparse_update.kernel import (sparse_adam_cuda,
+    from repro_torch.kernels.sparse_update.kernel import (sparse_adagrad_cuda,
+                                                          sparse_adam_cuda,
                                                           sparse_sgd_cuda)
 
-    hyper = {"sgd": {"lr": 1e-2, "momentum": MOMENTUM},
+    hyper = {"adagrad": {"lr": 1e-2, "eps": ADAGRAD_EPS},
+             "sgd": {"lr": 1e-2, "momentum": MOMENTUM},
              "adam": {"lr": 1e-3, "b1": ADAM_B1, "b2": ADAM_B2, "bc1": 0.271,
                       "bc2": 0.00299, "eps": ADAM_EPS}}
-    kernel = {"sgd": sparse_sgd_cuda, "adam": sparse_adam_cuda}
+    kernel = {"adagrad": sparse_adagrad_cuda, "sgd": sparse_sgd_cuda,
+              "adam": sparse_adam_cuda}
+    library = {"adagrad": (torch.optim.Adagrad,
+                           {"lr": 1e-2, "eps": ADAGRAD_EPS}),
+               "adam": (torch.optim.SparseAdam, {"lr": 1e-3})}
     res = {}
-    for algo in ("sgd", "adam"):
-        n_states = 1 if algo == "sgd" else 2
+    for algo in ("adagrad", "sgd", "adam"):
+        n_states = 2 if algo == "adam" else 1
         r = {}
         for where, stream in (("flat", sg), ("rows", sg_rows)):
-            shape = stream.dense_shape
+            if algo == "adagrad" and where == "flat":
+                continue
+            shape = tuple(stream.dense_shape)
             states = tuple(torch.zeros(shape, device=dev)
                            for _ in range(n_states))
             K = stream.indices.numel()
@@ -1930,9 +2042,13 @@ def measure_optimizers(torch, sg, sg_rows, dev) -> dict:
             width = 1 if len(shape) == 1 else shape[1]
             t = {"K": K, "live": live.numel(), "slots": slots,
                  "row_width": width}
-            t["ms"] = graph_ms(torch, lambda: kernel[algo](
-                stream.indices, stream.values, *states, unique=stream.unique,
-                **hyper[algo]), 5)
+
+            def run():
+                return kernel[algo](stream.indices, stream.values, *states,
+                                    unique=stream.unique, **hyper[algo])
+
+            graph_ms(torch, run, 5)     # the first timing of a stream
+            t["ms"] = graph_ms(torch, run, 5)           # reads high
             t["plain_ms"] = time_ms(torch, lambda: getattr(
                 sref, f"sparse_{algo}_ref")(stream.indices, stream.values,
                                             *states, unique=stream.unique,
@@ -1941,35 +2057,26 @@ def measure_optimizers(torch, sg, sg_rows, dev) -> dict:
                 K * (4 + 4 * width) + live.numel() * 4 * width
                 + slots * width * 8 * n_states, 0, 1.0)
             t["library_ms"] = None
-            if algo == "adam" and where == "flat":
-                param = torch.nn.Parameter(torch.zeros(shape, device=dev))
-                opt = torch.optim.SparseAdam([param], lr=1e-3)
-                coo = torch.sparse_coo_tensor(
-                    stream.indices[None].long(), stream.values, shape,
-                    check_invariants=False)
-
-                def library_step():
-                    param.grad = coo
-                    opt.step()
-
-                t["library_ms"] = device_ms(torch, library_step)
-                del param, opt, coo
-            if where == "flat":
-                t["passes_ms"] = profile_ms(torch, lambda: kernel[algo](
-                    stream.indices, stream.values, *states,
-                    unique=stream.unique, **hyper[algo]))
+            if algo in library:
+                opt_cls, kw = library[algo]
+                t["library_ms"] = library_sparse_ms(torch, opt_cls, stream,
+                                                    shape, dev, **kw)
+            t["passes_ms"] = profile_ms(torch, run)
             r[where] = t
             del states
+            lib = {"adagrad": "torch.optim.Adagrad",
+                   "adam": "torch.optim.SparseAdam"}.get(algo)
             log(f"  {SPARSE_KERNEL[algo]} {where} K={K} ({slots} slots, "
                 f"width {width}): {t['ms']:.4f} ms, bound "
                 f"{t['bound_ms']:.4f} ms (bytes), "
                 f"{t['bound_ms'] / t['ms']:.1%} of bound, plain "
                 f"{t['plain_ms']:.3f} ms"
-                + (f", torch.optim.SparseAdam {t['library_ms']:.3f} ms of "
-                   "device time" if t["library_ms"] is not None else "")
-                + "".join(f"; {k} {v:.4f} ms"
-                          for k, v in t.get("passes_ms", {}).items()))
-        res[SPARSE_KERNEL[algo]] = {**r["flat"], "rows": r["rows"]}
+                + (f", {lib} {t['library_ms']:.3f} ms of device time"
+                   if t["library_ms"] is not None else "")
+                + "; profiler " + ", ".join(f"{k} {v:.4f} ms"
+                                            for k, v in t["passes_ms"].items()))
+        res[SPARSE_KERNEL[algo]] = ({**r["flat"], "rows": r["rows"]}
+                                    if "flat" in r else {"rows": r["rows"]})
     return res
 
 
@@ -1979,12 +2086,22 @@ def measure_bag(torch, inputs, dev) -> dict:
     ``check_embedding_bag``'s shapes, beside its bytes bound (each distinct
     gathered row once, ids and weights in, the output out), its plain
     version and F.embedding_bag with per-sample weights, timed the same
-    way."""
+    way; and the launch floor both ways: a kernel that does nothing (a
+    one-element fill) by ``cold_graph_ms``, as row 13 is timed, and by
+    plain graph replay."""
     import torch.nn.functional as tf
 
     from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
+    one = torch.zeros(1, device=dev)
+    floor = {"launch_floor_ms": cold_graph_ms(torch, lambda: one.fill_(0.0),
+                                              50, dev),
+             "launch_floor_warm_ms": graph_ms(torch, lambda: one.fill_(0.0),
+                                              50)}
+    log(f"  launch floor (a one-element fill by graph replay): "
+        f"{floor['launch_floor_ms']:.4f} ms measured as row 13 is "
+        f"(cold_graph_ms), {floor['launch_floor_warm_ms']:.4f} ms warm")
     res = {}
     with torch.no_grad():
         for B, (t, i, w) in inputs.items():
@@ -1992,7 +2109,7 @@ def measure_bag(torch, inputs, dev) -> dict:
             valid = i[(i >= 0) & (i < t.shape[0])]
             rows = int(torch.unique(valid).numel())
             r = res[B] = {"L": L, "table_rows": t.shape[0], "d": d,
-                          "distinct_rows": rows}
+                          "distinct_rows": rows, **floor}
             r["ms"] = cold_graph_ms(torch, lambda: embedding_bag_cuda(t, i, w),
                                     50, dev)
             r["plain_ms"] = cold_graph_ms(
@@ -2013,16 +2130,18 @@ def measure_bag(torch, inputs, dev) -> dict:
 
 def run_optimizers(torch, cfg, model, bufs, gen, B, sg, dev,
                    kernels) -> dict:
-    """Phases 18-22: the hashed_row pool (row mode), rows 8 and 9 against
+    """Phases 18-22: the hashed_row pool (row mode), rows 7-9 against
     their plain versions, full-width training with the sgd and adam arms
-    (LMA) and the adam arm (hashed_row), row 13, and the timings.  -> the
-    launch counts by path, errors, timings and training records."""
+    (LMA) and the adam arm (hashed_row), row 13, and the timings; a phase
+    19 mismatch fails the run after the timings.  -> the launch counts by
+    path, errors, timings and training records."""
     hr_cfg, hr_model, hr_bufs = build_hashed_row(torch, dev)
     sg_rows = real_step_grad(torch, hr_cfg, hr_model, hr_bufs,
                              gen.batch(B, 0), dev)
     if sg_rows.values.dim() != 2 or not sg_rows.unique:
         raise AssertionError("hashed_row's SparseGrad is not row mode")
-    err = check_optimizer_kernels(torch, cfg.embedding.lma, sg, sg_rows, dev)
+    err, failures = check_optimizer_kernels(torch, cfg.embedding.lma, sg,
+                                            sg_rows, dev)
     paths, train = {}, {}
     for label, c, m, b, opt in (
             ("dlrm-rm2 train sgd", cfg, model, bufs, "sgd"),
@@ -2039,6 +2158,8 @@ def run_optimizers(torch, cfg, model, bufs, gen, B, sg, dev,
     res = measure_optimizers(torch, sg, sg_rows, dev)
     res["embedding_bag"] = measure_bag(torch, bag_inputs, dev)
     del hr_model, sg_rows, bag_inputs
+    if failures:
+        raise AssertionError("phase 19: " + "; ".join(failures))
     return {"paths": paths, "err": err, "res": res, "train": train}
 
 
@@ -2894,6 +3015,7 @@ def main() -> int:
     paths.update(opt["paths"])
     for name, e in opt["err"].items():      # row 7 also on the row layout
         err[name] = max(err.get(name, 0.0), e)
+    res["sparse_adagrad"]["rows"] = opt["res"].pop("sparse_adagrad")["rows"]
     res.update(opt["res"])
     counts["sparse_sgd"] = paths["dlrm-rm2 train sgd sparse"]["sparse_sgd"]
     counts["sparse_adam"] = sum(c.get("sparse_adam", 0)
@@ -2948,9 +3070,9 @@ def main() -> int:
         else:
             at = MAIN_BATCH.get(name, min(r))
             main_r, extra = r[at], {"batch": at}
-            extra.update({k: main_r[k] for k in ("bound_fp32_ms",
-                                                 "bound_3xtf32_ms")
-                          if k in main_r})
+            extra.update({k: main_r[k] for k in (
+                "bound_fp32_ms", "bound_3xtf32_ms", "launch_floor_ms",
+                "launch_floor_warm_ms") if k in main_r})
             where = f"B={at}"
             for other in sorted(set(r) - {at}):
                 extra[f"at_batch_{other}"] = r[other]

@@ -75,9 +75,8 @@
 //   memory, folds them as above, and thread 0 adds the 8 warp sums as the
 //   tree's next three levels and pushes the chunk on a carry stack kept in
 //   shared memory).
-// Unique streams have no runs: one thread an entry.  Row layout: one warp
-// per index with its lanes over d, so a d = 64 row is one coalesced 256-byte
-// read or write; a run is folded per column, one carry stack at a time.
+// Unique streams have no runs: one thread an entry.  The row layout has its
+// own kernels, described where they begin.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -94,7 +93,7 @@ constexpr int CHUNK = THREADS / WARP * ROUND;   // pass 2: 2,048 a step
 constexpr int BUF = TILE + HALO;
 constexpr int MAX_DEPTH = 40;   // carry-stack depth: > log2(K) + 1
 constexpr int TILE_DEPTH = 5;   // rounds of a run in one tile's buffer: 16
-constexpr int MAX_COLS = 8;     // row layout: columns a lane holds, d <= 256
+constexpr int MAX_D = 256;      // row layout: the widest row
 constexpr unsigned FULL = 0xFFFFFFFFu;
 static_assert(BUF / ROUND <= (1 << (TILE_DEPTH - 1)), "tile carry depth");
 
@@ -106,7 +105,7 @@ __device__ __forceinline__ int pad(int q) { return q + (q >> 5); }
 // finish() combines what is left from the right, which is how the tree
 // truncates at the run's end.  Slot k holds a block of 2^k leaves; every
 // index is static once the loops unroll, so pass 1's shallow stack lives in
-// registers (the row layout's, MAX_DEPTH deep, spills to local memory).
+// registers.
 template <int DEPTH>
 struct Carry {
   float c[DEPTH];
@@ -191,55 +190,94 @@ __device__ __forceinline__ float as_reference(float s, int64_t n, int64_t K) {
   return (n == K && (n & (n - 1)) == 0) ? s : __fadd_rn(s, 0.0f);
 }
 
-// The per-slot updates: given the slot's folded value s and its flat state
-// index, update the states at that index and return the update value.
+// The per-slot updates.  apply() takes the slot's folded value s and its
+// states as loaded, leaves in them the values to store (old + (new - old),
+// as the reference adds its delta) and returns the update value;
+// operator() does the same at a flat state index.
 struct AdagradOp {
+  static constexpr int kStates = 1;
   float* acc;
   float neg_lr, eps;
 
-  __device__ __forceinline__ float operator()(float s, int64_t slot) const {
-    const float a = __fadd_rn(acc[slot], __fmul_rn(s, s));
-    acc[slot] = a;
+  __host__ __device__ float* state(int) const { return acc; }
+
+  __device__ __forceinline__ float apply(float s, float (&st)[1]) const {
+    const float a = __fadd_rn(st[0], __fmul_rn(s, s));
+    st[0] = a;
     return __fdiv_rn(__fmul_rn(neg_lr, s), __fadd_rn(__fsqrt_rn(a), eps));
+  }
+
+  __device__ __forceinline__ float operator()(float s, int64_t slot) const {
+    float st[1] = {acc[slot]};
+    const float out = apply(s, st);
+    acc[slot] = st[0];
+    return out;
   }
 };
 
 struct SgdOp {
+  static constexpr int kStates = 1;
   float* mo;
   float momentum, neg_lr;
 
-  __device__ __forceinline__ float operator()(float s, int64_t slot) const {
-    const float old = mo[slot];
+  __host__ __device__ float* state(int) const { return mo; }
+
+  __device__ __forceinline__ float apply(float s, float (&st)[1]) const {
+    const float old = st[0];
     const float nw = __fadd_rn(__fmul_rn(momentum, old), s);
-    mo[slot] = __fadd_rn(old, __fsub_rn(nw, old));
+    st[0] = __fadd_rn(old, __fsub_rn(nw, old));
     return __fmul_rn(neg_lr, nw);
+  }
+
+  __device__ __forceinline__ float operator()(float s, int64_t slot) const {
+    float st[1] = {mo[slot]};
+    const float out = apply(s, st);
+    mo[slot] = st[0];
+    return out;
   }
 };
 
 struct AdamOp {
-  float* mu;
+  static constexpr int kStates = 2;   // element-wise nu; a row-wise nu
+  float* mu;                          // leaves mu alone element-wise
   float* nu;
   float b1, omb1, b2, omb2, neg_lr, bc1, bc2, eps;
+
+  __host__ __device__ float* state(int i) const {
+    return i == 0 ? mu : nu;
+  }
 
   __device__ __forceinline__ float nu_next(float old, float v2) const {
     return __fadd_rn(__fmul_rn(b2, old), __fmul_rn(omb2, v2));
   }
 
-  // mu's update and u, given the slot's new second moment
-  __device__ __forceinline__ float with_nu(float s, int64_t slot,
-                                           float nu_new) const {
-    const float old = mu[slot];
+  // sqrt(nu'/bc2) + eps, the update's denominator
+  __device__ __forceinline__ float denom(float nu_new) const {
+    return __fadd_rn(__fsqrt_rn(__fdiv_rn(nu_new, bc2)), eps);
+  }
+
+  // mu's update in place and u, given the denominator of the slot's nu
+  __device__ __forceinline__ float with_denom(float s, float& mu_st,
+                                              float den) const {
+    const float old = mu_st;
     const float mn = __fadd_rn(__fmul_rn(b1, old), __fmul_rn(omb1, s));
-    mu[slot] = __fadd_rn(old, __fsub_rn(mn, old));
-    return __fdiv_rn(__fmul_rn(neg_lr, __fdiv_rn(mn, bc1)),
-                     __fadd_rn(__fsqrt_rn(__fdiv_rn(nu_new, bc2)), eps));
+    mu_st = __fadd_rn(old, __fsub_rn(mn, old));
+    return __fdiv_rn(__fmul_rn(neg_lr, __fdiv_rn(mn, bc1)), den);
+  }
+
+  __device__ __forceinline__ float apply(float s, float (&st)[2]) const {
+    const float old = st[1];
+    const float nn = nu_next(old, __fmul_rn(s, s));
+    st[1] = __fadd_rn(old, __fsub_rn(nn, old));
+    return with_denom(s, st[0], denom(nn));
   }
 
   __device__ __forceinline__ float operator()(float s, int64_t slot) const {
-    const float old = nu[slot];
-    const float nn = nu_next(old, __fmul_rn(s, s));
-    nu[slot] = __fadd_rn(old, __fsub_rn(nn, old));
-    return with_nu(s, slot, nn);
+    float st[2] = {mu[slot], nu[slot]};
+    const float out = apply(s, st);
+    nu[slot] = st[1];
+    mu[slot] = st[0];
+    return out;
   }
 };
 
@@ -585,79 +623,446 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Row layout: one warp per index, lanes over the d columns (column
-// lane + WARP*k in register k).  kRowwise: Adam with nu [rows]; width is d
-// rounded up to a power of two (the row mean's tree).
-template <class Op, bool kRowwise>
-__global__ void row_kernel(const int32_t* __restrict__ idx,
-                           const float* __restrict__ val, int64_t K,
-                           int32_t rows, int d, int width, int unique, Op op,
-                           float* __restrict__ u) {
-  const int lane = threadIdx.x % WARP;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) *
-                        (blockDim.x / WARP);
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * (blockDim.x / WARP) +
-                   threadIdx.x / WARP;
-       i < K; i += warps) {
-    const int32_t row = idx[i];      // the same for every lane
-    float* urow = u + i * d;
-    const bool live = row >= 0 && row < rows;
-    if (!live || !(unique || i == 0 || idx[i - 1] != row)) {
-      for (int c = lane; c < d; c += WARP) urow[c] = 0.0f;
+// ------------------------------------------------------------ row layout
+//
+// [rows, d] states, [K, d] values.  A warp takes a span of SPAN = 32
+// consecutive entries, their indices read once, coalesced, a lane each.  A
+// row is held in units of W floats (W = 4, 16-byte loads and stores, when
+// d % 4 == 0 and the arrays are 16-byte aligned; else W = 1): padded to
+// width = 2^ceil(log2 d) columns it is width / W units, held by LPR lanes
+// (a power of two, at most 32), UPL units a lane, unit q = l + k * LPR in
+// lane l's register k; a warp step covers RPI = 32 / LPR rows (a d = 64
+// row: 16 float4s, a half-warp; a warp takes two rows an instruction).
+// Unique stream: the warp walks its span's entries RPI at a time and loads
+// the values and states of NF units a lane before it updates any, so every
+// lane keeps 4 (W = 4) or 8 (W = 1) units of each array in flight; a
+// sentinel writes zero units and reads nothing.  Bucketed stream: heads come
+// from a ballot over the span; every entry that is not a live head gets a
+// zero row, and each live head's run is folded by one row group, reading
+// past the span's end if the run goes on, in head-aligned blocks of 8
+// entries (the tree's bottom three levels in registers, both loads of a
+// block in flight together) whose sums combine through a carry stack: its
+// first REG_LEVELS levels in registers with static indices, the rest in
+// shared memory, sized by K.  Adam's row-wise nu takes ref.py's row_mean
+// order: zero-padded to width, halved by units of a lane, then by lanes
+// (xor shuffles within the row's group), then within a unit; the
+// denominator sqrt(nu'/bc2) + eps is then the row's, computed once.
+constexpr int SPAN = 32;             // entries a warp takes at a time
+constexpr int ROW_THREADS = 256;     // unique stream: 8 warps a block
+constexpr int FOLD_THREADS = 128;    // bucketed: 4 warps (shared carries)
+constexpr int FOLD_BLOCK = 8;        // entries a fold step loads
+constexpr int REG_LEVELS = 5;        // carry levels in registers
+
+// A row's geometry (see above): d, its units nq = d / W, log2 LPR and
+// log2 UPL.
+struct RowGeom {
+  int d, nq, lpr_log2, upl_log2;
+};
+
+template <int W>
+__device__ __forceinline__ void load(const float* p, float (&x)[W]) {
+  if constexpr (W == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+    x[0] = *p;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store(float* p, const float (&x)[W]) {
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else
+    *p = x[0];
+}
+
+template <int W>
+__device__ __forceinline__ void store_zero(float* p) {
+  const float z[W] = {};
+  store<W>(p, z);
+}
+
+// The units a lane has in flight: values, element-wise states (mu only for
+// a row-wise Adam, whose row's old nu is nold), where they go, and whether
+// a unit is one of the row's (valid) and the row a live one (live).
+template <int NF, int W, int NS>
+struct Slots {
+  float v[NF][W];
+  float st[NS][NF][W];
+  float nold[NF];
+  int32_t row[NF];
+  int64_t uoff[NF], soff[NF];
+  bool valid[NF], live[NF];
+};
+
+template <class Op, bool kRowwise, int NF, int W, int NS>
+__device__ __forceinline__ void load_states(const Op& op,
+                                            Slots<NF, W, NS>& sl) {
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    sl.nold[j] = 0.0f;
+    if (!sl.live[j]) continue;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) load<W>(op.state(i) + sl.soff[j], sl.st[i][j]);
+    if constexpr (kRowwise) sl.nold[j] = op.nu[sl.row[j]];
+  }
+}
+
+// The row mean's tree over x = s * s, as ref.row_mean sums it; the row's
+// sum ends at its lane 0, unit 0, float 0.
+template <int NF, int W>
+__device__ __forceinline__ void row_tree(float (&x)[NF][W], const RowGeom& g) {
+  const int upl = 1 << g.upl_log2;
+#pragma unroll
+  for (int h = NF / 2; h >= 1; h /= 2)          // units h apart in a lane
+    if (h < upl)
+#pragma unroll
+      for (int j = 0; j + h < NF; ++j)
+        if ((j & (upl - 1)) < h)
+#pragma unroll
+          for (int c = 0; c < W; ++c) x[j][c] = __fadd_rn(x[j][c], x[j + h][c]);
+#pragma unroll
+  for (int off = WARP / 2; off >= 1; off /= 2)  // lanes of the row's group
+    if (off < (1 << g.lpr_log2))
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+#pragma unroll
+        for (int c = 0; c < W; ++c)
+          x[j][c] = __fadd_rn(x[j][c], __shfl_xor_sync(FULL, x[j][c], off));
+  if constexpr (W == 4)                         // within a unit
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      x[j][0] = __fadd_rn(x[j][0], x[j][2]);
+      x[j][1] = __fadd_rn(x[j][1], x[j][3]);
+      x[j][0] = __fadd_rn(x[j][0], x[j][1]);
+    }
+}
+
+// The op on every valid unit (values v, states loaded), then the stores:
+// update and states where live, a zero update elsewhere.  Every lane of
+// the warp calls it (the row-wise tree shuffles).
+template <class Op, bool kRowwise, int NF, int W, int NS>
+__device__ __forceinline__ void update_slots(const Op& op,
+                                             Slots<NF, W, NS>& sl,
+                                             const RowGeom& g, int l, int grp,
+                                             float* __restrict__ u) {
+  float out[NF][W];
+  if constexpr (kRowwise) {
+    float x[NF][W];
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int c = 0; c < W; ++c)
+        x[j][c] = sl.live[j] ? __fmul_rn(sl.v[j][c], sl.v[j][c]) : 0.0f;
+    row_tree<NF, W>(x, g);
+    float tot[NF];
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      tot[j] = __shfl_sync(FULL, x[j][0], grp << g.lpr_log2);
+    const int upl = 1 << g.upl_log2;
+#pragma unroll
+    for (int h = 1; h < NF; h *= 2)             // every unit: its row's sum
+      if (h < upl)
+#pragma unroll
+        for (int j = h; j < NF; ++j)
+          if (j & h) tot[j] = tot[j - h];
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      if (!sl.live[j]) continue;
+      const float nn = op.nu_next(
+          sl.nold[j], __fdiv_rn(tot[j], static_cast<float>(g.d)));
+      const float den = op.denom(nn);
+#pragma unroll
+      for (int c = 0; c < W; ++c)
+        out[j][c] = op.with_denom(sl.v[j][c], sl.st[0][j][c], den);
+      if (l == 0 && (j & (upl - 1)) == 0)
+        op.nu[sl.row[j]] = __fadd_rn(sl.nold[j], __fsub_rn(nn, sl.nold[j]));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        if (!sl.live[j]) continue;
+        float st[NS];
+#pragma unroll
+        for (int i = 0; i < NS; ++i) st[i] = sl.st[i][j][c];
+        out[j][c] = op.apply(sl.v[j][c], st);
+#pragma unroll
+        for (int i = 0; i < NS; ++i) sl.st[i][j][c] = st[i];
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    if (!sl.valid[j]) continue;
+    if (!sl.live[j]) {
+      store_zero<W>(u + sl.uoff[j]);
       continue;
     }
-    int64_t n = 1;
-    if (!unique)
-      while (i + n < K && idx[i + n] == row) ++n;
-    float s[MAX_COLS];
+    store<W>(u + sl.uoff[j], out[j]);
 #pragma unroll
-    for (int k = 0; k < MAX_COLS; ++k) {
-      const int c = lane + k * WARP;
-      s[k] = 0.0f;
-      if (c < d) {
-        Carry<MAX_DEPTH> tree;       // one column's run, in order
-        for (int64_t j = 0; j < n; ++j) tree.push(val[(i + j) * d + c]);
-        s[k] = tree.finish();
+    for (int i = 0; i < NS; ++i) store<W>(op.state(i) + sl.soff[j], sl.st[i][j]);
+  }
+}
+
+// Unique stream (a sentinel tail): a span per warp.
+template <class Op, bool kRowwise, int W>
+__global__ void __launch_bounds__(ROW_THREADS)
+    row_unique_kernel(const int32_t* __restrict__ idx,
+                      const float* __restrict__ val, int64_t K, int32_t rows,
+                      RowGeom g, Op op, float* __restrict__ u) {
+  constexpr int NF = W == 4 ? 4 : 8;            // units in flight a lane
+  constexpr int NS = kRowwise ? 1 : Op::kStates;
+  const int lane = threadIdx.x % WARP;
+  const int grp = lane >> g.lpr_log2, l = lane & ((1 << g.lpr_log2) - 1);
+  const int rpi_log2 = 5 - g.lpr_log2;
+  const int per_batch = NF >> g.upl_log2;       // warp steps a batch
+  const int64_t s0 = (static_cast<int64_t>(blockIdx.x) * (blockDim.x / WARP) +
+                      threadIdx.x / WARP) * SPAN;
+  if (s0 >= K) return;
+  const int n = K - s0 < SPAN ? static_cast<int>(K - s0) : SPAN;
+  const int32_t mine = lane < n ? idx[s0 + lane] : rows;
+  if (!__any_sync(FULL, mine >= 0 && mine < rows)) {    // all sentinels
+    for (int64_t o = lane * W; o < static_cast<int64_t>(n) * g.d;
+         o += WARP * W)
+      store_zero<W>(u + s0 * g.d + o);
+    return;
+  }
+  const int steps = (n + (1 << rpi_log2) - 1) >> rpi_log2;
+  for (int t0 = 0; t0 < steps; t0 += per_batch) {
+    Slots<NF, W, NS> sl;
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int step = t0 + (j >> g.upl_log2);
+      const int q = l + ((j & ((1 << g.upl_log2) - 1)) << g.lpr_log2);
+      const int e = (step << rpi_log2) + grp;
+      const int32_t row = __shfl_sync(FULL, mine, e & (WARP - 1));
+      sl.valid[j] = step < steps && e < n && q < g.nq;
+      sl.live[j] = sl.valid[j] && row >= 0 && row < rows;
+      sl.row[j] = row;
+      sl.uoff[j] = (s0 + e) * g.d + q * W;
+      sl.soff[j] = static_cast<int64_t>(row) * g.d + q * W;
+      if (sl.live[j]) load<W>(val + sl.uoff[j], sl.v[j]);
+    }
+    load_states<Op, kRowwise>(op, sl);
+    update_slots<Op, kRowwise>(op, sl, g, l, grp, u);
+  }
+}
+
+// Carry stack of one lane's run fold (as Carry above, over W floats at
+// once): levels below REG_LEVELS in registers, the rest in shared memory
+// (level k's float c at sh[(k * W + c) * WARP], this lane's column).
+template <int W>
+struct RowCarry {
+  float* sh;
+  float c[REG_LEVELS][W];
+  uint32_t count = 0;
+
+  // x merges with the levels below the first clear bit t of count (all
+  // set) and lands on level t
+  __device__ __forceinline__ void push(float (&x)[W]) {
+    const int t = __ffs(~count) - 1;
+#pragma unroll
+    for (int k = 0; k < REG_LEVELS; ++k)
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        if (k < t) x[i] = __fadd_rn(c[k][i], x[i]);
+        if (k == t) c[k][i] = x[i];
+      }
+    if (t >= REG_LEVELS) {
+      for (int k = 0; k < t - REG_LEVELS; ++k)
+#pragma unroll
+        for (int i = 0; i < W; ++i)
+          x[i] = __fadd_rn(sh[(k * W + i) * WARP], x[i]);
+#pragma unroll
+      for (int i = 0; i < W; ++i) sh[((t - REG_LEVELS) * W + i) * WARP] = x[i];
+    }
+    ++count;
+  }
+
+  __device__ __forceinline__ void finish(float (&out)[W]) const {  // count > 0
+    bool have = false;
+#pragma unroll
+    for (int k = 0; k < REG_LEVELS; ++k)
+      if ((count >> k) & 1u) {
+#pragma unroll
+        for (int i = 0; i < W; ++i)
+          out[i] = have ? __fadd_rn(c[k][i], out[i]) : c[k][i];
+        have = true;
+      }
+    for (int k = 0; (count >> (REG_LEVELS + k)) != 0; ++k)
+      if ((count >> (REG_LEVELS + k)) & 1u) {
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          const float y = sh[(k * W + i) * WARP];
+          out[i] = have ? __fadd_rn(y, out[i]) : y;
+        }
+        have = true;
+      }
+  }
+};
+
+// The run of `row` from its head h, columns [col, col + W): the aligned
+// pairwise tree in head-aligned blocks of FOLD_BLOCK entries, as_reference
+// applied.
+template <int W>
+__device__ __forceinline__ void fold_run(const int32_t* __restrict__ idx,
+                                         const float* __restrict__ val,
+                                         int64_t K, int64_t h, int32_t row,
+                                         int d, int col, float* sh,
+                                         float (&out)[W]) {
+  RowCarry<W> carry{sh};
+  int64_t n = 0;
+  for (int64_t base = h;; base += FOLD_BLOCK) {
+    int32_t ri[FOLD_BLOCK];
+    float e[FOLD_BLOCK][W];
+#pragma unroll
+    for (int j = 0; j < FOLD_BLOCK; ++j) {      // both loads in flight
+      const int64_t p = base + j;
+      ri[j] = row + 1;
+#pragma unroll
+      for (int i = 0; i < W; ++i) e[j][i] = 0.0f;
+      if (p < K) {
+        ri[j] = idx[p];
+        load<W>(val + p * d + col, e[j]);
       }
     }
-    const int64_t base = static_cast<int64_t>(row) * d;
-    if constexpr (kRowwise) {
-      float x[MAX_COLS];
+    int cnt = 0;                 // sorted: the run's entries are a prefix
 #pragma unroll
-      for (int k = 0; k < MAX_COLS; ++k) x[k] = __fmul_rn(s[k], s[k]);
-      // halve while wider than a warp: column c and c + w/2 share a lane
+    for (int j = 0; j < FOLD_BLOCK; ++j) {
+      const bool in = ri[j] == row;
+      cnt += in;
 #pragma unroll
-      for (int half = MAX_COLS / 2; half >= 1; half /= 2)
-        if (2 * WARP * half <= width)
-#pragma unroll
-          for (int k = 0; k < half; ++k) x[k] = __fadd_rn(x[k], x[k + half]);
-      float t = x[0];
-      for (int off = (width < WARP ? width : WARP) / 2; off > 0; off /= 2)
-        t = __fadd_rn(t, __shfl_xor_sync(FULL, t, off));
-      t = __shfl_sync(FULL, t, 0);   // lanes past a narrow row summed zeros
-      const float mean = __fdiv_rn(t, static_cast<float>(d));
-      float old = lane == 0 ? op.nu[row] : 0.0f;
-      old = __shfl_sync(FULL, old, 0);
-      const float nn = op.nu_next(old, mean);
-      if (lane == 0) op.nu[row] = __fadd_rn(old, __fsub_rn(nn, old));
-#pragma unroll
-      for (int k = 0; k < MAX_COLS; ++k) {
-        const int c = lane + k * WARP;
-        if (c < d) urow[c] = op.with_nu(s[k], base + c, nn);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < MAX_COLS; ++k) {
-        const int c = lane + k * WARP;
-        if (c < d) urow[c] = op(s[k], base + c);
-      }
+      for (int i = 0; i < W; ++i) e[j][i] = in ? e[j][i] : 0.0f;
     }
+    if (cnt == 0) break;         // the run ended on a block's edge
+    float x[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      float col8[FOLD_BLOCK];
+#pragma unroll
+      for (int j = 0; j < FOLD_BLOCK; ++j) col8[j] = e[j][i];
+      x[i] = tree8(col8, cnt);
+    }
+    carry.push(x);
+    n += cnt;
+    if (cnt < FOLD_BLOCK) break;
+  }
+  carry.finish(out);
+#pragma unroll
+  for (int i = 0; i < W; ++i) out[i] = as_reference(out[i], n, K);
+}
+
+// Bucketed stream: a span per warp; sh_levels shared carry levels a lane.
+template <class Op, bool kRowwise, int W>
+__global__ void __launch_bounds__(FOLD_THREADS)
+    row_fold_kernel(const int32_t* __restrict__ idx,
+                    const float* __restrict__ val, int64_t K, int32_t rows,
+                    RowGeom g, int sh_levels, Op op, float* __restrict__ u) {
+  constexpr int NF = W == 4 ? 4 : 8;            // >= UPL: a row's units
+  constexpr int NS = kRowwise ? 1 : Op::kStates;
+  extern __shared__ float sh_carry[];
+  const int lane = threadIdx.x % WARP;
+  float* sh = sh_carry + (threadIdx.x / WARP) * sh_levels * W * WARP + lane;
+  const int grp = lane >> g.lpr_log2, l = lane & ((1 << g.lpr_log2) - 1);
+  const int rpi_log2 = 5 - g.lpr_log2;
+  const int upl = 1 << g.upl_log2;
+  const int64_t s0 = (static_cast<int64_t>(blockIdx.x) * (blockDim.x / WARP) +
+                      threadIdx.x / WARP) * SPAN;
+  if (s0 >= K) return;
+  const int n = K - s0 < SPAN ? static_cast<int>(K - s0) : SPAN;
+  const int32_t mine = lane < n ? idx[s0 + lane] : rows;
+  int32_t prev = __shfl_up_sync(FULL, mine, 1);
+  if (lane == 0) prev = s0 > 0 ? idx[s0 - 1] : ~mine;
+  const bool head = lane < n && prev != mine;
+  const unsigned live_heads =
+      __ballot_sync(FULL, head && mine >= 0 && mine < rows);
+  // a zero update for every entry that is not a live head
+  const int steps = (n + (1 << rpi_log2) - 1) >> rpi_log2;
+  for (int t = 0; t < steps; ++t) {
+    const int e = (t << rpi_log2) + grp;
+    if (e < n && !((live_heads >> e) & 1u))
+      for (int k = 0; k < upl; ++k) {
+        const int q = l + (k << g.lpr_log2);
+        if (q < g.nq) store_zero<W>(u + (s0 + e) * g.d + q * W);
+      }
+  }
+  // the live heads, a row group each: fold its run, then the op
+  const int n_heads = __popc(live_heads);
+  for (int h0 = 0; h0 < n_heads; h0 += 1 << rpi_log2) {
+    const int hi = h0 + grp;
+    unsigned rest = live_heads;                 // the hi-th live head
+    for (int i = 0; i < hi && rest; ++i) rest &= rest - 1u;
+    const bool has = hi < n_heads;
+    const int e = has ? __ffs(rest) - 1 : 0;
+    const int32_t row = __shfl_sync(FULL, mine, e);
+    Slots<NF, W, NS> sl;
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int q = l + (j << g.lpr_log2);
+      sl.valid[j] = has && j < upl && q < g.nq;
+      sl.live[j] = sl.valid[j];
+      sl.row[j] = row;
+      sl.uoff[j] = (s0 + e) * g.d + q * W;
+      sl.soff[j] = static_cast<int64_t>(row) * g.d + q * W;
+#pragma unroll
+      for (int i = 0; i < W; ++i) sl.v[j][i] = 0.0f;
+      if (sl.valid[j])
+        fold_run<W>(idx, val, K, s0 + e, row, g.d, q * W, sh, sl.v[j]);
+    }
+    load_states<Op, kRowwise>(op, sl);
+    update_slots<Op, kRowwise>(op, sl, g, l, grp, u);
   }
 }
 
 int grid_for(int64_t items, int per_block) {
   const int64_t want = (items + per_block - 1) / per_block;
   return static_cast<int>(want < (1 << 30) ? want : (1 << 30));
+}
+
+template <class Op, bool kRowwise, int W>
+int launch_rows(const int32_t* idx, const float* val, int64_t K, int rows,
+                int d, int unique, const Op& op, float* u,
+                cudaStream_t stream) {
+  int width = 1;
+  while (width < d) width *= 2;
+  const int units = width / W;
+  const int lpr = units < WARP ? units : WARP;
+  RowGeom g{d, d / W, 0, 0};
+  while ((1 << g.lpr_log2) < lpr) ++g.lpr_log2;
+  while ((lpr << g.upl_log2) < units) ++g.upl_log2;
+  const int64_t n_spans = (K + SPAN - 1) / SPAN;      // a warp each
+  if (unique) {
+    row_unique_kernel<Op, kRowwise, W>
+        <<<grid_for(n_spans, ROW_THREADS / WARP), ROW_THREADS, 0, stream>>>(
+            idx, val, K, rows, g, op, u);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int bits = 0;                  // of the most 8-entry blocks a run can have
+  for (int64_t c = (K + FOLD_BLOCK - 1) / FOLD_BLOCK; c; c >>= 1) ++bits;
+  const int sh_levels = bits > REG_LEVELS + 1 ? bits - REG_LEVELS : 1;
+  const size_t shm = static_cast<size_t>(FOLD_THREADS / WARP) * sh_levels *
+                     W * WARP * sizeof(float);
+  row_fold_kernel<Op, kRowwise, W>
+      <<<grid_for(n_spans, FOLD_THREADS / WARP), FOLD_THREADS, shm, stream>>>(
+          idx, val, K, rows, g, sh_levels, op, u);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 16-byte units need the values, the updates and the element-wise states
+// 16-byte aligned.
+template <class Op, bool kRowwise>
+bool aligned16(const void* val, const void* u, const Op& op) {
+  constexpr int NS = kRowwise ? 1 : Op::kStates;
+  uintptr_t bits = reinterpret_cast<uintptr_t>(val) |
+                   reinterpret_cast<uintptr_t>(u);
+  for (int i = 0; i < NS; ++i)
+    bits |= reinterpret_cast<uintptr_t>(op.state(i));
+  return bits % 16 == 0;
 }
 
 template <class Op, bool kRowwise = false>
@@ -668,13 +1073,13 @@ int launch(const void* idx_, const void* val_, int64_t K, int m, int d,
   const auto* val = static_cast<const float*>(val_);
   auto* u = static_cast<float*>(u_);
   if (d > 0) {
-    if (d > MAX_COLS * WARP) return static_cast<int>(cudaErrorInvalidValue);
-    int width = 1;
-    while (width < d) width *= 2;
-    row_kernel<Op, kRowwise><<<grid_for(K, THREADS / WARP), THREADS, 0,
-                               stream>>>(idx, val, K, m, d, width, unique,
-                                         op, u);
-    return static_cast<int>(cudaGetLastError());
+    if (d > MAX_D || K >= (int64_t{1} << 31))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return d % 4 == 0 && aligned16<Op, kRowwise>(val, u, op)
+               ? launch_rows<Op, kRowwise, 4>(idx, val, K, m, d, unique, op,
+                                              u, stream)
+               : launch_rows<Op, kRowwise, 1>(idx, val, K, m, d, unique, op,
+                                              u, stream);
   }
   if (unique) {
     flat_unique_kernel<Op><<<grid_for(K, THREADS), THREADS, 0, stream>>>(

@@ -20,7 +20,7 @@ from repro_torch.kernels import build
 
 _I, _L, _F, _P = ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_void_p
 TILE = 2048          # csrc/sparse_update.cu: flat entries a pass-1 block owns
-MAX_D = 256          # csrc/sparse_update.cu: MAX_COLS * 32
+MAX_D = 256          # csrc/sparse_update.cu: the widest row
 
 
 @functools.cache

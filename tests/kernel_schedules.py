@@ -11,15 +11,28 @@ use it:
 - ``weight_grad_lanes``: ``fused_weight_grad_kernel``'s order of sums (each
   lane's columns c = lane, lane + 32, ..., product then sum, then the
   xor-shuffle tree 16, 8, 4, 2, 1), every operation rounded to float32 alone
-  as the kernel rounds it, so on the card it gives the kernel's bits.
+  as the kernel rounds it, so on the card it gives the kernel's bits;
+- ``row_geometry``, ``row_tree`` and ``row_fold_schedule``: the sparse
+  optimizers' row kernels (``csrc/sparse_update.cu``, row layout): how a row
+  sits in lanes and units, the row-wise mean's tree over that layout, and
+  the bucketed fold's walk (spans of 32 entries, heads from the span, each
+  live head's run folded in head-aligned blocks of 8 through a carry stack,
+  then ``as_reference``); ``row_update_schedule`` runs an op on the
+  walk's sums;
+- ``fmaf`` and ``bag_fma_chain``: CUDA's fused multiply-add, rounded once,
+  emulated in float64, and the embedding bag's order of sums (each column
+  an ``fmaf`` chain in l order, ids outside [0, V) skipped).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.dot_interaction.kernel import TI, TJ
+from repro_torch.kernels.sparse_update import ref as sref
 
 WARP = 32
+SPAN = 32            # csrc/sparse_update.cu: entries a warp takes at a time
+FOLD_BLOCK = 8       # entries a fold step loads
 
 
 def dot_interaction_schedule(x: torch.Tensor, G: int, grid: int,
@@ -88,3 +101,166 @@ def weight_grad_lanes(e: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         lanes = lanes + lanes[..., lane ^ off]
         off //= 2
     return lanes[..., 0].contiguous()
+
+
+# ----------------------------------- the sparse optimizers' row layout
+
+def row_geometry(d: int, W: int) -> tuple[int, int]:
+    """(LPR, UPL) of ``launch_rows``: a row padded to a power of two of
+    columns is width / W units, over LPR lanes with UPL units each."""
+    width = 1 << max(d - 1, 0).bit_length()
+    units = width // W
+    lpr = min(WARP, units)
+    return lpr, units // lpr
+
+
+def row_tree(x: torch.Tensor, W: int) -> torch.Tensor:
+    """x [n, d] -> the row-wise mean's sum of each row as ``row_tree`` in
+    the kernel adds it: columns in lane l, unit k, float c at
+    (l + k LPR) W + c; the units of a lane halved first, then the lanes by
+    xor shuffles, then the floats of a unit; divided by d."""
+    n, d = x.shape
+    lpr, upl = row_geometry(d, W)
+    X = torch.nn.functional.pad(x, (0, upl * lpr * W - d)).reshape(
+        n, upl, lpr, W)
+    h = upl // 2
+    while h:
+        X = torch.cat([X[:, :h] + X[:, h:2 * h], X[:, h:]], 1)
+        h //= 2
+    lane = torch.arange(lpr)
+    off = lpr // 2
+    while off:
+        X = X + X[:, :, lane ^ off]
+        off //= 2
+    if W == 4:
+        c0, c1 = X[..., 0] + X[..., 2], X[..., 1] + X[..., 3]
+        X = (c0 + c1)[..., None]
+    return sref.div(X[:, 0, 0, 0], d)
+
+
+class _Carry:
+    """The fold's carry stack (its register and shared levels are one stack
+    arithmetically): slot k holds a block of 2^k pushed leaves."""
+
+    def __init__(self):
+        self.c, self.count = {}, 0
+
+    def push(self, x):
+        k = 0
+        while (self.count >> k) & 1:
+            x = self.c[k] + x
+            k += 1
+        self.c[k] = x
+        self.count += 1
+
+    def finish(self):
+        acc = None
+        for k in sorted(self.c):
+            if (self.count >> k) & 1:
+                acc = self.c[k] if acc is None else self.c[k] + acc
+        return acc
+
+
+def _tree8(block: torch.Tensor, n: int) -> torch.Tensor:
+    """The truncated aligned tree of block[0:n] ([8, d], zero past n)."""
+    e = list(block)
+    for step in (1, 2, 4):
+        for i in range(0, FOLD_BLOCK, 2 * step):
+            if i + step < n:
+                e[i] = e[i] + e[i + step]
+    return e[0]
+
+
+def _fold_run(idx: torch.Tensor, vals: torch.Tensor, h: int) -> torch.Tensor:
+    """The run of idx[h] from its head h, as fold_run takes it."""
+    K, row = idx.numel(), int(idx[h])
+    carry, n, base = _Carry(), 0, h
+    while True:
+        seg = idx[base:base + FOLD_BLOCK]
+        cnt = int((seg == row).cumprod(0).sum()) if seg.numel() else 0
+        if cnt == 0:
+            break
+        block = torch.zeros((FOLD_BLOCK,) + vals.shape[1:], dtype=vals.dtype)
+        block[:cnt] = vals[base:base + cnt]
+        carry.push(_tree8(block, cnt))
+        n += cnt
+        if cnt < FOLD_BLOCK:
+            break
+        base += FOLD_BLOCK
+    s = carry.finish()
+    return s if n == K and n & (n - 1) == 0 else s + torch.zeros((),
+                                                                 dtype=s.dtype)
+
+
+def row_fold_schedule(idx: torch.Tensor, vals: torch.Tensor, rows=None):
+    """-> (head [K], folded [K, d]) as the bucketed row kernel computes
+    them: each span of 32 entries flags its heads (against the entry before
+    the span) and folds the runs of its live heads (idx < rows; every head
+    when rows is None), reading past the span's end; 0 everywhere else."""
+    K = idx.numel()
+    head = torch.zeros(K, dtype=torch.bool)
+    out = torch.zeros_like(vals)
+    for s0 in range(0, K, SPAN):
+        seg = idx[s0:s0 + SPAN]
+        prev = torch.cat([idx[s0 - 1:s0] if s0 else ~seg[:1], seg[:-1]])
+        for j in torch.nonzero(seg != prev).flatten().tolist():
+            head[s0 + j] = True
+            if rows is None or 0 <= int(seg[j]) < rows:
+                out[s0 + j] = _fold_run(idx, vals, s0 + j)
+    return head, out
+
+
+def row_update_schedule(algo: str, idx, vals, states: tuple, *, unique,
+                        **hyper):
+    """The row kernel's update: each live head's value (the entry itself,
+    or its run's sum by ``row_fold_schedule``) through the plain op, every
+    other entry's update 0, states updated in place at the live heads.
+    -> the update values."""
+    rows = states[0].shape[0]
+    if unique:
+        live, s = idx < rows, vals
+    else:
+        head, s = row_fold_schedule(idx, vals, rows)
+        live = head & (idx < rows)
+    only = torch.where(live, idx, torch.full_like(idx, rows))
+    u, _ = getattr(sref, f"sparse_{algo}_ref")(only, s, *states, unique=True,
+                                               **hyper)
+    return u
+
+
+# ------------------------------------------------------ the embedding bag
+
+def fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for float32 tensors, rounded once to float32 (CUDA's
+    fmaf): the float64 product is exact, the float64 sum s carries its
+    rounding error exactly (TwoSum), and where s lies halfway between two
+    float32 values the error decides the side."""
+    a64, b64, c64 = a.double(), b.double(), c.double()
+    p = a64 * b64
+    s = p + c64
+    bp = s - p
+    err = (p - (s - bp)) + (c64 - bp)
+    r = s.float()
+    r64 = r.double()
+    up = s > r64
+    inf = torch.full_like(r, float("inf"))
+    other = torch.nextafter(r, torch.where(up, inf, -inf))
+    mid = (s != r64) & (s == (r64 + other.double()) * 0.5)
+    away = mid & (err != 0) & ((err > 0) == up)
+    return torch.where(away, other, r)
+
+
+def bag_fma_chain(table: torch.Tensor, ids: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """[B, d]: acc = fmaf(w[b, l], T[ids[b, l]], acc) for l in order from 0,
+    an id outside [0, V) skipped, as every column of the kernel sums."""
+    B, L = ids.shape
+    V, d = table.shape
+    acc = torch.zeros((B, d), dtype=torch.float32, device=table.device)
+    for l in range(L):
+        i = ids[:, l].long()
+        ok = (i >= 0) & (i < V)
+        row = table[i.clamp(0, V - 1)]
+        nxt = fmaf(w[:, l, None].expand(B, d), row, acc)
+        acc = torch.where(ok[:, None], nxt, acc)
+    return acc

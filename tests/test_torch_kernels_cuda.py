@@ -22,7 +22,7 @@ from repro_torch.core.allocation import LMAParams  # noqa: E402
 from repro_torch.kernels.cin import kernel as ck  # noqa: E402
 from repro_torch.kernels.cin import ops as cin_ops  # noqa: E402
 from repro_torch.kernels.cin.ref import cin_ref  # noqa: E402
-from kernel_schedules import weight_grad_lanes  # noqa: E402
+from kernel_schedules import bag_fma_chain, weight_grad_lanes  # noqa: E402
 from repro_torch.kernels.dot_interaction import kernel as dk  # noqa: E402
 from repro_torch.kernels.dot_interaction import ops as dot_ops  # noqa: E402
 from repro_torch.kernels.dot_interaction.ref import \
@@ -447,11 +447,17 @@ _HYPER = {"sgd": dict(lr=0.01, momentum=0.9),
                        eps=1e-8)}
 
 
+def _bits_equal(a, b):
+    """Equal as values and as int32 bit patterns (-0 is not +0)."""
+    return torch.equal(a, b) and torch.equal(a.view(torch.int32),
+                                             b.view(torch.int32))
+
+
 def _check_update(cuda, algo, idx, vals, states, unique):
     """Kernel vs plain version on copies of the states: updates and states
-    bit-equal (row-wise nu within 1e-6 relative, the plain version's row
-    mean order kept by the kernel, so equal in practice), untouched slots
-    bit-unchanged."""
+    bit-equal, compared as int32 bit patterns too, so a -0 against a +0
+    fails (the kernel keeps the plain version's row mean order for a
+    row-wise nu), untouched slots bit-unchanged."""
     from repro_torch.kernels.sparse_update import ref as sref
     idx, vals = torch.from_numpy(idx).to(cuda), torch.from_numpy(vals).to(cuda)
     mine = tuple(s.clone() for s in states)
@@ -461,12 +467,12 @@ def _check_update(cuda, algo, idx, vals, states, unique):
     u_p, _ = getattr(sref, f"sparse_{algo}_ref")(idx, vals, *plain,
                                                  unique=unique,
                                                  **_HYPER[algo])
-    assert torch.equal(u_k, u_p)
+    assert _bits_equal(u_k, u_p)
     lead = states[0].shape[0]
     touched = torch.zeros(lead, dtype=torch.bool, device=cuda)
     touched[idx[idx < lead].long()] = True
     for s0, k, p in zip(states, mine, plain):
-        assert torch.equal(k, p)
+        assert _bits_equal(k, p)
         assert torch.equal(k[~touched].view(torch.int32),
                            s0[~touched].view(torch.int32))
 
@@ -502,19 +508,61 @@ def test_flat_fold_at_tile_edges_matches_plain(cuda, algo):
     _check_update(cuda, algo, idx, vals, _states(cuda, algo, (m,)), False)
 
 
-@pytest.mark.parametrize("unique", [True, False])
+def _row_edge_stream(rng, kind, rows, d):
+    """Bucketed row streams against the row kernel's 32-entry spans:
+    ``negzero`` runs of 1..70 with 1% -0 values, lone all -0 entries and a
+    column -0 through whole runs (the reference folds each such sum to
+    +0); ``span_edges`` runs of every length 1..97 in random order, so
+    runs start and end at every offset of a span and cross its edges;
+    ``long_run`` one run of 5,000 (past the kernel's registers, into its
+    shared carry) among short ones.  All end in a sentinel tail."""
+    if kind == "long_run":
+        lengths = np.concatenate([rng.integers(1, 40, 30), [5000],
+                                  rng.integers(1, 40, 30)])
+    else:
+        lengths = rng.permutation(np.arange(1, 71 if kind == "negzero"
+                                            else 98))
+    slots = np.sort(rng.choice(rows, lengths.shape[0], replace=False))
+    idx = np.concatenate([np.repeat(slots, lengths),
+                          np.full(45, rows)]).astype(np.int32)
+    vals = (rng.normal(0, 1, (idx.shape[0], d))
+            * 10.0 ** rng.uniform(-6, 1, (idx.shape[0], 1))).astype(np.float32)
+    if kind == "negzero":
+        vals[rng.random(vals.shape) < 0.01] = -0.0
+        starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        vals[starts[lengths == 1]] = -0.0
+        for r in range(0, lengths.shape[0], 3):
+            vals[starts[r]:starts[r] + lengths[r], rng.integers(d)] = -0.0
+    vals[idx >= rows] = 0.0
+    return idx, vals
+
+
+@pytest.mark.parametrize("stream,unique", [
+    ("random", True), ("random", False), ("negzero", False),
+    ("span_edges", False), ("long_run", False)])
 @pytest.mark.parametrize("algo,rowwise", [("sgd", False), ("adagrad", False),
                                           ("adam", False), ("adam", True)])
 @pytest.mark.parametrize("d", [64, 8, 100])
 def test_sparse_update_row_layout_matches_plain(cuda, algo, rowwise, unique,
-                                                d):
+                                                d, stream):
     """[rows, d] states with [K, d] values (the row-mode SparseGrad), at
     dlrm-rm2's d = 64, below a warp and off a power of two; Adam's row-wise
-    nu too."""
+    nu too.  ``random``: short runs or a sentinel-padded unique stream; the
+    bucketed edge streams (``_row_edge_stream``) start from states with a
+    tenth of their elements -0, so a run sum the kernel leaves -0 where the
+    plain version folds it to +0 shows in every op's update."""
     rows = 1024
-    idx, vals = _row_stream(np.random.default_rng(d), unique, rows, d)
-    _check_update(cuda, algo, idx, vals,
-                  _states(cuda, algo, (rows, d), rowwise), unique)
+    if stream == "random":
+        idx, vals = _row_stream(np.random.default_rng(d), unique, rows, d)
+        states = _states(cuda, algo, (rows, d), rowwise)
+    else:
+        idx, vals = _row_edge_stream(np.random.default_rng(d + 1), stream,
+                                     rows, d)
+        states = _states(cuda, algo, (rows, d), rowwise)
+        g = torch.Generator(device=cuda).manual_seed(d)
+        for x in states:
+            x[torch.rand(x.shape, generator=g, device=cuda) < 0.1] = -0.0
+    _check_update(cuda, algo, idx, vals, states, unique)
 
 
 def test_optimizers_launch_sgd_and_adam(cuda):
@@ -565,6 +613,34 @@ def test_embedding_bag_kernel_matches_plain(cuda, B, L, V, d):
     assert float(((got - want).abs() / scale.clamp_min(1e-30)).max()) <= 1e-6
     with pytest.raises(ValueError):                      # not on the card
         ek.embedding_bag_cuda(table, ids.cpu(), w)
+
+
+@pytest.mark.parametrize("d", [10, 100, 64, 256])
+@pytest.mark.parametrize("L", [1, 33])
+def test_embedding_bag_kernel_matches_fma_chain(cuda, d, L):
+    """The bag kernel's bits against its stated order of sums
+    (``kernel_schedules.bag_fma_chain``: each column an fmaf chain in l
+    order), the same bits twice: d = 10 takes scalar units, d = 100 float4s
+    on 25 of a warp's lanes, d = 64 a half-warp, d = 256 two float4s a
+    lane; also a table view off 16-byte alignment (scalar units); ids
+    outside [0, V) add nothing."""
+    from repro_torch.kernels.embedding_bag import kernel as ek
+
+    B, V = 333, 5000
+    g = torch.Generator(device=cuda).manual_seed(d + L)
+    table = torch.randn((V, d), generator=g, device=cuda)
+    ids = torch.randint(0, V, (B, L), generator=g, device=cuda,
+                        dtype=torch.int32)
+    ids[3, 0], ids[5, L - 1] = -1, V
+    w = torch.rand((B, L), generator=g, device=cuda) - 0.5
+    got = ek.embedding_bag_cuda(table, ids, w)
+    again = ek.embedding_bag_cuda(table, ids, w)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(got.view(torch.int32),
+                       bag_fma_chain(table, ids, w).view(torch.int32))
+    off = torch.randn(V * d + 1, generator=g, device=cuda)[1:].view(V, d)
+    assert torch.equal(ek.embedding_bag_cuda(off, ids, w).view(torch.int32),
+                       bag_fma_chain(off, ids, w).view(torch.int32))
 
 
 def test_subnormal_moments_match_plain(cuda):

@@ -13,6 +13,8 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from kernel_schedules import (row_fold_schedule, row_geometry,  # noqa: E402
+                              row_tree, row_update_schedule)
 from repro.kernels.sparse_update import ref as jref  # noqa: E402
 from repro_torch.kernels.sparse_update import ops as tops  # noqa: E402
 from repro_torch.kernels.sparse_update import ref as tref  # noqa: E402
@@ -494,3 +496,140 @@ def test_flat_fold_schedule_matches_fold_duplicates(case):
     for got in (port, mine):
         assert np.array_equal(got[0], want[0])
         assert np.array_equal(got[1], want[1])
+
+
+# ------------------------- the row kernels' walk (csrc/sparse_update.cu)
+#
+# The row layout's kernels, emulated in ``tests/kernel_schedules.py``:
+# spans of 32 entries, heads flagged against the entry before the span, each
+# live head's run folded in head-aligned blocks of 8 through a carry stack
+# (runs that cross span edges read past them), ``as_reference`` on every
+# sum; the row-wise mean's tree over the kernel's lanes and units.
+
+def _row_walk_stream(seed: int, kind: str, d: int):
+    """``unique``: distinct sorted rows, a sentinel tail, every seventh
+    entry all -0.  ``bucketed``: runs of every length 1..40 in random order
+    and one of 150 (run ends at every offset of a span, runs across several
+    spans), then a sentinel tail.  ``negzero``: runs of 1..24, 1% of the
+    values -0, every entry of length 1 all -0 and one column -0 through
+    every third run.  -> (indices, values)."""
+    rng = np.random.default_rng(seed)
+    if kind == "unique":
+        live = np.sort(rng.choice(ROWS, 200, replace=False)).astype(np.int32)
+        idx = np.concatenate([live, np.full(37, ROWS, np.int32)])
+        lengths = None
+    else:
+        top = 41 if kind == "bucketed" else 25
+        lengths = np.concatenate([rng.permutation(np.arange(1, top)),
+                                  [150] if kind == "bucketed" else []])
+        lengths = rng.permutation(lengths).astype(np.int64)
+        slots = np.sort(rng.choice(ROWS, lengths.shape[0], replace=False))
+        idx = np.concatenate([np.repeat(slots, lengths),
+                              np.full(29, ROWS)]).astype(np.int32)
+    vals = (rng.normal(0, 1, (idx.shape[0], d))
+            * 10.0 ** rng.uniform(-6, 1, (idx.shape[0], 1))).astype(np.float32)
+    if kind == "unique":
+        vals[::7] = -0.0
+    if kind == "negzero":
+        vals[rng.random(vals.shape) < 0.01] = -0.0
+        starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        vals[starts[lengths == 1]] = -0.0
+        for r in range(0, lengths.shape[0], 3):
+            vals[starts[r]:starts[r] + lengths[r], rng.integers(d)] = -0.0
+    vals[idx >= ROWS] = 0.0
+    return idx, vals
+
+
+def _bits(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["bucketed", "negzero", "whole_negzero",
+                                  "one"])
+@pytest.mark.parametrize("d", [5, 8, 64, 100])
+def test_row_fold_schedule_matches_fold_duplicates(d, kind):
+    """The bucketed row kernel's walk gives the bits of the reference's and
+    the port's ``fold_duplicates`` at every head, signed zeros too: runs
+    across span edges and a run of 150 over five spans, lone and all -0
+    runs, one all -0 run that is the whole stream (64 entries, the one case
+    the reference keeps -0), K = 1."""
+    if kind == "whole_negzero":
+        idx, vals = np.full(64, 3, np.int32), np.full((64, d), -0.0,
+                                                     np.float32)
+    elif kind == "one":
+        idx, vals = np.array([3], np.int32), np.full((1, d), -0.0, np.float32)
+    else:
+        idx, vals = _row_walk_stream(d, kind, d)
+    jh, jv = jref.fold_duplicates(jnp.asarray(idx), jnp.asarray(vals))
+    th, tv = tref.fold_duplicates(torch.from_numpy(idx),
+                                  torch.from_numpy(vals))
+    mh, mv = row_fold_schedule(torch.from_numpy(idx), torch.from_numpy(vals))
+    for h, v in ((th, tv), (mh, mv)):
+        assert np.array_equal(np.asarray(jh), h.numpy())
+        assert np.array_equal(_bits(jv), _bits(v.numpy()))
+
+
+@pytest.mark.parametrize("kind", ["unique", "bucketed", "negzero"])
+@pytest.mark.parametrize("d", [5, 8, 64, 100])
+@pytest.mark.parametrize("algo,rowwise", [("sgd", False), ("adagrad", False),
+                                          ("adam", False), ("adam", True)])
+def test_row_update_schedule_matches_reference(algo, rowwise, d, kind):
+    """The row kernel's update, emulated (its walk's sums through the
+    plain op), against the port's plain version and the live reference's
+    jnp version (op by op) on the same inputs: updates and states bit-equal,
+    compared as int32 patterns, untouched slots unchanged; Adam's row-wise
+    nu and the updates that divide by it are held to the reference to 1e-6
+    relative (XLA's mean sums in its own order; ``ref.row_mean``), and
+    bitwise to the port's plain version."""
+    idx, vals = _row_walk_stream(100 + d, kind, d)
+    unique = kind == "unique"
+    states = _states(np.random.default_rng(d), algo if algo != "adagrad"
+                     else "sgd", (ROWS, d), rowwise)
+    if algo == "adagrad":
+        states = (np.abs(states[0]),)
+    hyper = {"sgd": dict(lr=0.01, momentum=0.9), "adam": ADAM,
+             "adagrad": dict(lr=0.01, eps=1e-10)}[algo]
+    jfn = getattr(jref, f"sparse_{algo}_ref")
+    ju, jst = jfn(jnp.asarray(idx), jnp.asarray(vals),
+                  *map(jnp.asarray, states), unique=unique, **hyper)
+    plain = tuple(torch.from_numpy(x.copy()) for x in states)
+    pu, _ = getattr(tref, f"sparse_{algo}_ref")(
+        torch.from_numpy(idx), torch.from_numpy(vals), *plain, unique=unique,
+        **hyper)
+    mine = tuple(torch.from_numpy(x.copy()) for x in states)
+    mu_ = row_update_schedule(algo, torch.from_numpy(idx),
+                              torch.from_numpy(vals), mine, unique=unique,
+                              **hyper)
+    assert np.array_equal(_bits(mu_.numpy()), _bits(pu.numpy()))
+    for a, b in zip(mine, plain):
+        assert np.array_equal(_bits(a.numpy()), _bits(b.numpy()))
+    if rowwise:
+        np.testing.assert_allclose(mu_.numpy(), np.asarray(ju), rtol=1e-6,
+                                   atol=0)
+        np.testing.assert_allclose(mine[1].numpy(), np.asarray(jst[1]),
+                                   rtol=1e-6, atol=0)
+        assert np.array_equal(_bits(mine[0].numpy()), _bits(jst[0]))
+    else:
+        assert np.array_equal(_bits(mu_.numpy()), _bits(ju))
+        for a, b in zip(mine, jst):
+            assert np.array_equal(_bits(a.numpy()), _bits(b))
+    _untouched_unchanged(idx, states, [x.numpy() for x in mine])
+
+
+@pytest.mark.parametrize("d,W", [(d, 1) for d in (1, 5, 8, 12, 64, 100, 256)]
+                         + [(d, 4) for d in (8, 12, 64, 100, 256)])
+def test_row_tree_matches_row_mean(d, W):
+    """The row-wise mean's tree as the kernel lays a row over lanes and
+    units (``row_geometry``: a d = 64 row of float4s on a half-warp; W = 4
+    only where d % 4 == 0) gives ``ref.row_mean``'s bits, which the plain
+    version and the kernel share."""
+    lpr, upl = row_geometry(d, W)
+    assert lpr * upl * W >= d and lpr <= 32 and lpr & (lpr - 1) == 0
+    if (d, W) == (64, 4):
+        assert (lpr, upl) == (16, 1)
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy((rng.normal(0, 1, (50, d))
+                          * 10.0 ** rng.uniform(-8, 8, (50, d)))
+                         .astype(np.float32))
+    assert torch.equal(row_tree(x, W).view(torch.int32),
+                       tref.row_mean(x).view(torch.int32))
