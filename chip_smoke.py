@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: serve and train
 full-width dlrm-rm2 (Adagrad, momentum SGD and Adam; LMA and hashed_row),
-then full-width xDeepFM, then dlrm-rm2 with its pool and D' store sharded
-over 4 ranks on the same card.
+full-width DCN-v2, dlrm-rm2 with the qr, md and freq embeddings, full-width
+DIN, then full-width xDeepFM, then dlrm-rm2 with its pool and D' store
+sharded over 4 ranks on the same card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 sm_90 card and ``nvcc``; it imports only torch, numpy and ``repro_torch``
@@ -48,8 +49,10 @@ Phases (any failure raises and ends the run with a non-zero code):
      slot sums within the rounding bound, each pool exactly Adagrad of its
      own sums); steps/s, lookups/s, a per-phase split from CUDA events,
      host batch time and peak memory;
-  9. the paper's comparison through the port's launcher: lma-dlrm-criteo,
-     300 steps at B=512, lma and hashed_elem, eval AUC of each;
+  9. the paper's comparison through the port's launcher, 300 steps at
+     B=512 and alpha = 16: lma-dlrm-criteo with every registered kind but
+     full (freq, hashed_elem, hashed_row, lma, md, qr), lma-dlrm-avazu
+     with lma and hashed_elem; eval AUC of each;
  10. a bag's backward on the full pool (scatter-add and weight-gradient
      kernels) against the plain versions;
  11. time the training kernels (CUDA-graph replay) beside their bounds,
@@ -91,6 +94,34 @@ Phases (any failure raises and ends the run with a non-zero code):
      layout; profiled device time), the bag (cold L2) beside its bound,
      plain version, F.embedding_bag and the launch floor (a one-element
      fill timed the same way); then free dlrm-rm2 and its training state;
+ 29. free dlrm-rm2's pool and training state, keep its D' store, and
+     build full-width DCN-v2 on that store (the same 26 vocabularies and
+     max_set): a 33,763,328-slot striped pool, d=16, x0 of 429, 3 cross
+     layers, deep MLP 1024-1024-512; rows 2, 4 and 5 at d=16 over a
+     B=65,536 training batch (lookups and locations bit-exact, scatter-add
+     within 1e-6 of each slot's sum |g|); serve at the two rates (row 2
+     once per device call); 4 + 4 steps at B=65,536 under ``check_step``
+     (rows 2, 4 and 7 per sparse step, 2 and 5 per dense step);
+     retrieval_cand, 1,000,000 candidates in chunks of 8,192: timed, one
+     forward's launches a chunk, the first chunk's scores bit-equal to a
+     direct forward of its batch; then free the store;
+ 30. dlrm-rm2 at full width with qr (1,838,080 parameters), md
+     (132,282,385; dims 1-4 a field) and freq (1,024 hot rows, 2,109,184
+     tail rows of 64; its hot ids from a training batch's id counts): a
+     served batch against the plain forward, 1,024 requests at 100K/s,
+     4 + 4 steps at B=65,536 under ``check_step`` (qr and md have no pool:
+     both trainers bit-equal; freq in row mode, its row ids and locations
+     on the card bit-equal to the CPU's); row 3 once per device call and
+     per step, freq's row 7 (row layout) once per sparse step, rows 2, 4
+     and 5 never;
+ 31. full-width DIN: 5,000,000 items, d=18, a 5,627,904-slot flat pool,
+     its 5,000,000 x 32 D' store planted on the card; batches and requests
+     drawn in bulk (``DinDraw``); rows 2, 4 and 5 at d=18 over a B=16,384
+     batch's history and targets; serve at the two rates (row 2 twice per
+     device call: history, then target); 4 + 4 steps at B=65,536 under
+     ``check_step`` (both lookups' records in one SparseGrad, K =
+     119,144,448, a global sort and row 7's flat fold); retrieval_cand as
+     in phase 29;
  12. build xDeepFM at full width on the card: the 21,102,592-slot flat
      LMA pool (d=10), the 2,113,536-slot flat linear pool (d=1) and the
      33,763,877 x 32 D' store, planted and made very sparse as in phase 2;
@@ -441,6 +472,60 @@ def draw_requests(rng, vocabs, n: int, n_dense: int) -> dict:
     return out
 
 
+class DinDraw:
+    """DIN batches drawn in bulk (``DINGenerator.batch`` makes B * L
+    ``rng.choice`` calls in Python, ~6.5M at B = 65,536): DINGenerator's
+    model (a latent intent cluster per sample, 80% of the history from it,
+    the target from it half the time, the label whether it is, 10%
+    flipped), with items skewed toward each cluster's head (P(rank < k) =
+    (k/n)^(1/3)), so hot items make long runs in the pool's stream.  Item
+    i's cluster is perm^-1(i) % K."""
+
+    def __init__(self, n_items: int, hist_len: int, n_clusters: int = 50,
+                 seed: int = SEED):
+        rng = np.random.default_rng((seed, 0xD1D))
+        self.perm = rng.permutation(n_items)
+        self.cluster = np.empty(n_items, np.int64)
+        self.cluster[self.perm] = np.arange(n_items) % n_clusters
+        self.n_items, self.L, self.K, self.seed = (n_items, hist_len,
+                                                   n_clusters, seed)
+
+    def _items(self, rng, clusters):
+        per = self.n_items // self.K
+        rank = (rng.random(clusters.shape) ** 3 * per).astype(np.int64)
+        return self.perm[clusters + self.K * rank].astype(np.int32)
+
+    def batch(self, B: int, idx: int) -> dict:
+        rng = np.random.default_rng((self.seed, idx, 0xD1))
+        K, L = self.K, self.L
+        z = rng.integers(0, K, B)
+        own = rng.random((B, L)) < 0.8
+        hist = self._items(rng, np.where(own, z[:, None],
+                                         rng.integers(0, K, (B, L))))
+        lengths = rng.integers(L // 4, L + 1, B)
+        mask = np.arange(L)[None, :] < lengths[:, None]
+        pos = rng.random(B) < 0.5
+        target = self._items(rng, np.where(pos, z, rng.integers(0, K, B)))
+        label = (self.cluster[target] == z).astype(np.float32)
+        label = np.where(rng.random(B) < 0.1, 1 - label, label)
+        return {"hist": hist, "hist_mask": mask, "target": target,
+                "label": label.astype(np.float32)}
+
+
+def request_drawer(cfg):
+    """-> draw(rng, n): n requests for ``cfg``'s model, without labels."""
+    if cfg.model == "din":
+        din = DinDraw(cfg.embedding.vocab_sizes[0], cfg.hist_len)
+
+        def draw(rng, n):
+            b = din.batch(n, int(rng.integers(1 << 30)))
+            b.pop("label")
+            return b
+        return draw
+    return lambda rng, n: draw_requests(rng, cfg.embedding.vocab_sizes, n,
+                                        cfg.n_dense)
+
+
 def global_ids(torch, cfg, batch, dev):
     """[B, F] field-local ids -> [B*F] ids in the common-memory space."""
     ids = torch.from_numpy(batch["sparse"]).to(dev)
@@ -449,56 +534,88 @@ def global_ids(torch, cfg, batch, dev):
     return (ids + offs[None, :]).reshape(-1).contiguous()
 
 
+def batch_gids(torch, cfg, batch, dev):
+    """Every id a forward looks up, in call order: DIN's history then its
+    targets (one item table, offset 0), else the fields' global ids."""
+    if cfg.model == "din":
+        return torch.cat([torch.from_numpy(batch[k]).reshape(-1)
+                          for k in ("hist", "target")]).to(dev)
+    return global_ids(torch, cfg, batch, dev)
+
+
 # ------------------------------------------------------------------ phases
 
-def build_model(torch, dev, arch: str = "dlrm-rm2", mesh=None):
-    """The model at full width from the seed, and its D' store planted and
-    made very sparse.  With a mesh, this rank's share: the pool's slab and
-    the rows of the store padded to ``store_rows`` (length 0, empty sets)."""
+def build_model(torch, dev, arch: str = "dlrm-rm2", mesh=None,
+                kind: str = "lma", bufs: dict | None = None):
+    """The model at full width from the seed with the ``kind`` embedding,
+    and for lma its D' store planted and made very sparse, or ``bufs`` (a
+    store already on the card for the same values: DCN-v2 takes
+    dlrm-rm2's); other schemes' buffers are the caller's.  With a mesh,
+    this rank's share: the pool's slab and the rows of the store padded to
+    ``store_rows`` (length 0, empty sets)."""
     from repro_torch.configs import get_config
-    from repro_torch.core.signatures import planted_dense_store
     from repro_torch.models.recsys import Recsys, linear_config
 
-    cfg = get_config(arch).make_model()
+    cfg = get_config(arch).make_model(embedding_kind=kind)
+    e = cfg.embedding
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = Recsys(cfg, gen, device=dev, mesh=mesh).eval()
-    store = planted_dense_store(cfg.embedding.total_vocab, N_CLUSTERS,
-                                max_set=cfg.embedding.lma.max_set, seed=SEED,
-                                device=dev)
+    if bufs is not None:
+        if bufs["store_sets"].shape != (e.total_vocab, e.lma.max_set):
+            raise AssertionError("the D' store given does not fit "
+                                 f"{cfg.name}")
+        store_note = f"D' store {tuple(bufs['store_sets'].shape)} reused"
+    elif e.lma is None:
+        bufs, store_note = {}, "no D' store"
+    else:
+        bufs, store_note = plant_store(torch, e, mesh, dev)
+    torch.cuda.synchronize()
+    p = e.lma
+    if p is None:
+        pools = (f"{e.kind}: {e.param_count():,} parameters, d={e.dim}"
+                 + (f", md_dims {e.md_dims}" if e.md_dims else ""))
+    else:
+        pools = (f"m={p.m} stripe={p.stripe} d={p.d} n_h={p.n_h} "
+                 f"max_set={p.max_set} min_support={p.min_support}")
+    if cfg.model == "xdeepfm":
+        q = linear_config(cfg).lma
+        pools += (f"; linear pool m={q.m} stripe={q.stripe} d={q.d}; CIN "
+                  f"{cfg.cin_layers}, deep MLP {cfg.deep_mlp}")
+    log(f"model: {arch}, {pools}; {store_note}; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model, bufs
+
+
+def plant_store(torch, e, mesh, dev) -> tuple:
+    """The D' store of ``e``'s values planted from the seed and made very
+    sparse; with a mesh, this rank's rows.  -> (buffers, a note)."""
+    from repro_torch.core.signatures import planted_dense_store
+    from repro_torch.embed import make_buffers
+
+    store = planted_dense_store(e.total_vocab, N_CLUSTERS,
+                                max_set=e.lma.max_set, seed=SEED, device=dev)
     v = torch.arange(store.n_values, device=dev)
     zero, one = v % SPARSE_PERIOD == 0, v % SPARSE_PERIOD == 1
     store.sets[zero] = -1
     store.sets[one, 1:] = -1
     store.lengths[zero] = 0
     store.lengths[one] = 1
+    note = (f"D' store {tuple(store.sets.shape)} int32 "
+            f"({store.sets.numel() * 4 / 1e9:.2f} GB); very sparse share "
+            f"{2 / SPARSE_PERIOD:.1%} of values (support 0: "
+            f"1/{SPARSE_PERIOD}, support 1: 1/{SPARSE_PERIOD})")
     if mesh is None:
-        bufs = cfg.table.make_buffers(store)
-    else:
-        # this rank's rows of the store padded to store_rows (the pad rows,
-        # length 0 and empty sets, all on the last rank), cut before the
-        # padding so that the whole store is never copied
-        from repro_torch.dist.sharding import pad_rows, store_rows
-        c = store_rows(store.n_values) // mesh.model
-        lo = mesh.rank * c
-        hi = min(lo + c, store.n_values)
-        bufs = {"store_sets": pad_rows(store.sets[lo:hi], c, -1),
-                "store_lengths": pad_rows(store.lengths[lo:hi], c, 0)}
-    torch.cuda.synchronize()
-    p = cfg.embedding.lma
-    pools = f"m={p.m} stripe={p.stripe} d={p.d}"
-    if cfg.model == "xdeepfm":
-        q = linear_config(cfg).lma
-        pools += (f"; linear pool m={q.m} stripe={q.stripe} d={q.d}; CIN "
-                  f"{cfg.cin_layers}, deep MLP {cfg.deep_mlp}")
-    log(f"model: {arch}, {pools} n_h={p.n_h} "
-        f"max_set={p.max_set} min_support={p.min_support}; D' store "
-        f"{tuple(store.sets.shape)} int32 "
-        f"({store.sets.numel() * 4 / 1e9:.2f} GB); very sparse share "
-        f"{2 / SPARSE_PERIOD:.1%} of values (support 0: 1/{SPARSE_PERIOD}, "
-        f"support 1: 1/{SPARSE_PERIOD}); built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return cfg, model, bufs
+        return make_buffers(e, store), note
+    # this rank's rows of the store padded to store_rows (the pad rows,
+    # length 0 and empty sets, all on the last rank), cut before the
+    # padding so that the whole store is never copied
+    from repro_torch.dist.sharding import pad_rows, store_rows
+    c = store_rows(store.n_values) // mesh.model
+    lo = mesh.rank * c
+    hi = min(lo + c, store.n_values)
+    return {"store_sets": pad_rows(store.sets[lo:hi], c, -1),
+            "store_lengths": pad_rows(store.lengths[lo:hi], c, 0)}, note
 
 
 def kernel_inputs(torch, cfg, model, bufs, batch, dev):
@@ -571,21 +688,35 @@ def check_kernels(torch, cfg, model, bufs, batch, dev) -> dict:
 
 
 def plain_forward(torch, cfg, model, bufs, batch, dev):
-    """The forward through the plain versions only: split lookups, then the
-    pairwise-product interaction (DLRM) or the two-einsum CIN (xDeepFM)."""
+    """The forward through the plain versions only: split lookups (a table
+    scheme's own gathers), then the pairwise-product interaction (DLRM), the
+    two-einsum CIN (xDeepFM), or the model's plain cross (DCN-v2) and
+    attention (DIN) layers."""
     from repro_torch.embed import SPLIT
     from repro_torch.kernels.dot_interaction.ref import dot_interaction_ref
 
-    gids = global_ids(torch, cfg, batch, dev)
-    feats = SPLIT.lookup(cfg.embedding, cfg.table.scheme,
-                         dict(model.embedding), bufs, gids)
-    if cfg.model == "xdeepfm":
-        return plain_xdeepfm(torch, cfg, model, bufs, gids, feats)
-    bot = model.bot(torch.from_numpy(batch["dense"]).to(dev))
-    allf = torch.cat([bot[:, None, :],
-                      feats.reshape(-1, cfg.n_fields, cfg.embedding.dim)],
-                     dim=1)
-    z = dot_interaction_ref(allf)
+    e, scheme = cfg.embedding, cfg.table.scheme
+    t = on_card(torch, batch, dev)
+
+    def lookup(gids):
+        return SPLIT.lookup(e, scheme, dict(model.embedding), bufs, gids)
+
+    if cfg.model == "din":
+        B, L = batch["hist"].shape
+        return model.din_logits(lookup(t["hist"].reshape(-1)).reshape(B, L, -1),
+                                lookup(t["target"]), t)
+    if scheme.family == "table":
+        feats = cfg.table.embed_fields(dict(model.embedding), bufs,
+                                       t["sparse"])
+    else:
+        gids = global_ids(torch, cfg, batch, dev)
+        feats = lookup(gids).reshape(-1, cfg.n_fields, e.dim)
+        if cfg.model == "xdeepfm":
+            return plain_xdeepfm(torch, cfg, model, bufs, gids, feats)
+    if cfg.model == "dcn":
+        return model.dcn_logits(feats, t)
+    bot = model.bot(t["dense"])
+    z = dot_interaction_ref(torch.cat([bot[:, None, :], feats], dim=1))
     return model.top(torch.cat([bot, z], dim=-1))[:, 0]
 
 
@@ -619,17 +750,29 @@ def plain_xdeepfm(torch, cfg, model, bufs, gids, feats):
             + lin.reshape(B, -1).sum(dim=-1))
 
 
-# kernel launches per served batch (one forward) of each model
-SERVE_LAUNCHES = {"dlrm": {"fused_embed": 1, "dot_interaction": 1},
-                  "xdeepfm": {"fused_embed": 2, "cin": 3}}
+def model_launches(cfg) -> dict:
+    """The kernels one forward launches: the fused lookup once per lookup of
+    a pool whose scheme has a fused spec (xDeepFM's two pools, DIN's history
+    and target; none for a table scheme or freq), the dot interaction
+    (DLRM) or the CIN's three layers (xDeepFM)."""
+    out = {"dlrm": {"dot_interaction": 1}, "xdeepfm": {"cin": 3}}.get(
+        cfg.model, {})
+    scheme = cfg.table.scheme
+    if scheme.family == "memory" and scheme.fused_spec(cfg.embedding):
+        out = {**out, "fused_embed": 2 if cfg.model in ("xdeepfm", "din")
+               else 1}
+    return out
 
 
-def serve(torch, cfg, model, bufs, dev, kernels) -> tuple:
+def serve(torch, cfg, model, bufs, dev, kernels, runs=SERVE_RUNS,
+          label: str | None = None) -> tuple:
     from repro_torch.configs._recsys_common import RECSYS_SHAPE_TABLE
     from repro_torch.serve import BatchingScorer, model_score_fn, pad_buckets
 
     max_batch = RECSYS_SHAPE_TABLE["serve_p99"]["batch"]
     score = model_score_fn(model, bufs)
+    draw = request_drawer(cfg)
+    label = label or cfg.name
     served = []
 
     def score_fn(batch):
@@ -639,39 +782,40 @@ def serve(torch, cfg, model, bufs, dev, kernels) -> tuple:
         return out
 
     rng = np.random.default_rng(SEED + 3)
-    warm = draw_requests(rng, cfg.embedding.vocab_sizes, max_batch,
-                         cfg.n_dense)
+    warm = draw(rng, max_batch)
     for b in pad_buckets(max_batch):    # first call of each bucket's shapes
         score_fn({k: v[:b] for k, v in warm.items()})
-    on_card = {k: torch.from_numpy(v).to(dev) for k, v in warm.items()}
+    warm_on_card = on_card(torch, warm, dev)
     with torch.inference_mode():
-        fwd_ms = time_ms(torch, lambda: model(on_card, bufs), 20)
-    log(f"forward of a {max_batch}-request batch already on the card: "
-        f"{fwd_ms:.3f} ms (host-launched)")
+        fwd_ms = time_ms(torch, lambda: model(warm_on_card, bufs), 20)
+    log(f"{label}: forward of a {max_batch}-request batch already on the "
+        f"card: {fwd_ms:.3f} ms (host-launched)")
     for k in kernels.values():
         k.launches = 0
     served.clear()
-    runs = []
-    for rate, n in SERVE_RUNS:
+    records = []
+    for rate, n in runs:
         first = len(served)
-        reqs = draw_requests(rng, cfg.embedding.vocab_sizes, n, cfg.n_dense)
-        runs.append(drive(BatchingScorer(score_fn, max_batch=max_batch,
-                                         max_delay_ms=2.0), reqs, rate))
-        runs[-1]["device_call_ms"] = float(
+        reqs = draw(rng, n)
+        records.append(drive(BatchingScorer(score_fn, max_batch=max_batch,
+                                            max_delay_ms=2.0), reqs, rate))
+        records[-1]["device_call_ms"] = float(
             np.mean([s[2] for s in served[first:]]) * 1e3)
-        log("served {requests} requests at an offered {rate} requests/s in "
-            "{device_calls} device calls (mean batch {mean_batch:.1f}, max "
-            "{max_batch}; {device_call_ms:.3f} ms per call); latency ms "
-            "p50={p50:.3f} p99={p99:.3f}".format(**runs[-1]))
+        log(f"{label}: served {{requests}} requests at an offered {{rate}} "
+            "requests/s in {device_calls} device calls (mean batch "
+            "{mean_batch:.1f}, max {max_batch}; {device_call_ms:.3f} ms per "
+            "call); latency ms p50={p50:.3f} p99={p99:.3f}".format(
+                **records[-1]))
     counts = {name: k.launches for name, k in kernels.items()}
-    runs.append({"forward_ms_b512": fwd_ms})
+    records.append({"forward_ms_b512": fwd_ms})
     calls = len(served)
-    log(f"launches while serving ({calls} device calls): {counts}")
-    for name, per_call in SERVE_LAUNCHES[cfg.model].items():
-        if counts[name] != per_call * calls:
-            raise AssertionError(f"{name} launched {counts[name]} times in "
-                                 f"{calls} device calls, not {per_call} "
-                                 "per call")
+    log(f"{label}: launches while serving ({calls} device calls): {counts}")
+    per_call = model_launches(cfg)
+    for name in counts:
+        if counts[name] != per_call.get(name, 0) * calls:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} "
+                                 f"times in {calls} device calls, not "
+                                 f"{per_call.get(name, 0)} per call")
     # the largest batch served, against the plain versions
     batch, out, _ = max(served, key=lambda s: len(s[1]))
     with torch.inference_mode():
@@ -679,15 +823,15 @@ def serve(torch, cfg, model, bufs, dev, kernels) -> tuple:
     if out.shape != want.shape or not np.isfinite(out).all():
         raise AssertionError("served logits have the wrong shape")
     np.testing.assert_allclose(out, want, rtol=1e-4, atol=1e-4)
-    log(f"served batch of {len(out)} vs plain versions: max |err| "
+    log(f"{label}: served batch of {len(out)} vs plain versions: max |err| "
         f"{float(np.abs(out - want).max()):.3g} (tol 1e-4)")
-    return counts, runs, batch
+    return counts, records, batch
 
 
 def drive(scorer, reqs: dict, rate: float) -> dict:
     """Submit single requests open loop at ``rate`` per second, wait for
     every result; -> batching and latency statistics."""
-    n = len(reqs["sparse"])
+    n = len(next(iter(reqs.values())))
     pending = []
     try:
         t0 = time.perf_counter()
@@ -1008,20 +1152,22 @@ def check_training_kernels(torch, cfg, model, bufs, check_batch, sg,
     return err
 
 
-def check_full_batch(torch, cfg, bufs, batch, dev) -> dict:
-    """Rows 4 and 5 at the training shape, a B=65,536 batch, against their
-    plain versions run over chunks of FULL_CHUNK values (one plain call over
-    all 1.7M values needs tens of GB): locations bit-exact, dM within
-    SUM_RTOL * sum |g| at every slot.  -> errors and the plain versions'
-    summed device times."""
+def check_full_batch(torch, cfg, bufs, mem, batch, dev) -> dict:
+    """Rows 2, 4 and 5 at the training shape, every id a training batch
+    looks up, against their plain versions run over chunks of FULL_CHUNK
+    values (one plain call over all of them needs tens of GB): lookups
+    from the pool ``mem`` and locations bit-exact, dM within SUM_RTOL *
+    sum |g| at every slot.  -> errors and the plain versions' summed
+    device times."""
     from repro_torch.kernels.fused_embed import ops as fe
     from repro_torch.kernels.fused_embed import ref as fref
     from repro_torch.kernels.fused_embed.kernel import (fused_locations_cuda,
+                                                        fused_lookup_cuda,
                                                         fused_scatter_add_cuda)
 
     p = cfg.embedding.lma
     spec = fe.lma_spec(p)
-    gids = global_ids(torch, cfg, batch, dev)
+    gids = batch_gids(torch, cfg, batch, dev)
     rows, support = cfg.table.scheme.fused_inputs(cfg.embedding, bufs, gids)
     N = gids.numel()
     n_fb = int((support < p.min_support).sum())
@@ -1032,6 +1178,7 @@ def check_full_batch(torch, cfg, bufs, batch, dev) -> dict:
     with torch.no_grad():
         loc = fused_locations_cuda(spec, gids, rows, support)
         dm = fused_scatter_add_cuda(spec, g, gids, rows, support)
+        looked = fused_lookup_cuda(spec, mem, gids, rows, support)
         want, abs_sum = torch.zeros_like(dm), torch.zeros_like(dm)
         for a in range(0, N, FULL_CHUNK):
             part = (gids[a:a + FULL_CHUNK], rows[a:a + FULL_CHUNK],
@@ -1042,6 +1189,10 @@ def check_full_batch(torch, cfg, bufs, batch, dev) -> dict:
             plain["fused_locations"] += ms
             loc_err = max(loc_err, int((loc[a:a + FULL_CHUNK].long()
                                         - want_loc.long()).abs().max()))
+            if not torch.equal(looked[a:a + FULL_CHUNK],
+                               mem[want_loc.long()]):
+                raise AssertionError(f"lookup at d={p.d} differs from the "
+                                     f"plain gather (values {a}..)")
             dm_part, ms = events_ms(
                 torch, lambda: fref.scatter_add_ref(spec, g_part, *part))
             plain["fused_scatter_add"] += ms
@@ -1050,21 +1201,22 @@ def check_full_batch(torch, cfg, bufs, batch, dev) -> dict:
                                g_part.abs().reshape(-1))
             del want_loc, dm_part
         if loc_err:
-            raise AssertionError(f"locations at B=65,536 differ (max |diff| "
-                                 f"{loc_err})")
+            raise AssertionError(f"locations at the training batch differ "
+                                 f"(max |diff| {loc_err})")
         diff = (dm - want).abs()
         ratio = float((diff / abs_sum.clamp_min(1e-30)).max())
         if bool((diff > SUM_RTOL * abs_sum).any()):
-            raise AssertionError(f"scatter-add at B=65,536: max |err| / "
-                                 f"sum |g| {ratio:.3g} > {SUM_RTOL}")
+            raise AssertionError(f"scatter-add at the training batch: max "
+                                 f"|err| / sum |g| {ratio:.3g} > {SUM_RTOL}")
         out = {"fused_locations": loc_err,
                "fused_scatter_add": float(diff.max()), "ratio": ratio,
                "plain_ms": plain, "slots": int((abs_sum > 0).sum())}
-    log(f"training kernels at B={N // cfg.n_fields} ({N} values, {n_fb} "
-        f"fallback rows, {out['slots']} slots touched): locations bit-exact; "
-        f"scatter-add max |err| {out['fused_scatter_add']:.3g}, max |err| / "
-        f"sum |g| {ratio:.3g} (tol {SUM_RTOL}); plain versions over "
-        f"{-(-N // FULL_CHUNK)} chunks: locations "
+    log(f"training kernels of {cfg.name} (d={p.d}, m={p.m}, stripe "
+        f"{p.stripe}) over a training batch's {N} values ({n_fb} fallback "
+        f"rows, {out['slots']} slots touched): locations and lookups "
+        f"bit-exact; scatter-add max |err| {out['fused_scatter_add']:.3g}, "
+        f"max |err| / sum |g| {ratio:.3g} (tol {SUM_RTOL}); plain versions "
+        f"over {-(-N // FULL_CHUNK)} chunks: locations "
         f"{plain['fused_locations']:.1f} ms, scatter-add "
         f"{plain['fused_scatter_add']:.1f} ms")
     return out
@@ -1174,7 +1326,9 @@ def check_step(torch, n, p0, st0, dense_p, params, states, opts, arch,
       ``fold_duplicates`` reproduces bit for bit) is within ``sum_tol`` of
       the dense path's (``check_pool`` then holds each path to the update
       of its own sums).
-    So the paths differ only by the rounding of the slot sums.  ``st0``
+    So the paths differ only by the rounding of the slot sums; a model
+    without a pool (a table scheme) takes the same step both ways, bit for
+    bit.  ``st0``
     holds each pool's optimizer state before the step; ``streams`` the raw
     contributions of each deduped SparseGrad (``raw_streams``); ``parity``
     gathers one record per pool."""
@@ -1182,7 +1336,7 @@ def check_step(torch, n, p0, st0, dense_p, params, states, opts, arch,
 
     gs, gd = opts["sparse"].grads, opts["dense"].grads
     pools = sorted(k for k, g in gs.items() if is_sparse(g))
-    if not pools or set(pools) != set(st0):
+    if set(pools) != set(st0) or set(gs) != set(gd):
         raise AssertionError(f"step {n}: sparse pools {pools}, expected "
                              f"{sorted(st0)}")
     for k, q in params.items():
@@ -1391,31 +1545,30 @@ def lazy_rule(torch, n, pool, arch, sg, q0_all, st0, pools, states, slots,
     return int((pools["dense"][~touched] != q0_all[~touched]).sum())
 
 
-# kernel launches per training step of each model and path (the lookup once
-# per pool; the pool gradient: locations + the sparse optimizer's kernel, or
-# scatter-add); a row-mode pool records rows, no locations
-STEP_LAUNCHES = {
-    "dlrm": {"sparse": {"fused_embed": 1, "dot_interaction": 1,
-                        "fused_locations": 1, "sparse_update": 1},
-             "dense": {"fused_embed": 1, "dot_interaction": 1,
-                       "fused_scatter_add": 1}},
-    "xdeepfm": {"sparse": {"fused_embed": 2, "cin": 3, "fused_locations": 2,
-                           "sparse_update": 2},
-                "dense": {"fused_embed": 2, "cin": 3,
-                          "fused_scatter_add": 2}},
-}
 SPARSE_KERNEL = {"adagrad": "sparse_adagrad", "sgd": "sparse_sgd",
                  "adam": "sparse_adam"}
 
 
 def step_launches(cfg, optimizer: str, path: str) -> dict:
-    """The kernels one training step of ``path`` launches, by name."""
-    out = dict(STEP_LAUNCHES[cfg.model][path])
-    if "sparse_update" in out:
-        out[SPARSE_KERNEL[optimizer]] = out.pop("sparse_update")
-        scheme, e = cfg.table.scheme, cfg.embedding
-        if scheme.row_aligned and scheme.memory_slots(e) % e.dim == 0:
-            del out["fused_locations"]
+    """The kernels one training step of ``path`` launches, by name: the
+    forward's (``model_launches``), then for each pool lookup through the
+    fused kernel its gradient: sparse, the locations kernel (none when a
+    row-aligned scheme records rows) and once per pool the sparse
+    optimizer's kernel (a pool without a fused spec too); dense, the
+    scatter-add.  A table scheme has no pool and launches no more."""
+    out = dict(model_launches(cfg))
+    scheme, e = cfg.table.scheme, cfg.embedding
+    if scheme.family != "memory":
+        return out
+    lookups = out.get("fused_embed", 0)
+    if path == "dense":
+        if lookups:
+            out["fused_scatter_add"] = lookups
+        return out
+    out[SPARSE_KERNEL[optimizer]] = 2 if cfg.model == "xdeepfm" else 1
+    if lookups and not (scheme.row_aligned
+                        and scheme.memory_slots(e) % e.dim == 0):
+        out["fused_locations"] = lookups
     return out
 
 
@@ -1529,6 +1682,10 @@ def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
             f"the sparse pool exactly the plain lazy {arch.optimizer} of its "
             "SparseGrad, untouched slots bit-unchanged; the dense pool "
             "exactly the same update of its own sums at the touched slots")
+    if not pools:
+        log(f"sparse vs dense {label}: no pool, so the two trainers took the "
+            "same steps: parameters and optimizer states bit-identical after "
+            "every step")
     for pool, par in parity.items():
         w = par["worst"][0]
         log(f"sparse vs dense {label} {pool}, each step from the same state: "
@@ -1556,29 +1713,41 @@ def train_full_width(torch, arch_id, cfg, model, bufs, gen, B, dev,
 
 
 def launcher_comparison(torch, kernels) -> dict:
-    """The port's run of examples/train_lma_dlrm.py: lma vs hashed_elem at
-    an equal budget through repro_torch.launch.train."""
+    """The port's run of examples/train_lma_dlrm.py through
+    repro_torch.launch.train at an equal budget (alpha = 16): lma-dlrm-criteo
+    with every registered kind but ``full``, lma-dlrm-avazu with lma and
+    hashed_elem; the eval AUC of each."""
+    from repro_torch.embed import list_schemes
     from repro_torch.launch import train as launcher
 
-    out = {}
-    for kind in ("lma", "hashed_elem"):
+    kinds = [k for k in list_schemes() if k != "full"]
+    out = {"lma-dlrm-criteo": {}, "lma-dlrm-avazu": {}}
+    for arch, kind in ([("lma-dlrm-criteo", k) for k in kinds]
+                       + [("lma-dlrm-avazu", k)
+                          for k in ("lma", "hashed_elem")]):
         for k in kernels.values():
             k.launches = 0
         t0 = time.perf_counter()
-        res = launcher.main(["--arch", "lma-dlrm-criteo", "--embedding-kind",
-                             kind, "--steps", str(LAUNCHER_STEPS), "--batch",
+        res = launcher.main(["--arch", arch, "--embedding-kind", kind,
+                             "--steps", str(LAUNCHER_STEPS), "--batch",
                              str(LAUNCHER_BATCH), "--device", "cuda"])
-        out[kind] = {"auc": res["eval"]["auc"],
-                     "steps_per_sec": res["train"]["steps_per_sec"],
-                     "seconds": time.perf_counter() - t0,
-                     "launches": {n: k.launches for n, k in kernels.items()}}
+        out[arch][kind] = {
+            "auc": res["eval"]["auc"],
+            "steps_per_sec": res["train"]["steps_per_sec"],
+            "seconds": time.perf_counter() - t0,
+            "launches": {n: k.launches for n, k in kernels.items()
+                         if k.launches}}
         if not np.isfinite(res["train"]["loss"]):
-            raise AssertionError(f"launcher {kind}: non-finite loss")
-    out["auc_gap"] = out["lma"]["auc"] - out["hashed_elem"]["auc"]
-    log(f"launcher lma-dlrm-criteo, {LAUNCHER_STEPS} steps at "
-        f"B={LAUNCHER_BATCH}: eval AUC lma {out['lma']['auc']:.4f}, "
-        f"hashed_elem {out['hashed_elem']['auc']:.4f}, gap "
-        f"{out['auc_gap']:+.4f}; launches (lma) {out['lma']['launches']}")
+            raise AssertionError(f"launcher {arch} {kind}: non-finite loss")
+    for arch, runs in out.items():
+        runs["auc_gap_lma_hashed_elem"] = (runs["lma"]["auc"]
+                                           - runs["hashed_elem"]["auc"])
+        log(f"launcher {arch}, {LAUNCHER_STEPS} steps at B={LAUNCHER_BATCH}: "
+            "eval AUC " + ", ".join(
+                f"{k} {r['auc']:.4f} ({r['steps_per_sec']:.0f} steps/s)"
+                for k, r in runs.items() if isinstance(r, dict))
+            + f"; lma - hashed_elem {runs['auc_gap_lma_hashed_elem']:+.4f}; "
+            f"launches (lma) {runs['lma']['launches']}")
     return out
 
 
@@ -2161,6 +2330,186 @@ def run_optimizers(torch, cfg, model, bufs, gen, B, sg, dev,
     if failures:
         raise AssertionError("phase 19: " + "; ".join(failures))
     return {"paths": paths, "err": err, "res": res, "train": train}
+
+
+# ------------------------------- qr, md and freq; DCN-v2; DIN; retrieval
+
+SCHEME_STEPS = 4                # per run of these paths, sparse and dense
+SCHEME_SERVE_RUNS = ((100_000, 1024),)
+RETRIEVAL_CANDIDATES, RETRIEVAL_CHUNK = 1_000_000, 8192
+DIN_CHECK_BATCH = 16_384        # 1,654,784 ids, about dlrm-rm2's check
+
+
+def check_freq_rows(torch, cfg, bufs, batch, dev) -> dict:
+    """freq's row ids and locations for a training batch on the card equal,
+    bit for bit, those of the same batch on the CPU."""
+    scheme, e = cfg.table.scheme, cfg.embedding
+    gids = global_ids(torch, cfg, batch, dev)
+    host = {k: v.cpu() for k, v in bufs.items()}
+    with torch.no_grad():
+        rows = scheme.sparse_row_ids(e, bufs, gids)
+        loc = scheme.locations(e, bufs, gids)
+        rows_h = scheme.sparse_row_ids(e, host, gids.cpu())
+        loc_h = scheme.locations(e, host, gids.cpu())
+    if not (torch.equal(rows.cpu(), rows_h) and torch.equal(loc.cpu(), loc_h)):
+        raise AssertionError("freq: row ids or locations differ between the "
+                             "card and the CPU")
+    k = scheme.hot_k(e)
+    out = {"values": gids.numel(), "hot_k": k,
+           "tail_rows": scheme.tail_rows(e),
+           "hot_share": float((rows < k).double().mean()),
+           "rows_touched": int(torch.unique(rows).numel())}
+    log(f"freq: row ids and locations of {out['values']} training values "
+        "bit-equal on the card and the CPU; hot tier {hot_k} rows, tail "
+        "{tail_rows} rows; {hot_share:.1%} of values hit a hot row; "
+        "{rows_touched} rows touched".format(**out))
+    return out
+
+
+def run_schemes(torch, dev, kernels, gen) -> dict:
+    """dlrm-rm2 at full width with qr, md and freq (no D' store): a served
+    batch against the plain forward, 1,024 requests at 100K/s, and
+    SCHEME_STEPS steps at B = 65,536 taken sparse and dense from one state
+    (``check_step``: qr and md have no pool, so the two trainers must agree
+    bit for bit; freq's pool is row mode, its row ids and locations checked
+    against the CPU's); exact launches throughout."""
+    from repro_torch.configs._recsys_common import RECSYS_SHAPE_TABLE
+
+    B = RECSYS_SHAPE_TABLE["train_batch"]["batch"]
+    out = {"paths": {}, "serving": {}, "train": {}}
+    for kind in ("qr", "md", "freq"):
+        label = f"dlrm-rm2 {kind}"
+        cfg, model, bufs = build_model(torch, dev, "dlrm-rm2", kind=kind)
+        if kind == "freq":
+            batch = gen.batch(B, 0)
+            ids = global_ids(torch, cfg, batch, dev).long()
+            seen = torch.bincount(ids, minlength=cfg.embedding.total_vocab)
+            bufs = cfg.table.make_buffers(seen, device=dev)
+            out["freq"] = check_freq_rows(torch, cfg, bufs, batch, dev)
+        launched, out["serving"][label], _ = serve(
+            torch, cfg, model, bufs, dev, kernels, runs=SCHEME_SERVE_RUNS,
+            label=label)
+        out["paths"][f"{label} serve"] = launched
+        train = train_full_width(torch, "dlrm-rm2", cfg, model, bufs, gen, B,
+                                 dev, kernels, steps=SCHEME_STEPS)
+        out["train"][label] = train
+        out["paths"][f"{label} train sparse"] = train["sparse"]["launches"]
+        out["paths"][f"{label} train dense"] = train["dense"]["launches"]
+        del cfg, model, bufs, train
+        free(torch)
+    return out
+
+
+def run_retrieval(torch, cfg, model, bufs, dev, kernels, label) -> dict:
+    """retrieval_cand: one context against RETRIEVAL_CANDIDATES candidates
+    in chunks of RETRIEVAL_CHUNK, timed on the host clock around a synced
+    call after a warm-up; exact launches (one forward a chunk); the first
+    chunk's scores equal, bit for bit, a direct forward of that chunk's
+    batch."""
+    from repro_torch.models.recsys import retrieval
+
+    rng = np.random.default_rng(SEED + 13)
+    ctx = request_drawer(cfg)(rng, 1)
+    C, chunk = RETRIEVAL_CANDIDATES, RETRIEVAL_CHUNK
+    cand = torch.from_numpy(rng.integers(
+        0, cfg.embedding.vocab_sizes[0], C).astype(np.int32)).to(dev)
+    ctx_t = on_card(torch, ctx, dev)
+    retrieval(model, ctx_t, cand[:2 * chunk], bufs, chunk)
+    torch.cuda.synchronize()
+    zero(kernels)
+    t0 = time.perf_counter()
+    scores = retrieval(model, ctx_t, cand, bufs, chunk)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = counts(kernels)
+    n_chunks = -(-C // chunk)
+    want = {k: n * n_chunks for k, n in model_launches(cfg).items()}
+    if {k: n for k, n in got.items() if n} != want:
+        raise AssertionError(f"{label} retrieval launched {got}, expected "
+                             f"{want}")
+    if scores.shape != (C,) or not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"{label} retrieval: bad scores")
+    direct = {k: v.repeat(chunk, *([1] * (v.dim() - 1)))
+              for k, v in ctx_t.items()}
+    if cfg.model == "din":
+        direct["target"] = cand[:chunk]
+    else:
+        direct["sparse"][:, 0] = cand[:chunk]
+    with torch.inference_mode():
+        first = model(direct, bufs)
+    if not torch.equal(first, scores[:chunk]):
+        raise AssertionError(f"{label} retrieval: the first chunk differs "
+                             "from a direct forward (max |diff| "
+                             f"{float((first - scores[:chunk]).abs().max()):.3g})")
+    out = {"candidates": C, "chunk": chunk, "chunks": n_chunks,
+           "seconds": sec, "candidates_per_sec": C / sec, "launches": got}
+    log(f"{label} retrieval_cand: {C} candidates in {n_chunks} chunks of "
+        f"{chunk}: {sec * 1e3:.1f} ms ({C / sec:,.0f} candidates/s); "
+        f"launches {want}; the first chunk bit-equal to a direct forward")
+    return out
+
+
+def run_dcn(torch, dev, kernels, store_bufs, gen) -> dict:
+    """Full-width DCN-v2 on dlrm-rm2's D' store (the same 26 Criteo
+    vocabularies and max_set): rows 2, 4 and 5 at d = 16 striped over a
+    training batch, serving at both rates, SCHEME_STEPS steps at B = 65,536
+    under ``check_step``, retrieval_cand."""
+    from repro_torch.configs._recsys_common import RECSYS_SHAPE_TABLE
+
+    B = RECSYS_SHAPE_TABLE["train_batch"]["batch"]
+    cfg, model, bufs = build_model(torch, dev, "dcn-v2", bufs=store_bufs)
+    out = {"check": check_full_batch(
+        torch, cfg, bufs, model.embedding["memory"].detach(),
+        gen.batch(B, 0), dev)}
+    launched, out["serving"], _ = serve(torch, cfg, model, bufs, dev,
+                                        kernels)
+    out["paths"] = {"dcn-v2 serve": launched}
+    train = train_full_width(torch, "dcn-v2", cfg, model, bufs, gen, B, dev,
+                             kernels, steps=SCHEME_STEPS)
+    out["train"] = train
+    out["paths"]["dcn-v2 train sparse"] = train["sparse"]["launches"]
+    out["paths"]["dcn-v2 train dense"] = train["dense"]["launches"]
+    out["retrieval"] = run_retrieval(torch, cfg, model, bufs, dev, kernels,
+                                     "dcn-v2")
+    out["paths"]["dcn-v2 retrieval"] = out["retrieval"]["launches"]
+    return out
+
+
+def run_din(torch, dev, kernels) -> dict:
+    """Full-width DIN: its 5,000,000 x 32 D' store planted on the card,
+    rows 2, 4 and 5 at d = 18 (a flat pool) over a B = 16,384 batch's
+    history and targets, serving at both rates (two lookups a device call),
+    SCHEME_STEPS steps at B = 65,536 under ``check_step`` (both lookups'
+    records in one SparseGrad), retrieval_cand."""
+    from repro_torch.configs._recsys_common import RECSYS_SHAPE_TABLE
+
+    B = RECSYS_SHAPE_TABLE["train_batch"]["batch"]
+    cfg, model, bufs = build_model(torch, dev, "din")
+    draw = DinDraw(cfg.embedding.vocab_sizes[0], cfg.hist_len)
+    out = {"check": check_full_batch(
+        torch, cfg, bufs, model.embedding["memory"].detach(),
+        draw.batch(DIN_CHECK_BATCH, 1 << 20), dev)}
+    launched, out["serving"], _ = serve(torch, cfg, model, bufs, dev,
+                                        kernels)
+    out["paths"] = {"din serve": launched}
+    train = train_full_width(torch, "din", cfg, model, bufs, draw, B, dev,
+                             kernels, steps=SCHEME_STEPS)
+    out["train"] = train
+    out["paths"]["din train sparse"] = train["sparse"]["launches"]
+    out["paths"]["din train dense"] = train["dense"]["launches"]
+    out["retrieval"] = run_retrieval(torch, cfg, model, bufs, dev, kernels,
+                                     "din")
+    out["paths"]["din retrieval"] = out["retrieval"]["launches"]
+    return out
+
+
+def free(torch) -> None:
+    """Hand the memory of what the caller dropped back to the card and
+    restart the peak count."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 # ---------------------------------------------------------------- xDeepFM
@@ -2946,8 +3295,6 @@ CHUNK_KERNELS = ("fused_chunk_lookup", "fused_chunk_gather",
 
 
 def main() -> int:
-    import gc
-
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2995,7 +3342,9 @@ def main() -> int:
     sg = real_step_grad(torch, cfg, model, bufs, train_batch, dev)
     err.update(check_training_kernels(torch, cfg, model, bufs, check_batch,
                                       sg, dev))
-    full = check_full_batch(torch, cfg, bufs, train_batch, dev)
+    full = check_full_batch(torch, cfg, bufs,
+                            model.embedding["memory"].detach(), train_batch,
+                            dev)
     for name in ("fused_locations", "fused_scatter_add"):
         err[name] = max(err[name], full[name])
     train = train_full_width(torch, "dlrm-rm2", cfg, model, bufs, gen,
@@ -3024,13 +3373,23 @@ def main() -> int:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB (dlrm-rm2 phases)")
 
-    # free dlrm-rm2 (pool, D' store, the step's SparseGrad) before xDeepFM
-    del cfg, model, bufs, sg, train_batch, gen
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    log(f"after freeing dlrm-rm2: {torch.cuda.memory_allocated() / 2**30:.2f}"
-        " GiB allocated")
+    # free dlrm-rm2's pool, training state and SparseGrad; its D' store
+    # serves DCN-v2 (the same vocabularies), then goes too
+    del cfg, model, sg, train_batch
+    free(torch)
+    dcn = run_dcn(torch, dev, kernels, bufs, gen)
+    del bufs
+    free(torch)
+    schemes = run_schemes(torch, dev, kernels, gen)
+    del gen
+    din = run_din(torch, dev, kernels)
+    for name in ("fused_locations", "fused_scatter_add"):
+        err[name] = max(err[name], dcn["check"][name], din["check"][name])
+    for run in (dcn, schemes, din):
+        paths.update(run["paths"])
+    free(torch)
+    log(f"after freeing dlrm-rm2, DCN-v2 and DIN: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     xcounts, err["cin"], xres, xserving, xtrain = run_xdeepfm(torch, dev,
                                                               kernels)
     res["cin"] = xres
@@ -3041,9 +3400,7 @@ def main() -> int:
         "GiB (xdeepfm phases)")
 
     # free xDeepFM, then dlrm-rm2 sharded over 4 ranks on this card
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    free(torch)
     shard = run_sharded(torch, dev, kernels, card)
     paths.update(shard["paths"])
     for name, e in shard["err"].items():
@@ -3096,6 +3453,14 @@ def main() -> int:
                     "bag_backward": bag_err, "card": card}))
     log(json.dumps({"optimizer_training": opt["train"], "card": card}))
     log(json.dumps({"serving": runs, "card": card}))
+    log(json.dumps({"schemes": {k: schemes[k] for k in ("serving", "train",
+                                                        "freq")},
+                    "card": card}))
+    log(json.dumps({"dcn-v2": {k: dcn[k] for k in ("serving", "train",
+                                                   "retrieval")},
+                    "din": {k: din[k] for k in ("serving", "train",
+                                                "retrieval")},
+                    "card": card}))
     log(json.dumps({"xdeepfm": {"serving": xserving, "training": xtrain},
                     "card": card}))
     log(json.dumps({"sharded": shard["summary"], "card": card}))

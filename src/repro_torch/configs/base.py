@@ -1,5 +1,6 @@
 """Arch config registry (port of ``repro.configs.base``): the recsys
-architectures this slice serves."""
+architectures (dlrm-rm2, dcn-v2, xdeepfm, din, lma-dlrm-criteo,
+lma-dlrm-avazu)."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,5 +40,6 @@ def list_archs() -> list[str]:
 
 
 def _ensure_loaded():
-    from repro_torch.configs import (dlrm_rm2, lma_dlrm_criteo,  # noqa: F401
+    from repro_torch.configs import (dcn_v2, din, dlrm_rm2,  # noqa: F401
+                                    lma_dlrm_avazu, lma_dlrm_criteo,
                                     xdeepfm)

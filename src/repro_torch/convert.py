@@ -23,13 +23,15 @@ def params_from_jax(np_params: dict, cfg: RecsysConfig, device=None,
     """Reference recsys parameter pytree (numpy leaves) -> the port's
     ``Recsys`` state dict, on the card unless ``device`` says otherwise.
 
-    The embedding parameters copy straight across (``memory``,
-    ``table_{t}``; xDeepFM's ``linear`` table too), and so do xDeepFM's CIN
+    The embedding parameters copy straight across by name (``memory``;
+    ``table_{t}`` of full and md, md's ``proj_{t}``; qr's ``q_{t}`` and
+    ``r_{t}``; xDeepFM's ``linear`` table too), and so do xDeepFM's CIN
     weights (``cin.layer_{i}``, [Ho, Hk, F]); a dense ``kernel [in, out]``
-    becomes ``Linear.weight [out, in]`` (transposed) and ``bias`` copies.
-    With a mesh, each ``memory`` pool is this rank's slab of it."""
-    if cfg.model not in ("dlrm", "xdeepfm"):
-        raise NotImplementedError(cfg.model)
+    becomes ``Linear.weight [out, in]`` (transposed) and ``bias`` copies:
+    DLRM's ``bot`` and ``top``, DCN-v2's ``cross.layer_{i}``, ``deep`` and
+    ``head``, xDeepFM's ``cin_out`` and ``deep``, DIN's ``att`` and
+    ``head``.  With a mesh, each ``memory`` pool is this rank's slab of
+    it."""
     dev = resolve_device(device)
     tables = ("embedding", "linear") if cfg.model == "xdeepfm" \
         else ("embedding",)
@@ -41,10 +43,12 @@ def params_from_jax(np_params: dict, cfg: RecsysConfig, device=None,
     if cfg.model == "xdeepfm":
         for name, w in np_params["cin"].items():
             state[f"cin.{name}"] = _tensor(w, dev)
-        _dense_into(state, "cin_out", np_params["cin_out"], dev)
-        mlps = ("deep",)
-    else:
-        mlps = ("bot", "top")
+    denses = {"dlrm": (), "dcn": ("head",), "xdeepfm": ("cin_out",),
+              "din": ()}[cfg.model]
+    mlps = {"dlrm": ("bot", "top"), "dcn": ("cross", "deep"),
+            "xdeepfm": ("deep",), "din": ("att", "head")}[cfg.model]
+    for name in denses:
+        _dense_into(state, name, np_params[name], dev)
     for mlp in mlps:
         for name, layer in np_params[mlp].items():
             _dense_into(state, f"{mlp}.{name}", layer, dev)
@@ -60,8 +64,9 @@ def _dense_into(state: dict, prefix: str, layer: dict, dev) -> None:
 def buffers_from_numpy(np_buffers: dict, device=None, mesh=None) -> dict:
     """Reference buffers (numpy) -> the port's, on the card unless
     ``device`` says otherwise: ``store_sets`` uint32 become int32 bit
-    patterns (PAD = -1), ``store_lengths`` stay int32.  With a mesh, this
-    rank's rows of each (P must divide them)."""
+    patterns (PAD = -1); ``store_lengths`` and freq's ``freq_hot_ids``
+    stay int32.  With a mesh, this rank's rows of each (P must divide
+    them)."""
     dev = resolve_device(device)
     out = {}
     for k, v in np_buffers.items():

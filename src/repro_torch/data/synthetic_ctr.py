@@ -1,6 +1,6 @@
 """Synthetic CTR data with *planted semantic structure* (numpy copy of
 ``repro.data.synthetic_ctr``: the same spec and seed give the same batches
-in both packages; the DIN generator comes with the DIN model).
+in both packages, the DIN generator's too).
 
 The real Criteo (46M rows) / Avazu (41M rows) datasets are not part of the
 repository, so mechanism validation uses a generator whose categorical
@@ -125,4 +125,67 @@ class CTRGenerator:
             for row in g:
                 yield row
             done += b["sparse"].shape[0]
+            bidx += 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DINSpec:
+    """Sequence-behaviour CTR (DIN): history of item ids + candidate item."""
+
+    n_items: int = 50_000
+    n_clusters: int = 100
+    hist_len: int = 100
+    p_signal: float = 0.8
+    seed: int = 0
+
+
+class DINGenerator:
+    """Deterministic, seekable DIN batches: each sample's history is drawn
+    mostly from its intent cluster, and the label says whether the
+    candidate shares that cluster (10% flipped)."""
+
+    def __init__(self, spec: DINSpec):
+        self.spec = spec
+        rng = np.random.default_rng(spec.seed)
+        assign = np.arange(spec.n_items) % spec.n_clusters
+        rng.shuffle(assign)
+        self.item_cluster = assign
+        self.cluster_items = [np.where(assign == c)[0]
+                              for c in range(spec.n_clusters)]
+
+    def batch(self, batch_size: int, batch_idx: int) -> dict:
+        """-> {hist [B, L] i32, hist_mask [B, L] bool, target [B] i32,
+        label [B] f32}."""
+        spec = self.spec
+        rng = np.random.default_rng((spec.seed, batch_idx, 0xD1))
+        K = spec.n_clusters
+        z = rng.integers(0, K, batch_size)
+        L = spec.hist_len
+        hist = np.empty((batch_size, L), np.int32)
+        for i in range(batch_size):
+            own = rng.random(L) < spec.p_signal
+            cs = np.where(own, z[i], rng.integers(0, K, L))
+            hist[i] = [rng.choice(self.cluster_items[c]) for c in cs]
+        lengths = rng.integers(L // 4, L + 1, batch_size)
+        mask = np.arange(L)[None, :] < lengths[:, None]
+        # candidate: positive = same intent cluster, negative = random
+        pos = rng.random(batch_size) < 0.5
+        tgt_c = np.where(pos, z, rng.integers(0, K, batch_size))
+        target = np.array([rng.choice(self.cluster_items[c]) for c in tgt_c],
+                          np.int32)
+        label = (self.item_cluster[target] == z).astype(np.float32)
+        flip = rng.random(batch_size) < 0.1
+        label = np.where(flip, 1 - label, label)
+        return {"hist": hist, "hist_mask": mask, "target": target,
+                "label": label}
+
+    def rows_for_signatures(self, n_rows: int):
+        """Yield each sample's distinct history items (its D' row)."""
+        done, bidx = 0, 20_000_000
+        while done < n_rows:
+            b = self.batch(min(1024, n_rows - done), bidx)
+            for i in range(b["hist"].shape[0]):
+                items = b["hist"][i][b["hist_mask"][i]]
+                yield np.unique(items)
+            done += b["hist"].shape[0]
             bidx += 1

@@ -20,7 +20,9 @@
     sharded store.
 
 The resolver takes the reference's priority: sharded when a mesh is
-installed, else fused for a CUDA pool, else split.  There is no tiered
+installed, else fused for a CUDA pool of a scheme with a fused spec, else
+split (a CPU pool, or a scheme without a spec, such as freq: the
+reference's ``fused_eligible`` sends it to split too).  There is no tiered
 backend yet, and no VMEM-style size gate (the kernel reads the pool from
 device memory at any size).  ``sparse_locations`` is the same choice for
 the locations a sparse gradient records on one device.
@@ -112,9 +114,9 @@ def sparse_locations(cfg: EmbeddingConfig, scheme: Scheme, params: dict,
 
 def resolve_backend(cfg: EmbeddingConfig, params: dict,
                     scheme: Scheme | None = None):
-    """A ShardedBackend when a mesh is installed, else FUSED for a CUDA
-    pool and SPLIT for a CPU pool; None for table-family schemes (they
-    embed directly)."""
+    """A ShardedBackend when a mesh is installed; else FUSED for a CUDA
+    pool whose scheme has a fused spec, SPLIT for a CPU pool or a scheme
+    without one; None for table-family schemes (they embed directly)."""
     from repro_torch.dist.context import current_mesh
     scheme = get_scheme(cfg.kind) if scheme is None else scheme
     if scheme.family != "memory":
@@ -122,4 +124,6 @@ def resolve_backend(cfg: EmbeddingConfig, params: dict,
     mesh = current_mesh()
     if mesh is not None:
         return ShardedBackend(mesh)
-    return FUSED if params["memory"].is_cuda else SPLIT
+    if params["memory"].is_cuda and scheme.fused_spec(cfg) is not None:
+        return FUSED
+    return SPLIT

@@ -2,9 +2,15 @@
 
 A scheme is the allocation policy: how value ids map onto trainable
 parameters.  ``memory`` schemes share one pool ``params["memory"]`` ([m]
-floats) over the global value-id space and contribute ``locations`` plus a
-:class:`FusedSpec` for the fused kernel; ``table`` schemes hold per-table
+floats) over the global value-id space and contribute ``locations`` and,
+optionally, a :class:`FusedSpec` for the fused kernel (without one, every
+lookup takes the split path); ``table`` schemes hold per-table
 parameters and embed directly through ``embed_rows``.
+
+Registering a scheme is one decorated class in its own module, with no
+edit to ``repro_torch.embed.table`` or the backend resolver:
+``repro_torch/embed/freq.py`` registers itself and nothing imports it but
+``_ensure_builtin``.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ if TYPE_CHECKING:
     from repro_torch.embed.config import EmbeddingConfig
 
 _SCHEMES: dict[str, "Scheme"] = {}
+_BUILTIN_LOADED = False
 
 
 class Scheme:
@@ -28,9 +35,14 @@ class Scheme:
     # True when ``locations`` are d-aligned pool rows (``sparse_row_ids``
     # gives them): a sparse gradient then carries one index per row
     row_aligned: ClassVar[bool] = False
-    # What make_buffers consumes: None, or "signatures" (a D' store, lma).
+    # What make_buffers consumes: None (no buffers), "signatures" (a D'
+    # store, lma) or "id_counts" (per-global-id observed counts, freq).
     # Launchers key data preparation on this.
     buffer_source: ClassVar[str | None] = None
+
+    @property
+    def needs_signature_store(self) -> bool:
+        return self.buffer_source == "signatures"
 
     def validate(self, cfg: "EmbeddingConfig") -> None:
         if self.needs_budget and cfg.budget is None:
@@ -49,11 +61,40 @@ class Scheme:
     def param_count(self, cfg: "EmbeddingConfig") -> int:
         raise NotImplementedError(self.kind)
 
+    def describe(self, cfg: "EmbeddingConfig") -> dict:
+        """JSON-serializable introspection row."""
+        d = {
+            "kind": self.kind,
+            "family": self.family,
+            "n_tables": cfg.n_tables,
+            "total_vocab": cfg.total_vocab,
+            "dim": cfg.dim,
+            "budget": cfg.budget,
+            "param_count": self.param_count(cfg),
+            "expansion_rate": round(cfg.expansion_rate, 4),
+        }
+        d.update(self.extra_describe(cfg))
+        return d
+
+    def extra_describe(self, cfg: "EmbeddingConfig") -> dict:
+        return {}
+
     def init_params(self, cfg: "EmbeddingConfig", generator: torch.Generator,
                     device: torch.device) -> dict:
         raise NotImplementedError(self.kind)
 
-    def make_buffers(self, cfg: "EmbeddingConfig", store=None) -> dict:
+    def make_buffers(self, cfg: "EmbeddingConfig", store=None,
+                     device=None) -> dict:
+        """Non-trainable buffers from ``store`` (what ``buffer_source``
+        names); a scheme whose store is host data puts them on ``device``
+        (the card unless it says otherwise)."""
+        return {}
+
+    def buffer_specs(self, cfg: "EmbeddingConfig",
+                     n_store_rows: int) -> dict:
+        """Abstract buffer layout: name -> (shape tuple, dtype str);
+        ``n_store_rows`` is the padded row count of a row-sharded store.
+        Schemes without buffers return {}."""
         return {}
 
     # ------------------------------------------- memory-family lookup hooks
@@ -66,7 +107,7 @@ class Scheme:
         return int(cfg.budget)
 
     def fused_spec(self, cfg: "EmbeddingConfig"):
-        """FusedSpec for the fused kernel, or None."""
+        """FusedSpec for the fused kernel, or None (split path only)."""
         return None
 
     def fused_inputs(self, cfg: "EmbeddingConfig", buffers: dict,
@@ -78,9 +119,12 @@ class Scheme:
                        buffers: dict, gids: torch.Tensor, mesh):
         """This scheme's sharded lookup on a rank's slab (a
         ``repro_torch.dist.sharded_memory.SlabLookup``).  The reference
-        falls back to a generic location-based lookup; every memory scheme
-        of the port has its own, so the default refuses."""
-        raise NotImplementedError(f"{self.kind} has no sharded lookup")
+        falls back to a generic location-based lookup
+        (``repro.dist.sharded_memory.sharded_location_lookup``), which the
+        port does not have yet, so the default refuses."""
+        raise NotImplementedError(
+            f"{self.kind} has no sharded lookup: the generic location-based "
+            "sharded lookup is not ported")
 
     def sparse_buckets(self, cfg: "EmbeddingConfig") -> int:
         """d when column j of ``locations`` always lies in stripe
@@ -114,10 +158,24 @@ def register_scheme(cls: type) -> type:
     return cls
 
 
+def _ensure_builtin() -> None:
+    global _BUILTIN_LOADED
+    if _BUILTIN_LOADED:
+        return
+    _BUILTIN_LOADED = True
+    # import side-effect registration
+    from repro_torch.embed import freq, schemes  # noqa: F401
+
+
 def get_scheme(kind: str) -> Scheme:
-    from repro_torch.embed import schemes  # noqa: F401  (registers built-ins)
+    _ensure_builtin()
     if kind not in _SCHEMES:
         raise KeyError(f"unknown embedding scheme {kind!r}; "
                        f"registered: {sorted(_SCHEMES)}")
     return _SCHEMES[kind]
+
+
+def list_schemes() -> list[str]:
+    _ensure_builtin()
+    return sorted(_SCHEMES)
 

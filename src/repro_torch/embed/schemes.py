@@ -1,9 +1,10 @@
-"""The built-in schemes of this slice: full | hashed_elem | hashed_row | lma.
+"""The six built-in schemes: full | hashed_elem | hashed_row | qr | lma | md.
 
-Port of ``repro.embed.schemes`` (``qr`` and ``md`` come later).  Parameter
-and buffer names follow the reference (``table_{t}``, ``memory``,
-``store_sets``, ``store_lengths``) so ``repro_torch.convert`` carries them
-across by name.
+Port of ``repro.embed.schemes`` (``freq`` registers itself from
+``repro_torch/embed/freq.py``).  Parameter and buffer names follow the
+reference (``table_{t}`` for full and md, ``memory``, ``q_{t}`` / ``r_{t}``
+for qr, ``proj_{t}`` for md, ``store_sets``, ``store_lengths``) so
+``repro_torch.convert`` carries them across by name.
 """
 from __future__ import annotations
 
@@ -129,7 +130,11 @@ class LMAScheme(Scheme):
         return {"memory": init_memory(cfg.budget, cfg.memory_init, scale,
                                       cfg.tdtype, generator, device)}
 
-    def make_buffers(self, cfg, store=None):
+    def buffer_specs(self, cfg, n_store_rows):
+        return {"store_sets": ((n_store_rows, cfg.lma.max_set), "uint32"),
+                "store_lengths": ((n_store_rows,), "int32")}
+
+    def make_buffers(self, cfg, store=None, device=None):
         if not isinstance(store, DenseSignatureStore):
             raise TypeError("lma needs a DenseSignatureStore (D')")
         return {"store_sets": store.sets, "store_lengths": store.lengths}
@@ -168,3 +173,139 @@ class LMAScheme(Scheme):
         return sharded_lma_lookup(params["memory"], buffers["store_sets"],
                                   buffers["store_lengths"], gids, cfg.lma,
                                   mesh)
+
+    def extra_describe(self, cfg):
+        p = cfg.lma
+        return {"n_h": p.n_h, "max_set": p.max_set,
+                "min_support": p.min_support, "striped": p.striped,
+                "memory_init": cfg.memory_init}
+
+
+# ----------------------------------------------------------------------- qr
+
+def _qr_rows_budget(vocab: int, dim: int, budget: int,
+                    total_vocab: int) -> int:
+    """Row budget for one table: its proportional share of the scalar
+    budget."""
+    share = max(budget * (vocab / max(total_vocab, 1)), 4 * dim)
+    return max(int(share // dim), 4)
+
+
+def _qr_rows(vocab: int, dim: int, budget: int,
+             total_vocab: int) -> tuple[int, int]:
+    """(quotient rows mq, remainder rows mr) with mq + mr <= rows_budget.
+
+    mq ~= sqrt(vocab); mr = ceil(vocab / mq) when the budget allows (then
+    ``(v // mq) % mr == v // mq``: the unconstrained QR trick), else mr is
+    clamped to the remaining row budget and the quotient index wraps."""
+    rows_budget = _qr_rows_budget(vocab, dim, budget, total_vocab)
+    mq = int(np.sqrt(max(vocab, 1)))
+    mq = max(2, min(mq, rows_budget - 2))
+    mr = max(2, min(-(-vocab // mq), rows_budget - mq))
+    return mq, mr
+
+
+@register_scheme
+class QRScheme(Scheme):
+    """Quotient-remainder trick: element-wise product of two small tables."""
+
+    kind = "qr"
+    family = "table"
+
+    def param_count(self, cfg):
+        self.validate(cfg)
+        n = 0
+        for v in cfg.vocab_sizes:
+            mq, mr = _qr_rows(v, cfg.dim, cfg.budget, cfg.total_vocab)
+            rows_budget = _qr_rows_budget(v, cfg.dim, cfg.budget,
+                                          cfg.total_vocab)
+            if mq + mr > rows_budget:
+                raise ValueError(f"qr tables exceed this table's budget "
+                                 f"share: vocab {v}, {mq} + {mr} rows > "
+                                 f"{rows_budget}")
+            n += (mq + mr) * cfg.dim
+        return n
+
+    def init_params(self, cfg, generator, device):
+        self.validate(cfg)
+        scale = cfg.scale_or_default()
+        params = {}
+        for t, v in enumerate(cfg.vocab_sizes):
+            mq, mr = _qr_rows(v, cfg.dim, cfg.budget, cfg.total_vocab)
+            params[f"q_{t}"] = (torch.randn((mq, cfg.dim), generator=generator,
+                                            device=device) * scale
+                                ).to(cfg.tdtype)
+            # the remainder table multiplies element-wise: drawn around 1, so
+            # the product starts near the quotient embedding
+            params[f"r_{t}"] = (1.0 + torch.randn(
+                (mr, cfg.dim), generator=generator, device=device) * scale
+            ).to(cfg.tdtype)
+        return params
+
+    def embed_rows(self, cfg, params, table, flat_ids):
+        v = flat_ids.to(torch.int32)
+        q, r = params[f"q_{table}"], params[f"r_{table}"]
+        eq = q[(v % q.shape[0]).long()]
+        # % mr is the identity when the budget admitted mr == ceil(v / mq)
+        er = r[((v // q.shape[0]) % r.shape[0]).long()]
+        return eq * er
+
+
+# ----------------------------------------------------------------------- md
+
+@register_scheme
+class MDScheme(Scheme):
+    """Mixed-dimension tables: narrow per-table embeddings + up-projection."""
+
+    kind = "md"
+    family = "table"
+    needs_budget = False
+
+    def validate(self, cfg):
+        if cfg.md_dims is None:
+            raise ValueError("md needs md_dims")
+        if len(cfg.md_dims) != cfg.n_tables:
+            raise ValueError(f"{len(cfg.md_dims)} md_dims for "
+                             f"{cfg.n_tables} tables")
+
+    def build_config(self, vocab_sizes, dim, budget, **kw):
+        if "md_dims" not in kw and budget is not None:
+            kw["md_dims"] = self._dims_for_budget(tuple(vocab_sizes), dim,
+                                                  budget)
+        return super().build_config(vocab_sizes, dim, budget, **kw)
+
+    @staticmethod
+    def _dims_for_budget(vocab_sizes, dim, budget) -> tuple[int, ...]:
+        """Per-table dims ~ proportional to each table's budget share,
+        clamped to [1, dim] (mixed-dimension heuristic)."""
+        total = max(sum(vocab_sizes), 1)
+        dims = []
+        for v in vocab_sizes:
+            share = budget * (v / total)
+            dims.append(int(max(1, min(dim, share // max(v + dim, 1)))))
+        return tuple(dims)
+
+    def param_count(self, cfg):
+        self.validate(cfg)
+        return int(sum(v * d + d * cfg.dim
+                       for v, d in zip(cfg.vocab_sizes, cfg.md_dims)))
+
+    def init_params(self, cfg, generator, device):
+        self.validate(cfg)
+        params = {}
+        for t, (v, dt) in enumerate(zip(cfg.vocab_sizes, cfg.md_dims)):
+            scale = cfg.scale_or_default(dt)
+            params[f"table_{t}"] = (torch.randn(
+                (v, dt), generator=generator, device=device) * scale
+            ).to(cfg.tdtype)
+            params[f"proj_{t}"] = (torch.randn(
+                (dt, cfg.dim), generator=generator, device=device)
+                / np.sqrt(dt)).to(cfg.tdtype)
+        return params
+
+    def embed_rows(self, cfg, params, table, flat_ids):
+        e = params[f"table_{table}"][flat_ids.long()]
+        return e @ params[f"proj_{table}"]
+
+    def extra_describe(self, cfg):
+        return {"md_dims": list(cfg.md_dims)}

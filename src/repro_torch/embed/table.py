@@ -45,11 +45,15 @@ def init_embedding(cfg: EmbeddingConfig,
     return params
 
 
-def make_buffers(cfg: EmbeddingConfig, store=None, mesh=None) -> dict:
-    """Non-trainable buffers (the D' store for lma; empty otherwise); with
-    a mesh, this rank's rows of them (their rows must divide by P: pad the
-    store to ``repro_torch.dist.sharding.store_rows``)."""
-    bufs = get_scheme(cfg.kind).make_buffers(cfg, store)
+def make_buffers(cfg: EmbeddingConfig, store=None, mesh=None,
+                 device=None) -> dict:
+    """Non-trainable buffers (the D' store for lma, the hot ids for freq;
+    empty otherwise); with a mesh, this rank's rows of them (their rows must
+    divide by P: pad the store to ``repro_torch.dist.sharding.store_rows``).
+    Buffers a scheme builds from host data (freq's counts) go to
+    ``device``, the card unless it says otherwise; a D' store stays where
+    it is."""
+    bufs = get_scheme(cfg.kind).make_buffers(cfg, store, device)
     return {k: row_slab(v, mesh) for k, v in bufs.items()}
 
 
@@ -171,8 +175,8 @@ class EmbeddingTable:
              device=None, mesh=None) -> dict:
         return init_embedding(self.config, generator, device, mesh)
 
-    def make_buffers(self, store=None, mesh=None) -> dict:
-        return make_buffers(self.config, store, mesh)
+    def make_buffers(self, store=None, mesh=None, device=None) -> dict:
+        return make_buffers(self.config, store, mesh, device)
 
     def embed(self, params: dict, buffers: dict, table: int,
               ids: torch.Tensor) -> torch.Tensor:

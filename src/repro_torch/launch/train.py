@@ -1,16 +1,25 @@
 """Training launcher for the recsys archs (port of ``repro.launch.train``'s
-main path): synthetic CTR data with planted semantics, the D' signature
-store for lma, the arch's optimizer with the pool on its lazy sparse form,
-the :class:`~repro_torch.train.trainer.Trainer`, then a streaming AUC eval.
-It is the port's form of ``examples/train_lma_dlrm.py``: run it once with lma
+main path): synthetic CTR (or DIN behaviour) data with planted semantics,
+the scheme's buffers (the D' signature store for lma, observed id counts
+for freq), the arch's optimizer with the pool on its lazy sparse form, the
+:class:`~repro_torch.train.trainer.Trainer`, then a streaming AUC eval.  It
+is the port's form of ``examples/train_lma_dlrm.py``: run it once with lma
 and once with hashed_elem to compare the two at an equal budget.
 
   python -m repro_torch.launch.train --arch lma-dlrm-criteo --steps 300
   python -m repro_torch.launch.train --arch lma-dlrm-criteo \\
       --embedding-kind hashed_elem --steps 300
+  python -m repro_torch.launch.train --arch lma-dlrm-avazu --steps 300
   python -m repro_torch.launch.train --device cpu --steps 20 --batch 64
   python -m repro_torch.launch.train --arch xdeepfm --smoke --device cpu \\
       --steps 20 --batch 64
+  python -m repro_torch.launch.train --arch din --smoke --device cpu \\
+      --steps 20 --batch 64
+  python -m repro_torch.launch.train --arch dcn-v2 --smoke \\
+      --embedding-kind freq --device cpu --steps 20 --batch 64
+
+``--embedding-kind`` takes any registered scheme (``list_schemes``): full,
+hashed_elem, hashed_row, qr, lma, md, freq.
 
 It runs on the card unless ``--device cpu`` is given (with ``src`` on
 ``PYTHONPATH``).
@@ -25,7 +34,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.signatures import build_signature_store, densify_store
 from repro_torch.data.metrics import StreamingEval
-from repro_torch.data.synthetic_ctr import CTRGenerator, CTRSpec
+from repro_torch.data.synthetic_ctr import (CTRGenerator, CTRSpec,
+                                            DINGenerator, DINSpec)
 from repro_torch.device import resolve_device
 from repro_torch.embed import get_scheme, make_buffers
 from repro_torch.models import recsys
@@ -59,19 +69,32 @@ def lookups_per_step(cfg, batch: int) -> int:
 
 def _recsys_setup(arch, cfg, n_s: int, batch: int, device):
     """-> (generator, buffers, batch_fn, loss_fn).  Batches are host numpy
-    arrays (the trainer moves them); the D' store goes to ``device``."""
+    arrays (the trainer moves them); the buffers go to ``device``.  Data
+    preparation follows the scheme's ``buffer_source``, so a registered
+    scheme's buffers build here without a kind check."""
     e = cfg.embedding
-    spec = CTRSpec(n_fields=cfg.n_fields, n_dense=cfg.n_dense,
-                   vocab_sizes=e.vocab_sizes, seed=0)
-    gen = CTRGenerator(spec)
+    if cfg.model == "din":
+        gen = DINGenerator(DINSpec(n_items=e.vocab_sizes[0],
+                                   hist_len=max(cfg.hist_len, 8),
+                                   n_clusters=50, seed=0))
+    else:
+        gen = CTRGenerator(CTRSpec(n_fields=cfg.n_fields, n_dense=cfg.n_dense,
+                                   vocab_sizes=e.vocab_sizes, seed=0))
+    source = get_scheme(e.kind).buffer_source
     bufs = {}
-    if get_scheme(e.kind).buffer_source == "signatures":
+    if source == "signatures":
         print(f"building D' ({n_s} rows)...")
         store = build_signature_store(gen.rows_for_signatures(n_s),
                                       e.total_vocab,
                                       max_per_value=e.lma.max_set)
         bufs = make_buffers(e, densify_store(store, e.lma.max_set,
                                              device=device))
+    elif source == "id_counts":
+        print(f"counting observed ids ({n_s} rows)...")
+        counts = np.zeros(e.total_vocab, np.int64)
+        for row in gen.rows_for_signatures(n_s):
+            np.add.at(counts, np.asarray(row, np.int64), 1)
+        bufs = make_buffers(e, counts, device=device)
 
     def batch_fn(step):
         return gen.batch(batch, step)
@@ -83,13 +106,14 @@ def _recsys_setup(arch, cfg, n_s: int, batch: int, device):
 
 
 def evaluate(model, gen, bufs, n_batches: int, device) -> dict:
-    """Streaming AUC / logloss / accuracy over held-out batches."""
+    """Streaming AUC / logloss / accuracy over held-out batches (every key
+    of a batch but the label goes to the model)."""
     ev = StreamingEval()
     with torch.no_grad():
         for i in range(n_batches):
             b = gen.batch(2048, 700_000 + i)
-            x = {k: torch.from_numpy(b[k]).to(device)
-                 for k in ("dense", "sparse")}
+            x = {k: torch.from_numpy(v).to(device) for k, v in b.items()
+                 if k != "label"}
             ev.add(b["label"], model(x, bufs).cpu().numpy())
     return ev.compute()
 
@@ -99,7 +123,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="lma-dlrm-criteo")
     ap.add_argument("--embedding-kind", default=None,
                     help="override the arch's embedding scheme (any "
-                         "registered kind, e.g. hashed_elem)")
+                         "registered kind: full, hashed_elem, hashed_row, "
+                         "qr, lma, md, freq)")
     ap.add_argument("--smoke", action="store_true",
                     help="use the arch's reduced config")
     ap.add_argument("--steps", type=int, default=300)

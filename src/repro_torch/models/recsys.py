@@ -1,15 +1,22 @@
-"""RecSys / CTR models: the DLRM and xDeepFM branches of
-``repro.models.recsys``.
+"""RecSys / CTR models (port of ``repro.models.recsys``): DLRM, DCN-v2,
+xDeepFM and DIN.
 
 The categorical features come through one :class:`EmbeddingTable` (LMA or a
 baseline, by ``EmbeddingConfig.kind``) with one common memory across all
 fields; xDeepFM's first-order term is a second, d=1 table over the same
-fields and buffers.  DCN-v2 and DIN come in later slices.
+fields and buffers.  DIN's history and candidate are ids of one item table,
+looked up history first.
 
 Batch format (dict of tensors):
-  dense   [B, n_dense]  float32 (DLRM; xDeepFM has none and ignores it)
-  sparse  [B, n_fields] int32   (field-local ids)
-  label   [B]           float32 (``loss_fn`` only)
+  dense      [B, n_dense]  float32 (DLRM, DCN; xDeepFM and DIN have none)
+  sparse     [B, n_fields] int32   (field-local ids)
+  hist       [B, L]        int32   (DIN behaviour sequence, item ids)
+  hist_mask  [B, L]        bool
+  target     [B]           int32   (DIN candidate item)
+  label      [B]           float32 (``loss_fn`` only)
+
+Serving: ``Recsys.forward`` -> logits [B]; ``retrieval`` -> scores of one
+context against [C] candidates, scanned in chunks.
 """
 from __future__ import annotations
 
@@ -29,15 +36,20 @@ from repro_torch.nn.modules import MLP, dense
 @dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     name: str
-    model: str                     # dlrm | xdeepfm (dcn | din: later slices)
+    model: str                     # dlrm | dcn | xdeepfm | din
     embedding: EmbeddingConfig
     n_dense: int = 0
-    # dlrm
+    # dlrm (top_mlp is DIN's head too)
     bot_mlp: tuple[int, ...] = ()
     top_mlp: tuple[int, ...] = ()
-    # xdeepfm (deep_mlp is DCN's too, in the reference)
+    # dcn (deep_mlp is xDeepFM's too)
+    n_cross_layers: int = 0
     deep_mlp: tuple[int, ...] = ()
+    # xdeepfm
     cin_layers: tuple[int, ...] = ()
+    # din
+    hist_len: int = 0
+    attn_mlp: tuple[int, ...] = ()
     dtype: str = "float32"
 
     @property
@@ -79,10 +91,18 @@ class Recsys(nn.Module):
     """DLRM: bottom MLP on dense features, pairwise dot interaction of the
     bottom output with the field embeddings, top MLP -> logits [B].
 
+    DCN-v2: x0 = the flattened field embeddings and the dense features;
+    full-rank cross layers x <- x0 * (W x + b) + x beside a ReLU deep MLP
+    on x0, both into a linear head.
+
     xDeepFM: a CIN over the field embeddings (each layer ReLU'd and summed
     over d into a pool, the pools through ``cin_out``), a deep MLP over the
     flattened embeddings, and the linear table's field sum; the three
-    logits added."""
+    logits added.
+
+    DIN: target attention over the history (a sigmoid MLP on [h, t, h - t,
+    h * t], no softmax, masked weights), the weighted sum of the history
+    beside the target and their product through a ReLU head."""
 
     def __init__(self, cfg: RecsysConfig,
                  generator: torch.Generator | None = None, device=None,
@@ -91,8 +111,8 @@ class Recsys(nn.Module):
         each pool; everything else is drawn and held whole, as on one
         device."""
         super().__init__()
-        if cfg.model not in ("dlrm", "xdeepfm"):
-            raise NotImplementedError(f"{cfg.model}: not ported yet")
+        if cfg.model not in ("dlrm", "dcn", "xdeepfm", "din"):
+            raise ValueError(f"unknown recsys model {cfg.model!r}")
         dev = resolve_device(device)
         gen = make_generator(0, dev) if generator is None else generator
         self.cfg = cfg
@@ -104,6 +124,22 @@ class Recsys(nn.Module):
                            dtype=cfg.tdtype)
             return
         F, d = cfg.n_fields, cfg.embedding.dim
+        if cfg.model == "dcn":
+            d_x0 = F * d + cfg.n_dense
+            self.cross = nn.ModuleDict({
+                f"layer_{i}": dense(d_x0, d_x0, gen, dev, dtype=cfg.tdtype)
+                for i in range(cfg.n_cross_layers)})
+            self.deep = MLP([d_x0, *cfg.deep_mlp], gen, dev,
+                            final_act=torch.relu, dtype=cfg.tdtype)
+            self.head = dense(d_x0 + cfg.deep_mlp[-1], 1, gen, dev,
+                              dtype=cfg.tdtype)
+            return
+        if cfg.model == "din":
+            self.att = MLP([4 * d, *cfg.attn_mlp, 1], gen, dev,
+                           act=torch.sigmoid, dtype=cfg.tdtype)
+            self.head = MLP([3 * d + cfg.n_dense, *cfg.top_mlp, 1], gen, dev,
+                            dtype=cfg.tdtype)
+            return
         self.cin = nn.ParameterDict()
         hk = F
         for i, ho in enumerate(cfg.cin_layers):
@@ -122,14 +158,49 @@ class Recsys(nn.Module):
                 ) -> torch.Tensor:
         cfg = self.cfg
         buffers = buffers or {}
+        if cfg.model == "din":
+            return self._din(batch, buffers)
         feats = cfg.table.embed_fields(dict(self.embedding), buffers,
                                        batch["sparse"])            # [B, F, d]
         if cfg.model == "xdeepfm":
             return self._xdeepfm(feats, batch, buffers)
+        if cfg.model == "dcn":
+            return self.dcn_logits(feats, batch)
         bot = self.bot(batch["dense"].to(cfg.tdtype))                # [B, d]
         allf = torch.cat([bot[:, None, :], feats], dim=1).contiguous()
         z = dot_interaction(allf)
         return self.top(torch.cat([bot, z], dim=-1))[:, 0]
+
+    def dcn_logits(self, feats, batch):
+        """DCN-v2's logits from the field embeddings [B, F, d]."""
+        x0 = torch.cat([feats.reshape(feats.shape[0], -1),
+                        batch["dense"].to(self.cfg.tdtype)], dim=-1)
+        x = x0
+        for i in range(self.cfg.n_cross_layers):
+            x = x0 * self.cross[f"layer_{i}"](x) + x
+        deep = self.deep(x0)
+        return self.head(torch.cat([x, deep], dim=-1))[:, 0]
+
+    def _din(self, batch, buffers):
+        cfg, emb = self.cfg, dict(self.embedding)
+        e_hist = cfg.table.embed(emb, buffers, 0, batch["hist"])    # [B, L, d]
+        e_t = cfg.table.embed(emb, buffers, 0, batch["target"])     # [B, d]
+        return self.din_logits(e_hist, e_t, batch)
+
+    def din_logits(self, e_hist, e_t, batch):
+        """DIN's logits from the looked-up history [B, L, d] and target
+        [B, d]: the target attention, the pooled history, the head."""
+        cfg = self.cfg
+        et_b = e_t[..., None, :].expand_as(e_hist)
+        att_in = torch.cat([e_hist, et_b, e_hist - et_b, e_hist * et_b],
+                           dim=-1)
+        w = self.att(att_in)[..., 0]                                # [B, L]
+        w = torch.where(batch["hist_mask"], w, 0.0)
+        pooled = torch.einsum("...l,...ld->...d", w, e_hist)
+        head_in = [pooled, e_t, pooled * e_t]
+        if cfg.n_dense:
+            head_in.append(batch["dense"].to(cfg.tdtype))
+        return self.head(torch.cat(head_in, dim=-1))[:, 0]
 
     def _xdeepfm(self, feats, batch, buffers):
         B = feats.shape[0]
@@ -148,10 +219,10 @@ class Recsys(nn.Module):
 
 
 def lookups_per_example(cfg: RecsysConfig) -> int:
-    """Embedding-row lookups one example performs: one per field (the unit
-    of the trainer's lookups_per_sec; as in the reference, xDeepFM's linear
-    table lookups are not counted)."""
-    return cfg.n_fields
+    """Embedding-row lookups one example performs: DIN's history and its
+    target, else one per field (the unit of the trainer's lookups_per_sec;
+    as in the reference, xDeepFM's linear table lookups are not counted)."""
+    return (cfg.hist_len + 1) if cfg.model == "din" else cfg.n_fields
 
 
 def init(cfg: RecsysConfig, generator: torch.Generator | None = None,
@@ -166,3 +237,38 @@ def loss_fn(model: Recsys, batch: dict, buffers: dict | None = None):
     ce = torch.mean(torch.clamp(logits, min=0) - logits * y
                     + torch.log1p(torch.exp(-torch.abs(logits))))
     return ce, {"ce": ce, "logits": logits}
+
+
+def retrieval(model: Recsys, batch: dict, candidates: torch.Tensor,
+              buffers: dict | None = None, chunk: int = 8192
+              ) -> torch.Tensor:
+    """Score one context against ``candidates`` [C] item ids -> [C], in
+    chunks of ``chunk`` (the last padded with id 0 and sliced off), so no
+    [C, ...] block is ever formed; without autograd.  For DIN the candidate
+    replaces ``target`` (``batch``: ``hist`` and ``hist_mask`` [1, L]); for
+    the field models it replaces field 0, the item field by convention
+    (``batch``: ``sparse`` [1, F] and ``dense`` [1, n_dense])."""
+    cfg = model.cfg
+    C = candidates.shape[0]
+    nc = -(-C // chunk)
+    cand = torch.zeros(nc * chunk, dtype=candidates.dtype,
+                       device=candidates.device)
+    cand[:C] = candidates
+    scores = []
+
+    def rep(a):
+        return a.expand(chunk, *a.shape[1:])
+
+    with torch.no_grad():
+        for cand_c in cand.split(chunk):
+            if cfg.model == "din":
+                b = {"hist": rep(batch["hist"]),
+                     "hist_mask": rep(batch["hist_mask"]), "target": cand_c}
+            else:
+                sparse = rep(batch["sparse"]).clone()
+                sparse[:, 0] = cand_c
+                b = {"sparse": sparse}
+            if cfg.n_dense:
+                b["dense"] = rep(batch["dense"])
+            scores.append(model(b, buffers))
+    return torch.cat(scores)[:C]

@@ -150,8 +150,10 @@ class BatchingScorer:
 
 def model_score_fn(model: torch.nn.Module, buffers: dict | None = None
                    ) -> Callable[[dict], np.ndarray]:
-    """Score function for a port model: the padded numpy batch goes to the
-    model's device, one forward without autograd, logits back as numpy."""
+    """Score function for a port model: the padded numpy batch, every key
+    of it (``sparse`` and ``dense``; DIN's ``hist``, ``hist_mask`` and
+    ``target``), goes to the model's device, one forward without autograd,
+    logits back as numpy."""
     device = next(model.parameters()).device
 
     def score(batch: dict) -> np.ndarray:

@@ -55,6 +55,8 @@ def _entry_points():
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = get_config("dlrm-rm2").make_smoke()
+    dcn, din = (get_config(a).make_smoke() for a in ("dcn-v2", "din"))
+    freq = get_config("dlrm-rm2").make_smoke(embedding_kind="freq")
     return {
         "seed_stream": lambda: seed_stream(0, 4),
         "buffers_from_numpy": lambda: buffers_from_numpy(
@@ -68,6 +70,16 @@ def _entry_points():
         "Recsys": lambda: Recsys(cfg),
         "Recsys xdeepfm": lambda: Recsys(
             get_config("xdeepfm").make_smoke()),
+        "Recsys dcn": lambda: Recsys(dcn),
+        "Recsys din": lambda: Recsys(din),
+        "params_from_jax dcn": lambda: params_from_jax(
+            {"embedding": {}, "cross": {}, "deep": {}, "head": {}}, dcn),
+        "params_from_jax din": lambda: params_from_jax(
+            {"embedding": {}, "att": {}, "head": {}}, din),
+        "buffers_from_numpy freq": lambda: buffers_from_numpy(
+            {"freq_hot_ids": np.arange(4, dtype=np.int32)}),
+        "EmbeddingTable.make_buffers freq": lambda: EmbeddingTable(
+            freq.embedding).make_buffers(np.ones(freq.embedding.total_vocab)),
         "Trainer": lambda: Trainer(TrainerConfig(1), None,
                                    torch.nn.Linear(2, 2), adagrad(0.1),
                                    None),
@@ -79,7 +91,12 @@ def _entry_points():
                                   "synthetic_dense_store",
                                   "planted_dense_store",
                                   "EmbeddingTable.init", "Recsys",
-                                  "Recsys xdeepfm", "Trainer"])
+                                  "Recsys xdeepfm", "Recsys dcn",
+                                  "Recsys din", "params_from_jax dcn",
+                                  "params_from_jax din",
+                                  "buffers_from_numpy freq",
+                                  "EmbeddingTable.make_buffers freq",
+                                  "Trainer"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """With no device named, tensors go to the card; without one, raise."""
     import torch
@@ -100,8 +117,16 @@ def test_importing_the_port_loads_no_jax():
             "from repro_torch.dist.context import Mesh, use_mesh\n"
             "with use_mesh(Mesh(model=4, rank=1)) as mesh:\n"
             "    assert mesh.shape == {'data': 1, 'model': 4}\n"
-            "for a in ('dlrm-rm2', 'xdeepfm'):\n"
+            "import repro_torch.embed.freq\n"
+            "from repro_torch.data.synthetic_ctr import DINGenerator, DINSpec\n"
+            "from repro_torch.embed import list_schemes\n"
+            "assert len(list_schemes()) == 7, list_schemes()\n"
+            "DINGenerator(DINSpec(n_items=50, n_clusters=5)).batch(2, 0)\n"
+            "for a in c.list_archs():\n"
             "    cfg = c.get_config(a).make_smoke()\n"
+            "    repro_torch.models.recsys.init(cfg, device='cpu')\n"
+            "for k in ('qr', 'md', 'freq'):\n"
+            "    cfg = c.get_config('dlrm-rm2').make_smoke(embedding_kind=k)\n"
             "    repro_torch.models.recsys.init(cfg, device='cpu')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"

@@ -3,7 +3,8 @@
 These need an sm_90 device and skip elsewhere.  They cover what the paths at
 full width do not: sliding windows, the hashed schemes, ragged set widths,
 empty sets, keys and seeds >= 2^31, bags, long duplicate runs, flat pools
-at embedding widths below a warp (d = 10 and d = 1, xDeepFM's), the dot
+at embedding widths below a warp (d = 10 and d = 1, xDeepFM's; d = 18,
+DIN's; d = 16 striped, DCN-v2's), the dot
 interaction's edge shapes, the weight gradient's order of sums, the CIN
 layer at ragged shapes, the chunk kernels and the slab mode of the lookup
 and scatter-add on every scheme, and that each autograd path launches its
@@ -345,6 +346,49 @@ def test_flat_lookup_and_locations_below_a_warp(cuda, d):
                        fref.fused_lookup_ref(spec, mem, gids, sets, support))
     assert torch.equal(fe.fused_locations(spec, gids, sets, support),
                        fref.locations_ref(spec, gids, sets, support))
+
+
+@pytest.mark.parametrize("d,m,n_gids", [(18, 5_627_904, 5_000_000),
+                                         (16, 33_763_328, 33_762_577)])
+def test_lookup_locations_scatter_at_din_and_dcn_widths(cuda, d, m, n_gids):
+    """DIN's pool (d = 18, 5,627,904 slots: flat, 5,627,904 % 18 = 6) and
+    DCN-v2's (d = 16, striped, 2,110,208 a stripe): the lookup and the
+    locations bit-exact, flat and bag lookups through the fused kernel;
+    the scatter-add within 1e-6 of each slot's sum |g|, with hot ids
+    repeated so slots collect long runs."""
+    rng = np.random.default_rng(d)
+    p = LMAParams(d=d, m=m, n_h=4, max_set=32, seed=0, min_support=2,
+                  striped=m % d == 0)
+    assert (p.stripe > 0) == (d == 16)
+    spec = fe.lma_spec(p)
+    n = 4096
+    sets = _sets(rng, n, 32).to(cuda)
+    support = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32)).to(cuda)
+    ids = rng.integers(0, n_gids, n).astype(np.int32)
+    ids[: n // 2] = ids[: 64].repeat(32)           # 64 ids, 32 times each
+    sets[: n // 2] = sets[:64].repeat(32, 1)
+    support[: n // 2] = support[:64].repeat(32)
+    gids = torch.from_numpy(ids).to(cuda)
+    mem = _mem(cuda, m)
+    assert torch.equal(fe.fused_lookup(spec, mem, gids, sets, support),
+                       fref.fused_lookup_ref(spec, mem, gids, sets, support))
+    loc = fe.fused_locations(spec, gids, sets, support)
+    assert torch.equal(loc, fref.locations_ref(spec, gids, sets, support))
+    B, L = 64, 64
+    w = torch.rand((B, L), device=cuda)
+    ids_b, sets_b, support_b = (gids.reshape(B, L), sets.reshape(B, L, -1),
+                                support.reshape(B, L))
+    bag = fe.fused_embed_bag(spec, mem, ids_b, w, sets_b, support_b)
+    want = fref.fused_embed_bag_ref(spec, mem, ids_b, w, sets_b, support_b)
+    abs_bag = fref.fused_embed_bag_ref(spec, mem.abs(), ids_b, w, sets_b,
+                                       support_b)          # sum |w M|
+    assert bool(((bag - want).abs() <= 1e-6 * abs_bag).all())
+    g = torch.randn((n, d), device=cuda)
+    got = fk.fused_scatter_add_cuda(spec, g, gids, sets, support)
+    want = fref.scatter_add_ref(spec, g, gids, sets, support)
+    abs_sum = torch.zeros(m, device=cuda).index_add_(
+        0, loc.reshape(-1).long(), g.abs().reshape(-1))
+    assert bool(((got - want).abs() <= 1e-6 * abs_sum).all())
 
 
 def _cin_inputs(cuda, B, Hk, F, d, Ho, seed):

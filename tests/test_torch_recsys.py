@@ -102,8 +102,8 @@ def test_full_width_config_matches_reference():
         (135_053_312, 2_110_208, 256, 32, 2)
     assert t.d_interaction == 415
     assert RECSYS_SHAPE_TABLE["serve_p99"]["batch"] == 512
-    with pytest.raises(NotImplementedError):
-        trec.Recsys(dataclasses.replace(t, model="dcn"), device="cpu")
+    with pytest.raises(ValueError, match="unknown recsys model"):
+        trec.Recsys(dataclasses.replace(t, model="gnn"), device="cpu")
 
 
 def test_batching_scorer_serves_direct_forward():
