@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: serve and train
-full-width dlrm-rm2 (Adagrad, momentum SGD and Adam; LMA and hashed_row),
-full-width DCN-v2, dlrm-rm2 with the qr, md and freq embeddings, full-width
-DIN, then full-width xDeepFM, then dlrm-rm2 with its pool and D' store
-sharded over 4 ranks on the same card.
+full-width dlrm-rm2 (Adagrad, momentum SGD and Adam; LMA and hashed_row;
+its durability: the step guard, checkpoints, a chaos soak, the pool scan,
+the CSR store), full-width DCN-v2, dlrm-rm2 with the qr, md and freq
+embeddings, full-width DIN, then full-width xDeepFM, then dlrm-rm2 with
+its pool and D' store sharded over 4 ranks on the same card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 sm_90 card and ``nvcc``; it imports only torch, numpy and ``repro_torch``
@@ -94,6 +95,32 @@ Phases (any failure raises and ends the run with a non-zero code):
      layout; profiled device time), the bag (cold L2) beside its bound,
      plain version, F.embedding_bag and the launch floor (a one-element
      fill timed the same way); then free dlrm-rm2 and its training state;
+ 32. (run here, on the dlrm-rm2 model the phases above trained, every
+     Trainer from this phase's initial parameters with sparse Adagrad at
+     B=65,536, 24 host batches cached) durability: (a) a nan_grad and a
+     huge_grad step skipped, the state's sha256 digest unchanged, rows 2,
+     3 and 4 launched once each and row 7 not; a clean guarded step
+     bit-identical to the unguarded step from the same state; guarded and
+     unguarded steps/s, alternated; (b) a base save of the pool, its
+     accumulator and the MLPs (1.09 GB) after one step, a restore into a
+     fresh Trainer bit-identical to it, one step and a delta save: bytes,
+     the synchronous snapshot and the background write's seconds, restore
+     and scan seconds, dirty chunks per pool leaf; (c) a clean run of 24
+     steps and a chaos run of the same steps (``DUR_SPEC``: nan_grad,
+     preempt, torn_ckpt, rot_row, read_fail, preempt; a boundary every 4
+     steps, deltas, one skip rolls back, a boundary quarantine rolls
+     back): the chaos run's durable state bit-identical to the clean
+     run's, restarts equal to its preempts, at most 4 steps lost; health
+     counters over its incarnations, the checkpoint directory's peak size;
+     (d) the pool scan on the card a bitwise no-op on a clean state,
+     chunk checksums equal numpy's, and after rot_row's 8 flips exactly
+     the chunks they hit found and zeroed; (e) the D' store as CSR, built
+     on the card: lookups and locations through it bit-identical to the
+     dense store's, one launch of rows 2 and 4 each; (f) the launcher's
+     lma-dlrm-criteo as phase 9 runs it, with --ckpt-delta and faults
+     (nan_grad@50, rot_row@120:8): 300 steps completed, its health and
+     eval AUC beside phase 9's; the checkpoints live in a temporary
+     directory under build/, removed at the end;
  29. free dlrm-rm2's pool and training state, keep its D' store, and
      build full-width DCN-v2 on that store (the same 26 vocabularies and
      max_set): a 33,763,328-slot striped pool, d=16, x0 of 429, 3 cross
@@ -3247,6 +3274,489 @@ def run_sharded(torch, dev, kernels, card: str) -> dict:
             "summary": summary}
 
 
+# ------------------------------------- durability on full-width dlrm-rm2
+
+# The soak: 24 steps at B=65,536, a boundary every 4 steps, and one fault
+# of each kind after the first boundary.  nan_grad@6 skips a step and rolls
+# back to step 4; preempt@9 saves step 9 and restarts; torn_ckpt@11 tears
+# the boundary save at step 12; rot_row@14 rots the pool (a step that reads
+# it skips and rolls back, or the boundary scan at 16 finds it and rolls
+# back), and the restore routes around the torn step 12; read_fail@17 fails
+# the next host read, the restart after preempt@19, which falls back from
+# step 19 to 16 (3 steps lost).
+DUR_STEPS, DUR_EVERY = 24, 4
+DUR_SPEC = ("nan_grad@6,preempt@9,torn_ckpt@11,rot_row@14:8,read_fail@17,"
+            "preempt@19")
+GUARD_TIMED_STEPS = 6           # guarded and unguarded steps, alternated
+LAUNCHER_FAULTS = "nan_grad@50,rot_row@120:8"
+
+
+def dir_bytes(path: str) -> int:
+    total = 0
+    for base, _, files in os.walk(path):
+        for f in files:
+            try:
+                total += os.path.getsize(os.path.join(base, f))
+            except OSError:         # removed by the manager's GC meanwhile
+                pass
+    return total
+
+
+class DiskPeak:
+    """The largest size a directory reached, sampled every 50 ms while
+    active (checkpoints are written in a background thread)."""
+
+    def __init__(self, path: str):
+        import threading
+        self.path, self.peak = path, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(0.05):
+            self.peak = max(self.peak, dir_bytes(self.path))
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, dir_bytes(self.path))
+
+
+def state_tensors(torch, trainer) -> list:
+    """The parameters and optimizer moments of a Trainer, as tensors (the
+    checkpoint's leaves but the step counters)."""
+    from repro_torch.checkpoint.manager import _flatten
+    return [v for _, v in sorted(_flatten(trainer._state()).items())
+            if isinstance(v, torch.Tensor)]
+
+
+def dirty_chunks(ckpt_dir: str, step: int) -> dict:
+    with open(os.path.join(ckpt_dir, f"step_{step:010d}",
+                           "manifest.json")) as f:
+        man = json.load(f)
+    return {k: len(v["chunks"]) for k, v in man.get("delta", {}).items()}
+
+
+def durability_guard(torch, make, kernels, card) -> dict:
+    """Part a: two poisoned steps skipped with the state bit-unchanged
+    (by digest) and no row 7; a clean guarded step bit-identical to an
+    unguarded one from the same state; guarded and unguarded steps/s."""
+    from repro_torch.resilience.faults import FaultInjector
+
+    tr = make(total_steps=1, timer=True)
+    tr.fit(log=lambda _: None)                     # a clean step 0
+    t0 = time.perf_counter()
+    before = digest(torch, *state_tensors(torch, tr))
+    digest_s = time.perf_counter() - t0
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in state_tensors(torch, tr))
+    tr.faults = FaultInjector("nan_grad@1,huge_grad@2")
+    skipped = {}
+    for step, fault in ((1, "nan_grad"), (2, "huge_grad")):
+        zero(kernels)
+        tr.cfg.total_steps = step + 1
+        tr.fit(log=lambda _: None)
+        launched = counts(kernels)
+        after = digest(torch, *state_tensors(torch, tr))
+        want = {"fused_embed": 1, "dot_interaction": 1, "fused_locations": 1}
+        if after != before or launched != want:
+            raise AssertionError(
+                f"guard: the {fault} step at {step} launched {launched} "
+                f"(expected {want}) and left digest {after} (before "
+                f"{before})")
+        skipped[fault] = {"launches": launched, "digest": after}
+    if (tr.health.skipped_steps, tr.health.nonfinite_grads) != (2, 2):
+        raise AssertionError(f"guard: health {tr.health.as_dict()}")
+    # a clean step from one state, guarded and unguarded
+    with torch.no_grad():
+        s0 = [x.detach().clone() for x in state_tensors(torch, tr)]
+    tr.cfg.total_steps = 4
+    tr.fit(log=lambda _: None)
+    with torch.no_grad():
+        guarded = [x.detach().clone() for x in state_tensors(torch, tr)]
+    un = make(total_steps=4, guard_step=False, reset=False)
+    with torch.no_grad():
+        for x, y in zip(state_tensors(torch, tr), s0):
+            x.copy_(y)
+    un.opt_state = clone_state(torch, tr.opt_state)
+    un.step = 3
+    un.fit(log=lambda _: None)
+    if not all(bits_equal(torch, a.float(), b.float()) if a.is_floating_point()
+               else torch.equal(a, b)
+               for a, b in zip(guarded, state_tensors(torch, un))):
+        raise AssertionError("guard: a clean guarded step differs from the "
+                             "unguarded step from the same state")
+    del s0, guarded
+    # steps/s, alternated: each trainer times its own steps
+    for t in (tr, un):
+        t._step_times.clear()
+    for n in range(5, 5 + GUARD_TIMED_STEPS):
+        for t in (tr, un):
+            t.step, t.cfg.total_steps = n - 1, n
+            t.fit(log=lambda _: None)
+    g, u = tr.throughput()["steps_per_sec"], un.throughput()["steps_per_sec"]
+    phase = tr.timer.split_ms()
+    out = {"skipped": skipped, "digest_before": before,
+           "digest_seconds": digest_s, "state_bytes": state_bytes,
+           "clean_guarded_equals_unguarded": True,
+           "guarded_steps_per_sec": g, "unguarded_steps_per_sec": u,
+           "guard_ms": phase.get("guard"), "phase_ms": phase}
+    log(f"durability guard: nan_grad and huge_grad steps skipped, state "
+        f"digest {before} unchanged (a digest of the {state_bytes:,} B "
+        f"state {digest_s:.2f} s), launches a skipped step {want} (no "
+        f"sparse_adagrad); a clean guarded step bit-identical to the "
+        f"unguarded step from the same state; {g:.2f} guarded / {u:.2f} "
+        f"unguarded steps/s ({GUARD_TIMED_STEPS} each, alternated), the "
+        f"guard's own phase {phase.get('guard', 0.0):.3f} ms; card {card}")
+    return out
+
+
+def durability_checkpoint(torch, make, root: str, card) -> dict:
+    """Part b: a base save of the durable state after one step, a restore
+    into a fresh Trainer bit-identical to it, one more step and a delta
+    save; bytes, the save's snapshot and background-write seconds, restore
+    and verify seconds, dirty chunks per pool leaf."""
+    from repro_torch.resilience.chaos import (durable_state,
+                                              states_bit_identical)
+
+    ck = os.path.join(root, "checkpoint")
+    kw = dict(ckpt_dir=ck, ckpt_every=1, ckpt_delta=True, keep=3)
+    t1 = make(total_steps=1, **kw)
+    t1.fit(log=lambda _: None)          # step 0; async base save at 1
+    mgr = t1.mgr
+    base = {"step": 1, "bytes": mgr.last_save_bytes,
+            **{f"{k}_s": v for k, v in mgr.last_save_seconds.items()}}
+    saved = durable_state(t1)
+    t2 = make(total_steps=2, verify_pool=False, **kw)
+    t0 = time.perf_counter()
+    if not t2.try_resume():
+        raise AssertionError("checkpoint: nothing to resume from")
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t2._verify_pool()
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    if not states_bit_identical(durable_state(t2), saved):
+        raise AssertionError("checkpoint: the restored state differs from "
+                             "the state saved")
+    t2.cfg.verify_pool = True
+    t2.fit(log=lambda _: None)          # resumes again, step 1; delta at 2
+    delta = {"step": 2, "bytes": t2.mgr.last_save_bytes,
+             "dirty_chunks": dirty_chunks(ck, 2),
+             **{f"{k}_s": v for k, v in t2.mgr.last_save_seconds.items()}}
+    n_chunks = -(-t1.params["embedding.memory"].numel() // 8192)
+    out = {"base": base, "delta": delta, "restore_s": restore_s,
+           "manager_restore_s": t2.mgr.last_restore_seconds,
+           "verify_s": verify_s, "chunks_per_pool_leaf": n_chunks,
+           "state_bytes": sum(v.nbytes for v in saved.values())}
+    log(f"durability checkpoint: base save {base['bytes']:,} B "
+        f"(state {out['state_bytes']:,} B), snapshot "
+        f"{base['snapshot_s']:.2f} s + background write "
+        f"{base['write_s']:.2f} s; restore into a fresh Trainer "
+        f"{restore_s:.2f} s, bit-identical, verify scan {verify_s:.3f} s; "
+        f"delta after one step {delta['bytes']:,} B, snapshot "
+        f"{delta['snapshot_s']:.2f} s + write {delta['write_s']:.2f} s, "
+        f"dirty chunks {delta['dirty_chunks']} of {n_chunks} a pool leaf; "
+        f"card {card}")
+    return out
+
+
+def durability_soak(torch, make, root: str, B: int, card) -> tuple:
+    """Part c: a clean run and a chaos run of DUR_STEPS steps; the chaos
+    run's durable state bit-identical to the clean run's, restarts equal to
+    its preempts, at most DUR_EVERY steps lost.  -> (summary, the last
+    chaos Trainer)."""
+    from repro_torch.resilience import chaos
+
+    t0 = time.perf_counter()
+    clean = make(total_steps=DUR_STEPS)
+    clean.fit(log=lambda _: None)
+    want = chaos.durable_state(clean)
+    clean_s = time.perf_counter() - t0
+    del clean
+    ck = os.path.join(root, "soak")
+    made, events = [], []
+
+    def factory(inj):
+        made.append(make(total_steps=DUR_STEPS, ckpt_dir=ck,
+                         ckpt_every=DUR_EVERY, keep=3, ckpt_delta=True,
+                         max_consecutive_skips=1,
+                         rollback_on_quarantine=True, faults=inj))
+        return made[-1]
+
+    t0 = time.perf_counter()
+    with DiskPeak(ck) as disk:
+        res = chaos.run_chaos(factory, DUR_SPEC, seed=SEED,
+                              log=events.append)
+    chaos_s = time.perf_counter() - t0
+    got = chaos.durable_state(made[-1])
+    if not chaos.states_bit_identical(got, want):
+        bad = [k for k in want if k not in got
+               or got[k].tobytes() != want[k].tobytes()]
+        raise AssertionError(f"soak: the chaos run's durable state differs "
+                             f"from the clean run's at {bad}")
+    preempts = DUR_SPEC.count("preempt@")
+    if res["step"] != DUR_STEPS or res["preempted"] \
+            or res["chaos_restarts"] != preempts \
+            or res["chaos_max_lost_steps"] > DUR_EVERY:
+        raise AssertionError(f"soak: {res}")
+    health = {}
+    for t in made:
+        for k, v in t.health.as_dict().items():
+            if k not in ("last_durable_step", "ckpt_bytes_written",
+                         "delta_chain_len"):
+                health[k] = health.get(k, 0) + v
+    for k in ("skipped_steps", "rollbacks", "torn_writes_detected"):
+        if not health[k]:
+            raise AssertionError(f"soak: no {k} ({health})")
+    out = {"spec": DUR_SPEC, "steps": DUR_STEPS, "ckpt_every": DUR_EVERY,
+           "restarts": res["chaos_restarts"],
+           "max_lost_steps": res["chaos_max_lost_steps"],
+           "health": health, "last_incarnation": {
+               k: res[k] for k in ("last_durable_step", "ckpt_bytes_written",
+                                   "delta_chain_len", "resumed_step")},
+           "bytes_written": sum(t.mgr.bytes_written for t in made),
+           "peak_disk_bytes": disk.peak, "clean_s": clean_s,
+           "chaos_s": chaos_s, "events": events,
+           "bit_identical_to_clean": True}
+    log(f"durability soak: {DUR_STEPS} steps at B={B:,}, "
+        f"spec {DUR_SPEC}: durable state bit-identical to the clean run's; "
+        f"restarts {res['chaos_restarts']} (= preempts), max lost steps "
+        f"{res['chaos_max_lost_steps']}; health over {len(made)} "
+        f"incarnations {health}; {out['bytes_written']:,} B written, peak "
+        f"on disk {disk.peak:,} B; clean {clean_s:.1f} s, chaos "
+        f"{chaos_s:.1f} s; events: " + " | ".join(events) + f"; card {card}")
+    return out, made[-1]
+
+
+def durability_integrity(torch, tr, card) -> dict:
+    """Part d: the scan of the pool and its accumulator on the card is a
+    bitwise no-op on a clean state; card checksums equal numpy's of the
+    same bytes; after rot_row's 8 flips the scan finds exactly the chunks
+    they hit and zeroes them, nothing else."""
+    from repro_torch.resilience import faults as flt
+    from repro_torch.resilience import integrity as integ
+
+    pool, acc = tr.params["embedding.memory"], tr.opt_state["embedding.memory"]
+
+    def scan():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = (integ.sanitize_tree(tr.params)[1]
+             + integ.sanitize_tree(tr.opt_state)[1])
+        torch.cuda.synchronize()
+        return n, time.perf_counter() - t0
+
+    with torch.no_grad():
+        p0, a0 = pool.detach().clone(), acc.clone()
+    n_clean, clean_s = scan()
+    if n_clean or not (bits_equal(torch, pool.detach(), p0)
+                       and bits_equal(torch, acc, a0)):
+        raise AssertionError(f"integrity: the scan of a clean state found "
+                             f"{n_clean} chunks or wrote")
+    sums_ms = {}
+    for name, x in (("pool", pool), ("accumulator", acc)):
+        _, ms = events_ms(torch, lambda: integ.chunk_checksums(x))
+        got = integ.chunk_checksums(x).cpu().numpy().astype(np.uint32)
+        if not np.array_equal(got, integ.np_chunk_checksums(
+                x.detach().cpu().numpy())):
+            raise AssertionError(f"integrity: card checksums of the {name} "
+                                 "differ from numpy's")
+        sums_ms[name] = ms
+    step = DUR_STEPS
+    idx = flt.rot_indices(SEED, step, pool.numel(), 8)
+    flt.FaultInjector("", SEED).rot_memory(tr.params, step, 8)
+    flipped = pool.detach()[torch.from_numpy(idx).to(pool.device)].cpu()
+    hit = sorted({int(i) // integ.CHUNK for i, v in zip(idx, flipped)
+                  if not bool(v.abs() <= integ.MAX_ABS)})
+    flagged = torch.nonzero(integ.bad_value_chunks(pool)).flatten().tolist()
+    n_bad, rot_s = scan()
+    c = integ.CHUNK
+    with torch.no_grad():
+        for k in hit:
+            p0[k * c:(k + 1) * c] = 0
+    if flagged != hit or n_bad != len(hit) or not hit \
+            or not bits_equal(torch, pool.detach(), p0) \
+            or not bits_equal(torch, acc, a0):
+        raise AssertionError(f"integrity: rot hit chunks {hit}, the scan "
+                             f"flagged {flagged} and quarantined {n_bad}")
+    out = {"clean_scan_s": clean_s, "rot_scan_s": rot_s,
+           "rot_elements": [int(i) for i in idx], "chunks_hit": hit,
+           "quarantined": n_bad, "checksum_ms": sums_ms,
+           "scanned_bytes": int(pool.numel() * 4 + acc.numel() * 4)}
+    log(f"durability integrity: a clean scan of the pool and its "
+        f"accumulator ({out['scanned_bytes']:,} B) {clean_s * 1e3:.1f} ms, "
+        f"a bitwise no-op; card checksums equal numpy's (pool "
+        f"{sums_ms['pool']:.2f} ms, accumulator "
+        f"{sums_ms['accumulator']:.2f} ms); rot_row@{step}:8 hit chunks "
+        f"{hit}, the scan found exactly those and zeroed them "
+        f"({rot_s * 1e3:.1f} ms), nothing else written; card {card}")
+    return out
+
+
+def durability_csr(torch, cfg, model, bufs, batch, dev, kernels,
+                   card) -> dict:
+    """Part e: the full-width D' store as CSR (built on the card from the
+    planted dense store); lookups and locations through it bit-identical
+    to those through the dense store, one row 2 (and row 4) launch each."""
+    from repro_torch.embed import backends as bke
+
+    e, scheme = cfg.embedding, cfg.table.scheme
+    sets, lengths = bufs["store_sets"], bufs["store_lengths"]
+    t0 = time.perf_counter()
+    keep = torch.arange(sets.shape[1], device=dev)[None, :] \
+        < lengths[:, None]
+    flat = sets[keep]
+    del keep
+    offsets = torch.zeros(lengths.numel() + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(lengths, 0)
+    csr = {"store_flat": flat, "store_offsets": offsets,
+           "store_lengths": lengths}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gids = global_ids(torch, cfg, batch, dev)
+    params = {"memory": model.embedding["memory"].detach()}
+    out = {"values": int(lengths.numel()), "nnz": int(flat.numel()),
+           "build_s": build_s,
+           "dense_bytes": int(sets.numel() * 4 + lengths.numel() * 4),
+           "csr_bytes": int((flat.numel() + offsets.numel()
+                             + lengths.numel()) * 4), "ms": {}}
+    got = {}
+    for name, b in (("dense", bufs), ("csr", csr)):
+        zero(kernels)
+        with torch.no_grad():
+            got[name] = (bke.FUSED.lookup(e, scheme, params, b, gids),
+                         bke.sparse_locations(e, scheme, params, b, gids))
+        launched = counts(kernels)
+        if launched != {"fused_embed": 1, "fused_locations": 1}:
+            raise AssertionError(f"csr: the {name} store's lookup and "
+                                 f"locations launched {launched}")
+        _, out["ms"][name] = events_ms(
+            torch, lambda: bke.FUSED.lookup(e, scheme, params, b, gids))
+    if not (bits_equal(torch, got["csr"][0], got["dense"][0])
+            and torch.equal(got["csr"][1], got["dense"][1])):
+        raise AssertionError("csr: lookups or locations through the CSR "
+                             "store differ from the dense store's")
+    log(f"durability csr: D' as CSR, {out['values']:,} values, "
+        f"{out['nnz']:,} sample ids ({out['csr_bytes']:,} B against "
+        f"{out['dense_bytes']:,} B dense), built on the card in "
+        f"{build_s:.2f} s; lookups ({gids.numel():,} ids) and locations "
+        f"bit-identical to the dense store's, one lookup and one locations "
+        f"launch each; lookup {out['ms']['csr']:.3f} ms CSR / "
+        f"{out['ms']['dense']:.3f} ms dense; card {card}")
+    return out
+
+
+def durability_launcher(torch, root: str, kernels, lma_auc: float,
+                        card) -> dict:
+    """Part f: lma-dlrm-criteo through the launcher as phase 9 runs it,
+    with checkpoints, deltas and faults; it must finish its steps."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.resilience import faults as flt
+
+    zero(kernels)
+    t0 = time.perf_counter()
+    try:
+        res = launcher.main(["--arch", "lma-dlrm-criteo", "--embedding-kind",
+                             "lma", "--steps", str(LAUNCHER_STEPS),
+                             "--batch", str(LAUNCHER_BATCH), "--device",
+                             "cuda", "--ckpt-dir",
+                             os.path.join(root, "launcher"), "--ckpt-delta",
+                             "--faults", LAUNCHER_FAULTS])
+    finally:
+        flt.install(None)
+    tr = res["train"]
+    if tr["step"] != LAUNCHER_STEPS or tr["preempted"] \
+            or not np.isfinite(tr["loss"]):
+        raise AssertionError(f"launcher with faults: {tr}")
+    health = {k: v for k, v in res["health"].items() if v}
+    out = {"faults": LAUNCHER_FAULTS, "steps": tr["step"],
+           "auc": res["eval"]["auc"], "unfaulted_auc": lma_auc,
+           "health": res["health"], "launches": counts(kernels),
+           "seconds": time.perf_counter() - t0}
+    log(f"durability launcher: lma-dlrm-criteo, {tr['step']} steps at "
+        f"B={LAUNCHER_BATCH}, --ckpt-delta --faults {LAUNCHER_FAULTS}: "
+        f"health {health}; eval AUC {out['auc']:.4f} against "
+        f"{lma_auc:.4f} unfaulted (phase 9); launches {out['launches']}; "
+        f"card {card}")
+    return out
+
+
+def run_durability(torch, cfg, model, bufs, gen, B, dev, kernels,
+                   lma_auc, card) -> dict:
+    """Phase 32 on full-width dlrm-rm2 with sparse Adagrad (every Trainer
+    starts from the phase's initial parameters, its own fresh optimizer
+    state): the guard, a checkpoint round trip, the chaos soak, the pool
+    scan, the CSR store, and the faulted launcher.  Checkpoints go to a
+    temporary directory under build/, removed at the end."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import lookups_per_step, make_optimizer
+    from repro_torch.models.recsys import loss_fn
+    from repro_torch.resilience import faults as flt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    arch = get_config("dlrm-rm2")
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        init = {k: p.detach().clone() for k, p in params.items()}
+    t0 = time.perf_counter()
+    batches = HostBatches([gen.batch(B, s) for s in range(DUR_STEPS)])
+    log(f"durability: {DUR_STEPS} host batches of B={B:,} cached in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def make(reset: bool = True, timer: bool = False, faults=None, **kw):
+        if reset:
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(init[k])
+        pt = PhaseTimer(torch) if timer else None
+        t = Trainer(TrainerConfig(log_every=0,
+                                  lookups_per_step=lookups_per_step(cfg, B),
+                                  **kw),
+                    lambda m, b: loss_fn(m, b, bufs), model,
+                    make_optimizer(arch), lambda step: batches.batch(B, step),
+                    sparse_grads=True, device=dev, faults=faults,
+                    on_phase=pt.mark if pt else None)
+        t.timer = pt
+        return t
+
+    os.makedirs(ROOT / "build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="durability-", dir=ROOT / "build")
+    paths = {}
+    try:
+        guard = durability_guard(torch, make, kernels, card)
+        paths["dlrm-rm2 durability guard skipped step"] = \
+            guard["skipped"]["nan_grad"]["launches"]
+        ckpt = durability_checkpoint(torch, make, root, card)
+        zero(kernels)
+        soak, last = durability_soak(torch, make, root, B, card)
+        paths["dlrm-rm2 durability soak"] = counts(kernels)
+        integrity = durability_integrity(torch, last, card)
+        del last
+        csr = durability_csr(torch, cfg, model, bufs, batches.batch(B, 0),
+                             dev, kernels, card)
+        paths["dlrm-rm2 durability csr lookup"] = {"fused_embed": 1,
+                                                   "fused_locations": 1}
+        launch = durability_launcher(torch, root, kernels, lma_auc, card)
+        paths["lma-dlrm-criteo launcher with faults"] = launch["launches"]
+    finally:
+        flt.install(None)
+        shutil.rmtree(root, ignore_errors=True)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(init[k])
+    return {"paths": paths, "summary": {
+        "guard": guard, "checkpoint": ckpt, "soak": soak,
+        "integrity": integrity, "csr": csr, "launcher": launch}}
+
+
 # -------------------------------------------------------------------- main
 
 SOURCES = {
@@ -3370,6 +3880,10 @@ def main() -> int:
     counts["sparse_adam"] = sum(c.get("sparse_adam", 0)
                                 for c in paths.values())
     counts["embedding_bag"] = paths["embedding_bag op"]["embedding_bag"]
+    durable = run_durability(
+        torch, cfg, model, bufs, gen, B_train, dev, kernels,
+        launcher["lma-dlrm-criteo"]["lma"]["auc"], card)
+    paths.update(durable["paths"])
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB (dlrm-rm2 phases)")
 
@@ -3464,6 +3978,7 @@ def main() -> int:
     log(json.dumps({"xdeepfm": {"serving": xserving, "training": xtrain},
                     "card": card}))
     log(json.dumps({"sharded": shard["summary"], "card": card}))
+    log(json.dumps({"durability": durable["summary"], "card": card}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,19 @@
-"""Carry reference (JAX) parameters and buffers across to the port.
+"""Carry reference (JAX) parameters, buffers and trainer states across to
+the port.
 
 The two packages' random generators differ, so parameters always cross as
 numpy arrays: the caller converts the reference pytree with ``np.asarray``
 leaf by leaf, and these functions name and lay them out for the port.
+``state_to_jax`` / ``state_from_jax`` do the same for a Trainer's whole
+durable state (what its checkpoints hold), so a checkpoint of either
+package's Trainer resumes in the other's.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import _flatten, _host, _unflatten
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import row_slab
 from repro_torch.models.recsys import RecsysConfig
@@ -63,11 +68,16 @@ def _dense_into(state: dict, prefix: str, layer: dict, dev) -> None:
 
 def buffers_from_numpy(np_buffers: dict, device=None, mesh=None) -> dict:
     """Reference buffers (numpy) -> the port's, on the card unless
-    ``device`` says otherwise: ``store_sets`` uint32 become int32 bit
-    patterns (PAD = -1); ``store_lengths`` and freq's ``freq_hot_ids``
-    stay int32.  With a mesh, this rank's rows of each (P must divide
-    them)."""
+    ``device`` says otherwise: ``store_sets`` and a CSR store's
+    ``store_flat`` (uint32) become int32 bit patterns (PAD = -1);
+    ``store_offsets``, ``store_lengths`` and freq's ``freq_hot_ids`` stay
+    int32.  With a mesh, this rank's rows of each (P must divide them; a
+    CSR store does not shard yet)."""
     dev = resolve_device(device)
+    if mesh is not None and mesh.model > 1 and "store_flat" in np_buffers:
+        raise NotImplementedError(
+            "a CSR D' store under a mesh is not ported (ROADMAP Queue 1 item "
+            "6: shard_csr_buffers)")
     out = {}
     for k, v in np_buffers.items():
         a = np.asarray(v)
@@ -75,3 +85,93 @@ def buffers_from_numpy(np_buffers: dict, device=None, mesh=None) -> dict:
             a = a.view(np.int32)
         out[k] = row_slab(_tensor(a, dev), mesh)
     return out
+
+
+# --------------------------------------------------------- trainer states
+#
+# Both Trainers checkpoint {"params", "opt_state", "step"}.  A parameter's
+# path differs only where a dense layer is named: the port's
+# ``<layer>/weight`` [out, in] is the reference's ``<layer>/kernel``
+# [in, out].  The optimizer states differ in shape of tree: a plain
+# optimizer's state holds the parameter paths inside it in both packages
+# (``#1/bot/layer_0/kernel`` for Adam's mu), but ``multi_transform``'s (what
+# the launchers' ``make_optimizer`` builds) is a dict by parameter name in
+# the port and a tuple in the reference's tree order of the parameters
+# (``#k``).  Tuple indices (``#i``) never name a parameter, so an optimizer
+# path splits as (tuple indices, parameter path, tuple indices).
+
+
+def _split(path: str) -> tuple[list, list, list]:
+    parts = path.split("/")
+    lo, hi = 0, len(parts)
+    while lo < hi and parts[lo].startswith("#"):
+        lo += 1
+    while hi > lo and parts[hi - 1].startswith("#"):
+        hi -= 1
+    return parts[:lo], parts[lo:hi], parts[hi:]
+
+
+def _to_ref_name(parts: list) -> tuple[list, bool]:
+    if parts and parts[-1] == "weight":
+        return parts[:-1] + ["kernel"], True
+    return parts, False
+
+
+def _to_port_name(parts: list) -> tuple[list, bool]:
+    if parts and parts[-1] == "kernel":
+        return parts[:-1] + ["weight"], True
+    return parts, False
+
+
+def _t(a: np.ndarray, transpose: bool) -> np.ndarray:
+    return np.ascontiguousarray(a.T) if transpose and a.ndim == 2 else a
+
+
+def _convert(flat: dict, rename, multi: bool, to_ref: bool) -> dict:
+    params = {k.split("/", 1)[1]: v for k, v in flat.items()
+              if k.startswith("params/")}
+    # the reference's tree order of its parameter paths: multi_transform's
+    # tuple order
+    ref_paths = sorted((tuple(_to_ref_name(p.split("/"))[0]) if to_ref
+                        else tuple(p.split("/"))) for p in params)
+    out = {}
+    for path, v in flat.items():
+        head, _, rest = path.partition("/")
+        if head == "params":
+            parts, tr = rename(rest.split("/"))
+            out["params/" + "/".join(parts)] = _t(v, tr)
+        elif head == "opt_state":
+            pre, name, post = _split(rest)
+            if multi and to_ref and name:
+                ref, tr = _to_ref_name(name)
+                new = [f"#{ref_paths.index(tuple(ref))}"] + post
+            elif multi and not to_ref and len(pre) >= 1:
+                port, tr = _to_port_name(list(ref_paths[int(pre[0][1:])]))
+                new = port + pre[1:] + post
+            else:
+                parts, tr = rename(name)
+                new = pre + parts + post
+            out["opt_state/" + "/".join(new)] = _t(v, tr)
+        else:
+            out[path] = v
+    return out
+
+
+def state_to_jax(state: dict, multi: bool = True) -> dict:
+    """The port Trainer's durable state (``Trainer._state()``, or a tree a
+    port checkpoint restored) -> the reference Trainer's state tree, numpy
+    leaves: dense kernels transposed and renamed, and with ``multi`` (the
+    optimizer was a ``multi_transform``) the per-parameter states as the
+    reference's tuple.  Adagrad's, SGD's and Adam's moments, and Adam's
+    int32 step, carry across."""
+    flat = {k: _host(v) for k, v in _flatten(state).items()}
+    return _unflatten(_convert(flat, _to_ref_name, multi, to_ref=True))
+
+
+def state_from_jax(tree: dict, multi: bool = True) -> dict:
+    """The reverse of ``state_to_jax``: a reference Trainer's state tree
+    (numpy leaves, e.g. what ``CheckpointManager.restore`` read from its
+    checkpoint) -> the port's durable state layout, which a port
+    ``CheckpointManager.save`` writes for the port's Trainer to resume."""
+    flat = {k: np.asarray(v) for k, v in _flatten(tree).items()}
+    return _unflatten(_convert(flat, _to_port_name, multi, to_ref=False))

@@ -5,7 +5,11 @@ Port of ``repro.core.allocation``: an allocation maps value ids to the ``d``
 memory slots their embedding occupies, as a dense ``[B, d]`` int32 location
 tensor.  Every function here is bit-identical to its reference counterpart
 (hash arithmetic in int64 masked to 32 bits, see ``core.hashing``).  These
-are the plain versions the CUDA kernels are held against.
+are the plain versions the CUDA kernels are held against.  LMA reads either
+D' form: the fixed-width ``DenseSignatureStore`` or the CSR
+``SignatureStore``, whose sets are gathered and PAD-masked into the same
+rows.  ``fraction_shared`` and ``expected_gamma`` are the paper's
+Definition 2 and Theorem 1.
 """
 from __future__ import annotations
 
@@ -15,8 +19,9 @@ import torch
 
 from repro_torch.core.hashing import (combine_chain, hash_pair, hash_u32,
                                       seed_stream, u32)
-from repro_torch.core.minhash import minhash_dense
-from repro_torch.core.signatures import PAD, DenseSignatureStore
+from repro_torch.core.minhash import gather_ragged_sets, minhash_dense
+from repro_torch.core.signatures import (PAD, DenseSignatureStore,
+                                         SignatureStore, csr_on)
 
 # seed offsets of the rehash stream and of the very-sparse fallback
 REHASH_XOR = 0x7F4A7C15
@@ -127,9 +132,41 @@ def alloc_lma_from_rows(params: LMAParams, rows: torch.Tensor,
     return lma_or_fallback(params, loc, support, value_ids)
 
 
-def alloc_lma(params: LMAParams, store: DenseSignatureStore,
+def csr_rows(store: SignatureStore, value_ids: torch.Tensor,
+             max_set: int) -> torch.Tensor:
+    """A CSR store's sets of ``value_ids`` as dense D' rows [B, max_set]:
+    gathered, truncated, and PAD (-1) where the mask is off, the rows
+    ``store.sets[value_ids]`` of the store's fixed-width form."""
+    elems, mask = gather_ragged_sets(store.flat, store.offsets, value_ids,
+                                     max_set)
+    return torch.where(mask, elems.to(torch.int32), -1)
+
+
+def alloc_lma(params: LMAParams,
+              store: DenseSignatureStore | SignatureStore,
               value_ids: torch.Tensor) -> torch.Tensor:
-    """Full LMA allocation A_L with the very-sparse fallback (dense store)."""
+    """Full LMA allocation A_L with the very-sparse fallback, from either
+    store form (a host CSR store moves to ``value_ids``' device)."""
     value_ids = value_ids.long()
-    return alloc_lma_from_rows(params, store.sets[value_ids],
-                               store.lengths[value_ids], value_ids)
+    if isinstance(store, SignatureStore):
+        store = csr_on(store, value_ids.device)
+        rows = csr_rows(store, value_ids, params.max_set)
+    else:
+        rows = store.sets[value_ids]
+    return alloc_lma_from_rows(params, rows, store.lengths[value_ids],
+                               value_ids)
+
+
+def fraction_shared(loc_a: torch.Tensor,
+                    loc_b: torch.Tensor) -> torch.Tensor:
+    """f_A(v1, v2) (Definition 2): the share of positions that map to the
+    same slot."""
+    return torch.mean((loc_a == loc_b).to(torch.float32), dim=-1)
+
+
+def expected_gamma(phi, m: int, stripe: int = 0):
+    """Theorem 1: E[f_{A_L}] = phi + (1 - phi) / m; under the striped
+    layout position i rehashes into a stripe of ``m // d`` slots, so the
+    accidental-collision floor is 1 / stripe (pass ``stripe=params.stripe``).
+    ``phi`` is a number or a tensor."""
+    return phi + (1.0 - phi) / (stripe if stripe else m)

@@ -2,7 +2,8 @@
 
 Port of ``repro.core.memory``.  ``lookup`` is the plain gather by a
 materialized location tensor: the split backend and the oracle every fused
-lookup is held against, bit for bit.
+lookup is held against, bit for bit.  ``cosine`` is the paper's
+concentration measure (Theorem 2).
 """
 from __future__ import annotations
 
@@ -34,3 +35,13 @@ def init_memory(m: int, init: str = "bernoulli", scale: float | None = None,
 def lookup(memory: torch.Tensor, locations: torch.Tensor) -> torch.Tensor:
     """E[v, i] = M[A(v)[i]]: memory [m], locations [..., d] -> [..., d]."""
     return memory[locations.long()]
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor,
+           eps: float = 1e-12) -> torch.Tensor:
+    """Cosine similarity over the last axis, the norm product floored at
+    ``eps``."""
+    num = torch.sum(a * b, dim=-1)
+    den = torch.linalg.vector_norm(a, dim=-1) * torch.linalg.vector_norm(
+        b, dim=-1)
+    return num / torch.clamp(den, min=eps)

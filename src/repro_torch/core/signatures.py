@@ -8,8 +8,10 @@ and the plain versions widen them with ``hashing.u32``.
 
 The numpy builders are copies of the reference's, so the same data or seed
 gives the same store in both packages.  ``build_signature_store`` builds the
-CSR store from data rows (the launcher's D'); ``densify_store`` turns it
-into the fixed-width form on the device.  ``planted_dense_store`` builds
+CSR store from data rows (the launcher's D'), ``synthetic_signature_store``
+a planted one; ``densify_store`` turns either into the fixed-width form on
+the device.  A CSR store also serves lookups as it is (the LMA scheme's
+``store_flat`` / ``store_offsets`` buffers).  ``planted_dense_store`` builds
 the same planted-cluster structure directly on the device, for stores too
 large for the host (the numpy builder needs ~9 GB of float64 at Criteo
 scale).
@@ -48,15 +50,21 @@ class DenseSignatureStore:
 
 @dataclasses.dataclass(frozen=True)
 class SignatureStore:
-    """CSR ragged store of D_v per global value id, on the host."""
+    """CSR ragged store of D_v per global value id: numpy arrays on the host
+    as the builders make it (``flat`` uint32), or tensors on a device as the
+    LMA scheme's buffers hold it (``flat`` int32 bit patterns)."""
 
-    flat: np.ndarray       # [nnz] uint32 sample ids, concatenated per value
+    flat: np.ndarray       # [nnz] sample ids, concatenated per value
     offsets: np.ndarray    # [n_values + 1] int32
-    lengths: np.ndarray    # [n_values] int32
+    lengths: np.ndarray    # [n_values] int32 (== diff(offsets))
 
     @property
     def n_values(self) -> int:
         return self.lengths.shape[0]
+
+    @property
+    def nnz(self) -> int:
+        return self.flat.shape[0]
 
 
 def build_signature_store(rows: Iterable[np.ndarray], n_values: int,
@@ -82,6 +90,52 @@ def build_signature_store(rows: Iterable[np.ndarray], n_values: int,
     for v, b in enumerate(buckets):
         flat[offsets[v]: offsets[v + 1]] = b
     return SignatureStore(flat=flat, offsets=offsets, lengths=lengths)
+
+
+def synthetic_signature_store(n_values: int, n_clusters: int,
+                              samples_per_value: int = 32,
+                              overlap: float = 0.9,
+                              seed: int = 0) -> SignatureStore:
+    """A CSR store with *planted* cluster structure (copy of the reference):
+    values of one cluster draw their sample ids from a shared pool (Jaccard
+    ~= ``overlap``), values of different clusters from disjoint pools."""
+    rng = np.random.default_rng(seed)
+    pool_size = max(8, int(samples_per_value / max(overlap, 1e-3)))
+    lengths = np.full(n_values, samples_per_value, dtype=np.int32)
+    offsets = np.zeros(n_values + 1, dtype=np.int32)
+    np.cumsum(lengths, out=offsets[1:])
+    flat = np.empty(int(offsets[-1]), dtype=np.uint32)
+    for v in range(n_values):
+        c = v % n_clusters
+        pool_base = c * (1 << 16)
+        ids = rng.choice(pool_size, size=samples_per_value, replace=False)
+        flat[offsets[v]: offsets[v + 1]] = (pool_base + ids).astype(np.uint32)
+    return SignatureStore(flat=flat, offsets=offsets, lengths=lengths)
+
+
+def table_offsets(vocab_sizes) -> np.ndarray:
+    """Global-id bases for common-memory multi-table LMA (paper sec 5)."""
+    return np.concatenate([[0], np.cumsum(np.asarray(vocab_sizes))]
+                          ).astype(np.int64)
+
+
+def csr_on(store, device) -> SignatureStore:
+    """A CSR store (the port's or the reference's, numpy or tensors) as
+    tensors on ``device``: ``flat`` as int32 bit patterns, ``offsets`` and
+    ``lengths`` int32."""
+    dev = resolve_device(device)
+
+    def put(a, bits: bool = False):
+        if isinstance(a, torch.Tensor):
+            return a.to(dev)
+        a = np.ascontiguousarray(a)
+        if bits and a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.from_numpy(a.astype(np.int32, copy=False)).to(dev)
+
+    return SignatureStore(flat=put(store.flat, bits=True),
+                          offsets=put(store.offsets),
+                          lengths=put(store.lengths))
 
 
 def _to_store(sets_u32: np.ndarray, lengths: np.ndarray,

@@ -14,11 +14,12 @@ from repro_torch.embed.registry import (Scheme, get_scheme, list_schemes,
                                         register_scheme)
 from repro_torch.embed.table import (EmbeddingTable, embed, embed_bag,
                                      embed_fields, init_embedding,
-                                     make_buffers)
+                                     make_buffers, materialize_rows)
 
 __all__ = [
     "EmbeddingConfig", "EmbeddingTable", "FUSED", "FusedBackend", "SPLIT",
     "Scheme", "SplitBackend", "embed", "embed_bag", "embed_fields",
     "get_scheme", "init_embedding", "list_schemes", "make_buffers",
+    "materialize_rows",
     "register_scheme", "resolve_backend", "table_offsets",
 ]

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.allocation import LMAParams
+from repro_torch.core.signatures import table_offsets
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +74,3 @@ class EmbeddingConfig:
     def param_count(self) -> int:
         from repro_torch.embed.registry import get_scheme
         return get_scheme(self.kind).param_count(self)
-
-
-def table_offsets(vocab_sizes) -> np.ndarray:
-    """Global-id bases for common-memory multi-table lookups (paper sec 5)."""
-    return np.concatenate([[0], np.cumsum(np.asarray(vocab_sizes, np.int64))])

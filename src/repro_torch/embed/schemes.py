@@ -3,8 +3,9 @@
 Port of ``repro.embed.schemes`` (``freq`` registers itself from
 ``repro_torch/embed/freq.py``).  Parameter and buffer names follow the
 reference (``table_{t}`` for full and md, ``memory``, ``q_{t}`` / ``r_{t}``
-for qr, ``proj_{t}`` for md, ``store_sets``, ``store_lengths``) so
-``repro_torch.convert`` carries them across by name.
+for qr, ``proj_{t}`` for md; LMA's D' as ``store_sets`` and
+``store_lengths``, or in CSR form ``store_flat``, ``store_offsets`` and
+``store_lengths``) so ``repro_torch.convert`` carries them across by name.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ from repro_torch.core import allocation as alc
 from repro_torch.core.allocation import LMAParams
 from repro_torch.core.hashing import hash_u32, seed_stream
 from repro_torch.core.memory import init_memory
-from repro_torch.core.signatures import DenseSignatureStore
+from repro_torch.core.signatures import (DenseSignatureStore,
+                                         SignatureStore, csr_on)
 from repro_torch.embed.config import EmbeddingConfig
 from repro_torch.embed.registry import Scheme, register_scheme
 from repro_torch.kernels.fused_embed import ops as fe
@@ -135,14 +137,27 @@ class LMAScheme(Scheme):
                 "store_lengths": ((n_store_rows,), "int32")}
 
     def make_buffers(self, cfg, store=None, device=None):
-        if not isinstance(store, DenseSignatureStore):
-            raise TypeError("lma needs a DenseSignatureStore (D')")
-        return {"store_sets": store.sets, "store_lengths": store.lengths}
+        """A dense store's tensors as they are; a CSR store's (numpy or
+        tensors) on ``device``, the card unless it says otherwise."""
+        if isinstance(store, DenseSignatureStore):
+            return {"store_sets": store.sets, "store_lengths": store.lengths}
+        if isinstance(store, SignatureStore):
+            csr = csr_on(store, device)
+            return {"store_flat": csr.flat, "store_offsets": csr.offsets,
+                    "store_lengths": csr.lengths}
+        raise TypeError("lma needs a SignatureStore or DenseSignatureStore "
+                        "(D')")
+
+    @staticmethod
+    def store_from_buffers(buffers: dict):
+        if "store_sets" in buffers:
+            return DenseSignatureStore(buffers["store_sets"],
+                                       buffers["store_lengths"])
+        return SignatureStore(buffers["store_flat"], buffers["store_offsets"],
+                              buffers["store_lengths"])
 
     def locations(self, cfg, buffers, gids):
-        store = DenseSignatureStore(buffers["store_sets"],
-                                    buffers["store_lengths"])
-        return alc.alloc_lma(cfg.lma, store, gids)
+        return alc.alloc_lma(cfg.lma, self.store_from_buffers(buffers), gids)
 
     def memory_slots(self, cfg):
         return int(cfg.lma.m)
@@ -154,10 +169,11 @@ class LMAScheme(Scheme):
         return cfg.lma.d if cfg.lma.stripe else 0
 
     def fused_inputs(self, cfg, buffers, gids):
-        """D' rows (truncated to max_set) + support for a flat [N] batch.
-        A local gather by global id: under a mesh the store holds only this
-        rank's rows, and the sets come from the exchange instead
-        (``sharded_lookup``)."""
+        """D' rows (truncated to max_set, PAD where a set ends) + support for
+        a flat [N] batch, gathered from either store form: the rows
+        ``alloc_lma`` reads.  A local gather by global id: under a mesh the
+        store holds only this rank's rows, and the sets come from the
+        exchange instead (``sharded_lookup``)."""
         from repro_torch.dist.context import current_mesh
         mesh = current_mesh()
         if mesh is not None and mesh.model > 1:
@@ -165,10 +181,18 @@ class LMAScheme(Scheme):
                                "exchange (sharded_lookup), not a local "
                                "gather")
         g = gids.long()
-        rows = buffers["store_sets"][g, : cfg.lma.max_set].contiguous()
+        if "store_sets" in buffers:
+            rows = buffers["store_sets"][g, : cfg.lma.max_set].contiguous()
+        else:
+            rows = alc.csr_rows(self.store_from_buffers(buffers), g,
+                                cfg.lma.max_set)
         return rows, buffers["store_lengths"][g]
 
     def sharded_lookup(self, cfg, params, buffers, gids, mesh):
+        if "store_sets" not in buffers:
+            raise NotImplementedError(
+                "a CSR D' store under a mesh is not ported (ROADMAP Queue 1 "
+                "item 6: shard_csr_buffers and the CSR-store drivers)")
         from repro_torch.dist.sharded_memory import sharded_lma_lookup
         return sharded_lma_lookup(params["memory"], buffers["store_sets"],
                                   buffers["store_lengths"], gids, cfg.lma,

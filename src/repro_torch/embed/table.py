@@ -2,7 +2,7 @@
 
 Port of ``repro.embed.table``.  A frozen dataclass over an
 :class:`EmbeddingConfig` with ``init`` / ``make_buffers`` / ``embed`` /
-``embed_fields`` / ``embed_bag``; parameters and buffers are plain dicts of
+``embed_fields`` / ``embed_bag`` / ``materialize_rows``; parameters and buffers are plain dicts of
 tensors that the caller owns (a model keeps the parameters in an
 ``nn.ParameterDict``).  Scheme and backend are resolved per call.
 
@@ -54,6 +54,10 @@ def make_buffers(cfg: EmbeddingConfig, store=None, mesh=None,
     ``device``, the card unless it says otherwise; a D' store stays where
     it is."""
     bufs = get_scheme(cfg.kind).make_buffers(cfg, store, device)
+    if mesh is not None and mesh.model > 1 and "store_flat" in bufs:
+        raise NotImplementedError(
+            "a CSR D' store under a mesh is not ported (ROADMAP Queue 1 item "
+            "6: shard_csr_buffers); densify it (densify_store)")
     return {k: row_slab(v, mesh) for k, v in bufs.items()}
 
 
@@ -157,6 +161,16 @@ def embed_bag(cfg: EmbeddingConfig, params: dict, buffers: dict, table: int,
     return s / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1.0)
 
 
+def materialize_rows(cfg: EmbeddingConfig, params: dict, buffers: dict,
+                     table: int, n_rows: int | None = None) -> torch.Tensor:
+    """The [V, d] virtual rows of table ``table`` (its first ``n_rows``):
+    for LM output heads and small vocabularies only."""
+    v = cfg.vocab_sizes[table] if n_rows is None else n_rows
+    device = next(iter(params.values())).device
+    ids = torch.arange(v, dtype=torch.int32, device=device)
+    return embed(cfg, params, buffers, table, ids)
+
+
 @dataclasses.dataclass(frozen=True)
 class EmbeddingTable:
     """Facade over (config, scheme, backend): what models hold and call."""
@@ -190,3 +204,7 @@ class EmbeddingTable:
                   ids: torch.Tensor, mask: torch.Tensor,
                   mode: str = "sum") -> torch.Tensor:
         return embed_bag(self.config, params, buffers, table, ids, mask, mode)
+
+    def materialize_rows(self, params: dict, buffers: dict, table: int,
+                         n_rows: int | None = None) -> torch.Tensor:
+        return materialize_rows(self.config, params, buffers, table, n_rows)

@@ -17,9 +17,16 @@ and once with hashed_elem to compare the two at an equal budget.
       --steps 20 --batch 64
   python -m repro_torch.launch.train --arch dcn-v2 --smoke \\
       --embedding-kind freq --device cpu --steps 20 --batch 64
+  python -m repro_torch.launch.train --arch lma-dlrm-criteo --steps 300 \\
+      --ckpt-dir build/ckpt --ckpt-delta --faults nan_grad@50,rot_row@120:8
 
 ``--embedding-kind`` takes any registered scheme (``list_schemes``): full,
-hashed_elem, hashed_row, qr, lma, md, freq.
+hashed_elem, hashed_row, qr, lma, md, freq.  Durability follows the
+reference's launcher: ``--ckpt-dir`` (saves every 100 steps and on
+SIGTERM/SIGINT; a rerun resumes), ``--ckpt-delta`` (or
+``REPRO_CKPT_DELTA=1``) and ``--ckpt-compact-every``, ``--faults`` /
+``--fault-seed`` (``repro_torch.resilience.faults``) and ``--no-guard``
+(or ``REPRO_GUARD_STEP=0``).  The health counters follow the result.
 
 It runs on the card unless ``--device cpu`` is given (with ``src`` on
 ``PYTHONPATH``).
@@ -27,6 +34,8 @@ It runs on the card unless ``--device cpu`` is given (with ``src`` on
 from __future__ import annotations
 
 import argparse
+import os
+import signal
 
 import numpy as np
 import torch
@@ -133,6 +142,26 @@ def main(argv=None) -> dict:
     ap.add_argument("--eval-batches", type=int, default=8)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--ckpt-dir")
+    ap.add_argument("--faults", default=None,
+                    help="fault-injection spec, e.g. "
+                         "'nan_grad@17,rot_row@40:8,slow_rank@55:0.5' "
+                         "(see repro_torch.resilience.faults; also "
+                         "REPRO_FAULTS)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for the fault injector's corruption bits")
+    ap.add_argument("--no-guard", action="store_true",
+                    help="disable the non-finite step guard (also "
+                         "REPRO_GUARD_STEP=0)")
+    ap.add_argument("--ckpt-delta", action="store_true",
+                    default=os.environ.get("REPRO_CKPT_DELTA", "").lower()
+                    in ("1", "true", "on", "yes"),
+                    help="incremental checkpoints: persist only the pool "
+                         "chunks dirtied since the last base (also "
+                         "REPRO_CKPT_DELTA=1)")
+    ap.add_argument("--ckpt-compact-every", type=int, default=8,
+                    help="delta-chain length before forcing a full base "
+                         "checkpoint")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -151,19 +180,39 @@ def main(argv=None) -> dict:
     n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
     print(f"{args.arch} ({cfg.embedding.kind}): {n_params:,} parameters on "
           f"{dev}")
+    injector = None
+    if args.faults:
+        from repro_torch.resilience.faults import FaultInjector
+        injector = FaultInjector(args.faults, seed=args.fault_seed)
+        print(f"fault injection armed: {args.faults} (seed {args.fault_seed})")
     trainer = Trainer(
-        TrainerConfig(total_steps=args.steps,
-                      log_every=max(args.steps // 10, 1),
-                      lookups_per_step=lookups_per_step(cfg, args.batch)),
-        loss_fn, model, make_optimizer(arch), batch_fn, device=dev)
+        TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                      ckpt_every=100, log_every=max(args.steps // 10, 1),
+                      lookups_per_step=lookups_per_step(cfg, args.batch),
+                      ckpt_delta=args.ckpt_delta,
+                      ckpt_compact_every=args.ckpt_compact_every,
+                      guard_step=False if args.no_guard else None),
+        loss_fn, model, make_optimizer(arch), batch_fn, device=dev,
+        faults=injector)
     if trainer.sparse_grads:
         print("sparse memory-pool updates ON (REPRO_SPARSE_GRADS=0 for the "
               "dense oracle)")
-    out = trainer.fit()
+    # the handlers are the run's: restored after it, since main() may run
+    # inside a longer-lived process
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                 signal.SIGINT)}
+    trainer.install_signal_handlers()
+    try:
+        out = trainer.fit()
+    finally:
+        for s, h in handlers.items():
+            signal.signal(s, h)
     print(f"done: {out}")
+    if trainer.health.any_faults():
+        print(f"health: {trainer.health.summary()}")
     met = evaluate(model, gen, bufs, args.eval_batches, dev)
     print(f"eval: {met}")
-    return {"train": out, "eval": met}
+    return {"train": out, "eval": met, "health": trainer.health.as_dict()}
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""The training loop (port of ``repro.train.trainer``, the main path).
+"""The self-healing training loop (port of ``repro.train.trainer``).
 
 The caller supplies ``loss_fn(model, batch) -> (loss, metrics)``, the model
 (an ``nn.Module``), an optimizer over its named parameters
@@ -6,11 +6,9 @@ The caller supplies ``loss_fn(model, batch) -> (loss, metrics)``, the model
 optimizer keeps: Adagrad's accumulators, SGD's momenta, or Adam's step
 counter with mu and nu) and a seekable ``batch_fn(step) -> batch`` of host
 arrays, which the trainer moves to its device (the card unless the caller
-names the CPU).  A step is the reference's unguarded step
-(``repro.resilience.guard.make_step`` with ``guard=False``; a clean guarded
-step is bit-identical to it):
+names the CPU).  A step is ``repro_torch.resilience.guard.make_step``:
 
-  forward -> backward -> (sparse) gradients -> optimizer update -> apply
+  forward -> backward -> (sparse) gradients -> [guard] -> update -> apply
 
 With ``sparse_grads`` on (the default when ``REPRO_SPARSE_GRADS`` allows it
 and the model holds a ``memory`` pool), the forward and backward run under
@@ -19,33 +17,60 @@ gradient is a ``SparseGrad`` over the K touched slots, its ``.grad`` stays
 ``None``, and the optimizer routes it to the O(K) lazy update.
 ``sparse_grads=False`` keeps the dense O(m) path as the oracle.
 
+Fault tolerance, as in the reference:
+  * checkpoints through ``repro_torch.checkpoint.manager`` (atomic, async,
+    the reference's format), every ``ckpt_every`` steps and on preemption;
+    SIGTERM/SIGINT set the preemption flag, a second signal restores the
+    default handler.  ``ckpt_delta=True`` writes incremental checkpoints
+    fed by each ok step's SparseGrad indices, compacted to a full base
+    every ``ckpt_compact_every`` deltas.  The durable state (``_state``)
+    nests the parameter names on '.', so the pool is
+    ``params/embedding/memory`` and its chunk sums, deltas and repair apply;
+  * resume: ``fit`` restores the latest intact checkpoint into the live
+    parameter and optimizer-state tensors (``copy_``), so the model trains
+    the restored bytes;
+  * the guarded step (``REPRO_GUARD_STEP``, default on): a non-finite or
+    overflow-scale loss or gradient skips the step with the state
+    bit-unchanged; ``max_consecutive_skips`` in a row roll back to the last
+    checkpoint with bounded exponential backoff, ``max_rollbacks`` give up;
+  * pool integrity: every memory leaf (and its optimizer moments) is
+    scanned at each ``ckpt_every`` boundary and after every restore, bad
+    chunks zeroed in place; ``rollback_on_quarantine`` restores the true
+    bytes instead when a checkpoint exists;
+  * fault injection (``repro_torch.resilience.faults``, ``faults=`` or
+    ``REPRO_FAULTS``) drives each of these paths deterministically.
+
 Under an installed mesh (``repro_torch.dist``) the Trainer runs unchanged
 on every rank: the pool is the rank's slab and its lookups and updates take
 the sharded paths, while with a 'data' axis of 1 the dense parameters see
 the same batch on every rank and need no collective.  Only rank 0 logs.
+Checkpoints under a mesh, and tiering, are not ported yet.
 
 Throughput: steps/s from the median step time (host clock around work that
-ends in a device sync, the loss read back), lookups/s scaled by
-``lookups_per_step``; host batch time is kept apart, and steps slower than
-``straggler_factor`` x the median are counted.  Checkpointing, the
-non-finite guard, fault injection, pool integrity and tiering are not
-ported yet.
+ends in a device sync), lookups/s scaled by ``lookups_per_step``; host batch
+time is kept apart, and steps slower than ``straggler_factor`` x the median
+are counted in ``health``.
 """
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
+import signal
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.checkpoint.manager import CheckpointManager, _flatten
 from repro_torch.device import resolve_device
 from repro_torch.optim import sparse as sparse_lib
-from repro_torch.optim.optimizers import Optimizer, apply_updates
+from repro_torch.optim.optimizers import Optimizer
+from repro_torch.resilience import faults as faults_lib
+from repro_torch.resilience import guard as guard_lib
+from repro_torch.resilience import integrity as integ_lib
+from repro_torch.resilience.health import Health
 
 
 def throughput_stats(step_times, lookups_per_step: int = 0) -> dict:
@@ -60,15 +85,79 @@ def throughput_stats(step_times, lookups_per_step: int = 0) -> dict:
 @dataclasses.dataclass
 class TrainerConfig:
     total_steps: int
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 200
+    keep: int = 3
     log_every: int = 50
     straggler_factor: float = 3.0
+    async_ckpt: bool = True
     # embedding-row lookups one step performs (B * F for field models);
     # feeds the lookups_per_sec throughput stat when set
     lookups_per_step: int = 0
+    # --- durability ---
+    ckpt_delta: bool = False            # incremental (delta) checkpoints
+    ckpt_compact_every: int = 8         # deltas before forcing a full base
+    # --- resilience ---
+    guard_step: Optional[bool] = None   # None -> REPRO_GUARD_STEP (default on)
+    max_abs_grad: float = guard_lib.MAX_ABS_GRAD
+    max_consecutive_skips: int = 3      # skips in a row before rollback
+    rollback_backoff: float = 0.05      # first rollback wait (seconds)
+    rollback_backoff_max: float = 5.0   # backoff ceiling
+    max_rollbacks: int = 8              # then give up (RuntimeError)
+    verify_pool: bool = True            # integrity scan at ckpt boundaries
+    # roll back (instead of training on zeroed rows) when the boundary scan
+    # quarantines fresh corruption and a checkpoint exists
+    rollback_on_quarantine: bool = False
 
 
 def _quiet(_: str) -> None:
     pass
+
+
+def _nested(tree):
+    """A state tree in the checkpoint's layout: dict keys (parameter names)
+    nested on '.', tuples kept, Python ints (step counters) as int32 arrays
+    as the reference keeps them; tensors stay as they are (the manager
+    copies them to the host)."""
+    if isinstance(tree, dict):
+        root: dict = {}
+        for name, v in tree.items():
+            *parents, leaf = name.split(".")
+            node = root
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = _nested(v)
+        return root
+    if isinstance(tree, tuple):
+        return tuple(_nested(v) for v in tree)
+    if isinstance(tree, (int, np.integer)) and not isinstance(tree, bool):
+        return np.asarray(tree, np.int32)
+    return tree
+
+
+@torch.no_grad()
+def _load(template, flat: dict, prefix: str):
+    """Copy the restored arrays ``flat`` (by checkpoint path) into the live
+    tensors of ``template`` in place; -> the template with its Python ints
+    (step counters) replaced by the restored ones."""
+    if isinstance(template, dict):
+        return {k: _load(v, flat, f"{prefix}/{k.replace('.', '/')}")
+                for k, v in template.items()}
+    if isinstance(template, tuple):
+        parts = [_load(v, flat, f"{prefix}/#{i}")
+                 for i, v in enumerate(template)]
+        return type(template)(*parts) if hasattr(template, "_fields") \
+            else tuple(parts)
+    if prefix not in flat:
+        raise KeyError(f"checkpoint lacks {prefix!r}")
+    a = flat[prefix]
+    if isinstance(template, torch.Tensor):
+        if tuple(a.shape) != tuple(template.shape):
+            raise ValueError(f"{prefix}: checkpoint shape {tuple(a.shape)} "
+                             f"!= live {tuple(template.shape)}")
+        template.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        return template
+    return int(a)
 
 
 class Trainer:
@@ -76,12 +165,14 @@ class Trainer:
                  optimizer: Optimizer, batch_fn: Callable[[int], dict],
                  sparse_grads: bool | None = None,
                  on_phase: Callable[[str], None] | None = None,
-                 device=None):
+                 device=None,
+                 faults: faults_lib.FaultInjector | None = None):
         """``sparse_grads=None`` turns the sparse pool gradient on when the
         gate allows it and the model holds a pool.  ``on_phase(name)``, when
-        given, is called as a step starts ("start") and as each of its phases
-        ends ("forward", "backward", "sparse_grad", "update", "apply"), e.g.
-        to record CUDA events."""
+        given, is called as a step starts and as each of its phases ends
+        (``guard.make_step``), e.g. to record CUDA events.  ``faults=None``
+        builds an injector from ``REPRO_FAULTS`` when it is set; an explicit
+        injector is also installed for the checkpoint manager's hooks."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
@@ -91,70 +182,254 @@ class Trainer:
         self.opt_state = optimizer.init(self.params)
         self.batch_fn = batch_fn
         self.step = 0
-        if sparse_grads is None:
-            sparse_grads = (sparse_lib.sparse_enabled()
-                            and sparse_lib.has_memory(self.params))
-        self.sparse_grads = sparse_grads
-        self.on_phase = on_phase or (lambda name: None)
-        self.straggler_steps = 0
+        if cfg.ckpt_dir:
+            from repro_torch.dist.context import current_mesh
+            if current_mesh() is not None:
+                raise NotImplementedError(
+                    "checkpoints under a mesh are not ported (ROADMAP Queue 1 "
+                    "item 6)")
+        self.mgr = (CheckpointManager(cfg.ckpt_dir, cfg.keep,
+                                      delta=cfg.ckpt_delta,
+                                      compact_every=cfg.ckpt_compact_every)
+                    if cfg.ckpt_dir else None)
+        self._resumed_step: int | None = None
+        self._preempted = False
         self._step_times: collections.deque[float] = collections.deque(
             maxlen=256)
         self._batch_times: collections.deque[float] = collections.deque(
             maxlen=256)
+        self.health = Health()
+        self._consecutive_skips = 0
+        self.faults = faults if faults is not None else faults_lib.from_env()
+        if faults is not None:
+            faults_lib.install(faults)
+        if sparse_grads is None:
+            sparse_grads = (sparse_lib.sparse_enabled()
+                            and sparse_lib.has_memory(self.params))
+        self.sparse_grads = sparse_grads
+        self._has_pool = sparse_lib.has_memory(self.params)
+        self.guard = (cfg.guard_step if cfg.guard_step is not None
+                      else guard_lib.guard_enabled())
+        # delta checkpoints over a sparse pool: the step reports its
+        # SparseGrad slot indices, the dirty-chunk feed
+        self._touched_out = bool(self.mgr is not None and self.mgr.delta
+                                 and sparse_grads)
+        self._step_fn = guard_lib.make_step(
+            loss_fn, optimizer, sparse_grads=sparse_grads, guard=self.guard,
+            max_abs_grad=cfg.max_abs_grad, report_touched=self._touched_out,
+            on_phase=on_phase)
 
-    def train_step(self, batch: dict) -> torch.Tensor:
-        """One step on ``batch``; -> the loss (a device scalar)."""
-        mark = self.on_phase
-        mark("start")
-        for p in self.params.values():
-            p.grad = None
-        scope = (sparse_lib.capture() if self.sparse_grads
-                 else contextlib.nullcontext())
-        with scope as cap:
-            loss, _ = self.loss_fn(self.model, batch)
-            mark("forward")
-            loss.backward()
-            mark("backward")
-        grads = {k: p.grad for k, p in self.params.items()
-                 if p.grad is not None}
-        if cap is not None:
-            grads.update(cap.grads(self.params))
-        mark("sparse_grad")
-        updates, self.opt_state = self.optimizer.update(
-            grads, self.opt_state, self.params)
-        mark("update")
-        apply_updates(self.params, updates)
-        mark("apply")
-        return loss.detach()
+    @property
+    def straggler_steps(self) -> int:
+        return self.health.straggler_steps
 
+    @straggler_steps.setter
+    def straggler_steps(self, v: int):
+        self.health.straggler_steps = v
+
+    # ------------------------------------------------------------ preemption
+    def install_signal_handlers(self):
+        def handler(signum, frame):
+            if self._preempted:
+                # second signal: the graceful path is presumably hung on a
+                # save -- give the user back a killable process
+                signal.signal(signum, signal.SIG_DFL)
+                return
+            self._preempted = True
+
+        signal.signal(signal.SIGTERM, handler)
+        signal.signal(signal.SIGINT, handler)
+
+    def preempt(self):
+        """Simulate a preemption notice (tests call this directly)."""
+        self._preempted = True
+
+    # ----------------------------------------------------------- checkpoints
+    def _state(self) -> dict:
+        """The durable state: live tensors (the manager copies them to the
+        host), parameter names nested on '.', step counters as int32."""
+        return {"params": _nested(self.params),
+                "opt_state": _nested(self.opt_state),
+                "step": np.asarray(self.step, np.int32)}
+
+    def save(self, blocking: bool = True):
+        if self.mgr:
+            self.mgr.save(self.step, self._state(),
+                          blocking=blocking or not self.cfg.async_ckpt)
+
+    def try_resume(self) -> bool:
+        if not self.mgr:
+            return False
+        # an in-flight async save must land before we look for "latest"
+        self.mgr.wait()
+        if self.mgr.latest_step() is None:
+            return False
+        _, state = self.mgr.restore()
+        flat = _flatten(state)
+        self.params = _load(self.params, flat, "params")
+        self.opt_state = _load(self.opt_state, flat, "opt_state")
+        self.step = int(flat["step"])
+        self._resumed_step = self.step
+        report = self.mgr.last_restore_report
+        self.health.quarantined_chunks += report.get("quarantined_chunks", 0)
+        self.health.torn_writes_detected += report.get("torn_writes", 0)
+        if self.cfg.verify_pool and self._has_pool:
+            self._verify_pool()
+        return True
+
+    # ------------------------------------------------------------------- fit
     def fit(self, log: Callable[[str], None] = print) -> dict:
         from repro_torch.dist.context import current_mesh
         mesh = current_mesh()
         if mesh is not None and mesh.rank != 0:
             log = _quiet
+        if self.try_resume():
+            log(f"[trainer] resumed from step {self.step}")
         last_loss = float("nan")
         while self.step < self.cfg.total_steps:
+            if self._preempted:
+                log(f"[trainer] preempted at step {self.step}; checkpointing")
+                self.save(blocking=True)
+                return self._result(last_loss, preempted=True)
+            if self.faults:
+                self.faults.pre_step(self, self.step)
+                if self._preempted:
+                    continue
             t0 = time.perf_counter()
             batch = self.batch_fn(self.step)
             t1 = time.perf_counter()
             batch = {k: torch.as_tensor(v).to(self.device)
                      for k, v in batch.items()}
-            last_loss = float(self.train_step(batch))   # waits for the card
+            fault = self.faults.grad_fault(self.step) if self.faults else 1.0
+            delay = self.faults.step_delay(self.step) if self.faults else 0.0
+            if delay:
+                time.sleep(delay)  # inside the timed region: a straggler
+            out = self._step_fn(self.model, self.params, self.opt_state,
+                                batch, fault)
+            self.opt_state, loss, ok, grads_ok = out[:4]
+            if ok:
+                last_loss = float(loss)   # waits for the update too
+            elif self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t1
             self._batch_times.append(t1 - t0)
             self._track_straggler(dt)
+            if ok:
+                self._consecutive_skips = 0
+                if self._touched_out:
+                    # this step's SparseGrad indices (a skipped step touches
+                    # nothing, so only marked on ok)
+                    self.mgr.mark_dirty_slots(out[4])
+            else:
+                self.health.skipped_steps += 1
+                if not grads_ok:
+                    self.health.nonfinite_grads += 1
+                self._consecutive_skips += 1
+                log(f"[trainer] step {self.step} non-finite; skipped "
+                    f"(state untouched, {self._consecutive_skips} in a row)")
             self.step += 1
             if self.cfg.log_every and self.step % self.cfg.log_every == 0:
                 tp = self.throughput()
                 lk = (f" {tp['lookups_per_sec']:,.0f} lookups/s"
                       if self.cfg.lookups_per_step else "")
+                hb = self.health.summary()
                 log(f"[trainer] step {self.step} loss {last_loss:.4f} "
                     f"({dt * 1e3:.1f} ms, {tp['steps_per_sec']:.1f} "
-                    f"steps/s{lk})")
-        return {"step": self.step, "loss": last_loss,
+                    f"steps/s{lk})" + (f" [health: {hb}]" if hb else ""))
+            if self._consecutive_skips >= self.cfg.max_consecutive_skips:
+                self._rollback(log)
+                continue
+            if self.cfg.ckpt_every and self.step % self.cfg.ckpt_every == 0:
+                if self.cfg.verify_pool and self._has_pool:
+                    before = self.health.quarantined_chunks
+                    self._verify_pool(log)
+                    if (self.cfg.rollback_on_quarantine
+                            and self.health.quarantined_chunks > before
+                            and self._durable_step() is not None):
+                        # fresh corruption at the boundary: restoring the
+                        # true bytes beats persisting zeroed rows
+                        log(f"[trainer] step {self.step}: boundary scan "
+                            f"quarantined fresh corruption; rolling back")
+                        self._rollback(log)
+                        continue
+                if self.mgr:
+                    self.save(blocking=False)
+        if self.mgr:
+            self.save(blocking=True)
+            self.mgr.wait()
+        return self._result(last_loss, preempted=False)
+
+    def _result(self, last_loss: float, preempted: bool) -> dict:
+        """One dict on every exit path: the reference's keys (its exchange
+        is the forced strategy or "auto"), plus ``sparse_grads`` and the
+        host ``batch_sec``."""
+        from repro_torch.dist import exchange as exchange_lib
+        self._sync_durability()
+        return {"step": self.step, "loss": last_loss, "preempted": preempted,
+                "guard_enabled": bool(self.guard),
+                "resumed_step": self._resumed_step,
+                "exchange": exchange_lib.FORCED or "auto",
                 "sparse_grads": bool(self.sparse_grads),
-                "straggler_steps": self.straggler_steps,
-                **self.throughput()}
+                **self.health.as_dict(), **self.throughput()}
+
+    def _sync_durability(self):
+        """Copy the checkpoint manager's durability gauges into the health
+        record."""
+        if self.mgr is None:
+            return
+        last = self.mgr.last_saved_step
+        if last is None:
+            last = self.mgr._last_step     # restored-but-not-yet-saved
+        if last is not None:
+            self.health.last_durable_step = int(last)
+        self.health.ckpt_bytes_written = int(self.mgr.bytes_written)
+        self.health.delta_chain_len = int(self.mgr.chain_len)
+
+    # ------------------------------------------------------------ resilience
+    def _verify_pool(self, log: Callable[[str], None] = print):
+        """Integrity scan over every memory leaf and its optimizer moments,
+        on their device; bad chunks are zeroed in place (a rotten
+        accumulator chunk would poison every later update it scales)."""
+        _, n_bad = integ_lib.sanitize_tree(self.params)
+        _, n_bad_opt = integ_lib.sanitize_tree(self.opt_state)
+        n_bad += n_bad_opt
+        if n_bad:
+            self.health.quarantined_chunks += n_bad
+            log(f"[trainer] pool integrity: quarantined {n_bad} corrupt "
+                f"chunk(s) at step {self.step}")
+
+    def _durable_step(self) -> int | None:
+        """The newest checkpoint on disk, an in-flight async save waited
+        for (the reference reads the directory without waiting, which races
+        its writer when steps are fast)."""
+        if not self.mgr:
+            return None
+        self.mgr.wait()
+        return self.mgr.latest_step()
+
+    def _rollback(self, log: Callable[[str], None] = print):
+        """K consecutive skipped steps: restore the last checkpoint and retry
+        from there, with bounded exponential backoff; give up (loudly) after
+        ``max_rollbacks``."""
+        self._consecutive_skips = 0
+        self.health.rollbacks += 1
+        if self.health.rollbacks > self.cfg.max_rollbacks:
+            raise RuntimeError(
+                f"giving up after {self.cfg.max_rollbacks} rollbacks: "
+                "training cannot make progress (persistent non-finite steps)")
+        if self._durable_step() is None:
+            log("[trainer] consecutive non-finite steps but no checkpoint "
+                "to roll back to; continuing")
+            return
+        delay = min(self.cfg.rollback_backoff
+                    * (2 ** (self.health.rollbacks - 1)),
+                    self.cfg.rollback_backoff_max)
+        time.sleep(delay)
+        self.health.retries += 1
+        self.try_resume()
+        log(f"[trainer] rolled back to step {self.step} after "
+            f"{self.cfg.max_consecutive_skips} consecutive skipped steps "
+            f"(backoff {delay * 1e3:.0f} ms)")
 
     def throughput(self) -> dict:
         out = throughput_stats(self._step_times, self.cfg.lookups_per_step)
@@ -167,4 +442,4 @@ class Trainer:
         if len(self._step_times) >= 16:
             med = float(np.median(self._step_times))
             if dt > self.cfg.straggler_factor * med:
-                self.straggler_steps += 1
+                self.health.straggler_steps += 1

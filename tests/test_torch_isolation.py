@@ -49,8 +49,11 @@ def _entry_points():
     from repro_torch.core.memory import init_memory
     from repro_torch.core.signatures import (planted_dense_store,
                                              synthetic_dense_store)
+    from repro_torch.core.signatures import synthetic_signature_store
     from repro_torch.embed import EmbeddingTable
+    from repro_torch.launch import train as launcher
     from repro_torch.models.recsys import Recsys
+    from repro_torch.resilience.faults import FaultInjector
     from repro_torch.optim.optimizers import adagrad
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -83,6 +86,17 @@ def _entry_points():
         "Trainer": lambda: Trainer(TrainerConfig(1), None,
                                    torch.nn.Linear(2, 2), adagrad(0.1),
                                    None),
+        "Trainer durable": lambda: Trainer(
+            TrainerConfig(1, ckpt_dir=os.devnull + "-never-made",
+                          ckpt_delta=True), None, torch.nn.Linear(2, 2),
+            adagrad(0.1), None, faults=FaultInjector("nan_grad@0")),
+        "launcher durable": lambda: launcher.main(
+            ["--smoke", "--steps", "1", "--ckpt-dir",
+             os.devnull + "-never-made", "--ckpt-delta", "--faults",
+             "nan_grad@0"]),
+        "EmbeddingTable.make_buffers csr": lambda: EmbeddingTable(
+            cfg.embedding).make_buffers(synthetic_signature_store(
+                cfg.embedding.total_vocab, 3, 4)),
     }
 
 
@@ -96,7 +110,9 @@ def _entry_points():
                                   "params_from_jax din",
                                   "buffers_from_numpy freq",
                                   "EmbeddingTable.make_buffers freq",
-                                  "Trainer"])
+                                  "Trainer", "Trainer durable",
+                                  "launcher durable",
+                                  "EmbeddingTable.make_buffers csr"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """With no device named, tensors go to the card; without one, raise."""
     import torch
@@ -128,6 +144,21 @@ def test_importing_the_port_loads_no_jax():
             "for k in ('qr', 'md', 'freq'):\n"
             "    cfg = c.get_config('dlrm-rm2').make_smoke(embedding_kind=k)\n"
             "    repro_torch.models.recsys.init(cfg, device='cpu')\n"
+            "import tempfile, numpy as np\n"
+            "from repro_torch.checkpoint.manager import CheckpointManager\n"
+            "from repro_torch.resilience import chaos, faults, guard\n"
+            "from repro_torch.resilience import integrity\n"
+            "from repro_torch.convert import state_to_jax, state_from_jax\n"
+            "from repro_torch.core.minhash import gather_ragged_sets\n"
+            "from repro_torch.core.signatures import "
+            "synthetic_signature_store\n"
+            "d = tempfile.mkdtemp()\n"
+            "m = CheckpointManager(d, delta=True)\n"
+            "m.save(0, {'params': {'memory': np.ones(9000, np.float32)}})\n"
+            "assert m.restore()[0] == 0\n"
+            "faults.FaultInjector(chaos.make_schedule(48, seed=1))\n"
+            "assert guard.guard_enabled()\n"
+            "synthetic_signature_store(5, 2, 4)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

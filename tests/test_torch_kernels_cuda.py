@@ -801,3 +801,86 @@ def test_chunk_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         fk.fused_chunk_scatter_cuda(loc, torch.zeros((4, D + 1), device=cuda),
                                     0, M // 4)
+
+
+# ------------------------------------------------------------- durability
+
+def _card_pool_trainer(cuda, steps, faults=None):
+    """A striped LMA pool read through the fused kernel, sparse Adagrad."""
+    from repro_torch.core.signatures import synthetic_dense_store
+    from repro_torch.embed import EmbeddingTable, get_scheme
+    from repro_torch.optim.optimizers import adagrad
+    from repro_torch.resilience.faults import FaultInjector
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    table = EmbeddingTable(get_scheme("lma").build_config((512,), D, 32768,
+                                                          seed=3))
+    bufs = table.make_buffers(synthetic_dense_store(512, 64, max_set=16,
+                                                    seed=2, device=cuda))
+    Y = np.random.default_rng(1).normal(size=(512, D)).astype(np.float32)
+
+    class Model(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embedding = torch.nn.ParameterDict(table.init(
+                torch.Generator(device=cuda).manual_seed(0), device=cuda))
+
+    def batch_fn(step):
+        ids = np.random.default_rng(step).integers(0, 512, (64,), np.int32)
+        return {"ids": ids, "y": Y[ids]}
+
+    def loss_fn(model, b):
+        e = table.embed(dict(model.embedding), bufs, 0, b["ids"])
+        return torch.mean((e - b["y"]) ** 2), {}
+
+    return Trainer(TrainerConfig(total_steps=steps, log_every=0), loss_fn,
+                   Model(), adagrad(0.1), batch_fn, sparse_grads=True,
+                   device=cuda,
+                   faults=FaultInjector(faults) if faults else None)
+
+
+@pytest.mark.parametrize("fault", ["nan_grad", "inf_grad", "huge_grad"])
+def test_guarded_skip_is_bit_unchanged_on_the_card(cuda, fault):
+    """A poisoned step on the card launches the lookup and the locations
+    kernel (the forward and backward ran) but not sparse Adagrad, and leaves
+    the pool and its accumulator bit-unchanged."""
+    from repro_torch.resilience import faults as flt
+    from repro_torch.resilience.chaos import (durable_state,
+                                              states_bit_identical)
+
+    clean = _card_pool_trainer(cuda, 3)
+    clean.fit(log=lambda _: None)
+    faulted = _card_pool_trainer(cuda, 3, f"{fault}@3")
+    faulted.fit(log=lambda _: None)
+    before = durable_state(faulted)
+    kernels = (fk.fused_lookup_cuda, fk.fused_locations_cuda,
+               sk.sparse_adagrad_cuda)
+    for k in kernels:
+        k.launches = 0
+    faulted.cfg.total_steps = 4
+    out = faulted.fit(log=lambda _: None)
+    flt.install(None)
+    assert out["skipped_steps"] == 1 and out["nonfinite_grads"] == 1
+    assert [k.launches for k in kernels] == [1, 1, 0]
+    assert states_bit_identical(durable_state(faulted), before)
+    assert states_bit_identical(before, durable_state(clean))
+
+
+@pytest.mark.parametrize("n", [3 * 8192, 2 * 8192 + 17])
+def test_card_checksums_and_scan_equal_numpy(cuda, n):
+    from repro_torch.resilience import integrity as integ
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n, generator=g, device=cuda)
+    x[5] = float("inf")
+    x[n - 1] = 3e38
+    host = x.cpu().numpy()
+    np.testing.assert_array_equal(
+        integ.chunk_checksums(x).cpu().numpy().astype(np.uint32),
+        integ.np_chunk_checksums(host))
+    np.testing.assert_array_equal(integ.bad_value_chunks(x).cpu().numpy(),
+                                  integ.np_bad_value_chunks(host))
+    _, n_bad = integ.sanitize(x)
+    want, want_n = integ.np_sanitize(host)
+    assert n_bad == want_n == 2
+    np.testing.assert_array_equal(x.cpu().numpy(), want)
