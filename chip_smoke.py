@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: serve and train
 full-width dlrm-rm2 (Adagrad, momentum SGD and Adam; LMA and hashed_row;
 its durability: the step guard, checkpoints, a chaos soak, the pool scan,
-the CSR store), full-width DCN-v2, dlrm-rm2 with the qr, md and freq
+the CSR store; hashed_row through the tiered store under a memory budget),
+full-width DCN-v2, dlrm-rm2 with the qr, md and freq
 embeddings, full-width DIN, then full-width xDeepFM, then dlrm-rm2 with
 its pool and D' store sharded over 4 ranks on the same card.
 
@@ -121,6 +122,31 @@ Phases (any failure raises and ends the run with a non-zero code):
      (nan_grad@50, rot_row@120:8): 300 steps completed, its health and
      eval AUC beside phase 9's; the checkpoints live in a temporary
      directory under build/, removed at the end;
+ 33. (run here, after phase 32, the LMA model and its D' store still on
+     the card) tiering: (d) the distinct 512-slot blocks one planned
+     B=4,096 batch touches in the striped LMA pool and in hashed_row's;
+     dlrm-rm2 with hashed_row (2,110,208 rows of 64) under a 512 MiB
+     budget for its two compact leaves (pool and Adagrad accumulator; a
+     stage bound of B * 26 blocks, one per lookup, since a 64-slot row
+     lies in one block; 12,582,912 hot slots), which the launcher's
+     staging rule refuses; (a) 24 steps at B=4,096 through the tiered
+     store (re-tier every 8), dense Adagrad, each beside a resident dense
+     step from the same state (``export_full``): non-pool parameters,
+     states and losses bit-equal, slot sums within sum_tol (two sequential
+     sums), each pool exactly Adagrad of its own sums; exact launches (row
+     4 twice and row 3 once a tiered step, rows 2, 5 and 7 never);
+     tiered and resident steps/s, the pre-step's split (plan,
+     touched_blocks, stage, install, writeback, retier), staged blocks and
+     bytes a step, host-to-device and device-to-host GB/s; the tiered
+     lookup bit-equal to row 2's; a stage, install, write-back and re-tier
+     with no update leaving both full pools bit-identical; (b) a clean and
+     a chaos run of 24 tiered steps (``TIER_DUR_SPEC``: nan_grad,
+     stage_fail, preempt, torn_ckpt, rot_row; a boundary every 4 steps,
+     deltas): full pools, accumulator and MLPs bit-identical, tier meta
+     equal, staging retried, restarts equal to preempts; save, restore
+     and ``sanitize_cold`` times; (c) full-width DIN through the launcher
+     with ``--tier-budget-mb 40 --batch 4 --steps 300`` beside the same
+     run untiered: compact leaves within 40 MiB, both eval AUCs;
  29. free dlrm-rm2's pool and training state, keep its D' store, and
      build full-width DCN-v2 on that store (the same 26 vocabularies and
      max_set): a 33,763,328-slot striped pool, d=16, x0 of 429, 3 cross
@@ -1482,14 +1508,14 @@ def check_pool(torch, n, pool, q0_all, st0, dense_q, sparse_q, states, sg,
 
 
 def adagrad_rule(torch, n, pool, arch, q0_all, acc0, pools, states, slots,
-                 touched, s) -> None:
+                 touched, s, names=("sparse", "dense")) -> None:
     """Adagrad is lazy and exact alike (a zero gradient moves nothing), so
     each path's pool and accumulator are exactly Adagrad of its own slot
     sums from (q0, acc0), and untouched slots are unchanged on both."""
     from repro_torch.kernels.sparse_update.ref import ieee_sqrt
 
     a0, q0 = acc0[slots], q0_all[slots]
-    for name in ("sparse", "dense"):
+    for name in names:
         a = a0 + s[name] * s[name]
         want = q0 + -arch.learning_rate * s[name] / (ieee_sqrt(a)
                                                      + ADAGRAD_EPS)
@@ -3757,6 +3783,594 @@ def run_durability(torch, cfg, model, bufs, gen, B, dev, kernels,
         "integrity": integrity, "csr": csr, "launcher": launch}}
 
 
+# ------------------------------------------------------------------ tiering
+
+# Phase 33: hashed_row dlrm-rm2 trained through the tiered store.  A 512-slot
+# block holds 8 whole 64-slot rows, so a lookup touches one block and B * 26
+# blocks bound a batch's staging, a bound that always holds.
+TIER_BATCH = 4096
+TIER_BUDGET_MB = 512            # the two compact leaves: pool and accumulator
+TIER_BLOCK = 512
+TIER_STEPS, TIER_RETIER = 24, 8
+TIER_DUR_STEPS, TIER_DUR_EVERY = 24, 4
+TIER_DUR_SPEC = ("nan_grad@6,stage_fail@7,preempt@9,torn_ckpt@11,"
+                 "rot_row@14:8,stage_fail@17,preempt@19")
+DIN_TIER_BUDGET_MB = 40
+DIN_TIER_ARGS = ["--arch", "din", "--batch", "4", "--steps", "300",
+                 "--device", "cuda"]
+POOL = "embedding.memory"
+
+
+class StoreTimer:
+    """Host ms of each call of the store's steps and the controller's plan,
+    the card synchronised before and after each; ``remove`` unwraps."""
+
+    NAMES = ("touched_blocks", "stage", "install", "writeback", "retier")
+
+    def __init__(self, torch, ctrl):
+        self.ctrl, self.ms = ctrl, {n: [] for n in ("plan",) + self.NAMES}
+        self.plan, self.staged = ctrl.plan_fn, []
+
+        def wrap(name, fn):
+            def timed(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.ms[name].append((time.perf_counter() - t0) * 1e3)
+                if name == "stage":
+                    self.staged.append(out["staged"])
+                return out
+            return timed
+
+        for n in self.NAMES:
+            setattr(ctrl.store, n, wrap(n, getattr(ctrl.store, n)))
+        ctrl.plan_fn = wrap("plan", ctrl.plan_fn)
+
+    def remove(self):
+        for n in self.NAMES:
+            delattr(self.ctrl.store, n)
+        self.ctrl.plan_fn = self.plan
+
+    def median_ms(self) -> dict:
+        return {n: float(np.median(v)) for n, v in self.ms.items() if v}
+
+
+@contextlib.contextmanager
+def lookup_cotangents(torch):
+    """While active, keep the cotangent of each indexing lookup's output
+    (the tiered backend's gather): the raw contributions a pool slot's
+    gradient sums, whose count and sum |g| the tiered check needs."""
+    from repro_torch.embed import backends as bke
+
+    plain, got = bke.lookup, []
+
+    def tapped(memory, loc):
+        out = plain(memory, loc)
+        if out.requires_grad:
+            out.register_hook(lambda g: got.append(g.detach()))
+        return out
+
+    bke.lookup = tapped
+    try:
+        yield got
+    finally:
+        bke.lookup = plain
+
+
+def tier_launches(T: int) -> dict:
+    """Kernels of T tiered and T resident dense hashed_row steps: a tiered
+    step plans and looks up through the locations kernel (row 4, twice) and
+    gathers by indexing; the dot interaction (row 3) once either way."""
+    return {"tiered": {"fused_locations": 2 * T, "dot_interaction": T},
+            "resident": {"fused_embed": T, "dot_interaction": T,
+                         "fused_scatter_add": T}}
+
+
+def distinct_blocks(torch, cfg, bufs, batch, dev, block: int) -> dict:
+    """The distinct ``block``-slot blocks one planned batch touches."""
+    from repro_torch.embed import backends as bke
+
+    loc = bke.global_locations(cfg.embedding, cfg.table.scheme, bufs,
+                               batch_gids(torch, cfg, batch, dev))
+    n = int(torch.unique(torch.div(loc, block,
+                                   rounding_mode="floor")).numel())
+    total = cfg.embedding.budget // block
+    return {"blocks": n, "of": total, "share": n / total,
+            "locations": loc.numel()}
+
+
+def to_card(torch, x, dev):
+    return (torch.from_numpy(x) if isinstance(x, np.ndarray) else x).to(dev)
+
+
+def check_tiered_step(torch, n, arch, st, q0, acc0, res, tier_after, grads,
+                      loc, cot, parity) -> None:
+    """One tiered step against the resident dense step from the same state:
+    the pool's slot sums within ``sum_tol`` (two sequential sums: PyTorch's
+    indexing backward and the scatter-add's atomics) and zero off the
+    touched slots, the compact gradient zero past the live rows, and each
+    pool exactly Adagrad of its own sums (``adagrad_rule``)."""
+    m, block, dev = q0.numel(), st.block, q0.device
+    ids = torch.from_numpy(np.concatenate([st.hot_ids, st._staged_ids])
+                           ).to(dev).long()
+    live = ids.numel() * block
+    glob = (ids[:, None] * block
+            + torch.arange(block, device=dev)).reshape(-1)
+    gc, gd = grads["tiered"], grads["resident"]
+    if bool((gc[live:] != 0).any()):
+        raise AssertionError(f"step {n}: tiered gradient past the live rows")
+    gt = torch.zeros(m, device=dev)
+    gt[glob] = gc[:live]
+    flat = loc.reshape(-1).long()
+    slots = torch.unique(flat)
+    touched = torch.zeros(m, dtype=torch.bool, device=dev)
+    touched[slots] = True
+    for name, g in (("tiered", gt), ("resident", gd)):
+        if bool((g[~touched] != 0).any()):
+            raise AssertionError(f"step {n}: the {name} pool gradient is "
+                                 "not 0 off the touched slots")
+    raw = torch.cat([c.reshape(-1) for c in cot])
+    run = torch.bincount(flat, minlength=m)[slots]
+    abs_sum = torch.zeros(m, dtype=torch.float64, device=dev).index_add_(
+        0, flat, raw.abs().double())[slots]
+    s = {"tiered": gt[slots], "resident": gd[slots]}
+    ds = (s["tiered"] - s["resident"]).abs().double()
+    share = float((ds / sum_tol(run.double(), abs_sum, pairwise=False)
+                   .clamp_min(1e-30)).max())
+    if share > 1:
+        raise AssertionError(f"step {n}: tiered and resident slot sums "
+                             f"differ: {share:.3g} of sum_tol")
+    adagrad_rule(torch, n, POOL, arch, q0, acc0,
+                 {"tiered": tier_after[0], "resident": res[0]},
+                 {"tiered": {POOL: tier_after[1]},
+                  "resident": {POOL: res[1]}}, slots, touched, s,
+                 names=("tiered", "resident"))
+    parity["max_tol_share"] = max(parity.get("max_tol_share", 0.0), share)
+    parity["max_sum_ratio"] = max(
+        parity.get("max_sum_ratio", 0.0),
+        float((ds / abs_sum.clamp_min(1e-30)).max()))
+    parity["max_pool_param_diff"] = max(
+        parity.get("max_pool_param_diff", 0.0),
+        float((tier_after[0] - res[0]).abs().max()))
+
+
+def copy_gbs(torch, src, dst, iters: int = 5) -> float:
+    """GB/s of ``dst.copy_(src)`` (CUDA events, median of ``iters``)."""
+    ms = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        dst.copy_(src, non_blocking=True)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return src.numel() * src.element_size() / float(np.median(ms)) / 1e6
+
+
+def tiered_run(torch, arch, hr_cfg, hr_model, hr_bufs, batches, dev, kernels,
+               card) -> dict:
+    """Part a: TIER_STEPS tiered steps (re-tier every TIER_RETIER), each
+    beside a resident dense step from the same state, checked; the step
+    split, staging traffic and copy rates; the tiered lookup against the
+    fused one; a round trip with no update."""
+    import copy
+
+    from repro_torch.embed import backends as bke
+    from repro_torch.launch.train import (_maybe_tier, lookups_per_step,
+                                          make_optimizer)
+    from repro_torch.models.recsys import loss_fn
+    from repro_torch.tier import (TieredStore, TierController, split_batch,
+                                  tier_split)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    B, T = TIER_BATCH, TIER_STEPS
+    e, scheme = hr_cfg.embedding, hr_cfg.table.scheme
+    m = e.budget
+    try:
+        _maybe_tier(hr_cfg, arch, hr_model, hr_bufs,
+                    lambda s: batches.batch(B, s), TIER_BUDGET_MB)
+        raise AssertionError("the launcher's staging bound admitted "
+                             "full-width dlrm-rm2")
+    except SystemExit as exc:
+        refusal = str(exc)
+    log(f"tiering (a): the launcher's rule (one block per location element, "
+        f"{B * hr_cfg.n_fields * e.dim:,} > {m // TIER_BLOCK:,} blocks) "
+        f"refuses full-width dlrm-rm2: {refusal}")
+    stage_blocks = B * hr_cfg.n_fields
+    hot_slots, _ = tier_split(m, TIER_BUDGET_MB, 4, TIER_BLOCK, n_leaves=2,
+                              stage_blocks=stage_blocks)
+    st = TieredStore(hr_model.embedding["memory"], hot_slots,
+                     block=TIER_BLOCK, stage_blocks=stage_blocks)
+    tmodel = copy.deepcopy(hr_model)
+    tmodel.embedding["memory"] = torch.nn.Parameter(st.initial_compact())
+
+    def plan(batch):
+        return bke.global_locations(e, scheme, hr_bufs,
+                                    global_ids(torch, hr_cfg, batch, dev))
+
+    ctrl = TierController(st, lambda s: batches.batch(B, s), plan,
+                          retier_every=TIER_RETIER)
+    timer = StoreTimer(torch, ctrl)
+
+    def tiered_loss(model, b):
+        clean, tb = split_batch(b)
+        return loss_fn(model, clean, {**hr_bufs, **tb})
+
+    opts = {k: Recorder(make_optimizer(arch, sparse_ok=False))
+            for k in ("tiered", "resident")}
+    timers = {k: PhaseTimer(torch) for k in opts}
+    cfg_t = TrainerConfig(total_steps=0, log_every=0,
+                          lookups_per_step=lookups_per_step(hr_cfg, B))
+    trs = {"tiered": Trainer(cfg_t, tiered_loss, tmodel, opts["tiered"],
+                             lambda s: batches.batch(B, s),
+                             sparse_grads=False, device=dev, tier=ctrl,
+                             on_phase=timers["tiered"].mark),
+           "resident": Trainer(dataclasses.replace(cfg_t),
+                               lambda mdl, b: loss_fn(mdl, b, hr_bufs),
+                               hr_model, opts["resident"],
+                               lambda s: batches.batch(B, s),
+                               sparse_grads=False, device=dev,
+                               on_phase=timers["resident"].mark)}
+    ttr, rtr = trs["tiered"], trs["resident"]
+    launches = {k: {} for k in trs}
+    losses = {k: [] for k in trs}
+    parity: dict = {}
+    compact_bytes = 2 * st.compact_slots * 4
+    budget = TIER_BUDGET_MB * 2**20
+    if compact_bytes > budget:
+        raise AssertionError(f"compact leaves {compact_bytes} B over the "
+                             f"{budget} B budget")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step(name, n):
+        tr = trs[name]
+        tr.step, tr.cfg.total_steps = n - 1, n
+        zero(kernels)
+        losses[name].append(tr.fit(log=lambda _: None)["loss"])
+        for k, c in counts(kernels).items():
+            launches[name][k] = launches[name].get(k, 0) + c
+
+    full_p, full_o = ctrl.export_full(ttr.params, ttr.opt_state)
+    rparams = dict(hr_model.named_parameters())
+    t_start = time.perf_counter()
+    for n in range(1, T + 1):
+        with torch.no_grad():
+            for k, q in rparams.items():
+                q.copy_(to_card(torch, full_p[k], dev))
+            for k, a in rtr.opt_state.items():
+                a.copy_(to_card(torch, full_o[k], dev))
+            q0, acc0 = rparams[POOL].detach().clone(), \
+                rtr.opt_state[POOL].clone()
+        step("resident", n)
+        with lookup_cotangents(torch) as cot:
+            step("tiered", n)
+        full_p, full_o = ctrl.export_full(ttr.params, ttr.opt_state)
+        with torch.no_grad():
+            for k, q in ttr.params.items():
+                if k != POOL and not (
+                        torch.equal(q, rparams[k])
+                        and torch.equal(ttr.opt_state[k], rtr.opt_state[k])
+                        and torch.equal(opts["tiered"].grads[k],
+                                        opts["resident"].grads[k])):
+                    raise AssertionError(f"step {n}: {k} differs between "
+                                         "the tiered and resident steps")
+            loc = scheme.locations(e, hr_bufs, global_ids(
+                torch, hr_cfg, batches.batch(B, n - 1), dev))
+            check_tiered_step(
+                torch, n, arch, st, q0, acc0,
+                (rparams[POOL].detach(), rtr.opt_state[POOL]),
+                (to_card(torch, full_p[POOL], dev),
+                 to_card(torch, full_o[POOL], dev)),
+                {k: o.grads[POOL] for k, o in opts.items()}, loc, cot,
+                parity)
+        if losses["tiered"][-1] != losses["resident"][-1]:
+            raise AssertionError(f"step {n}: losses {losses}")
+        for o in opts.values():
+            o.grads = None
+        del q0, acc0, loc, cot
+    checked_s = time.perf_counter() - t_start
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = tier_launches(T)
+    if launches != want:
+        raise AssertionError(f"tiered launches {launches}, expected {want}")
+    split = timer.median_ms()
+    timer.remove()
+    tput = {k: tr.throughput() for k, tr in trs.items()}
+    step_ms = {k: 1e3 / tput[k]["steps_per_sec"] for k in trs}
+    tiered_sps = 1e3 / (step_ms["tiered"] + tput["tiered"]["tier_sec"] * 1e3)
+    n_stage = max(st.stats["stage_steps"], 1)
+    staged = st.stats["staged_blocks"] / n_stage
+    # the copy rates at the mean stage's size, through the store's buffers
+    rows = int(round(staged))
+    h2d = copy_gbs(torch, st._hbuf["memory"][0][:rows],
+                   st._dbuf["memory"][:rows])
+    d2h = copy_gbs(torch, st._dbuf["memory"][:rows],
+                   st._wbuf["memory"][:rows])
+
+    # the tiered lookup of the staged batch against the fused lookup (row
+    # 2) of the full pool; then a round trip with no update
+    with torch.inference_mode():
+        b = batches.batch(B, T - 1)
+        gids = global_ids(torch, hr_cfg, b, dev)
+        got = hr_cfg.table.embed_fields(
+            {"memory": tmodel.embedding["memory"]},
+            {**hr_bufs, **st.batch_tier_buffers()},
+            torch.from_numpy(b["sparse"]).to(dev)).reshape(gids.numel(), -1)
+        want_e = bke.FUSED.lookup(e, scheme,
+                                  {"memory": to_card(torch, full_p[POOL],
+                                                     dev)}, hr_bufs, gids)
+        if not bits_equal(torch, got, want_e):
+            raise AssertionError("tiered lookup differs from the fused one")
+    tree = ctrl._collect(ttr.params, ttr.opt_state)
+    before = {k: st.full_pool(v, k) for k, v in tree.items()}
+    st.writeback(tree)
+    blocks, cnt = st.touched_blocks(plan(batches.batch(B, 0)))
+    st.stage(blocks)
+    st.install(tree)
+    st.writeback(tree)
+    st.observe(blocks, cnt * 1e6)
+    _, moved = st.retier(tree)
+    if not moved["promoted"] or any(
+            not np.array_equal(st.full_pool(v, k).view(np.int32),
+                               before[k].view(np.int32))
+            for k, v in tree.items()):
+        raise AssertionError(f"round trip moved bits ({moved})")
+    out = {
+        "batch": B, "steps": T, "retier_every": TIER_RETIER,
+        "m": m, "block": TIER_BLOCK, "hot_slots": st.hot_slots,
+        "stage_blocks": st.stage_blocks, "compact_slots": st.compact_slots,
+        "compact_bytes": compact_bytes, "budget_bytes": budget,
+        "resident_bytes": 2 * m * 4, "launcher_refusal": refusal,
+        "peak_gib": peak_gib, "checked_seconds": checked_s,
+        "losses": losses, "launches": launches, "parity": parity,
+        "steps_per_sec": {"tiered": tiered_sps,
+                          "tiered_step_only": tput["tiered"]["steps_per_sec"],
+                          "resident": tput["resident"]["steps_per_sec"]},
+        "pre_step_ms": tput["tiered"]["tier_sec"] * 1e3,
+        "store_ms": split, "phase_ms": {k: t.split_ms()
+                                        for k, t in timers.items()},
+        "staged_blocks_per_step": staged, "staged_blocks": timer.staged,
+        "host_fetch_bytes_per_step": st.stats["host_fetch_bytes"] / n_stage,
+        "writeback_bytes_per_step":
+            st.stats["writeback_bytes"] / max(n_stage - 1, 1),
+        "promoted": st.stats["promoted"], "h2d_gbs": h2d, "d2h_gbs": d2h,
+        "round_trip_promoted": moved["promoted"]}
+    log(f"tiering (a): hashed_row dlrm-rm2, m={m:,}, B={B:,}: {st.hot_slots:,}"
+        f" hot slots ({st.hot_blocks:,} blocks), stage {st.stage_blocks:,} "
+        f"blocks, compact {st.compact_slots:,} slots x 2 leaves = "
+        f"{compact_bytes:,} B against a {budget:,} B budget ("
+        f"{2 * m * 4:,} B resident); peak {peak_gib:.2f} GiB; {T} steps each "
+        f"held to a resident dense step from the same state: non-pool "
+        f"parameters, states and losses bit-equal, slot sums within "
+        f"{parity['max_tol_share']:.3g} of sum_tol, each pool exactly "
+        f"Adagrad of its own sums; launches {launches}; steps/s tiered "
+        f"{tiered_sps:.2f} (step alone "
+        f"{tput['tiered']['steps_per_sec']:.2f}, pre_step "
+        f"{out['pre_step_ms']:.1f} ms), resident "
+        f"{tput['resident']['steps_per_sec']:.2f}; staged "
+        f"{staged:,.0f} blocks (by step {timer.staged}), fetch "
+        f"{out['host_fetch_bytes_per_step']:,.0f}"
+        f" B, write-back {out['writeback_bytes_per_step']:,.0f} B a step; "
+        f"store ms (median) " + ", ".join(f"{k} {v:.2f}"
+                                          for k, v in split.items())
+        + "; phases (ms) " + ", ".join(
+            f"{k}: " + " ".join(f"{p} {v:.2f}" for p, v in ph.items())
+            for k, ph in out["phase_ms"].items())
+        + f"; host->device {h2d:.1f} GB/s, device->host {d2h:.1f} GB/s; "
+        f"promoted {st.stats['promoted']:,}; tiered lookup bit-equal to the "
+        f"fused one; a round trip (stage, install, write-back, re-tier "
+        f"moving {moved['promoted']} blocks) left both full pools "
+        f"bit-identical; card {card}")
+    return out
+
+
+def tiered_durability(torch, arch, hr_cfg, hr_model, hr_bufs, init, root,
+                      batches, dev, card) -> dict:
+    """Part b: a clean tiered run and a chaos run of TIER_DUR_STEPS steps
+    (TIER_DUR_SPEC; a boundary every TIER_DUR_EVERY steps, deltas): the
+    chaos run's full pools and accumulator bit-identical to the clean
+    run's, the tier meta equal, staging retried, restarts = preempts."""
+    import copy
+
+    from repro_torch.embed import backends as bke
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models.recsys import loss_fn
+    from repro_torch.resilience import chaos
+    from repro_torch.tier import (TieredStore, TierController, split_batch,
+                                  tier_split)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    B, e, scheme = TIER_BATCH, hr_cfg.embedding, hr_cfg.table.scheme
+    stage_blocks = B * hr_cfg.n_fields
+    hot_slots, _ = tier_split(e.budget, TIER_BUDGET_MB, 4, TIER_BLOCK,
+                              n_leaves=2, stage_blocks=stage_blocks)
+    tmodel = copy.deepcopy(hr_model)
+
+    def plan(batch):
+        return bke.global_locations(e, scheme, hr_bufs,
+                                    global_ids(torch, hr_cfg, batch, dev))
+
+    def tiered_loss(model, b):
+        clean, tb = split_batch(b)
+        return loss_fn(model, clean, {**hr_bufs, **tb})
+
+    def make(faults=None, **kw):
+        st = TieredStore(init[POOL], hot_slots, block=TIER_BLOCK,
+                         stage_blocks=stage_blocks)
+        with torch.no_grad():
+            for k, q in tmodel.named_parameters():
+                if k != POOL:
+                    q.copy_(init[k])
+        tmodel.embedding["memory"] = torch.nn.Parameter(st.initial_compact())
+        ctrl = TierController(st, lambda s: batches.batch(B, s), plan,
+                              retier_every=TIER_RETIER)
+        return Trainer(TrainerConfig(total_steps=TIER_DUR_STEPS, log_every=0,
+                                     **kw),
+                       tiered_loss, tmodel, make_optimizer(arch,
+                                                           sparse_ok=False),
+                       lambda s: batches.batch(B, s), sparse_grads=False,
+                       device=dev, faults=faults, tier=ctrl)
+
+    t0 = time.perf_counter()
+    clean = make()
+    clean.fit(log=lambda _: None)
+    want, want_meta = chaos.durable_state(clean), clean.tier.tier_meta()
+    clean_s = time.perf_counter() - t0
+    del clean
+    ck = os.path.join(root, "tiered-soak")
+    made, events = [], []
+
+    def factory(inj):
+        made.append(make(inj, ckpt_dir=ck, ckpt_every=TIER_DUR_EVERY, keep=3,
+                         ckpt_delta=True, max_consecutive_skips=1,
+                         rollback_on_quarantine=True))
+        return made[-1]
+
+    t0 = time.perf_counter()
+    with DiskPeak(ck) as disk:
+        res = chaos.run_chaos(factory, TIER_DUR_SPEC, seed=SEED,
+                              log=events.append)
+    chaos_s = time.perf_counter() - t0
+    last = made[-1]
+    got, meta = chaos.durable_state(last), last.tier.tier_meta()
+    if not chaos.states_bit_identical(got, want):
+        bad = [k for k in want if k not in got
+               or got[k].tobytes() != want[k].tobytes()]
+        raise AssertionError(f"tiered soak: the chaos run's durable state "
+                             f"differs from the clean run's at {bad}")
+    if not all(np.array_equal(meta[k].view(np.uint8),
+                              want_meta[k].view(np.uint8)) for k in meta):
+        raise AssertionError("tiered soak: tier meta differs")
+    retries = sum(t.tier.store.stats["stage_retries"] for t in made)
+    preempts = TIER_DUR_SPEC.count("preempt@")
+    if res["step"] != TIER_DUR_STEPS or res["preempted"] \
+            or res["chaos_restarts"] != preempts \
+            or res["chaos_max_lost_steps"] > TIER_DUR_EVERY or retries < 1:
+        raise AssertionError(f"tiered soak: {res}, stage retries {retries}")
+    health = {}
+    for t in made:
+        for k, v in t.health.as_dict().items():
+            if k not in ("last_durable_step", "ckpt_bytes_written",
+                         "delta_chain_len"):
+                health[k] = health.get(k, 0) + v
+    t0 = time.perf_counter()
+    quarantined = last.tier.store.sanitize_cold()
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    out = {"spec": TIER_DUR_SPEC, "steps": TIER_DUR_STEPS,
+           "ckpt_every": TIER_DUR_EVERY, "restarts": res["chaos_restarts"],
+           "max_lost_steps": res["chaos_max_lost_steps"],
+           "stage_retries": retries, "health": health,
+           "bytes_written": sum(t.mgr.bytes_written for t in made),
+           "save_seconds": [t.mgr.last_save_seconds for t in made],
+           "last_save_bytes": [t.mgr.last_save_bytes for t in made],
+           "restore_seconds": [t.mgr.last_restore_seconds for t in made],
+           "peak_disk_bytes": disk.peak, "clean_s": clean_s,
+           "chaos_s": chaos_s, "sanitize_cold_ms": scan_ms,
+           "sanitize_cold_quarantined": quarantined, "events": events,
+           "bit_identical_to_clean": True}
+    log(f"tiering (b): {TIER_DUR_STEPS} tiered steps at B={B:,}, spec "
+        f"{TIER_DUR_SPEC}: full pools, accumulator and MLPs bit-identical to "
+        f"the clean run's, tier meta (hot set, EMA) equal; restarts "
+        f"{res['chaos_restarts']} (= preempts), max lost steps "
+        f"{res['chaos_max_lost_steps']}, stage retries {retries}; health "
+        f"{health}; {out['bytes_written']:,} B written (peak on disk "
+        f"{disk.peak:,} B); saves {out['save_seconds']} s of "
+        f"{out['last_save_bytes']} B, restores {out['restore_seconds']} s; "
+        f"sanitize_cold {scan_ms:.1f} ms; clean {clean_s:.1f} s, chaos "
+        f"{chaos_s:.1f} s; events: " + " | ".join(events) + f"; card {card}")
+    return out
+
+
+def tiered_launcher(torch, kernels, card) -> dict:
+    """Part c: full-width DIN through the launcher with and without
+    --tier-budget-mb DIN_TIER_BUDGET_MB; the tiered run's compact leaves
+    within the budget, its eval through the full pool."""
+    from repro_torch.launch import train as launcher
+
+    out = {}
+    for name, extra in (("tiered", ["--tier-budget-mb",
+                                    str(DIN_TIER_BUDGET_MB)]),
+                        ("resident", [])):
+        zero(kernels)
+        t0 = time.perf_counter()
+        res = launcher.main(DIN_TIER_ARGS + extra)
+        tr = res["train"]
+        if tr["step"] != 300 or not np.isfinite(tr["loss"]):
+            raise AssertionError(f"launcher din {name}: {tr}")
+        out[name] = {"auc": res["eval"]["auc"], "loss": tr["loss"],
+                     "steps_per_sec": tr["steps_per_sec"],
+                     "seconds": time.perf_counter() - t0,
+                     "launches": counts(kernels),
+                     "tier": res.get("tier")}
+    t = out["tiered"]["tier"]
+    budget = DIN_TIER_BUDGET_MB * 2**20
+    if t is None or t["device_bytes"] > budget:
+        raise AssertionError(f"launcher din tiered: {t}")
+    log(f"tiering (c): DIN through the launcher, B=4, 300 steps: tiered "
+        f"({t['compact_slots']:,} compact slots, stage {t['stage_blocks']:,}"
+        f" blocks, {t['device_bytes']:,} B on the card against "
+        f"{budget:,}; {t['staged_blocks'] / max(t['stage_steps'], 1):,.0f}"
+        f" staged blocks a step) eval AUC {out['tiered']['auc']:.4f}, "
+        f"{out['tiered']['steps_per_sec']:.1f} steps/s; resident AUC "
+        f"{out['resident']['auc']:.4f}, {out['resident']['steps_per_sec']:.1f}"
+        f" steps/s; launches {out['tiered']['launches']}; card {card}")
+    return out
+
+
+def run_tiering(torch, cfg, model, bufs, gen, dev, kernels, card) -> dict:
+    """Phase 33 (after phase 32, dlrm-rm2 with LMA and its D' store still on
+    the card): (d) the distinct blocks of one planned LMA batch; hashed_row
+    dlrm-rm2 tiered under TIER_BUDGET_MB: (a) checked training beside
+    resident dense steps, (b) durability; (c) DIN through the launcher."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    arch = get_config("dlrm-rm2")
+    B = TIER_BATCH
+    t0 = time.perf_counter()
+    n = max(TIER_STEPS, TIER_DUR_STEPS)
+    batches = HostBatches([gen.batch(B, s) for s in range(n)])
+    log(f"tiering: {n} host batches of B={B:,} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    hr_cfg, hr_model, hr_bufs = build_hashed_row(torch, dev)
+    lma = distinct_blocks(torch, cfg, bufs, batches.batch(B, 0), dev,
+                          TIER_BLOCK)
+    row = distinct_blocks(torch, hr_cfg, hr_bufs, batches.batch(B, 0), dev,
+                          TIER_BLOCK)
+    log(f"tiering (d): one planned B={B:,} batch touches {lma['blocks']:,} of"
+        f" {lma['of']:,} {TIER_BLOCK}-slot blocks of the striped LMA pool "
+        f"({lma['share']:.1%}; {lma['locations']:,} locations), "
+        f"{row['blocks']:,} ({row['share']:.1%}) of hashed_row's; card {card}")
+    with torch.no_grad():
+        init = {k: q.detach().clone()
+                for k, q in hr_model.named_parameters()}
+    os.makedirs(ROOT / "build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="tiering-", dir=ROOT / "build")
+    try:
+        run = tiered_run(torch, arch, hr_cfg, hr_model, hr_bufs, batches,
+                         dev, kernels, card)
+        free(torch)
+        durable = tiered_durability(torch, arch, hr_cfg, hr_model, hr_bufs,
+                                    init, root, batches, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del hr_model, init
+    free(torch)
+    launch = tiered_launcher(torch, kernels, card)
+    return {"paths": {"dlrm-rm2 tiered train": run["launches"]["tiered"],
+                      "dlrm-rm2 tiered resident check":
+                          run["launches"]["resident"],
+                      "din launcher tiered": launch["tiered"]["launches"]},
+            "summary": {"blocks": {"lma": lma, "hashed_row": row},
+                        "train": run, "durability": durable,
+                        "launcher": launch}}
+
+
 # -------------------------------------------------------------------- main
 
 SOURCES = {
@@ -3884,6 +4498,8 @@ def main() -> int:
         torch, cfg, model, bufs, gen, B_train, dev, kernels,
         launcher["lma-dlrm-criteo"]["lma"]["auc"], card)
     paths.update(durable["paths"])
+    tiering = run_tiering(torch, cfg, model, bufs, gen, dev, kernels, card)
+    paths.update(tiering["paths"])
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB (dlrm-rm2 phases)")
 
@@ -3979,6 +4595,7 @@ def main() -> int:
                     "card": card}))
     log(json.dumps({"sharded": shard["summary"], "card": card}))
     log(json.dumps({"durability": durable["summary"], "card": card}))
+    log(json.dumps({"tiering": tiering["summary"], "card": card}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -34,8 +34,10 @@ Guarantees:
     only the file writes run in the background thread.
 
 Migration: manifests without ``format`` / ``kind`` keys are read as full
-bases.  Leaves may be torch tensors (any device), numpy arrays or scalars;
-restore gives numpy arrays.
+bases.  Leaves may be torch tensors (any device), numpy arrays or scalars
+(a tiered run's full pools come from its host mirror as numpy arrays, its
+``tier/hot_ids`` and ``tier/ema`` as int32 and float64); restore gives
+numpy arrays of the dtypes saved.
 """
 from __future__ import annotations
 
@@ -186,7 +188,8 @@ class CheckpointManager:
     # ------------------------------------------------------------ dirty set
     def mark_dirty_slots(self, slots) -> None:
         """Record pool slots touched since the current base checkpoint (each
-        step's ``SparseGrad`` indices).  Slots are global pool element
+        step's ``SparseGrad`` indices, or a tiered run's planned global
+        locations).  Slots are global pool element
         indices; negatives (skip sentinels) are ignored, indices past a
         leaf's end are clipped at save time.  A tensor is reduced to its
         chunk ids on its own device, so only those cross to the host.  No-op

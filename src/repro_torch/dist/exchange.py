@@ -41,9 +41,8 @@ global arrays:
   (``sharded_memory`` refuses any other), so the kernel paths are the only
   ones, on the CPU too, where ``kernels/fused_embed/ops.py`` sends a CPU
   tensor to the kernels' plain versions.
-- The demotion ladder (``demote``, ``effective``), the fault wrapper and
-  ``tier_fetch_bytes`` belong to the resilience and tiering slices, which
-  are not ported yet.
+- The demotion ladder (``demote``, ``effective``) and the fault wrapper
+  belong to the rest of distribution, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -357,6 +356,15 @@ def alloc_bytes_per_row(d: int, set_width: int = 0):
 
 
 RING_OVERLAP = 0.5   # fraction of ring step transfers hidden behind gathers
+
+
+def tier_fetch_bytes(n_cold_blocks: int, block: int, n_leaves: int = 1,
+                     itemsize: int = 4) -> int:
+    """Modeled host<->device bytes per step of a tiered pool
+    (``repro_torch.tier``): each cold block a step touches crosses twice --
+    the staged fetch down and the post-update write-back up -- for every
+    pool leaf (values and optimizer moments)."""
+    return 2 * n_cold_blocks * block * itemsize * n_leaves
 
 
 def lookup_cost(n_model: int, n: int, d: int,

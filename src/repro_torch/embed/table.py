@@ -70,13 +70,18 @@ def _memory_lookup(cfg, params, buffers, gids):
     row-aligned scheme records its [N] pool rows when the budget tiles into
     d-wide rows; a ragged budget (m % d != 0), and every other scheme,
     records the [N, d] element locations (under a mesh, those the sharded
-    lookup assembled)."""
+    lookup assembled).  A tiered pool records element locations remapped
+    into its compact pool, whose slots they index: the remap is
+    element-wise, so rows and stripes do not survive it (as in the
+    reference)."""
     scheme = get_scheme(cfg.kind)
-    backend = bke.resolve_backend(cfg, params, scheme)
+    backend = bke.resolve_backend(cfg, params, scheme, buffers)
     cap = sparse.active()
     if cap is None:
         return backend.lookup(cfg, scheme, params, buffers, gids)
-    slots = scheme.memory_slots(cfg)
+    tiered = backend is bke.TIERED
+    slots = (int(params["memory"].shape[0]) if tiered
+             else scheme.memory_slots(cfg))
     if isinstance(backend, bke.ShardedBackend):
         held = []
 
@@ -93,13 +98,14 @@ def _memory_lookup(cfg, params, buffers, gids):
         def locations():
             return bke.sparse_locations(cfg, scheme, params, buffers, gids)
 
-    if scheme.row_aligned and slots % cfg.dim == 0:
+    if not tiered and scheme.row_aligned and slots % cfg.dim == 0:
         return cap.lookup(
             params["memory"], lookup,
             lambda: scheme.sparse_row_ids(cfg, buffers, gids),
             row_width=cfg.dim, slots=slots)
     return cap.lookup(params["memory"], lookup, locations,
-                      scheme.sparse_buckets(cfg), slots=slots)
+                      0 if tiered else scheme.sparse_buckets(cfg),
+                      slots=slots)
 
 
 def embed(cfg: EmbeddingConfig, params: dict, buffers: dict, table: int,
@@ -147,7 +153,7 @@ def embed_bag(cfg: EmbeddingConfig, params: dict, buffers: dict, table: int,
     if mode not in ("sum", "mean"):
         raise ValueError(mode)
     scheme = get_scheme(cfg.kind)
-    backend = bke.resolve_backend(cfg, params, scheme)
+    backend = bke.resolve_backend(cfg, params, scheme, buffers)
     if backend is bke.FUSED and sparse.active() is None:
         w = mask.to(params["memory"].dtype)
         gids = _global_ids(cfg, table, ids.reshape(-1)).reshape(ids.shape)

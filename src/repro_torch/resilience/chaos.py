@@ -85,12 +85,14 @@ def run_chaos(trainer_factory, spec: str, seed: int = 0,
 
 def durable_state(trainer) -> dict:
     """Flat ``{path: np.ndarray}`` of the trainer's durable state --
-    parameters and every optimizer moment, as a checkpoint persists them,
-    copied to the host -- without the step counter: the bit-identity
-    comparison surface of the soak."""
+    parameters and every optimizer moment, as a checkpoint persists them
+    (full pools for a tiered run), copied to the host -- without the step
+    counter and the tier meta: the bit-identity comparison surface of the
+    soak."""
     from repro_torch.checkpoint.manager import _flatten, _host
     flat = _flatten(trainer._state())
-    return {k: _host(v) for k, v in flat.items() if k != "step"}
+    return {k: _host(v) for k, v in flat.items()
+            if k != "step" and not k.startswith("tier")}
 
 
 def states_bit_identical(a: dict, b: dict) -> bool:

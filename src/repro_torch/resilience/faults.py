@@ -31,8 +31,10 @@ Fault kinds
     once); ``:arg`` fixes the surviving fraction, else a seeded draw in
     [0.2, 0.8].
 ``stage_fail``
-    Parsed and consumable (``stage_fail()``), but nothing consumes it until
-    the tiered store is ported, as in a reference run without a tier.
+    Fail the next staging transfer of the tiered store (consumed once,
+    before any copy: ``repro_torch.tier.store.TieredStore.stage`` raises
+    ``StageTransferError``); the tier controller retries the stage, so
+    training never sees it.
 ``drop_chunk`` / ``corrupt_chunk``
     Parsed; the exchange wrapper that consumes them (``FaultyExchange``)
     comes with the rest of distribution.

@@ -40,16 +40,28 @@ Fault tolerance, as in the reference:
   * fault injection (``repro_torch.resilience.faults``, ``faults=`` or
     ``REPRO_FAULTS``) drives each of these paths deterministically.
 
+Tiering (``tier=``, a :class:`repro_torch.tier.TierController`): a pool
+over its device budget trains as a compact pool (hot slab + staged cold
+rows) beside a host mirror.  Before each batch the controller's
+``pre_step`` writes back the last stage, re-tiers on cadence, stages and
+installs this step's cold blocks, in place, and batches come through
+``tier.batch_fn`` with the remap buffers.  Its planned locations feed the
+delta checkpoints' dirty set.  The durable state holds the full pools
+(values and moments, ``export_full``) and the tier meta (hot set, EMA); a
+restore hands them to ``on_restore``, which rebuilds the mirror and the
+compact pool, and a rollback drops the abandoned timeline's staged rows.
+The boundary scan covers the host-cold tier too (``sanitize_cold``).
+
 Under an installed mesh (``repro_torch.dist``) the Trainer runs unchanged
 on every rank: the pool is the rank's slab and its lookups and updates take
 the sharded paths, while with a 'data' axis of 1 the dense parameters see
 the same batch on every rank and need no collective.  Only rank 0 logs.
-Checkpoints under a mesh, and tiering, are not ported yet.
+Checkpoints under a mesh are not ported yet.
 
 Throughput: steps/s from the median step time (host clock around work that
 ends in a device sync), lookups/s scaled by ``lookups_per_step``; host batch
-time is kept apart, and steps slower than ``straggler_factor`` x the median
-are counted in ``health``.
+time and the tier's ``pre_step`` time are kept apart, and steps slower than
+``straggler_factor`` x the median are counted in ``health``.
 """
 from __future__ import annotations
 
@@ -73,13 +85,32 @@ from repro_torch.resilience import integrity as integ_lib
 from repro_torch.resilience.health import Health
 
 
-def throughput_stats(step_times, lookups_per_step: int = 0) -> dict:
+def throughput_stats(step_times, lookups_per_step: int = 0,
+                     tier_stats: dict | None = None) -> dict:
     """Median step wall time -> steps/s, scaled by the embedding-row lookups
-    one step performs (0 when unknown)."""
+    one step performs (0 when unknown).  ``tier_stats`` (a
+    ``TierController.stats()`` dict, when the pool is tiered) adds the
+    host-traffic view: staged cold blocks and host-fetch bytes averaged per
+    staging step, the hot/cold row split and the migrations."""
     if not len(step_times):
-        return {"steps_per_sec": 0.0, "lookups_per_sec": 0.0}
-    sps = 1.0 / max(float(np.median(np.asarray(step_times))), 1e-12)
-    return {"steps_per_sec": sps, "lookups_per_sec": sps * lookups_per_step}
+        out = {"steps_per_sec": 0.0, "lookups_per_sec": 0.0}
+    else:
+        sps = 1.0 / max(float(np.median(np.asarray(step_times))), 1e-12)
+        out = {"steps_per_sec": sps,
+               "lookups_per_sec": sps * lookups_per_step}
+    if tier_stats:
+        n = max(tier_stats.get("stage_steps", 0), 1)
+        out.update({
+            "tier_hot_rows": tier_stats.get("hot_rows", 0),
+            "tier_cold_rows": tier_stats.get("cold_rows", 0),
+            "tier_staged_blocks_per_step":
+                tier_stats.get("staged_blocks", 0) / n,
+            "tier_host_fetch_bytes_per_step":
+                tier_stats.get("host_fetch_bytes", 0) / n,
+            "tier_promoted": tier_stats.get("promoted", 0),
+            "tier_demoted": tier_stats.get("demoted", 0),
+        })
+    return out
 
 
 @dataclasses.dataclass
@@ -135,27 +166,43 @@ def _nested(tree):
     return tree
 
 
-@torch.no_grad()
-def _load(template, flat: dict, prefix: str):
-    """Copy the restored arrays ``flat`` (by checkpoint path) into the live
-    tensors of ``template`` in place; -> the template with its Python ints
-    (step counters) replaced by the restored ones."""
+def _restored(template, flat: dict, prefix: str):
+    """The restored arrays ``flat`` (by checkpoint path) at the paths of
+    ``template``, in its structure (dicts, tuples, NamedTuples)."""
     if isinstance(template, dict):
-        return {k: _load(v, flat, f"{prefix}/{k.replace('.', '/')}")
+        return {k: _restored(v, flat, f"{prefix}/{k.replace('.', '/')}")
                 for k, v in template.items()}
     if isinstance(template, tuple):
-        parts = [_load(v, flat, f"{prefix}/#{i}")
+        parts = [_restored(v, flat, f"{prefix}/#{i}")
                  for i, v in enumerate(template)]
         return type(template)(*parts) if hasattr(template, "_fields") \
             else tuple(parts)
     if prefix not in flat:
         raise KeyError(f"checkpoint lacks {prefix!r}")
-    a = flat[prefix]
+    return flat[prefix]
+
+
+@torch.no_grad()
+def _load(template, restored, prefix: str):
+    """Copy ``restored`` (a tree of ``template``'s structure: arrays or
+    tensors) into the live tensors of ``template`` in place; -> the
+    template with its Python ints (step counters) replaced by the restored
+    ones."""
+    if isinstance(template, dict):
+        return {k: _load(v, restored[k], f"{prefix}/{k.replace('.', '/')}")
+                for k, v in template.items()}
+    if isinstance(template, tuple):
+        parts = [_load(v, r, f"{prefix}/#{i}")
+                 for i, (v, r) in enumerate(zip(template, restored))]
+        return type(template)(*parts) if hasattr(template, "_fields") \
+            else tuple(parts)
+    a = restored
     if isinstance(template, torch.Tensor):
         if tuple(a.shape) != tuple(template.shape):
             raise ValueError(f"{prefix}: checkpoint shape {tuple(a.shape)} "
                              f"!= live {tuple(template.shape)}")
-        template.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        template.copy_(a if isinstance(a, torch.Tensor)
+                       else torch.from_numpy(np.ascontiguousarray(a)))
         return template
     return int(a)
 
@@ -166,13 +213,18 @@ class Trainer:
                  sparse_grads: bool | None = None,
                  on_phase: Callable[[str], None] | None = None,
                  device=None,
-                 faults: faults_lib.FaultInjector | None = None):
+                 faults: faults_lib.FaultInjector | None = None,
+                 tier=None):
         """``sparse_grads=None`` turns the sparse pool gradient on when the
         gate allows it and the model holds a pool.  ``on_phase(name)``, when
         given, is called as a step starts and as each of its phases ends
         (``guard.make_step``), e.g. to record CUDA events.  ``faults=None``
         builds an injector from ``REPRO_FAULTS`` when it is set; an explicit
-        injector is also installed for the checkpoint manager's hooks."""
+        injector is also installed for the checkpoint manager's hooks.
+        ``tier``: a :class:`repro_torch.tier.TierController` whose compact
+        pool is the model's ``memory`` parameter; batches then come through
+        ``tier.batch_fn`` (tiered runs update densely, as in the
+        reference: pass ``sparse_grads=False``)."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
@@ -180,7 +232,8 @@ class Trainer:
         self.params = dict(model.named_parameters())
         self.optimizer = optimizer
         self.opt_state = optimizer.init(self.params)
-        self.batch_fn = batch_fn
+        self.tier = tier
+        self.batch_fn = tier.batch_fn if tier is not None else batch_fn
         self.step = 0
         if cfg.ckpt_dir:
             from repro_torch.dist.context import current_mesh
@@ -198,6 +251,8 @@ class Trainer:
             maxlen=256)
         self._batch_times: collections.deque[float] = collections.deque(
             maxlen=256)
+        self._tier_times: collections.deque[float] = collections.deque(
+            maxlen=256)
         self.health = Health()
         self._consecutive_skips = 0
         self.faults = faults if faults is not None else faults_lib.from_env()
@@ -210,10 +265,11 @@ class Trainer:
         self._has_pool = sparse_lib.has_memory(self.params)
         self.guard = (cfg.guard_step if cfg.guard_step is not None
                       else guard_lib.guard_enabled())
-        # delta checkpoints over a sparse pool: the step reports its
-        # SparseGrad slot indices, the dirty-chunk feed
+        # delta checkpoints over a resident sparse pool: the step reports
+        # its SparseGrad slot indices, the dirty-chunk feed (a tiered run
+        # feeds it from pre_step's planned touches)
         self._touched_out = bool(self.mgr is not None and self.mgr.delta
-                                 and sparse_grads)
+                                 and sparse_grads and tier is None)
         self._step_fn = guard_lib.make_step(
             loss_fn, optimizer, sparse_grads=sparse_grads, guard=self.guard,
             max_abs_grad=cfg.max_abs_grad, report_touched=self._touched_out,
@@ -247,10 +303,19 @@ class Trainer:
     # ----------------------------------------------------------- checkpoints
     def _state(self) -> dict:
         """The durable state: live tensors (the manager copies them to the
-        host), parameter names nested on '.', step counters as int32."""
-        return {"params": _nested(self.params),
-                "opt_state": _nested(self.opt_state),
-                "step": np.asarray(self.step, np.int32)}
+        host), parameter names nested on '.', step counters as int32.  A
+        tiered run persists the full pools (values and moments, numpy
+        arrays from the host mirror) and the tier meta (int32 hot ids,
+        float64 EMA), not the transient compact view."""
+        params, opt_state = self.params, self.opt_state
+        state = {}
+        if self.tier is not None:
+            params, opt_state = self.tier.export_full(params, opt_state)
+            state["tier"] = self.tier.tier_meta()
+        state.update({"params": _nested(params),
+                      "opt_state": _nested(opt_state),
+                      "step": np.asarray(self.step, np.int32)})
+        return state
 
     def save(self, blocking: bool = True):
         if self.mgr:
@@ -266,8 +331,21 @@ class Trainer:
             return False
         _, state = self.mgr.restore()
         flat = _flatten(state)
-        self.params = _load(self.params, flat, "params")
-        self.opt_state = _load(self.opt_state, flat, "opt_state")
+        params = _restored(self.params, flat, "params")
+        opt_state = _restored(self.opt_state, flat, "opt_state")
+        if self.tier is not None:
+            meta = {k: flat[f"tier/{k}"] for k in ("hot_ids", "ema")
+                    if f"tier/{k}" in flat}
+            if meta:
+                # the durable cold tier: the mirror, hot set and EMA adopt
+                # the checkpointed bytes; the full pools come back compact
+                params, opt_state = self.tier.on_restore(params, opt_state,
+                                                         meta)
+            else:
+                # a checkpoint of compact pools: drop the staged rows
+                self.tier.on_restore()
+        self.params = _load(self.params, params, "params")
+        self.opt_state = _load(self.opt_state, opt_state, "opt_state")
         self.step = int(flat["step"])
         self._resumed_step = self.step
         report = self.mgr.last_restore_report
@@ -295,6 +373,17 @@ class Trainer:
                 self.faults.pre_step(self, self.step)
                 if self._preempted:
                     continue
+            if self.tier is not None:
+                # write back the last stage, re-tier on cadence, stage and
+                # install this step's cold blocks -- before the batch, whose
+                # remap buffers must match the installed pool
+                t0 = time.perf_counter()
+                _, _, tinfo = self.tier.pre_step(self.step, self.params,
+                                                 self.opt_state)
+                self._tier_times.append(time.perf_counter() - t0)
+                if self.mgr is not None and self.mgr.delta:
+                    # the planned touches are what writeback will commit
+                    self.mgr.mark_dirty_slots(tinfo["touched_slots"])
             t0 = time.perf_counter()
             batch = self.batch_fn(self.step)
             t1 = time.perf_counter()
@@ -393,6 +482,9 @@ class Trainer:
         _, n_bad = integ_lib.sanitize_tree(self.params)
         _, n_bad_opt = integ_lib.sanitize_tree(self.opt_state)
         n_bad += n_bad_opt
+        if self.tier is not None:
+            # the host-cold tier never visits the device: its numpy twin
+            n_bad += self.tier.store.sanitize_cold()
         if n_bad:
             self.health.quarantined_chunks += n_bad
             log(f"[trainer] pool integrity: quarantined {n_bad} corrupt "
@@ -432,9 +524,17 @@ class Trainer:
             f"(backoff {delay * 1e3:.0f} ms)")
 
     def throughput(self) -> dict:
-        out = throughput_stats(self._step_times, self.cfg.lookups_per_step)
+        """steps/s and lookups/s (``throughput_stats``, with the tier's
+        stats when tiered), the median host batch time and, when tiered,
+        the median ``pre_step`` time (``tier_sec``)."""
+        out = throughput_stats(
+            self._step_times, self.cfg.lookups_per_step,
+            tier_stats=self.tier.stats() if self.tier is not None else None)
         out["batch_sec"] = (float(np.median(self._batch_times))
                             if self._batch_times else 0.0)
+        if self.tier is not None:
+            out["tier_sec"] = (float(np.median(self._tier_times))
+                               if self._tier_times else 0.0)
         return out
 
     def _track_straggler(self, dt: float):

@@ -55,6 +55,7 @@ def _entry_points():
     from repro_torch.models.recsys import Recsys
     from repro_torch.resilience.faults import FaultInjector
     from repro_torch.optim.optimizers import adagrad
+    from repro_torch.tier import TieredStore
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = get_config("dlrm-rm2").make_smoke()
@@ -97,6 +98,11 @@ def _entry_points():
         "EmbeddingTable.make_buffers csr": lambda: EmbeddingTable(
             cfg.embedding).make_buffers(synthetic_signature_store(
                 cfg.embedding.total_vocab, 3, 4)),
+        "TieredStore": lambda: TieredStore(np.zeros(1024, np.float32), 256,
+                                           block=128, stage_blocks=2),
+        "launcher tiered": lambda: launcher.main(
+            ["--arch", "din", "--smoke", "--steps", "1",
+             "--tier-budget-mb", "0.01"]),
     }
 
 
@@ -112,7 +118,8 @@ def _entry_points():
                                   "EmbeddingTable.make_buffers freq",
                                   "Trainer", "Trainer durable",
                                   "launcher durable",
-                                  "EmbeddingTable.make_buffers csr"])
+                                  "EmbeddingTable.make_buffers csr",
+                                  "TieredStore", "launcher tiered"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """With no device named, tensors go to the card; without one, raise."""
     import torch

@@ -884,3 +884,66 @@ def test_card_checksums_and_scan_equal_numpy(cuda, n):
     want, want_n = integ.np_sanitize(host)
     assert n_bad == want_n == 2
     np.testing.assert_array_equal(x.cpu().numpy(), want)
+
+
+# ------------------------------------------------------------------ tiering
+
+def _tier_pair(cuda, m=64 * 1024, block=512, hot=16 * 512, stage=40):
+    from repro_torch.tier import TieredStore
+
+    mem = np.random.default_rng(m).normal(size=m).astype(np.float32)
+    return mem, (TieredStore(mem, hot, block=block, stage_blocks=stage,
+                             device=cuda),
+                 TieredStore(mem, hot, block=block, stage_blocks=stage,
+                             device="cpu"))
+
+
+def test_tier_stage_round_trip_bit_exact_on_the_card(cuda):
+    """Stage (pinned buffers, side stream), install, an edit of every live
+    row, write-back and re-tier on the card hold the bits of the same
+    protocol run by a CPU store, over both host buffers, with an optimizer
+    moment leaf."""
+    mem, (card, host) = _tier_pair(cuda)
+    trees = {st: {"memory": st.initial_compact(),
+                  "opt:acc": torch.full((st.compact_slots,), 0.5,
+                                        device=st.device)}
+             for st in (card, host)}
+    rng = np.random.default_rng(1)
+    for rnd in range(5):
+        blocks = np.unique(rng.integers(0, card.n_blocks, 60))
+        blocks = blocks[:card.stage_blocks]
+        delta = rng.normal(size=card.compact_slots).astype(np.float32)
+        for st, tree in trees.items():
+            st.writeback(tree)
+            if rnd == 3:
+                st.observe(blocks, np.full(blocks.size, 100))
+                st.retier(tree)
+            st.stage(blocks)
+            st.install(tree)
+            with torch.no_grad():
+                for leaf in tree.values():
+                    leaf += torch.from_numpy(delta).to(leaf.device)
+        for name in ("memory", "opt:acc"):
+            a = card.full_pool(trees[card][name], name)
+            b = host.full_pool(trees[host][name], name)
+            np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    assert card.stats == host.stats and card.stats["promoted"] > 0
+
+
+def test_tier_install_waits_for_the_staging_copy(cuda):
+    """The staging copy runs on the store's side stream: with that stream
+    held up by a sleep, install (on the current stream) still reads the
+    staged rows, and three stages in a row (both pinned buffers refilled)
+    each install their own rows."""
+    mem, (card, _) = _tier_pair(cuda)
+    tree = {"memory": card.initial_compact()}
+    rows = mem.reshape(card.n_blocks, card.block)
+    for blocks in ([20, 21, 22], [40, 41], [60, 61, 62, 63]):
+        card.writeback(tree)
+        with torch.cuda.stream(card._stream):
+            torch.cuda._sleep(50_000_000)
+        card.stage(np.asarray(blocks))
+        card.install(tree)
+        got = tree["memory"][card.hot_slots:card.hot_slots
+                             + len(blocks) * card.block].cpu().numpy()
+        np.testing.assert_array_equal(got, rows[blocks].reshape(-1))
