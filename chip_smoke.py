@@ -5,7 +5,9 @@ its durability: the step guard, checkpoints, a chaos soak, the pool scan,
 the CSR store; hashed_row through the tiered store under a memory budget),
 full-width DCN-v2, dlrm-rm2 with the qr, md and freq
 embeddings, full-width DIN, then full-width xDeepFM, then dlrm-rm2 with
-its pool and D' store sharded over 4 ranks on the same card.
+its pool and D' store sharded over 4 ranks on the same card: a (1, 4) mesh,
+then a (data=2, model=2) mesh, freq and the CSR store under a mesh, the
+exchange guard and a checkpoint under a mesh.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 sm_90 card and ``nvcc``; it imports only torch, numpy and ``repro_torch``
@@ -219,9 +221,29 @@ Phases (any failure raises and ends the run with a non-zero code):
      parameters bit-equal across ranks; steps/s, the phase split, each
      rank's peak memory and its host-staged collective time;
  28. on rank 0, time rows 10-12 (CUDA-graph replay) at the B=65,536 chunk
-     shapes beside their bounds and plain versions; print one line per
-     kernel, the ``kernels`` JSON line, the card line, and last the result
-     line.
+     shapes beside their bounds and plain versions;
+ 34. (the rest of distribution, ``run_distribution``) spawn the 4 ranks
+     again as a (data=2, model=2) mesh (world rank d * 2 + m; gloo, one
+     card); on the (1, 4) mesh of the same ranks: (b) freq dlrm-rm2's
+     forward of the 512 batch under psum, ring and all_to_all bit-equal to
+     the one-card forward (the generic location lookup: row 11's gathers),
+     (c) the LMA model with its D' store as CSR sharded per rank
+     (``shard_csr_buffers``): the forward bit-equal to the dense store's
+     and the oracle's, (d) an injected drop_chunk: the ExchangeGuard
+     demotes all_to_all, then ring; 2 sparse steps after it bit-equal to
+     psum-pinned ones, psum's launches, (e) one sparse step, a save
+     gathered to rank 0 (1.09 GB), one more step, and on rank 0 the save
+     restored on one process on the card, every leaf bit-equal; then on
+     the (2, 2) mesh (a) the 512 batch's lookup share bit-equal to the
+     oracle's rows (phase 23's oracle, reused), its logits within 1e-5;
+     sparse and dense Adagrad at B=65,536 (32,768 a data index), 4 steps
+     each under psum and all_to_all: losses within 1e-5 of the oracle's,
+     exact launches, losses and dense parameters bit-equal on every rank,
+     slabs bit-equal between replicas; steps/s, each rank's peak, the
+     host-staged s and GiB a step by axis; and (e) the (1, 4) checkpoint
+     restored at (2, 2): one further step within 1e-5 of the uninterrupted
+     run's; print one line per kernel, the ``kernels`` JSON line, the card
+     line, and last the result line.
 """
 from __future__ import annotations
 
@@ -1293,15 +1315,18 @@ def raw_streams(torch, streams: dict):
         cols = torch.arange(r.row_width, device=r.loc.device)
         return (r.loc.long()[:, None] * r.row_width + cols).reshape(-1)
 
-    def tapped(cap, named_params):
+    def tapped(cap, named_params, gather=None):
         for name, p in named_params.items():
             recs = [r for r in cap.records
                     if r.memory is p and r.grad is not None]
             if recs and {r.n_buckets for r in recs} == {0}:
+                if gather is not None:
+                    raise AssertionError("raw_streams taps one-process or "
+                                         "(1, P) captures only")
                 streams[name] = (torch.cat([slots(r) for r in recs]),
                                  torch.cat([r.grad.reshape(-1)
                                             for r in recs]))
-        return grads(cap, named_params)
+        return grads(cap, named_params, gather)
 
     sp.SparseCapture.grads = tapped
     try:
@@ -2801,8 +2826,9 @@ class HostBatches:
 
 
 def sharded_oracle(torch, dev, kernels, check_batch, batches, path) -> dict:
-    """Phase 23: dlrm-rm2 rebuilt from the seed on one card: the logits of
-    the 512-request batch, hashed_row's lookup of it, and SHARD_STEPS steps
+    """Phase 23: dlrm-rm2 rebuilt from the seed on one card: the logits and
+    the LMA lookup of the 512-request batch, hashed_row's lookup of it, and
+    SHARD_STEPS steps
     at B=65,536 taken sparse and dense from one state (``train_full_width``:
     losses, then the final pool and dense parameters).  Saved to ``path``
     on the host; the card is freed."""
@@ -2811,6 +2837,9 @@ def sharded_oracle(torch, dev, kernels, check_batch, batches, path) -> dict:
     cfg, model, bufs = build_model(torch, dev)
     with torch.no_grad():
         logits = model(on_card(torch, check_batch, dev), bufs).cpu()
+        lookup = cfg.table.embed_fields(
+            dict(model.embedding), bufs,
+            torch.from_numpy(check_batch["sparse"]).to(dev)).cpu()
     hr_cfg, hr_model, _ = build_hashed_row(torch, dev)
     with torch.no_grad():
         hr = hr_cfg.table.embed_fields(
@@ -2821,7 +2850,7 @@ def sharded_oracle(torch, dev, kernels, check_batch, batches, path) -> dict:
     train = train_full_width(torch, "dlrm-rm2", cfg, model, bufs,
                              HostBatches(batches), B, dev, kernels,
                              steps=SHARD_STEPS, tag=" one-card oracle")
-    oracle = {"logits": logits, "hr": hr,
+    oracle = {"logits": logits, "hr": hr, "lookup": lookup,
               "losses": {k: train[k]["losses"] for k in ("sparse", "dense")},
               "params": {k: q.detach().cpu()
                          for k, q in model.named_parameters()},
@@ -3207,12 +3236,12 @@ def _shard_rank(torch, mesh, oracle_path, check_batch, batches) -> dict:
     return rec
 
 
-def run_sharded(torch, dev, kernels, card: str) -> dict:
-    """Phases 23-28: the one-card oracle, then SHARD_RANKS gloo ranks on
-    this card (``shard_rank``); the ranks' losses and dense parameters held
-    equal.  -> launch counts by path, errors and timings."""
-    import tempfile
-
+def run_sharded(torch, dev, kernels, card: str, tmp: str) -> dict:
+    """Phases 23-28: the one-card oracle (saved in ``tmp``, where phase 34
+    reads it too), then SHARD_RANKS gloo ranks on this card
+    (``shard_rank``); the ranks' losses and dense parameters held equal.
+    -> launch counts by path, errors and timings, and the oracle's path,
+    check batch and training batches."""
     from repro_torch.dist.collectives import run_ranks
 
     from repro_torch.configs import get_config
@@ -3226,18 +3255,17 @@ def run_sharded(torch, dev, kernels, card: str) -> dict:
     B = RECSYS_SHAPE_TABLE["train_batch"]["batch"]
     batches = [gen.batch(B, s) for s in range(SHARD_STEPS)]
     del gen
-    with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "oracle.pt")
-        sharded_oracle(torch, dev, kernels, check_batch, batches, path)
-        log(f"spawning {SHARD_RANKS} ranks (world size {SHARD_RANKS}, mesh "
-            f"data=1 x model={SHARD_RANKS}) on {torch.cuda.get_device_name(0)}"
-            " with the gloo backend: every collective is staged through host "
-            "memory (a gloo all-reduce over loopback), so the exchange times "
-            "below are host-staged, not NVLink's")
-        t0 = time.perf_counter()
-        ranks = run_ranks(shard_rank, SHARD_RANKS, path, check_batch,
-                          batches, backend="gloo", device="cuda:0")
-        wall = time.perf_counter() - t0
+    path = str(Path(tmp) / "oracle.pt")
+    sharded_oracle(torch, dev, kernels, check_batch, batches, path)
+    log(f"spawning {SHARD_RANKS} ranks (world size {SHARD_RANKS}, mesh "
+        f"data=1 x model={SHARD_RANKS}) on {torch.cuda.get_device_name(0)}"
+        " with the gloo backend: every collective is staged through host "
+        "memory (a gloo all-reduce over loopback), so the exchange times "
+        "below are host-staged, not NVLink's")
+    t0 = time.perf_counter()
+    ranks = run_ranks(shard_rank, SHARD_RANKS, path, check_batch,
+                      batches, backend="gloo", device="cuda:0")
+    wall = time.perf_counter() - t0
     for r in ranks:
         log(f"rank {r['rank']}: {r['backend']} on {r['device']} "
             f"({r['device_name']}); built in {r['build_s']:.1f} s; peak "
@@ -3297,7 +3325,722 @@ def run_sharded(torch, dev, kernels, card: str) -> dict:
             + "; dense " + ", ".join(f"{k} {v:.1f}" for k, v in
                                      t["dense"]["phase_ms"].items()))
     return {"paths": paths, "err": err, "res": ranks[0]["res"],
-            "summary": summary}
+            "summary": summary, "oracle": path, "check_batch": check_batch,
+            "batches": batches}
+
+
+# ------------------------------------- the rest of distribution (phase 34)
+
+DIST_DATA = 2                   # the (data, model) mesh of phase 34a: (2, 2)
+DIST_STRATEGIES = ("psum", "all_to_all")
+DIST_STEPS = 4                  # per strategy, sparse and dense, at (2, 2)
+GUARD_STEPS = 2                 # after the demotion: auto, then psum-pinned
+LOSS_RTOL = 1e-5                # losses against the one-card oracle's
+# a state at (2, 2) against the same state elsewhere, ||got - want|| /
+# ||want - start|| over each leaf (a wrong or missing update reads O(1)).
+# One step from a common state: the MLPs see half batches, so only the
+# rounding differs.  DIST_STEPS steps from the seed's state: Adagrad's
+# sign-like early steps carry that rounding on, and the trajectories part
+# (dlrm-rm2 on one H100: about 2e-2 after 4 steps, 2e-6 after one)
+STATE_RTOL = 1e-3
+TRAJ_RTOL = 5e-2
+# the launches of freq's forward at (1, 4): the generic location lookup's
+# slab-masked gathers (row 11; the ring gathers its own chunk and the three
+# visiting ones), then the dot
+FREQ_FORWARD = {
+    "psum": {"fused_chunk_gather": 1, "dot_interaction": 1},
+    "ring": {"fused_chunk_gather": SHARD_RANKS, "dot_interaction": 1},
+    "all_to_all": {"fused_chunk_gather": 1, "dot_interaction": 1},
+}
+
+
+def world_mesh(mesh):
+    """The (1, world) mesh over the same ranks: model rank = world rank."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.context import Mesh
+    return Mesh(model=mesh.world, rank=mesh.world_rank, device=mesh.device,
+                group=dist.group.WORLD)
+
+
+def planted_store(torch, e, dev):
+    """The whole D' store of ``e`` planted from the seed, very sparse as in
+    ``plant_store``, on the card."""
+    from repro_torch.core.signatures import planted_dense_store
+
+    store = planted_dense_store(e.total_vocab, N_CLUSTERS,
+                                max_set=e.lma.max_set, seed=SEED, device=dev)
+    v = torch.arange(store.n_values, device=dev)
+    zero, one = v % SPARSE_PERIOD == 0, v % SPARSE_PERIOD == 1
+    store.sets[zero] = -1
+    store.sets[one, 1:] = -1
+    store.lengths[zero] = 0
+    store.lengths[one] = 1
+    return store
+
+
+def csr_share(torch, store, mesh, dev) -> dict:
+    """The store as CSR (its rows padded to ``store_rows`` with empty sets),
+    this rank's re-based part of it through ``shard_csr_buffers``."""
+    from repro_torch.dist.sharded_memory import shard_csr_buffers
+    from repro_torch.dist.sharding import pad_rows, store_rows
+
+    sets, lengths = store.sets, store.lengths
+    n = store_rows(lengths.numel())
+    # flat filled a slice of rows at a time: a boolean index over the whole
+    # store would make 16 GB of int64 indices on every rank
+    flat = torch.empty(int(lengths.sum()), dtype=sets.dtype, device=dev)
+    cols = torch.arange(sets.shape[1], device=dev)[None, :]
+    at = 0
+    for a in range(0, sets.shape[0], 1 << 20):
+        part = sets[a:a + (1 << 20)][cols < lengths[a:a + (1 << 20), None]]
+        flat[at:at + part.numel()] = part
+        at += part.numel()
+    del part
+    lengths = pad_rows(lengths, n, 0)
+    offsets = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(lengths, 0)
+    part = shard_csr_buffers({"store_flat": flat, "store_offsets": offsets,
+                              "store_lengths": lengths}, mesh)
+    del flat, offsets, lengths
+    return part
+
+
+def state_digest(torch, params: dict, pools: bool) -> str:
+    """sha256 of the pool slabs (``pools``) or of every other parameter."""
+    return digest(torch, *[q for k, q in sorted(params.items())
+                           if k.endswith("memory") == pools])
+
+
+def host_state(torch, tr) -> dict:
+    """``tr``'s flat durable state (this rank's slabs of the pool leaves),
+    copied to the host."""
+    from repro_torch.checkpoint.manager import _flatten
+
+    return {k: v.detach().cpu().clone() if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.array(v))
+            for k, v in _flatten(tr._state()).items()}
+
+
+def joined_state(torch, files: list) -> dict:
+    """The ``host_state`` records in ``files`` (one a rank, in slab order)
+    joined without a collective: each pool leaf's slabs concatenated, every
+    other leaf the first record's."""
+    from repro_torch.dist.sharding import is_pool_path
+
+    parts = [torch.load(f, mmap=True) for f in files]
+    return {k: torch.cat([p[k] for p in parts])
+            if is_pool_path(k) and v.dim() >= 1 else v
+            for k, v in parts[0].items()}
+
+
+def same_state(torch, got: dict, want: dict, what: str):
+    """Every leaf of ``got`` bit-equal to ``want``'s."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: leaves {sorted(set(got) ^ set(want))} "
+                             "on one side only")
+    for k, v in got.items():
+        a, w = v.detach().cpu(), want[k]
+        if not (bits_equal(torch, a, w) if a.dtype == torch.float32
+                else torch.equal(a, w)):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def change_rel(torch, got, want, start) -> float:
+    """||got - want|| / ||want - start|| in float64: the distance from
+    ``want`` relative to the change ``want`` made from ``start``."""
+    num = float(torch.linalg.vector_norm(got - want, dtype=torch.float64))
+    den = float(torch.linalg.vector_norm(want - start, dtype=torch.float64))
+    return num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+
+
+def held_step(torch, got: dict, want: dict, start: dict, what: str,
+              tol: float = STATE_RTOL) -> tuple:
+    """Every float leaf of ``got`` within ``tol`` of ``want`` (relative to
+    the change from ``start``), every other leaf equal.  -> the largest
+    reading and its leaf, logged before any failure."""
+    rel = {k: change_rel(torch, v.to(want[k].device), want[k],
+                         start[k].to(want[k].device))
+           for k, v in got.items() if v.is_floating_point()}
+    leaf = max(rel, key=rel.get)
+    log(f"{what}: largest ||state - want|| / ||want - start|| {rel[leaf]:.3g}"
+        f" ({leaf})")
+    if rel[leaf] > tol:
+        raise AssertionError(f"{what}: {leaf} {rel[leaf]:.3g} from the "
+                             f"reference's state, over {tol}")
+    for k, v in got.items():
+        if not v.is_floating_point() and not torch.equal(v.cpu(),
+                                                         want[k].cpu()):
+            raise AssertionError(f"{what}: {k} differs")
+    return rel[leaf], leaf
+
+
+def axis_snapshot(mesh) -> tuple:
+    return dict(mesh.axis_bytes), dict(mesh.axis_s)
+
+
+def axis_per_step(mesh, before: tuple, steps: int) -> dict:
+    """Host-staged GiB and host-clock seconds a step on each axis since
+    ``before``."""
+    b0, s0 = before
+    return {a: {"gib": (mesh.axis_bytes[a] - b0.get(a, 0)) / steps / 2**30,
+                "s": (mesh.axis_s[a] - s0.get(a, 0.0)) / steps}
+            for a in set(mesh.axis_bytes) | set(b0)}
+
+
+def dist_freq(torch, wmesh, check_batch, batch0, kernels, dev) -> dict:
+    """34b: freq dlrm-rm2 at (1, 4): its forward of the 512 batch under
+    every strategy bit-equal to the one-card forward (hot ids from one
+    training batch's id counts, as phase 30), with exact launches."""
+    from repro_torch.dist import exchange as exl
+    from repro_torch.dist.context import use_mesh
+
+    cfg, one, _ = build_model(torch, dev, kind="freq")
+    ids = global_ids(torch, cfg, batch0, dev).long()
+    seen = torch.bincount(ids, minlength=cfg.embedding.total_vocab)
+    del ids
+    b = on_card(torch, check_batch, dev)
+    with torch.no_grad():
+        want = one(b, cfg.table.make_buffers(seen, device=dev)).cpu()
+    del one
+    free(torch)
+    _, model, _ = build_model(torch, dev, kind="freq", mesh=wmesh)
+    bufs = cfg.table.make_buffers(seen, mesh=wmesh, device=dev)
+    out = {}
+    for strategy in STRATEGIES:
+        zero(kernels)
+        exl.FORCED = strategy
+        with torch.no_grad(), use_mesh(wmesh):
+            logits = model(b, bufs).cpu()
+        exl.FORCED = None
+        got = counts(kernels)
+        if got != FREQ_FORWARD[strategy]:
+            raise AssertionError(f"freq {strategy} forward launched {got}")
+        if not bits_equal(torch, logits, want):
+            raise AssertionError(f"rank {wmesh.rank}: freq {strategy} logits "
+                                 "differ from one card's")
+        out[strategy] = got
+    log(f"34b freq dlrm-rm2 at (1, {wmesh.model}): the 512 forward bit-equal "
+        f"to one card's under {', '.join(STRATEGIES)}; launches {out}")
+    del model, bufs
+    free(torch)
+    return out
+
+
+def dist_csr(torch, wmesh, cfg, model, dbufs, cbufs, check_batch, oracle,
+             kernels, dev) -> dict:
+    """34c: LMA dlrm-rm2 at (1, 4) with the CSR store sharded: the 512
+    forward under every strategy bit-equal to the dense store's (and to the
+    one-card oracle's logits), exact launches for both."""
+    from repro_torch.dist import exchange as exl
+    from repro_torch.dist.context import use_mesh
+
+    b = on_card(torch, check_batch, dev)
+    out = {"ms": {}}
+    for strategy in STRATEGIES:
+        got = {}
+        for name, bufs in (("dense", dbufs), ("csr", cbufs)):
+            zero(kernels)
+            exl.FORCED = strategy
+            with torch.no_grad(), use_mesh(wmesh):
+                got[name], ms = events_ms(torch, lambda: model(b, bufs))
+            exl.FORCED = None
+            launched = counts(kernels)
+            if launched != SHARD_FORWARD[strategy]:
+                raise AssertionError(f"csr: the {name} store's {strategy} "
+                                     f"forward launched {launched}")
+            out["ms"][f"{strategy} {name}"] = ms
+        if not (bits_equal(torch, got["csr"], got["dense"])
+                and torch.equal(got["csr"].cpu(), oracle["logits"])):
+            raise AssertionError(f"rank {wmesh.rank}: the CSR store's "
+                                 f"{strategy} forward differs")
+        out[strategy] = launched
+    out["csr_bytes"] = int(sum(v.numel() * 4 for v in cbufs.values()))
+    out["dense_bytes"] = int(sum(v.numel() * 4 for v in dbufs.values()))
+    log(f"34c LMA dlrm-rm2 at (1, {wmesh.model}) with the CSR store sharded "
+        f"({out['csr_bytes'] / 2**30:.2f} GiB on this rank against "
+        f"{out['dense_bytes'] / 2**30:.2f} GiB dense): the 512 forward "
+        f"bit-equal to the dense store's and the oracle's under "
+        f"{', '.join(STRATEGIES)}; forward ms "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["ms"].items()))
+    return out
+
+
+def dist_trainer(torch, cfg, model, bufs, batches, dev, sparse: bool = True,
+                 ckpt_dir=None):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import lookups_per_step, make_optimizer
+    from repro_torch.models.recsys import loss_fn
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    B = batches[0]["label"].shape[0]
+    return Trainer(TrainerConfig(total_steps=0, log_every=0,
+                                 ckpt_dir=ckpt_dir, ckpt_every=10**6,
+                                 async_ckpt=False,
+                                 lookups_per_step=lookups_per_step(cfg, B)),
+                   lambda m, b: loss_fn(m, b, bufs), model,
+                   make_optimizer(get_config("dlrm-rm2")),
+                   lambda step: batches[step], sparse_grads=sparse,
+                   device=dev)
+
+
+def run_steps(torch, tr, mesh, first: int, steps: int) -> list:
+    """Steps ``first + 1 .. first + steps`` of ``tr`` under ``mesh``; the
+    losses."""
+    from repro_torch.dist.context import use_mesh
+
+    losses = []
+    with use_mesh(mesh):
+        for n in range(first + 1, first + steps + 1):
+            tr.step, tr.cfg.total_steps = n - 1, n
+            losses.append(tr.fit(log=lambda _: None)["loss"])
+    return losses
+
+
+def dist_guard(torch, wmesh, cfg, model, bufs, check_batch, batches,
+               kernels, dev) -> dict:
+    """34d: an injected drop_chunk: the ExchangeGuard, probing the 512
+    batch's lookup under each strategy, demotes all_to_all, then ring; the
+    cost model's training then takes psum (exact launches) and its
+    GUARD_STEPS steps are bit-equal to a psum-pinned run from the same
+    state."""
+    from repro_torch.dist import exchange as exl
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.resilience import faults as flt
+    from repro_torch.resilience.exchange_guard import ExchangeGuard
+    from repro_torch.resilience.health import Health
+
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        init = {k: q.detach().clone() for k, q in params.items()}
+    ids = torch.from_numpy(check_batch["sparse"]).to(dev)
+
+    def probe(name):
+        exl.FORCED = name
+        try:
+            with torch.no_grad():
+                return cfg.table.embed_fields(dict(model.embedding), bufs,
+                                              ids)
+        finally:
+            exl.FORCED = None
+
+    exl.reset_demotions()
+    flt.install(flt.FaultInjector("drop_chunk@0"))
+    try:
+        health = Health()
+        t0 = time.perf_counter()
+        with use_mesh(wmesh):
+            final = ExchangeGuard(probe, health=health, log=log).validate()
+        guard_s = time.perf_counter() - t0
+        if final != "psum" or set(exl.DEMOTED) != {"all_to_all", "ring"}:
+            raise AssertionError(f"guard: {final}, demoted {exl.DEMOTED}")
+        runs = {}
+        for name, forced in (("auto", None), ("psum", "psum")):
+            with torch.no_grad():
+                for k, q in params.items():
+                    q.copy_(init[k])
+            exl.FORCED = forced
+            zero(kernels)
+            tr = dist_trainer(torch, cfg, model, bufs, batches, dev)
+            losses = run_steps(torch, tr, wmesh, 0, GUARD_STEPS)
+            exl.FORCED = None
+            runs[name] = {"losses": losses, "launches": counts(kernels),
+                          "pools": state_digest(torch, params, True),
+                          "dense": state_digest(torch, params, False)}
+            del tr
+        want = {k: v * GUARD_STEPS
+                for k, v in SHARD_STEP["psum"]["sparse"].items()}
+        if runs["auto"]["launches"] != want:
+            raise AssertionError(f"guard: after the demotion the run launched "
+                                 f"{runs['auto']['launches']}, not psum's "
+                                 f"{want}")
+        if runs["auto"] != runs["psum"]:
+            raise AssertionError(f"guard: training after the demotion differs "
+                                 f"from the psum-pinned run: {runs}")
+    finally:
+        flt.install(None)
+        exl.reset_demotions()
+        exl.FORCED = None
+        with torch.no_grad():
+            for k, q in params.items():
+                q.copy_(init[k])
+    out = {"final": final, "health": health.as_dict(), "guard_s": guard_s,
+           "losses": runs["auto"]["losses"],
+           "launches": runs["auto"]["launches"]}
+    log(f"34d exchange guard at (1, {wmesh.model}) under drop_chunk@0: "
+        f"demoted all_to_all, then ring, to {final} "
+        f"({health.exchange_demotions} demotions, {health.retries} retries, "
+        f"{guard_s:.2f} s); {GUARD_STEPS} sparse steps after it bit-equal to "
+        f"psum-pinned ones (losses {runs['auto']['losses']}); launches "
+        f"{runs['auto']['launches']}")
+    return out
+
+
+def rank_files(root: str, step: int, ranks) -> list:
+    """Where the (1, 4) ranks ``ranks`` keep their host state after
+    ``step``."""
+    return [os.path.join(root + "-ranks", f"step{step}-{r}.pt")
+            for r in ranks]
+
+
+def dist_checkpoint(torch, wmesh, cfg, model, bufs, batches, root, dev
+                    ) -> dict:
+    """34e (at (1, 4)): one sparse step, a save gathered to rank 0 and
+    written there, one more step (the uninterrupted run's step 2), each
+    rank's own state after steps 1 and 2 kept on the host's disk
+    (``rank_files``); on rank 0, the save restored on one process on the
+    card, every leaf bit-equal to the ranks' step-1 slabs joined.  -> times,
+    the step-2 loss for 34a's resume at (2, 2)."""
+    from repro_torch.checkpoint.manager import CheckpointManager, _flatten
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.models.recsys import Recsys
+
+    os.makedirs(root + "-ranks", exist_ok=True)
+    tr = dist_trainer(torch, cfg, model, bufs, batches, dev)
+    run_steps(torch, tr, wmesh, 0, 1)
+    torch.save(host_state(torch, tr), rank_files(root, 1, [wmesh.rank])[0])
+    tr.mgr = CheckpointManager(root)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with use_mesh(wmesh):
+        tr.save(blocking=True)
+    save_s = time.perf_counter() - t0
+    out = {"save_s": save_s,
+           "save_split_s": dict(tr.mgr.last_save_seconds),
+           "save_gib": tr.mgr.bytes_written / 2**30}
+    tr.mgr = None
+    out["loss2"] = run_steps(torch, tr, wmesh, 1, 1)[0]
+    torch.save(host_state(torch, tr), rank_files(root, 2, [wmesh.rank])[0])
+    del tr
+    free(torch)
+    col.barrier(wmesh)
+    if wmesh.rank == 0:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        whole = Recsys(cfg, gen, device=dev)
+        one = dist_trainer(torch, cfg, whole, {}, batches, dev, ckpt_dir=root)
+        t0 = time.perf_counter()
+        if not one.try_resume() or one.step != 1:
+            raise AssertionError("one process did not resume step 1")
+        out["restore_one_s"] = time.perf_counter() - t0
+        got = {k: v if isinstance(v, torch.Tensor)
+               else torch.from_numpy(np.asarray(v))
+               for k, v in _flatten(one._state()).items()}
+        same_state(torch, got, joined_state(
+            torch, rank_files(root, 1, range(wmesh.model))),
+            "one-process restore against the ranks' step-1 slabs")
+        out["leaves"] = len(got)
+        out["ckpt_gib"] = dir_bytes(root) / 2**30
+        del one, whole, got
+        free(torch)
+        log(f"34e checkpoint at (1, {wmesh.model}): save (gathered to rank 0, "
+            f"{out['save_gib']:.2f} GiB written) {save_s:.2f} s (rank 0's "
+            f"snapshot {out['save_split_s'].get('snapshot', 0):.2f} s, write "
+            f"{out['save_split_s'].get('write', 0):.2f} s); restored on "
+            f"one process on the card in {out['restore_one_s']:.2f} s, "
+            f"{out['leaves']} leaves bit-equal to the {wmesh.model} ranks' "
+            "own step-1 slabs, joined")
+    col.barrier(wmesh)
+    return out
+
+
+def dist_data(torch, mesh, check_batch, batches, oracle, kernels, dev,
+              root: str, loss2: float) -> dict:
+    """34a at (data=2, model=2): dlrm-rm2's pool and D' store sharded over
+    'model', each batch split over 'data'.  The 512 batch's lookup share
+    bit-equal to the oracle's rows, its logits within LOSS_RTOL of the
+    oracle's largest; sparse and dense Adagrad, DIST_STEPS steps each from
+    the seed's state under psum and all_to_all with exact launches, losses
+    within LOSS_RTOL of the one-card oracle's, the final slab and dense
+    parameters within TRAJ_RTOL of the oracle's (its sparse run); then the
+    (1, 4) checkpoint resumed here, bit-equal to the (1, 4) ranks' step-1
+    state, and one step within LOSS_RTOL (loss) and STATE_RTOL (state) of
+    the uninterrupted run's."""
+    from repro_torch.dist import exchange as exl
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.dist.sharded_memory import local_batch
+
+    t0 = time.perf_counter()
+    cfg, model, bufs = build_model(torch, dev, mesh=mesh)
+    rec = {"build_s": time.perf_counter() - t0, "forward": {}, "train": {}}
+    share = {k: local_batch(v, mesh) for k, v in check_batch.items()}
+    c = share["sparse"].shape[0]
+    lo = mesh.data_rank * c
+    b = on_card(torch, share, dev)
+    for strategy in DIST_STRATEGIES:
+        exl.FORCED = strategy
+        with torch.no_grad(), use_mesh(mesh):
+            lookup = cfg.table.embed_fields(dict(model.embedding), bufs,
+                                            b["sparse"]).cpu()
+            zero(kernels)
+            logits = model(b, bufs).cpu()
+            launched = counts(kernels)
+        exl.FORCED = None
+        if launched != SHARD_FORWARD[strategy]:
+            raise AssertionError(f"(2, 2) {strategy} forward launched "
+                                 f"{launched}")
+        if not bits_equal(torch, lookup, oracle["lookup"][lo:lo + c]):
+            raise AssertionError(f"rank {mesh.world_rank}: the (2, 2) lookup "
+                                 f"under {strategy} differs from the oracle's")
+        # the MLPs see 256 rows here and 512 there, so their sums may round
+        # differently: held normwise (max |diff| / max |logit|)
+        want = oracle["logits"][lo:lo + c]
+        rel = float((logits - want).abs().max() / want.abs().max())
+        if rel > LOSS_RTOL:
+            raise AssertionError(f"(2, 2) {strategy} logits {rel:.3g} from "
+                                 "the oracle's")
+        rec["forward"][strategy] = {"launches": launched, "logit_rel": rel,
+                                    "bit_equal": torch.equal(logits, want)}
+    log(f"34a (2, 2) forward of the 512 batch (256 rows a data index): the "
+        f"lookup bit-equal to the one-card oracle's rows under "
+        f"{', '.join(DIST_STRATEGIES)}; logits within "
+        + ", ".join(f"{s} {r['logit_rel']:.3g}"
+                    for s, r in rec["forward"].items())
+        + f" of the oracle's largest; launches per rank "
+        f"{ {s: r['launches'] for s, r in rec['forward'].items()} }")
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        init = {k: q.detach().clone() for k, q in params.items()}
+    base, m_local = slab_of(mesh, cfg.embedding.lma.m)
+    torch.cuda.reset_peak_memory_stats()
+    for strategy in DIST_STRATEGIES:
+        for name in ("sparse", "dense"):
+            with torch.no_grad():
+                for k, q in params.items():
+                    q.copy_(init[k])
+            exl.FORCED = strategy
+            tr = dist_trainer(torch, cfg, model, bufs, batches, dev,
+                              sparse=name == "sparse")
+            zero(kernels)
+            before = axis_snapshot(mesh)
+            t0 = time.perf_counter()
+            losses = run_steps(torch, tr, mesh, 0, DIST_STEPS)
+            wall = time.perf_counter() - t0
+            exl.FORCED = None
+            launched = counts(kernels)
+            want = {k: v * DIST_STEPS
+                    for k, v in SHARD_STEP[strategy][name].items()}
+            if launched != want:
+                raise AssertionError(f"(2, 2) {strategy} {name} launched "
+                                     f"{launched}, expected {want}")
+            ref = oracle["losses"][name]
+            rel = max(abs(a - w) / abs(w) for a, w in zip(losses, ref))
+            if not np.isfinite(losses).all() or rel > LOSS_RTOL:
+                raise AssertionError(f"(2, 2) {strategy} {name} losses "
+                                     f"{losses} against one card's {ref}")
+            # the last step's update, which no loss sees: the final slab
+            # and dense parameters against the oracle's (its sparse run)
+            with torch.no_grad():
+                state_rel = held_step(
+                    torch, {k: q.detach() for k, q in params.items()},
+                    {k: (w[base:base + m_local] if k.endswith("memory")
+                         else w).to(dev)
+                     for k, w in oracle["params"].items()}, init,
+                    f"34a (2, 2) {strategy} {name}, rank {mesh.world_rank}: "
+                    f"after {DIST_STEPS} steps against the oracle's",
+                    TRAJ_RTOL)
+            r = rec["train"][f"{strategy} {name}"] = {
+                "losses": losses, "loss_rel": rel, "launches": launched,
+                "state_rel": state_rel, "wall_s": wall, **tr.throughput(),
+                "axes": axis_per_step(mesh, before, DIST_STEPS),
+                "pools": state_digest(torch, params, True),
+                "dense": state_digest(torch, params, False)}
+            B = batches[0]["label"].shape[0]
+            log(f"34a (2, 2) {strategy} {name}: {DIST_STEPS} steps at "
+                f"B={B} ({B // mesh.data} a data index), "
+                f"losses within {rel:.3g} of one card's, the final state "
+                f"within {state_rel[0]:.3g} ({state_rel[1]}) of its; "
+                f"{r['steps_per_sec']:.2f} steps/s; host-staged a step "
+                + ", ".join(f"{a} {v['s']:.3f} s / {v['gib']:.3f} GiB"
+                            for a, v in sorted(r["axes"].items()))
+                + f"; launches {launched}")
+            del tr
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # the (1, 4) checkpoint resumed here: one further step
+    with torch.no_grad():
+        for k, q in params.items():
+            q.copy_(init[k])
+    tr = dist_trainer(torch, cfg, model, bufs, batches, dev, ckpt_dir=root)
+    t0 = time.perf_counter()
+    with use_mesh(mesh):
+        if not tr.try_resume() or tr.step != 1:
+            raise AssertionError("(2, 2) did not resume step 1")
+    rec["restore_s"] = time.perf_counter() - t0
+    tr.mgr = None
+    # the (1, 4) ranks whose slabs make up this rank's
+    mine = range(mesh.rank * mesh.data, (mesh.rank + 1) * mesh.data)
+    want1 = joined_state(torch, rank_files(root, 1, mine))
+    same_state(torch, host_state(torch, tr), want1,
+               f"(2, 2) restore, rank {mesh.world_rank}, against the (1, 4) "
+               "ranks' step-1 state")
+    rec["resumed_loss2"] = run_steps(torch, tr, mesh, 1, 1)[0]
+    rel = abs(rec["resumed_loss2"] - loss2) / abs(loss2)
+    if rel > LOSS_RTOL:
+        raise AssertionError(f"(2, 2) resumed step 2 loss "
+                             f"{rec['resumed_loss2']} against the "
+                             f"uninterrupted {loss2}")
+    rec["resumed_rel"] = held_step(
+        torch, host_state(torch, tr),
+        joined_state(torch, rank_files(root, 2, mine)), want1,
+        f"34e (2, 2) resumed step 2, rank {mesh.world_rank}, against the "
+        "uninterrupted (1, 4) run's")
+    log(f"34e the (1, 4) checkpoint restored at (2, 2) in "
+        f"{rec['restore_s']:.2f} s, every leaf (pool slabs, Adagrad "
+        f"accumulators, dense parameters, step) bit-equal to the (1, 4) "
+        f"ranks' step-1 state; its step 2 loss {rec['resumed_loss2']:.6f} "
+        f"within {rel:.3g} of the uninterrupted (1, 4) run's {loss2:.6f}, "
+        f"its state within {rec['resumed_rel'][0]:.3g} "
+        f"({rec['resumed_rel'][1]}) of that run's step-2 state")
+    rec["axis_totals"] = {"bytes": dict(mesh.axis_bytes),
+                          "s": dict(mesh.axis_s)}
+    del tr, model, bufs, init, params
+    free(torch)
+    return rec
+
+
+def dist_rank(mesh, oracle_path: str, check_batch: dict, batches: list,
+              root: str) -> dict:
+    """One rank of phase 34 (``run_ranks`` with data=2): the (1, 4) parts
+    on the world mesh (freq, the CSR store, the exchange guard, the sharded
+    checkpoint), then the (2, 2) part.  Only world rank 0 prints."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(
+            sink if mesh.world_rank else sys.stdout):
+        return _dist_rank(torch, mesh, oracle_path, check_batch, batches,
+                          root)
+
+
+def _dist_rank(torch, mesh, oracle_path, check_batch, batches, root) -> dict:
+    from repro_torch.dist import collectives as col
+
+    dev = mesh.device
+    oracle = torch.load(oracle_path, mmap=True, weights_only=False)
+    kernels = shard_kernels()
+    wmesh = world_mesh(mesh)
+    rec = {"rank": mesh.world_rank, "mesh": (mesh.data, mesh.model,
+                                            mesh.data_rank, mesh.rank)}
+    rec["freq"] = dist_freq(torch, wmesh, check_batch, batches[0], kernels,
+                            dev)
+    # LMA at (1, 4): the dense store's rows and the CSR store's part, both
+    # cut from one planted store
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import pad_rows, store_rows
+    from repro_torch.models.recsys import Recsys
+
+    t0 = time.perf_counter()
+    cfg = get_config("dlrm-rm2").make_model()
+    model = Recsys(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev, mesh=wmesh).eval()
+    store = planted_store(torch, cfg.embedding, dev)
+    c = store_rows(store.n_values) // wmesh.model
+    lo, hi = wmesh.rank * c, min((wmesh.rank + 1) * c, store.n_values)
+    dbufs = {"store_sets": pad_rows(store.sets[lo:hi], c, -1),
+             "store_lengths": pad_rows(store.lengths[lo:hi], c, 0)}
+    cbufs = csr_share(torch, store, wmesh, dev)
+    del store
+    free(torch)
+    rec["build_14_s"] = time.perf_counter() - t0
+    rec["csr"] = dist_csr(torch, wmesh, cfg, model, dbufs, cbufs,
+                          check_batch, oracle, kernels, dev)
+    del cbufs
+    free(torch)
+    rec["guard"] = dist_guard(torch, wmesh, cfg, model, dbufs, check_batch,
+                              batches, kernels, dev)
+    rec["ckpt"] = dist_checkpoint(torch, wmesh, cfg, model, dbufs, batches,
+                                  root, dev)
+    rec["staged_14"] = {"bytes": dict(wmesh.axis_bytes),
+                        "s": dict(wmesh.axis_s)}
+    del cfg, model, dbufs
+    free(torch)
+    rec["data"] = dist_data(torch, mesh, check_batch, batches, oracle,
+                            kernels, dev, root, rec["ckpt"]["loss2"])
+    col.barrier(mesh)
+    return rec
+
+
+def run_distribution(torch, card: str, shard: dict, tmp: str) -> dict:
+    """Phase 34: SHARD_RANKS gloo ranks on this card as a (data=DIST_DATA,
+    model=SHARD_RANKS / DIST_DATA) mesh (``dist_rank``); replicas held
+    bit-equal.  -> launches by path and a summary."""
+    from repro_torch.dist.collectives import run_ranks
+
+    root = str(Path(tmp) / "dist-ckpt")
+    log(f"34: spawning {SHARD_RANKS} ranks as a (data={DIST_DATA}, model="
+        f"{SHARD_RANKS // DIST_DATA}) mesh on {torch.cuda.get_device_name(0)}"
+        " (gloo, every collective staged through host memory, not NVLink)")
+    t0 = time.perf_counter()
+    ranks = run_ranks(dist_rank, SHARD_RANKS, shard["oracle"],
+                      shard["check_batch"], shard["batches"], root,
+                      data=DIST_DATA, backend="gloo", device="cuda:0")
+    wall = time.perf_counter() - t0
+    P = SHARD_RANKS // DIST_DATA
+    r0 = ranks[0]
+    for run, t in r0["data"]["train"].items():
+        for r in ranks:
+            o = r["data"]["train"][run]
+            if o["losses"] != t["losses"] or o["dense"] != t["dense"]:
+                raise AssertionError(f"34a {run}: rank {r['rank']}'s losses "
+                                     "or dense parameters differ from rank "
+                                     "0's")
+            twin = ranks[r["mesh"][3]]["data"]["train"][run]
+            if o["pools"] != twin["pools"]:
+                raise AssertionError(f"34a {run}: rank {r['rank']}'s slab "
+                                     "differs from its replica's")
+    for r in ranks:
+        log(f"34 rank {r['rank']} (data {r['mesh'][2]}, model {r['mesh'][3]})"
+            f": peak {r['data']['peak_gib']:.2f} GiB in the (2, 2) training; "
+            f"(2, 2) host-staged totals "
+            + ", ".join(f"{a} {b / 2**30:.2f} GiB / "
+                        f"{r['data']['axis_totals']['s'][a]:.2f} s"
+                        for a, b in sorted(
+                            r["data"]["axis_totals"]["bytes"].items())))
+    log(f"34: {SHARD_RANKS} ranks in {wall:.1f} s: losses and dense "
+        "parameters bit-equal on every rank, each slab bit-equal to its "
+        "replica's; card " + card)
+    paths = {}
+    for s, f in r0["data"]["forward"].items():
+        paths[f"dlrm-rm2 (2, 2) {s} forward (rank 0)"] = f["launches"]
+    for run, t in r0["data"]["train"].items():
+        paths[f"dlrm-rm2 (2, 2) {run} (rank 0)"] = t["launches"]
+    for s, c in r0["freq"].items():
+        paths[f"dlrm-rm2 freq (1, 4) {s} forward (rank 0)"] = c
+    for s in STRATEGIES:
+        paths[f"dlrm-rm2 csr (1, 4) {s} forward (rank 0)"] = r0["csr"][s]
+    paths["dlrm-rm2 (1, 4) after demotion train (rank 0)"] = \
+        r0["guard"]["launches"]
+    summary = {
+        "mesh": f"data={DIST_DATA} x model={P} (and (1, {SHARD_RANKS}))",
+        "ranks": SHARD_RANKS, "backend": "gloo",
+        "collectives": "host-staged (not NVLink)", "wall_s": wall,
+        "peak_gib": [r["data"]["peak_gib"] for r in ranks],
+        "train": {run: {k: t[k] for k in ("losses", "loss_rel", "state_rel",
+                                          "steps_per_sec", "batch_sec",
+                                          "wall_s", "axes")}
+                  for run, t in r0["data"]["train"].items()},
+        "forward": r0["data"]["forward"],
+        "build_s": {"(2, 2)": r0["data"]["build_s"],
+                    "(1, 4)": r0["build_14_s"]},
+        "csr": {k: r0["csr"][k] for k in ("ms", "csr_bytes", "dense_bytes")},
+        "guard": {k: r0["guard"][k] for k in ("final", "health", "guard_s",
+                                              "losses")},
+        "checkpoint": {**{k: v for k, v in r0["ckpt"].items()
+                          if k != "bytes"},
+                       "restore_22_s": r0["data"]["restore_s"],
+                       "resumed_loss2": r0["data"]["resumed_loss2"],
+                       "resumed_rel": max(r["data"]["resumed_rel"]
+                                          for r in ranks)},
+    }
+    for run, t in summary["train"].items():
+        worst = max(r["data"]["train"][run]["state_rel"] for r in ranks)
+        log(f"34a (2, 2) {run}: {t['steps_per_sec']:.2f} steps/s; final "
+            f"state within {worst[0]:.3g} ({worst[1]}) of the oracle's on "
+            "every rank; host-staged a step (rank 0) "
+            + ", ".join(f"{a} {v['s']:.3f} s / {v['gib']:.3f} GiB"
+                        for a, v in sorted(t["axes"].items())))
+    return {"paths": paths, "summary": summary}
 
 
 # ------------------------------------- durability on full-width dlrm-rm2
@@ -4529,15 +5272,23 @@ def main() -> int:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB (xdeepfm phases)")
 
-    # free xDeepFM, then dlrm-rm2 sharded over 4 ranks on this card
+    # free xDeepFM, then dlrm-rm2 sharded over 4 ranks on this card: at
+    # (1, 4) (phases 23-28), then the rest of distribution (phase 34)
+    import tempfile
     free(torch)
-    shard = run_sharded(torch, dev, kernels, card)
+    with tempfile.TemporaryDirectory(prefix="sharded-",
+                                     dir=ROOT / "build") as tmp:
+        shard = run_sharded(torch, dev, kernels, card, tmp)
+        distribution = run_distribution(torch, card, shard, tmp)
     paths.update(shard["paths"])
+    paths.update(distribution["paths"])
     for name, e in shard["err"].items():
         err[name] = max(err.get(name, 0.0), e)
     res.update(shard["res"])
     for name in CHUNK_KERNELS:
-        counts[name] = sum(c.get(name, 0) for c in shard["paths"].values())
+        counts[name] = sum(c.get(name, 0) for c in
+                           (*shard["paths"].values(),
+                            *distribution["paths"].values()))
 
     rows = []
     for name, (source, replaces) in SOURCES.items():
@@ -4594,6 +5345,7 @@ def main() -> int:
     log(json.dumps({"xdeepfm": {"serving": xserving, "training": xtrain},
                     "card": card}))
     log(json.dumps({"sharded": shard["summary"], "card": card}))
+    log(json.dumps({"distribution": distribution["summary"], "card": card}))
     log(json.dumps({"durability": durable["summary"], "card": card}))
     log(json.dumps({"tiering": tiering["summary"], "card": card}))
     log(json.dumps({"kernels": rows}))

@@ -470,11 +470,15 @@ class CheckpointManager:
                 out.append(int(d.split("_")[1]))
         return out
 
-    def restore(self, step: int | None = None, verify: bool = True,
-                fallback: bool = True):
-        """-> (step, tree of host arrays).  (The reference's ``shardings``,
-        its elastic re-shard onto a mesh, comes with the rest of
-        distribution; the caller copies the arrays where they belong.)
+    def restore(self, step: int | None = None, shardings=None,
+                verify: bool = True, fallback: bool = True):
+        """-> (step, tree of host arrays).  ``shardings``: ``(path, array)
+        -> array``, applied to every leaf after verification: the elastic
+        re-shard onto the current mesh (the reference's ``shardings``
+        places each leaf with a ``device_put``; a rank here keeps its part,
+        ``repro_torch.dist.sharding.slab_shardings``, and the caller copies
+        it where it belongs).  The checkpoint itself holds whole arrays, so
+        it restores onto any mesh.
 
         With ``step=None`` (the resume path) a latest checkpoint that fails
         to read or verify is not fatal: after attempting chunk-level repair
@@ -504,7 +508,8 @@ class CheckpointManager:
         errors = []
         for i, s in enumerate(candidates):
             try:
-                got, tree, report, manifest = self._read_step(s, verify)
+                got, tree, report, manifest = self._read_step(
+                    s, shardings, verify)
             except Exception as e:  # noqa: BLE001 -- any unreadable candidate
                 if explicit or not fallback:
                     raise
@@ -522,7 +527,7 @@ class CheckpointManager:
         raise IOError("no restorable checkpoint in "
                       f"{self.dir}:\n  " + "\n  ".join(errors))
 
-    def _read_step(self, step: int, verify: bool):
+    def _read_step(self, step: int, shardings, verify: bool):
         path = os.path.join(self.dir, f"step_{step:010d}")
         if faults_lib.io_fault():
             raise IOError(f"injected host read failure for {path}")
@@ -543,6 +548,8 @@ class CheckpointManager:
                 host = {k: z[k] for k in z.files}
             if verify and _tree_digest(host) != manifest["checksum"]:
                 self._chunk_repair(host, manifest, report, path)
+        if shardings is not None:
+            host = {k: shardings(k, v) for k, v in host.items()}
         return manifest["step"], _unflatten(host), report, manifest
 
     def _read_delta(self, step: int, manifest: dict, report: dict) -> dict:

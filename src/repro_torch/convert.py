@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.checkpoint.manager import _flatten, _host, _unflatten
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import row_slab
+from repro_torch.dist.sharding import row_slab, shard_buffers
 from repro_torch.models.recsys import RecsysConfig
 
 
@@ -71,20 +71,17 @@ def buffers_from_numpy(np_buffers: dict, device=None, mesh=None) -> dict:
     ``device`` says otherwise: ``store_sets`` and a CSR store's
     ``store_flat`` (uint32) become int32 bit patterns (PAD = -1);
     ``store_offsets``, ``store_lengths`` and freq's ``freq_hot_ids`` stay
-    int32.  With a mesh, this rank's rows of each (P must divide them; a
-    CSR store does not shard yet)."""
+    int32.  With a mesh, this rank's share (``sharding.shard_buffers``):
+    the dense store's rows (P must divide them), the CSR store's re-based
+    part, the other buffers whole."""
     dev = resolve_device(device)
-    if mesh is not None and mesh.model > 1 and "store_flat" in np_buffers:
-        raise NotImplementedError(
-            "a CSR D' store under a mesh is not ported (ROADMAP Queue 1 item "
-            "6: shard_csr_buffers)")
     out = {}
     for k, v in np_buffers.items():
         a = np.asarray(v)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
-        out[k] = row_slab(_tensor(a, dev), mesh)
-    return out
+        out[k] = _tensor(a, dev)
+    return shard_buffers(out, mesh)
 
 
 # --------------------------------------------------------- trainer states

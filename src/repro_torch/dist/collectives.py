@@ -1,28 +1,35 @@
-"""Collectives over the 'model' axis, and the launcher of rank processes.
+"""Collectives over a mesh axis, and the launcher of rank processes.
 
 The reference's sharded paths call ``jax.lax`` collectives inside a
 ``shard_map``; here each rank is a process and these call
-``torch.distributed`` on the mesh's 'model' group:
+``torch.distributed`` on the group of the axis named (``axis``: 'model',
+the default, 'data' or 'world'):
 
-``psum(x, mesh)``        sum over the ranks (all-reduce)
-``all_gather(x, mesh)``  ``[P, *x.shape]``, rank j's ``x`` at index j
-``all_to_all(x, mesh)``  ``x [P, ...]``: index j goes to rank j; the result
-                         holds at index j what rank j sent here
-``ppermute(x, mesh)``    the ring shift: send to rank+1, receive from rank-1
+``psum(x, mesh)``        sum over the axis's ranks (all-reduce)
+``fold_sum(x, mesh)``    the same sum taken in rank order on every rank
+                         (an all-gather, then a left fold): every replica
+                         gets the same bits
+``all_gather(x, mesh)``  ``[n, *x.shape]``, the axis's rank j's ``x`` at j
+``all_to_all(x, mesh)``  ``x [P, ...]``: index j goes to 'model' rank j; the
+                         result holds at index j what rank j sent here
+``ppermute(x, mesh)``    the 'model' ring shift: send to rank+1, receive
+                         from rank-1
+``world_max(x, mesh)``   the elementwise max over every rank of the mesh
+``gather_rows(x, mesh)`` the 'model' slabs concatenated on world rank 0
 
 Gloo runs on host memory.  When the group's backend is gloo and a tensor
 lies on the card, the tensor is copied to the host, the collective runs
 there and the result is copied back.  That staging is explicit and counted
-on the mesh (``Mesh.staged``, ``Mesh.staged_bytes``, ``Mesh.staged_s``):
-its times are not NVLink's.  The data movement is exact, so results are bit-identical to an
-unstaged run.
+on the mesh by collective and by axis (``Mesh.staged``, ``staged_bytes``,
+``staged_s``, ``axis_bytes``, ``axis_s``): its times are not NVLink's.  The
+data movement is exact, so results are bit-identical to an unstaged run.
 
-``run_ranks(fn, world, *args)`` starts ``world`` rank processes with the
-``spawn`` start method (a parent that has initialised CUDA cannot fork),
-joins them through a ``FileStore`` in a temporary directory (no network
-discovery), calls ``fn(mesh, *args)`` in each and returns the ranks'
-results.  Gloo can put several ranks on one device; NCCL cannot, and asking
-for it raises.
+``run_ranks(fn, world, *args, data=D)`` starts ``world`` rank processes
+with the ``spawn`` start method (a parent that has initialised CUDA cannot
+fork), joins them through a ``FileStore`` in a temporary directory (no
+network discovery), builds the ``(data=D, model=world/D)`` mesh's groups,
+calls ``fn(mesh, *args)`` in each and returns the ranks' results.  Gloo can
+put several ranks on one device; NCCL cannot, and asking for it raises.
 """
 from __future__ import annotations
 
@@ -37,56 +44,130 @@ import torch.distributed as dist
 from repro_torch.dist.context import Mesh
 
 
-def _backend(mesh: Mesh) -> str:
-    return dist.get_backend(mesh.group)
+def _axis(mesh: Mesh, axis: str) -> tuple[int, int, object]:
+    """(size, this rank's index, process group) of a mesh axis."""
+    if axis == "model":
+        return mesh.model, mesh.rank, mesh.group
+    if axis == "data":
+        return mesh.data, mesh.data_rank, mesh.data_group
+    if axis == "world":
+        return mesh.world, mesh.world_rank, None
+    raise ValueError(f"unknown mesh axis {axis!r}")
 
 
-def _to_host(x: torch.Tensor, mesh: Mesh) -> tuple[torch.Tensor, bool]:
+def _backend(group) -> str:
+    return dist.get_backend(group)
+
+
+def _to_host(x: torch.Tensor, group) -> tuple[torch.Tensor, bool]:
     """(``x`` as the collective takes it: contiguous, and copied to the
     host when gloo must carry a CUDA tensor; whether it was)."""
     x = x.contiguous()
-    if x.is_cuda and _backend(mesh) == "gloo":
+    if x.is_cuda and _backend(group) == "gloo":
         return x.cpu(), True
     return x, False
 
 
 def _back(out: torch.Tensor, x: torch.Tensor, mesh: Mesh, name: str,
-          staged: bool, t0: float) -> torch.Tensor:
+          staged: bool, t0: float, axis: str = "model") -> torch.Tensor:
     """``out`` on ``x``'s device; a staged call is counted on the mesh
     (calls, payload bytes, host-clock seconds from ``t0``, the copies
-    included)."""
+    included), under its axis."""
     if not staged:
         return out
     out = out.to(x.device)
-    mesh.staged[name] += 1
-    mesh.staged_bytes += x.numel() * x.element_size()
-    mesh.staged_s[name] += time.perf_counter() - t0
+    _count(mesh, name, axis, x.numel() * x.element_size(), t0)
     return out
 
 
-def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum of ``x`` over the 'model' ranks (a new tensor)."""
-    if mesh.model == 1:
+def _count(mesh: Mesh, name: str, axis: str, nbytes: int, t0: float):
+    key = name if axis == "model" else f"{name}/{axis}"
+    dt = time.perf_counter() - t0
+    mesh.staged[key] += 1
+    mesh.staged_bytes += nbytes
+    mesh.staged_s[key] += dt
+    mesh.axis_bytes[axis] += nbytes
+    mesh.axis_s[axis] += dt
+
+
+def psum(x: torch.Tensor, mesh: Mesh, axis: str = "model") -> torch.Tensor:
+    """Sum of ``x`` over the axis's ranks (a new tensor)."""
+    n, _, group = _axis(mesh, axis)
+    if n == 1:
         return x.clone()
     t0 = time.perf_counter()
-    buf, staged = _to_host(x, mesh)
+    buf, staged = _to_host(x, group)
     if not staged:
         buf = buf.clone()               # all_reduce works in place
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
-    return _back(buf, x, mesh, "psum", staged, t0)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return _back(buf, x, mesh, "psum", staged, t0, axis)
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """-> ``[P, *x.shape]``, rank j's ``x`` at index j."""
-    if mesh.model == 1:
+def all_gather(x: torch.Tensor, mesh: Mesh,
+               axis: str = "model") -> torch.Tensor:
+    """-> ``[n, *x.shape]``, the axis's rank j's ``x`` at index j."""
+    n, _, group = _axis(mesh, axis)
+    if n == 1:
         return x[None].clone()
     t0 = time.perf_counter()
-    buf, staged = _to_host(x, mesh)
-    out = torch.empty(mesh.model * buf.numel(), dtype=x.dtype,
-                      device=buf.device)
-    dist.all_gather_into_tensor(out, buf.reshape(-1), group=mesh.group)
-    out = out.reshape((mesh.model,) + tuple(x.shape))
-    return _back(out, x, mesh, "all_gather", staged, t0)
+    buf, staged = _to_host(x, group)
+    out = torch.empty(n * buf.numel(), dtype=x.dtype, device=buf.device)
+    dist.all_gather_into_tensor(out, buf.reshape(-1), group=group)
+    out = out.reshape((n,) + tuple(x.shape))
+    return _back(out, x, mesh, "all_gather", staged, t0, axis)
+
+
+def fold_sum(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
+    """The sum of ``x`` over the axis's ranks, added in rank order
+    (``((x_0 + x_1) + x_2) + ...``) on every rank from one all-gather, so
+    that every rank holds the same bits whatever the backend's reduction
+    order."""
+    parts = all_gather(x, mesh, axis)
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out += p
+    return out
+
+
+def world_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Elementwise max of ``x`` over every rank of the mesh."""
+    if mesh.world == 1:
+        return x.clone()
+    t0 = time.perf_counter()
+    buf, staged = _to_host(x, None)
+    if not staged:
+        buf = buf.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX)
+    return _back(buf, x, mesh, "max", staged, t0, "world")
+
+
+def barrier(mesh: Mesh) -> None:
+    """Every rank of the mesh reaches this point before any leaves it."""
+    if mesh.world > 1:
+        dist.barrier()
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor | None:
+    """The 'model' slabs of an axis-0-sharded array concatenated on the
+    host of world rank 0 (``None`` on every other rank).  Only data index
+    0 takes part: the other data indices hold the same slabs."""
+    if mesh.model == 1:
+        return x.detach().cpu() if mesh.world_rank == 0 else None
+    if mesh.data_rank != 0:
+        return None
+    t0 = time.perf_counter()
+    buf = x.detach().contiguous().cpu()
+    root = dist.get_global_rank(_group(mesh.group), 0)
+    parts = ([torch.empty_like(buf) for _ in range(mesh.model)]
+             if mesh.rank == 0 else None)
+    dist.gather(buf, parts, dst=root, group=mesh.group)
+    if x.is_cuda:
+        _count(mesh, "gather", "model", buf.numel() * buf.element_size(), t0)
+    return torch.cat(parts) if mesh.rank == 0 else None
+
+
+def _group(group):
+    return group if group is not None else dist.group.WORLD
 
 
 def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -98,7 +179,7 @@ def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if mesh.model == 1:
         return x.clone()
     t0 = time.perf_counter()
-    buf, staged = _to_host(x, mesh)
+    buf, staged = _to_host(x, mesh.group)
     out = torch.empty_like(buf)
     dist.all_to_all_single(out, buf, group=mesh.group)
     return _back(out, x, mesh, "all_to_all", staged, t0)
@@ -111,9 +192,9 @@ def ppermute(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if mesh.model == 1:
         return x.clone()
     t0 = time.perf_counter()
-    buf, staged = _to_host(x, mesh)
+    buf, staged = _to_host(x, mesh.group)
     out = torch.empty_like(buf)
-    group = mesh.group if mesh.group is not None else dist.group.WORLD
+    group = _group(mesh.group)
     nxt = dist.get_global_rank(group, (mesh.rank + 1) % mesh.model)
     prv = dist.get_global_rank(group, (mesh.rank - 1) % mesh.model)
     reqs = dist.batch_isend_irecv([
@@ -153,8 +234,21 @@ def _check_backend(backend: str, world: int, device: str) -> None:
             f"{torch.cuda.device_count()} cards; gloo can share a card")
 
 
-def _rank_main(rank: int, fn, world: int, backend: str, device: str,
-               tmp: str, timeout_s: float, args: tuple) -> None:
+def _mesh_groups(world: int, data: int, rank: int) -> tuple:
+    """(model group, data group) of ``rank`` in the data-major ``(data,
+    world / data)`` mesh.  Every rank creates every group, in the same
+    order, as ``new_group`` requires."""
+    P = world // data
+    model_groups = [dist.new_group([d * P + m for m in range(P)])
+                    for d in range(data)]
+    data_groups = [dist.new_group([d * P + m for d in range(data)])
+                   for m in range(P)]
+    return model_groups[rank // P], data_groups[rank % P]
+
+
+def _rank_main(rank: int, fn, world: int, data: int, backend: str,
+               device: str, tmp: str, timeout_s: float,
+               args: tuple) -> None:
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     dev = _rank_device(device, rank)
     if dev.type == "cuda":
@@ -166,32 +260,46 @@ def _rank_main(rank: int, fn, world: int, backend: str, device: str,
                             world_size=world,
                             timeout=datetime.timedelta(seconds=timeout_s))
     try:
-        mesh = Mesh(model=world, rank=rank, device=dev,
-                    group=dist.group.WORLD)
+        if data == 1:
+            model_group, data_group = dist.group.WORLD, None
+        else:
+            model_group, data_group = _mesh_groups(world, data, rank)
+        P = world // data
+        mesh = Mesh(model=P, rank=rank % P, device=dev, group=model_group,
+                    data=data, data_rank=rank // P, data_group=data_group)
         out = fn(mesh, *args)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def run_ranks(fn, world: int, *args, backend: str = "gloo",
-              device: str = "cpu", timeout_s: float = 900.0) -> list:
+def run_ranks(fn, world: int, *args, data: int = 1, backend: str = "gloo",
+              device: str | None = None, timeout_s: float = 900.0) -> list:
     """Run ``fn(mesh, *args)`` on ``world`` rank processes of one
-    ``(data=1, model=world)`` mesh; -> the ranks' return values, by rank.
+    ``(data, model=world / data)`` mesh; -> the ranks' return values, by
+    world rank (``d * P + m``).
 
     ``fn`` must be importable by name (a module-level function: ``spawn``
     pickles it by reference) and return host data (tensors on the CPU,
     numbers, numpy arrays), which ``torch.save`` carries back.  ``device``
-    is every rank's device ("cpu", or one card for all ranks, "cuda:0";
-    with nccl, "cuda" gives rank r the card r).  A rank that raises ends
-    the others, and ``run_ranks`` raises."""
+    is every rank's device: None (the default) or "cuda" gives rank r the
+    card r, "cuda:0" puts every rank on one card (gloo only), "cpu" runs
+    the ranks on the host; asking for a card where there is none raises.
+    A rank that raises ends the others, and ``run_ranks`` raises."""
     import torch.multiprocessing as mp
 
+    from repro_torch.device import resolve_device
+
+    if data < 1 or world % data:
+        raise ValueError(f"a 'data' axis of {data} does not divide "
+                         f"{world} ranks")
+    device = "cuda" if device is None else str(device)
     _check_backend(backend, world, device)
+    resolve_device(device)
     with tempfile.TemporaryDirectory() as tmp:
         mp.start_processes(_rank_main, nprocs=world, join=True,
                            start_method="spawn",
-                           args=(fn, world, backend, device, tmp, timeout_s,
-                                 args))
+                           args=(fn, world, data, backend, device, tmp,
+                                 timeout_s, args))
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            weights_only=False) for r in range(world)]

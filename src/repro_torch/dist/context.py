@@ -1,10 +1,13 @@
 """The mesh and its thread-local installation (port of
 ``repro.dist.context``).
 
-A :class:`Mesh` describes one rank of a ``(data=1, model=P)`` mesh: the axis
-sizes, this rank's index on 'model', its device and the 'model' process
-group.  ``use_mesh(mesh)`` installs it for a ``with`` block; model code
-finds it with ``current_mesh()`` and takes the sharded paths
+A :class:`Mesh` describes one rank of a ``(data=D, model=P)`` mesh: the
+axis sizes, this rank's index on each axis, its device and one process
+group per axis ('model': the ranks with this data index; 'data': the ranks
+with this model index).  The world is numbered data-major, as the
+reference's ``jax.make_mesh((D, P), ("data", "model"))``: world rank
+``d * P + m``.  ``use_mesh(mesh)`` installs it for a ``with`` block; model
+code finds it with ``current_mesh()`` and takes the sharded paths
 (``repro_torch.embed.backends.ShardedBackend``).  The installation is
 thread-local, as in the reference.
 """
@@ -25,31 +28,47 @@ class Mesh:
     """One rank's view of a ``(data, model)`` mesh.
 
     ``staged`` counts, by collective, the calls that went through host
-    memory (gloo on CUDA tensors, ``repro_torch.dist.collectives``),
-    ``staged_bytes`` their payload and ``staged_s`` their host-clock
-    seconds, the copies included."""
+    memory (gloo on CUDA tensors, ``repro_torch.dist.collectives``): a
+    'model' collective by its name, another axis's as ``name/axis``.
+    ``staged_bytes`` is their payload and ``staged_s`` their host-clock
+    seconds, the copies included; ``axis_bytes`` and ``axis_s`` split the
+    same by axis ('model', 'data', 'world')."""
 
     model: int                       # P, the 'model' axis size
     rank: int = 0                    # this rank's index on 'model'
     device: torch.device | str = "cpu"
     group: object = None             # the 'model' process group
-    data: int = 1
+    data: int = 1                    # D, the 'data' axis size
+    data_rank: int = 0               # this rank's index on 'data'
+    data_group: object = None        # the 'data' process group
     staged: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
     staged_bytes: int = 0
     staged_s: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
+    axis_bytes: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    axis_s: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
 
     def __post_init__(self):
-        if self.data != 1:
-            raise NotImplementedError(
-                "a 'data' axis larger than 1 (the batch split and the "
-                "gradient reduction over 'data') is not ported yet: see "
-                "ROADMAP.md, Queue 1")
         if not 0 <= self.rank < self.model:
             raise ValueError(f"rank {self.rank} outside a 'model' axis of "
                              f"{self.model}")
+        if not 0 <= self.data_rank < self.data:
+            raise ValueError(f"data rank {self.data_rank} outside a 'data' "
+                             f"axis of {self.data}")
         self.device = torch.device(self.device)
+
+    @property
+    def world(self) -> int:
+        """The number of ranks, D * P."""
+        return self.data * self.model
+
+    @property
+    def world_rank(self) -> int:
+        """This rank's place in the data-major world: d * P + m."""
+        return self.data_rank * self.model + self.rank
 
     @property
     def shape(self) -> dict:

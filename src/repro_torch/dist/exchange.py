@@ -41,12 +41,15 @@ global arrays:
   (``sharded_memory`` refuses any other), so the kernel paths are the only
   ones, on the CPU too, where ``kernels/fused_embed/ops.py`` sends a CPU
   tensor to the kernels' plain versions.
-- The demotion ladder (``demote``, ``effective``) and the fault wrapper
-  belong to the rest of distribution, which is not ported yet.
+- The demotion ladder (``demote``, ``effective``) is the reference's; the
+  fault wrapper that drives it is ``repro_torch.resilience.faults.
+  FaultyExchange`` and the guard that demotes is ``repro_torch.resilience.
+  exchange_guard``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Callable, ClassVar
 
@@ -325,6 +328,41 @@ def list_exchanges() -> list[str]:
     return sorted(_STRATEGIES)
 
 
+# --------------------------------------------------------- demotion ladder
+#
+# When a chunked strategy fails validation (``repro_torch.resilience.
+# exchange_guard``: an injected chunk drop or corruption, or any shape,
+# finiteness or bitwise mismatch against the psum oracle), it is demoted
+# for the rest of the process and the resolvers stop picking it.  The chain
+# is all_to_all -> ring -> psum; psum, the bit-exact oracle, is terminal.
+# FORCED and the cost model honour it.
+
+FALLBACK = {"all_to_all": "ring", "ring": "psum", "psum": None}
+DEMOTED: dict[str, str] = {}   # name -> reason it was demoted
+
+
+def demote(name: str, reason: str = "validation failure") -> str:
+    """Demote ``name`` for the rest of the run; -> its effective successor."""
+    if name not in _STRATEGIES:
+        raise KeyError(f"unknown exchange strategy {name!r}")
+    if name == "psum":
+        raise ValueError("psum is the terminal bit-exact oracle; "
+                         "there is nothing to demote it to")
+    DEMOTED[name] = reason
+    return effective(FALLBACK[name])
+
+
+def effective(name: str) -> str:
+    """Map a requested strategy through the demotion chain."""
+    while name in DEMOTED and FALLBACK.get(name):
+        name = FALLBACK[name]
+    return name
+
+
+def reset_demotions():
+    DEMOTED.clear()
+
+
 # -------------------------------------------------------------- cost model
 #
 # Modeled per-device bytes, as in the reference (constants and formulas
@@ -409,7 +447,7 @@ def resolve_exchange(mesh, B: int | None = None, d: int | None = None,
     if n_model <= 1:
         return PSUM
     if FORCED is not None:
-        return get_exchange(FORCED)
+        return get_exchange(effective(FORCED))
     if B is None or d is None or B % n_model != 0:
         return PSUM
     if fused is None:
@@ -422,21 +460,90 @@ def resolve_exchange(mesh, B: int | None = None, d: int | None = None,
         fused_chunk = fused_chunk_eligible(m, n_model)
     costs = lookup_cost(n_model, B, d, alloc_row, fused=fused,
                         fused_chunk=fused_chunk)
-    name = min(costs, key=costs.get)
+    live = {n: c for n, c in costs.items() if n not in DEMOTED}
+    name = min(live, key=live.get)
     ex = _STRATEGIES[name]
     return ex if ex.eligible(B, n_model) else PSUM
 
 
-# ------------------------------------------------- sparse-update exchange
+# ------------------------------------------------- sparse-update gate
+#
+# The reference's model of one pool step's bytes, sparse against dense
+# (constants and formulas copied): the SparseGrad's construction (a flat
+# O(K log K) sort, or d per-stripe sorts at BUCKETED_SORT_SPEEDUP the byte
+# efficiency), its exchange (replicated under psum, owner slices under
+# all_to_all) and the dense slab's O(m / P) passes.  The port's Trainer
+# does not consult it (its sparse gate is REPRO_SPARSE_GRADS); a gate priced
+# from the card's own measurements is ROADMAP.md's, Queue 2.
+
+SORT_BYTES_PER_KEY_PASS = 4.0      # one 4-byte key pass per merge level
+BUCKETED_SORT_SPEEDUP = 5.0
+
+
+def dedup_sort_bytes(k: int, buckets: int = 0) -> float:
+    """Modeled bytes of building one sorted SparseGrad from ``k``
+    locations: flat, k keys x log2 k merge passes; bucketed (``buckets ==
+    d``), d per-stripe sorts of k / d keys at ``BUCKETED_SORT_SPEEDUP``."""
+    if k <= 1:
+        return 0.0
+    if buckets and k % buckets == 0 and k > buckets:
+        return (SORT_BYTES_PER_KEY_PASS * k * math.log2(k // buckets)
+                / BUCKETED_SORT_SPEEDUP)
+    return SORT_BYTES_PER_KEY_PASS * k * math.log2(k)
+
+
+def sparse_update_cost(n_model: int, n_lookups: int, d: int, m: int,
+                       row_mode: bool = False,
+                       buckets: int = 0) -> dict[str, float]:
+    """Per-device modeled bytes of one memory-pool optimizer step:
+    ``dense`` (~8 f32 passes over the slab), ``sparse_psum`` (the
+    replicated pair, its broadcast and the update psum, plus the sort),
+    ``sparse_all_to_all`` (owned slices; flat records route through the
+    index vector once, bucketed ones shard the sort when 'model' divides
+    the buckets) and ``dedup_sort``, the sort term all_to_all was
+    charged."""
+    P = max(n_model, 1)
+    k_elems = n_lookups * d
+    k_idx = n_lookups if row_mode else k_elems
+    idx_b, val_b = 4 * k_idx, 4 * k_elems
+    sort = dedup_sort_bytes(k_idx, buckets)
+    shard = P if (buckets and buckets % P == 0) else 1
+    if buckets:
+        a2a = (idx_b + val_b) / P + sort / shard
+    else:
+        a2a = (idx_b + val_b) / P + idx_b + sort
+    return {
+        "dense": 8 * (m // P) * 4,
+        "sparse_psum": 2 * (idx_b + val_b) + sort,
+        "sparse_all_to_all": a2a,
+        "dedup_sort": sort / shard,
+    }
+
+
+def sparse_worthwhile(mesh, n_lookups: int, d: int, m: int,
+                      row_mode: bool = False, buckets: int = 0) -> bool:
+    """Does the best sparse exchange (psum, or all_to_all under a 'model'
+    axis unless psum or ring is forced) model cheaper than the dense slab
+    update?"""
+    n_model = model_size(mesh) if mesh is not None else 1
+    costs = sparse_update_cost(n_model, n_lookups, d, m, row_mode, buckets)
+    # ring forces fall back to psum for the update exchange
+    # (resolve_update_exchange), so they are priced as psum here too
+    best = costs["sparse_psum"] if (n_model <= 1
+                                    or FORCED in ("psum", "ring")) \
+        else min(costs["sparse_psum"], costs["sparse_all_to_all"])
+    return best < costs["dense"]
+
 
 def resolve_update_exchange(mesh) -> Exchange:
     """The sparse update's strategy: all_to_all whenever a 'model' axis
     exists (its update exchange is free); a ring force falls back to psum
-    (ring has no update form)."""
+    (ring has no update form), and so does a demoted all_to_all (its
+    update form has no ring rung)."""
     n_model = model_size(mesh) if mesh is not None else 1
     if n_model <= 1:
         return PSUM
     if FORCED is not None:
-        ex = get_exchange(FORCED)
+        ex = get_exchange(effective(FORCED))
         return PSUM if ex is RING else ex
-    return ALL_TO_ALL
+    return PSUM if "all_to_all" in DEMOTED else ALL_TO_ALL

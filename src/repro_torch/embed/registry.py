@@ -118,13 +118,14 @@ class Scheme:
     def sharded_lookup(self, cfg: "EmbeddingConfig", params: dict,
                        buffers: dict, gids: torch.Tensor, mesh):
         """This scheme's sharded lookup on a rank's slab (a
-        ``repro_torch.dist.sharded_memory.SlabLookup``).  The reference
-        falls back to a generic location-based lookup
-        (``repro.dist.sharded_memory.sharded_location_lookup``), which the
-        port does not have yet, so the default refuses."""
-        raise NotImplementedError(
-            f"{self.kind} has no sharded lookup: the generic location-based "
-            "sharded lookup is not ported")
+        ``repro_torch.dist.sharded_memory.SlabLookup``).  The default is the
+        generic location lookup (``sharded_location_lookup``) over
+        ``locations``, which must then need no store sharded over 'model'
+        (freq's hot ids are replicated), as the reference's fallback."""
+        from repro_torch.dist.sharded_memory import sharded_location_lookup
+        return sharded_location_lookup(
+            params["memory"], gids, lambda g: self.locations(cfg, buffers, g),
+            cfg.dim, self.memory_slots(cfg), mesh)
 
     def sparse_buckets(self, cfg: "EmbeddingConfig") -> int:
         """d when column j of ``locations`` always lies in stripe

@@ -5,7 +5,9 @@ Port of ``repro.embed.schemes`` (``freq`` registers itself from
 reference (``table_{t}`` for full and md, ``memory``, ``q_{t}`` / ``r_{t}``
 for qr, ``proj_{t}`` for md; LMA's D' as ``store_sets`` and
 ``store_lengths``, or in CSR form ``store_flat``, ``store_offsets`` and
-``store_lengths``) so ``repro_torch.convert`` carries them across by name.
+``store_lengths``; under a mesh the CSR form's ``store_flat_sh`` and
+``store_offsets_sh``, a rank's re-based part) so ``repro_torch.convert``
+carries them across by name.
 """
 from __future__ import annotations
 
@@ -189,14 +191,21 @@ class LMAScheme(Scheme):
         return rows, buffers["store_lengths"][g]
 
     def sharded_lookup(self, cfg, params, buffers, gids, mesh):
-        if "store_sets" not in buffers:
-            raise NotImplementedError(
-                "a CSR D' store under a mesh is not ported (ROADMAP Queue 1 "
-                "item 6: shard_csr_buffers and the CSR-store drivers)")
-        from repro_torch.dist.sharded_memory import sharded_lma_lookup
-        return sharded_lma_lookup(params["memory"], buffers["store_sets"],
-                                  buffers["store_lengths"], gids, cfg.lma,
-                                  mesh)
+        from repro_torch.dist import sharded_memory as sm
+        if "store_flat_sh" in buffers:
+            # the 'model'-sharded CSR store (shard_csr_buffers)
+            return sm.sharded_lma_lookup_csr(
+                params["memory"], buffers["store_flat_sh"],
+                buffers["store_offsets_sh"], buffers["store_lengths"], gids,
+                cfg.lma, mesh)
+        if "store_sets" in buffers:
+            return sm.sharded_lma_lookup(params["memory"],
+                                         buffers["store_sets"],
+                                         buffers["store_lengths"], gids,
+                                         cfg.lma, mesh)
+        # a CSR store left whole (its rows do not divide over 'model'): the
+        # generic location lookup over the replicated store
+        return super().sharded_lookup(cfg, params, buffers, gids, mesh)
 
     def extra_describe(self, cfg):
         p = cfg.lma

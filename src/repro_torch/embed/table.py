@@ -7,8 +7,9 @@ tensors that the caller owns (a model keeps the parameters in an
 ``nn.ParameterDict``).  Scheme and backend are resolved per call.
 
 Given a mesh (``repro_torch.dist``), ``init`` and ``make_buffers`` keep
-only this rank's slab of the pool and its rows of the D' store; lookups
-under that installed mesh take the sharded backend.
+only this rank's slab of the pool and its rows of the D' store (a CSR
+store re-based per rank, ``shard_csr_buffers``); lookups under that
+installed mesh take the sharded backend.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import dataclasses
 import torch
 
 from repro_torch.device import make_generator, resolve_device
-from repro_torch.dist.sharding import row_slab
+from repro_torch.dist.sharding import row_slab, shard_buffers
 from repro_torch.embed import backends as bke
 from repro_torch.embed.config import EmbeddingConfig
 from repro_torch.embed.registry import get_scheme
@@ -48,17 +49,15 @@ def init_embedding(cfg: EmbeddingConfig,
 def make_buffers(cfg: EmbeddingConfig, store=None, mesh=None,
                  device=None) -> dict:
     """Non-trainable buffers (the D' store for lma, the hot ids for freq;
-    empty otherwise); with a mesh, this rank's rows of them (their rows must
-    divide by P: pad the store to ``repro_torch.dist.sharding.store_rows``).
-    Buffers a scheme builds from host data (freq's counts) go to
-    ``device``, the card unless it says otherwise; a D' store stays where
-    it is."""
-    bufs = get_scheme(cfg.kind).make_buffers(cfg, store, device)
-    if mesh is not None and mesh.model > 1 and "store_flat" in bufs:
-        raise NotImplementedError(
-            "a CSR D' store under a mesh is not ported (ROADMAP Queue 1 item "
-            "6: shard_csr_buffers); densify it (densify_store)")
-    return {k: row_slab(v, mesh) for k, v in bufs.items()}
+    empty otherwise); with a mesh, this rank's rows of the D' store (a
+    dense store's rows must divide by P: pad it to
+    ``repro_torch.dist.sharding.store_rows``; a CSR store is re-based per
+    rank, ``shard_csr_buffers``), every other buffer whole.  Buffers a
+    scheme builds from host data (freq's counts, a host CSR store) go to
+    ``device``, the card unless it says otherwise; a dense D' store stays
+    where it is."""
+    return shard_buffers(get_scheme(cfg.kind).make_buffers(cfg, store,
+                                                           device), mesh)
 
 
 def _memory_lookup(cfg, params, buffers, gids):

@@ -229,6 +229,11 @@ def main(argv=None) -> dict:
                     help="override the arch's embedding scheme (any "
                          "registered kind: full, hashed_elem, hashed_row, "
                          "qr, lma, md, freq)")
+    ap.add_argument("--exchange", default=None,
+                    choices=["psum", "ring", "all_to_all", "auto"],
+                    help="pin the sharded lookup and update exchange "
+                         "strategy (default: REPRO_DIST_EXCHANGE or the "
+                         "cost model); only observable under a mesh")
     ap.add_argument("--smoke", action="store_true",
                     help="use the arch's reduced config")
     ap.add_argument("--steps", type=int, default=300)
@@ -266,6 +271,10 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    if args.exchange is not None:
+        # process-wide, as REPRO_DIST_EXCHANGE (the reference's launcher)
+        from repro_torch.dist import exchange as exl
+        exl.FORCED = None if args.exchange == "auto" else args.exchange
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     arch = get_config(args.arch)

@@ -116,14 +116,30 @@ def clip_by_global_norm(max_norm: float) -> Optimizer:
     """Scale every leaf by ``min(1, max_norm / max(norm, 1e-9))``, the norm
     over all leaves (a SparseGrad's values, as in the reference), summed
     leaf by leaf in the order of their sorted names (the reference's tree
-    order)."""
+    order).  Under an installed mesh the norm is the global one: a dense
+    pool gradient that is a rank's 'model' slab (a ``memory`` leaf) gives
+    its slab's sum of squares summed over 'model' in rank order; every
+    other leaf is whole on every rank (a SparseGrad holds the global
+    batch's stream, and dense gradients are reduced over 'data' before the
+    optimizer runs)."""
     from repro_torch.kernels.sparse_update.ref import ieee_sqrt
 
+    def square_sum(name, x):
+        sq = torch.sum(torch.square(
+            (x.values if _is_sparse(x) else x).to(torch.float32)))
+        if name is None or _is_sparse(x) or name.split(".")[-1] != "memory":
+            return sq
+        from repro_torch.dist.context import current_mesh
+        mesh = current_mesh()
+        if mesh is None or mesh.model <= 1:
+            return sq
+        from repro_torch.dist import collectives as col
+        return col.fold_sum(sq.reshape(1), mesh, "model")[0]
+
     def update(g, s, p=None):
-        leaves = [g[k] for k in sorted(g)] if isinstance(g, dict) else [g]
-        vals = [x.values if _is_sparse(x) else x for x in leaves]
-        gn = ieee_sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                           for x in vals))
+        named = [(k, g[k]) for k in sorted(g)] if isinstance(g, dict) \
+            else [(None, g)]
+        gn = ieee_sqrt(sum(square_sum(k, x) for k, x in named))
         factor = torch.clamp(torch.full_like(gn, max_norm)
                              / torch.clamp(gn, min=1e-9), max=1.0)
         return _map(lambda x: _scaled(x, factor), g), s

@@ -39,9 +39,11 @@ of it.  This module replaces both with O(K) work.
 
 Under a mesh (``repro_torch.dist``) a pool parameter is this rank's
 ``[m / P]`` slab.  Its SparseGrad still has the pool's global shape and the
-whole batch's entries (the same on every rank), and its leaf update and
-apply go through ``sharded_sparse_update`` / ``sharded_sparse_apply`` on the
-slab states, as the reference's ``_model_mesh`` routes them.
+whole global batch's entries (the same on every rank: with the batch split
+over 'data', ``grads(gather=...)`` first concatenates the 'data' ranks'
+records in batch order), and its leaf update and apply go through
+``sharded_sparse_update`` / ``sharded_sparse_apply`` on the slab states, as
+the reference's ``_model_mesh`` routes them.
 
 Gate: ``REPRO_SPARSE_GRADS`` (default on; ``=0`` keeps the dense path as the
 oracle), as in the reference.
@@ -213,15 +215,22 @@ class SparseCapture:
         self.records.append(rec)
         return _CaptureLookup.apply(memory, rec, lookup)
 
-    def grads(self, named_params: dict) -> dict:
+    def grads(self, named_params: dict, gather: Callable | None = None
+              ) -> dict:
         """-> {name: SparseGrad} for every pool a lookup read and the loss
-        reached; the records are released."""
+        reached; the records are released.  ``gather(x [n, ...])``, when
+        given, replaces each record's locations and gradient before the
+        build (the 'data' ranks' rows in batch order, for a batch split over
+        'data')."""
         out = {}
         for name, p in named_params.items():
             recs = [r for r in self.records
                     if r.memory is p and r.grad is not None]
             if not recs:
                 continue
+            if gather is not None:
+                for r in recs:
+                    r.loc, r.grad = gather(r.loc), gather(r.grad)
             rws = {r.row_width for r in recs}
             if len(rws) != 1:
                 raise ValueError(f"{name}: one memory pool mixes row- and "
@@ -377,18 +386,25 @@ def adam_leaf(g, mu, nu, p=None, *, lr, b1=0.9, b2=0.999, bc1=1.0, bc2=1.0,
         u, _ = _leaf_sparse_update("adam", g, (mu, nu), lr=lr, b1=b1, b2=b2,
                                    bc1=bc1, bc2=bc2, eps=eps)
         if weight_decay and p is not None:
-            if _model_mesh(p, g.dense_shape) is not None:
-                raise NotImplementedError("lazy weight decay on a sharded "
-                                          "pool is not ported")
-            pv = _pool_view(p, g.dense_shape)
-            n = pv.shape[0]
-            rows = pv[torch.clamp(g.indices, max=n - 1).long()].to(
-                torch.float32)
-            keep = g.indices < n
+            # u's indices: the SparseGrad's, or a rank's slab-aligned slice
+            # of them; a rank's slab reads only the slots it owns (the
+            # others' updates are masked off by the sharded apply)
+            idx = u.indices
+            mesh = _model_mesh(p, g.dense_shape)
+            if mesh is not None:
+                from repro_torch.dist.sharded_memory import _slab_mask
+                pv = _pool_view(p, _slab_shape(g.dense_shape, mesh))
+                local, _, keep = _slab_mask(idx, pv.shape[0], mesh)
+            else:
+                pv = _pool_view(p, g.dense_shape)
+                n = pv.shape[0]
+                local = torch.clamp(idx, max=n - 1).long()
+                keep = idx < n
+            rows = pv[local].to(torch.float32)
             if not g.unique:
                 keep = keep & torch.cat([
                     torch.ones(1, dtype=torch.bool, device=keep.device),
-                    g.indices[1:] != g.indices[:-1]])
+                    idx[1:] != idx[:-1]])
             keep = keep.reshape((-1,) + (1,) * (u.values.dim() - 1))
             u = u.map_values(lambda v: v - torch.where(
                 keep, lr * weight_decay * rows, 0))

@@ -8,12 +8,13 @@ soak.
     integrity  chunked pool checksums, corruption scan, quarantine
     health     the Health record ``Trainer.fit`` reports
     chaos      the seeded chaos soak harness
-
-The reference's ``exchange_guard`` and ``FaultyExchange`` come with the
-rest of distribution.
+    exchange_guard  probes the chunked exchange strategies against the psum
+               oracle and demotes a faulty one (``FaultyExchange`` in
+               faults injects the chunk faults it finds)
 """
 from repro_torch.resilience.chaos import (durable_state, make_schedule,  # noqa: F401
                                           run_chaos, states_bit_identical)
+from repro_torch.resilience.exchange_guard import ExchangeGuard  # noqa: F401
 from repro_torch.resilience.faults import (FaultInjector, active_injector,  # noqa: F401
                                            from_env, install, parse_faults)
 from repro_torch.resilience.guard import (all_finite, guard_enabled,  # noqa: F401

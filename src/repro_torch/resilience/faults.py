@@ -4,10 +4,11 @@
 A :class:`FaultInjector` is built from a compact spec -- ``kind@step``
 tokens, comma-separated, each optionally carrying a ``:arg`` --
 
-    REPRO_FAULTS="nan_grad@17,rot_row@40:8,slow_rank@55:0.5"
+    REPRO_FAULTS="nan_grad@17,rot_row@40:8,slow_rank@55:0.5,drop_chunk@60"
 
 and is consulted by the trainer (gradient faults, slow ranks, bit-rot,
-preemption) and the checkpoint manager (host read failures, torn writes).
+preemption), the checkpoint manager (host read failures, torn writes) and
+the sharded drivers (exchange chunk drop and corruption).
 Injection is seeded and replayable: the same spec and seed give the same
 corruption bits as the reference's injector.
 
@@ -36,10 +37,15 @@ Fault kinds
     ``StageTransferError``); the tier controller retries the stage, so
     training never sees it.
 ``drop_chunk`` / ``corrupt_chunk``
-    Parsed; the exchange wrapper that consumes them (``FaultyExchange``)
-    comes with the rest of distribution.
+    Zero / NaN-poison the first batch chunk (the first ``n / P`` rows, the
+    chunk ``exchange.chunk_for_rank`` gives 'model' rank 0) of every lookup
+    a chunked exchange strategy assembles, persistently from ``step`` on:
+    a bad link stays bad until the strategy is demoted
+    (``repro_torch.resilience.exchange_guard``).  ``wrap_exchange`` hooks
+    them into the sharded drivers; the psum oracle is exempt.
 
-Gradient, rot, slow, preempt, read, torn and stage faults fire once.
+Gradient, rot, slow, preempt, read, torn and stage faults fire once; chunk
+faults persist.
 ``reset()`` re-arms everything for tests.
 """
 from __future__ import annotations
@@ -50,6 +56,7 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.dist import exchange as exl
 from repro_torch.resilience.integrity import is_memory
 
 GRAD_KINDS = {
@@ -201,11 +208,20 @@ class FaultInjector:
         return False
 
 
+    def exchange_fault(self) -> str | None:
+        """'drop' | 'corrupt' | None.  Persistent once armed: a flaky link
+        stays flaky; healing is the guard demoting away from it."""
+        for f in self.faults:
+            if f.kind in ("drop_chunk", "corrupt_chunk") and self.now >= f.step:
+                return "drop" if f.kind == "drop_chunk" else "corrupt"
+        return None
+
+
 # --------------------------------------------------------- process-global
 #
 # One injector per process, as in the reference.  The trainer owns its own
-# injector; install() also exposes it to the checkpoint manager, which has
-# no trainer reference.
+# injector; install() also exposes it to the checkpoint manager and the
+# sharded drivers, which have no trainer reference.
 
 ACTIVE: FaultInjector | None = None
 
@@ -244,3 +260,60 @@ def torn_ckpt() -> float | None:
 def stage_fail() -> bool:
     """Hook a tiered store consults on each staging transfer."""
     return ACTIVE is not None and ACTIVE.stage_fail_fault()
+
+
+# ------------------------------------------------------- exchange wrapping
+
+class FaultyExchange(exl.Exchange):
+    """Delegates to a real strategy but mangles the first batch chunk of
+    every lookup it assembles: the injected form of a flaky inter-rank
+    link.  Keeps the base strategy's ``name``, so the drivers' dispatch and
+    the guard's demotion see the strategy itself."""
+
+    def __init__(self, base: exl.Exchange, injector: FaultInjector):
+        self.base = base
+        self.injector = injector
+        self.name = base.name
+
+    def eligible(self, n_flat, n_model):
+        return self.base.eligible(n_flat, n_model)
+
+    def _mangle(self, out: torch.Tensor, n_model: int) -> torch.Tensor:
+        kind = self.injector.exchange_fault()
+        if kind is None or out.shape[0] == 0:
+            return out
+        c = max(out.shape[0] // max(n_model, 1), 1)
+        out = out.clone()
+        if kind == "drop":
+            out[:c] = 0
+        elif out.is_floating_point():
+            out[:c] = float("nan")
+        else:
+            out[:c] = torch.iinfo(out.dtype).max
+        return out
+
+    def lookup(self, mem_l, gids, d, mesh, engine):
+        out, loc = self.base.lookup(mem_l, gids, d, mesh, engine)
+        return self._mangle(out, mesh.model), loc
+
+    def set_lookup(self, shard, idx, mesh):
+        return self.base.set_lookup(shard, idx, mesh)
+
+    def set_lookup_many(self, shards, idx, mesh):
+        return self.base.set_lookup_many(shards, idx, mesh)
+
+    def partial_sum_lookup(self, local_fn, idx, mesh):
+        return self.base.partial_sum_lookup(local_fn, idx, mesh)
+
+    def reduce_update(self, u, mesh):
+        return self.base.reduce_update(u, mesh)
+
+
+def wrap_exchange(ex: exl.Exchange) -> exl.Exchange:
+    """The drivers' hook (``sharded_memory._resolve``): ``ex`` wrapped when
+    the installed injector has an armed chunk fault.  The psum oracle is
+    exempt: it is the strategy the guard demotes to."""
+    if (ACTIVE is not None and ACTIVE.exchange_fault() is not None
+            and ex.name != "psum"):
+        return FaultyExchange(ex, ACTIVE)
+    return ex

@@ -21,6 +21,19 @@ The fault multiplier scales the gradients only on a step a fault fires
 (the reference multiplies by 1.0 otherwise, a bitwise identity), so a
 clean guarded step is bit-identical to an unguarded one without a pass
 over the pool's gradient values.
+
+Under an installed mesh (``repro_torch.dist``) with the batch split over
+'data' (``split=True``: each rank holds its share) the step is the
+reference's single SPMD step spelled per rank: the loss that is
+differentiated is the rank's share of the global mean (its local mean over
+D), the dense gradients and the loss are summed over 'data' in rank order
+(one all-gather, ``collectives.fold_sum``: every replica applies the same
+bits), and each pool's SparseGrad is built from the whole global batch's
+records, gathered over 'data' in batch order (data index d holds rows
+``[d * B / D, (d + 1) * B / D)``), which is the reference's stream.  Under
+any mesh of more than one rank the guard's verdict is agreed over the world
+(a bad leaf on any rank skips the step on all), as the reference's one
+``lax.cond``.
 """
 from __future__ import annotations
 
@@ -104,6 +117,35 @@ def scale_grads(grads: dict, scale: float) -> dict:
     return {k: one(v) for k, v in grads.items()}
 
 
+def _data_reduce(grads: dict, loss: torch.Tensor, mesh) -> tuple:
+    """The dense gradients and the loss summed over 'data' in rank order,
+    one collective per dtype (every leaf of a dtype and, for float32, the
+    loss ride in one buffer); -> (grads, the loss's mean over 'data')."""
+    from repro_torch.dist import collectives as col
+    names = [k for k, g in grads.items() if isinstance(g, torch.Tensor)]
+    leaves = [grads[k] for k in names] + [loss.reshape(1)]
+    out = dict(grads)
+    for dtype in {x.dtype for x in leaves}:
+        idx = [i for i, x in enumerate(leaves) if x.dtype == dtype]
+        buf = col.fold_sum(torch.cat([leaves[i].reshape(-1) for i in idx]),
+                           mesh, "data")
+        for i, part in zip(idx, torch.split(buf, [leaves[i].numel()
+                                                  for i in idx])):
+            if i < len(names):
+                out[names[i]] = part.reshape(leaves[i].shape)
+            else:
+                loss = part.reshape(()) / mesh.data
+    return out, loss
+
+
+def _data_gather(mesh):
+    """``x [n, ...]`` -> the 'data' ranks' ``x`` concatenated in rank order
+    (the global batch's rows, for a batch split over 'data')."""
+    from repro_torch.dist import collectives as col
+    return lambda x: col.all_gather(x, mesh, "data").reshape(
+        (-1,) + tuple(x.shape[1:]))
+
+
 def make_step(loss_fn: Callable, optimizer: Optimizer, *,
               sparse_grads: bool = False, guard: bool = True,
               max_abs_grad: float | None = MAX_ABS_GRAD,
@@ -111,8 +153,10 @@ def make_step(loss_fn: Callable, optimizer: Optimizer, *,
               on_phase: Callable[[str], None] | None = None):
     """Build the train step.
 
-    Returns ``step(model, params, opt_state, batch, fault_scale=1.0) ->
-    (opt_state, loss, ok, grads_ok)``: ``params`` (the model's named
+    Returns ``step(model, params, opt_state, batch, fault_scale=1.0,
+    split=False) -> (opt_state, loss, ok, grads_ok)`` (``split``: the
+    batch is this rank's share of a batch split over the installed mesh's
+    'data' axis): ``params`` (the model's named
     parameters) are updated in place, the new optimizer state is returned,
     ``loss`` is a device scalar, and ``ok`` / ``grads_ok`` are the guard's
     verdict as host bools (``ok`` False: nothing was updated; ``grads_ok``
@@ -125,7 +169,11 @@ def make_step(loss_fn: Callable, optimizer: Optimizer, *,
     "update", "apply"), e.g. to record CUDA events."""
     mark = on_phase or (lambda name: None)
 
-    def step(model, params: dict, opt_state, batch, fault_scale=1.0):
+    def step(model, params: dict, opt_state, batch, fault_scale=1.0,
+             split: bool = False):
+        from repro_torch.dist.context import current_mesh
+        mesh = current_mesh()
+        D = mesh.data if split else 1
         mark("start")
         for p in params.values():
             p.grad = None
@@ -134,22 +182,29 @@ def make_step(loss_fn: Callable, optimizer: Optimizer, *,
         with scope as cap:
             loss, _ = loss_fn(model, batch)
             mark("forward")
-            loss.backward()
+            (loss / D if D > 1 else loss).backward()
             mark("backward")
         grads = {k: p.grad for k, p in params.items() if p.grad is not None}
+        loss = loss.detach()
+        if D > 1:
+            grads, loss = _data_reduce(grads, loss, mesh)
         if cap is not None:
-            grads.update(cap.grads(params))
+            grads.update(cap.grads(
+                params, gather=_data_gather(mesh) if D > 1 else None))
         mark("sparse_grad")
         if fault_scale != 1.0:
             grads = scale_grads(grads, fault_scale)
-        loss = loss.detach()
         touched = (touched_indices(grads),) if report_touched else ()
         ok = grads_ok = True
         if guard:
             g_ok = all_finite(grads, max_abs_grad).to(loss.device)
+            verdict = torch.stack([torch.isfinite(loss).all() & g_ok, g_ok])
+            if mesh is not None and mesh.world > 1:
+                from repro_torch.dist import collectives as col
+                bad = col.world_max((~verdict).to(torch.int32), mesh)
+                verdict = bad == 0
             # the one host read of the verdict, before any state is touched
-            ok, grads_ok = torch.stack(
-                [torch.isfinite(loss).all() & g_ok, g_ok]).tolist()
+            ok, grads_ok = verdict.tolist()
             mark("guard")
         if ok:
             updates, opt_state = optimizer.update(grads, opt_state, params)

@@ -4,9 +4,9 @@
 One mutable :class:`Health` record per Trainer aggregates every resilience
 event the run survived: steps skipped by the non-finite guard, gradient
 non-finites observed, straggler steps, retries, checkpoint rollbacks, pool
-chunks quarantined by the integrity scan, exchange-strategy demotions (none
-in the port yet: the demotion ladder is not ported), and torn checkpoint
-writes the restore ladder had to route around.  ``fit()`` merges the record
+chunks quarantined by the integrity scan, exchange-strategy demotions
+(``repro_torch.resilience.exchange_guard``), and torn checkpoint writes the
+restore ladder had to route around.  ``fit()`` merges the record
 into its result dict.
 
 Three durability *gauges* -- ``last_durable_step``, ``ckpt_bytes_written``,
@@ -26,7 +26,8 @@ class Health:
     skipped_steps: int = 0        # steps dropped by the non-finite guard
     nonfinite_grads: int = 0      # skipped steps where the gradient was bad
     straggler_steps: int = 0      # steps slower than straggler_factor x median
-    retries: int = 0              # retried operations (rollback waits)
+    retries: int = 0              # retried operations (rollback waits,
+                                  # exchange revalidation attempts)
     rollbacks: int = 0            # restore-from-checkpoint after K skips
     quarantined_chunks: int = 0   # pool chunks zeroed by the integrity scan
     exchange_demotions: int = 0   # strategies demoted down the fallback chain

@@ -52,11 +52,20 @@ restore hands them to ``on_restore``, which rebuilds the mirror and the
 compact pool, and a rollback drops the abandoned timeline's staged rows.
 The boundary scan covers the host-cold tier too (``sanitize_cold``).
 
-Under an installed mesh (``repro_torch.dist``) the Trainer runs unchanged
-on every rank: the pool is the rank's slab and its lookups and updates take
-the sharded paths, while with a 'data' axis of 1 the dense parameters see
-the same batch on every rank and need no collective.  Only rank 0 logs.
-Checkpoints under a mesh are not ported yet.
+Under an installed mesh (``repro_torch.dist``) the Trainer runs on every
+rank: the pool is the rank's slab and its lookups and updates take the
+sharded paths.  With a 'data' axis the batch ``batch_fn`` gives is the
+global one, and each rank trains on its share (``sharded_memory.
+local_batch``, split when D divides it): the step differentiates the
+rank's share of the global mean and reduces over 'data' (``guard.
+make_step``), so every replica applies the same bits.  The guard's verdict,
+a preemption flag and the boundary scan's quarantine count are agreed over
+the world, so every rank skips, rolls back, saves and stops together.
+Checkpoints keep the reference's format: a save gathers each pool slab
+(``gather_rows``) into whole arrays that world rank 0 writes while the
+others wait on a barrier, and a restore cuts this rank's slabs out of the
+whole arrays (``sharding.slab_shardings``), so a checkpoint resumes on any
+mesh or on one process.  Only world rank 0 logs.
 
 Throughput: steps/s from the median step time (host clock around work that
 ends in a device sync), lookups/s scaled by ``lookups_per_step``; host batch
@@ -75,8 +84,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.checkpoint.manager import CheckpointManager, _flatten
+from repro_torch.checkpoint.manager import (CheckpointManager, _flatten,
+                                            _unflatten)
 from repro_torch.device import resolve_device
+from repro_torch.dist import collectives as col
+from repro_torch.dist.context import current_mesh
+from repro_torch.dist.sharding import is_pool_path, slab_shardings
 from repro_torch.optim import sparse as sparse_lib
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.resilience import faults as faults_lib
@@ -235,12 +248,6 @@ class Trainer:
         self.tier = tier
         self.batch_fn = tier.batch_fn if tier is not None else batch_fn
         self.step = 0
-        if cfg.ckpt_dir:
-            from repro_torch.dist.context import current_mesh
-            if current_mesh() is not None:
-                raise NotImplementedError(
-                    "checkpoints under a mesh are not ported (ROADMAP Queue 1 "
-                    "item 6)")
         self.mgr = (CheckpointManager(cfg.ckpt_dir, cfg.keep,
                                       delta=cfg.ckpt_delta,
                                       compact_every=cfg.ckpt_compact_every)
@@ -318,18 +325,52 @@ class Trainer:
         return state
 
     def save(self, blocking: bool = True):
-        if self.mgr:
-            self.mgr.save(self.step, self._state(),
-                          blocking=blocking or not self.cfg.async_ckpt)
+        """Checkpoint the durable state.  Under a mesh of more than one
+        rank the pool slabs are gathered into whole arrays, world rank 0
+        writes, and a blocking save returns on every rank once the step is
+        on disk."""
+        if not self.mgr:
+            return
+        blocking = blocking or not self.cfg.async_ckpt
+        mesh = current_mesh()
+        if mesh is None or mesh.world == 1:
+            self.mgr.save(self.step, self._state(), blocking=blocking)
+            return
+        state = self._gathered_state(mesh)
+        if state is not None:
+            self.mgr.save(self.step, state, blocking=blocking)
+        if blocking:
+            self._ckpt_wait()
+
+    def _gathered_state(self, mesh) -> dict | None:
+        """The durable state with every pool slab gathered over 'model': on
+        world rank 0 the tree of whole arrays a one-process Trainer's
+        ``_state`` holds, None elsewhere."""
+        flat = _flatten(self._state())
+        out = {}
+        for path, v in flat.items():
+            if (isinstance(v, torch.Tensor) and v.dim() >= 1
+                    and is_pool_path(path)):
+                v = col.gather_rows(v, mesh)
+            out[path] = v
+        return _unflatten(out) if mesh.world_rank == 0 else None
+
+    def _ckpt_wait(self):
+        """An in-flight async save lands (world rank 0's writer), and under
+        a mesh every rank waits for it."""
+        self.mgr.wait()
+        mesh = current_mesh()
+        if mesh is not None:
+            col.barrier(mesh)
 
     def try_resume(self) -> bool:
         if not self.mgr:
             return False
         # an in-flight async save must land before we look for "latest"
-        self.mgr.wait()
+        self._ckpt_wait()
         if self.mgr.latest_step() is None:
             return False
-        _, state = self.mgr.restore()
+        _, state = self.mgr.restore(shardings=slab_shardings(current_mesh()))
         flat = _flatten(state)
         params = _restored(self.params, flat, "params")
         opt_state = _restored(self.opt_state, flat, "opt_state")
@@ -357,14 +398,19 @@ class Trainer:
 
     # ------------------------------------------------------------------- fit
     def fit(self, log: Callable[[str], None] = print) -> dict:
-        from repro_torch.dist.context import current_mesh
+        from repro_torch.dist.sharded_memory import _batch_axes, local_batch
         mesh = current_mesh()
-        if mesh is not None and mesh.rank != 0:
+        many = mesh is not None and mesh.world > 1
+        if mesh is not None and mesh.world_rank != 0:
             log = _quiet
         if self.try_resume():
             log(f"[trainer] resumed from step {self.step}")
         last_loss = float("nan")
         while self.step < self.cfg.total_steps:
+            if many:
+                # a signal reaches one process: every rank stops together
+                self._preempted = bool(col.world_max(
+                    torch.tensor([int(self._preempted)]), mesh)[0])
             if self._preempted:
                 log(f"[trainer] preempted at step {self.step}; checkpointing")
                 self.save(blocking=True)
@@ -387,14 +433,17 @@ class Trainer:
             t0 = time.perf_counter()
             batch = self.batch_fn(self.step)
             t1 = time.perf_counter()
-            batch = {k: torch.as_tensor(v).to(self.device)
+            split = mesh is not None and all(
+                _batch_axes(mesh, int(v.shape[0])) for v in batch.values())
+            batch = {k: torch.as_tensor(local_batch(v, mesh) if split else v
+                                        ).to(self.device)
                      for k, v in batch.items()}
             fault = self.faults.grad_fault(self.step) if self.faults else 1.0
             delay = self.faults.step_delay(self.step) if self.faults else 0.0
             if delay:
                 time.sleep(delay)  # inside the timed region: a straggler
             out = self._step_fn(self.model, self.params, self.opt_state,
-                                batch, fault)
+                                batch, fault, split=split)
             self.opt_state, loss, ok, grads_ok = out[:4]
             if ok:
                 last_loss = float(loss)   # waits for the update too
@@ -445,7 +494,7 @@ class Trainer:
                     self.save(blocking=False)
         if self.mgr:
             self.save(blocking=True)
-            self.mgr.wait()
+            self._ckpt_wait()
         return self._result(last_loss, preempted=False)
 
     def _result(self, last_loss: float, preempted: bool) -> dict:
@@ -485,6 +534,12 @@ class Trainer:
         if self.tier is not None:
             # the host-cold tier never visits the device: its numpy twin
             n_bad += self.tier.store.sanitize_cold()
+        mesh = current_mesh()
+        if mesh is not None and mesh.world > 1:
+            # every slab's count once (data index 0's), the same on every
+            # rank, so that the ranks decide a rollback together
+            n_bad = int(col.psum(torch.tensor(
+                [n_bad if mesh.data_rank == 0 else 0]), mesh, "world")[0])
         if n_bad:
             self.health.quarantined_chunks += n_bad
             log(f"[trainer] pool integrity: quarantined {n_bad} corrupt "
@@ -496,7 +551,7 @@ class Trainer:
         its writer when steps are fast)."""
         if not self.mgr:
             return None
-        self.mgr.wait()
+        self._ckpt_wait()
         return self.mgr.latest_step()
 
     def _rollback(self, log: Callable[[str], None] = print):

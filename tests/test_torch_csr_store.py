@@ -4,7 +4,10 @@ helpers, against the JAX reference.
 Integers and sets are bit-identical (sample ids, keys and seeds >= 2^31,
 empty and over-long sets); floats within 1e-6.  Through the LMA scheme a
 CSR store's locations, lookups and fused-kernel inputs equal the dense
-store's, bit for bit, and the reference's CSR locations.
+store's, bit for bit, and the reference's CSR locations.  Under a (1, 4)
+mesh of gloo ranks the store shards (``shard_csr``, equal to the
+reference's) and its set rows and LMA lookups stay bit-identical under
+every strategy.
 """
 from __future__ import annotations
 
@@ -29,8 +32,10 @@ from repro_torch.core import allocation as ta  # noqa: E402
 from repro_torch.core import memory as tmem  # noqa: E402
 from repro_torch.core import minhash as tmh  # noqa: E402
 from repro_torch.core import signatures as ts  # noqa: E402
-from repro_torch.dist.context import Mesh, use_mesh  # noqa: E402
+from repro_torch.dist.collectives import run_ranks  # noqa: E402
+from repro_torch.dist.context import Mesh  # noqa: E402
 from repro_torch.embed import EmbeddingTable, get_scheme  # noqa: E402
+import dist_ranks as dr  # noqa: E402
 
 D, M, MAX_SET = 16, 8192, 8
 
@@ -226,15 +231,78 @@ def test_materialize_rows_matches_reference():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_csr_store_under_a_mesh_is_not_ported():
-    cfg = _lma_cfg()
-    s = _csr(cfg.total_vocab)
-    with use_mesh(Mesh(model=2, rank=0)) as mesh:
-        with pytest.raises(NotImplementedError, match="item 6"):
-            EmbeddingTable(cfg).make_buffers(s, mesh=mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            buffers_from_numpy({"store_flat": s.flat}, device="cpu",
-                               mesh=mesh)
-        bufs = get_scheme("lma").make_buffers(cfg, s, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            get_scheme("lma").sharded_lookup(cfg, {}, bufs, None, mesh)
+def test_shard_csr_equals_reference():
+    """``shard_csr`` (stacked, re-based, zero-padded) equals the
+    reference's; ``shard_csr_buffers`` keeps a rank's row of it (without
+    the padding) and its rows of the lengths, and leaves a store whose
+    rows do not divide, or a mesh of one rank, as it is."""
+    from repro.dist import sharded_memory as jsm
+    from repro_torch.dist import sharded_memory as tsm
+    s = _csr(64)
+    for P in (1, 2, 4, 8):
+        got = tsm.shard_csr(s.flat, s.offsets, P)
+        want = jsm.shard_csr(s.flat, s.offsets, P)
+        for a, b in zip(got, want):
+            assert a.dtype == np.asarray(b).dtype
+            np.testing.assert_array_equal(a, np.asarray(b))
+    flat_sh, offs_sh = tsm.shard_csr(s.flat, s.offsets, 4)
+    bufs = buffers_from_numpy({"store_flat": s.flat,
+                               "store_offsets": s.offsets,
+                               "store_lengths": s.lengths}, device="cpu")
+    for r in range(4):
+        part = tsm.shard_csr_buffers(bufs, Mesh(model=4, rank=r))
+        assert sorted(part) == ["store_flat_sh", "store_lengths",
+                                "store_offsets_sh"]
+        n = int(part["store_offsets_sh"][-1])
+        np.testing.assert_array_equal(
+            part["store_flat_sh"][:n].numpy().view(np.uint32),
+            flat_sh[r, :n])
+        np.testing.assert_array_equal(part["store_offsets_sh"].numpy(),
+                                      offs_sh[r])
+        np.testing.assert_array_equal(part["store_lengths"].numpy(),
+                                      s.lengths[r * 16:(r + 1) * 16])
+    assert tsm.shard_csr_buffers(bufs, Mesh(model=3, rank=0)) is bufs
+    assert tsm.shard_csr_buffers(bufs, Mesh(model=1)) is bufs
+    with pytest.raises(ValueError):
+        tsm.shard_csr(s.flat, s.offsets, 3)
+
+
+@pytest.fixture(scope="module")
+def csr_mesh():
+    """The CSR store sharded over a (1, 4) mesh of gloo ranks
+    (``dist_ranks.csr_lookups``, every strategy)."""
+    c = dr.case("lma", seed=41)
+    csr = dr.csr_arrays()
+    return c, csr, run_ranks(dr.csr_lookups, 4, c, csr, device="cpu")
+
+
+@pytest.mark.parametrize("strategy", dr.STRATEGIES)
+def test_csr_store_under_a_mesh(csr_mesh, strategy):
+    """On every rank, under each strategy: ``sharded_csr_set_lookup``'s
+    rows, mask and support bit-identical to the reference's
+    ``gather_ragged_sets`` on the whole store; the LMA lookup through the
+    sharded CSR store bit-identical to the sharded dense store's and to
+    the reference's lookup through the whole CSR store."""
+    c, csr, ranks = csr_mesh
+    gids = (c["ids"] + np.array([0, dr.VOCABS[0]])).reshape(-1)
+    elems, mask = jmh.gather_ragged_sets(
+        jnp.asarray(csr["store_flat"]), jnp.asarray(csr["store_offsets"]),
+        jnp.asarray(gids), dr.MAX_SET)
+    want_sets = np.where(np.asarray(mask), np.asarray(elems), 0)
+    kind, kw = dr.KINDS["lma"]
+    jt = JTable(jscheme(kind).build_config(dr.VOCABS, dr.DIM, dr.BUDGET,
+                                           **kw))
+    want = np.asarray(jt.embed_fields(
+        {"memory": jnp.asarray(c["memory"])},
+        {k: jnp.asarray(v) for k, v in csr.items()}, jnp.asarray(c["ids"])))
+    for res in ranks:
+        assert res["keys"] == ["store_flat_sh", "store_lengths",
+                               "store_offsets_sh"]
+        sets, m, sup = res[(strategy, "sets")]
+        np.testing.assert_array_equal(sets.view(np.uint32), want_sets)
+        np.testing.assert_array_equal(m, np.asarray(mask))
+        np.testing.assert_array_equal(sup, csr["store_lengths"][gids])
+        np.testing.assert_array_equal(res[(strategy, "csr")],
+                                      res[(strategy, "dense")])
+        np.testing.assert_array_equal(res[(strategy, "csr")], want)
+        assert res[(strategy, "ran")] == strategy

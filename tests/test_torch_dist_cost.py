@@ -2,14 +2,15 @@
 distribution layer's refusals (no ranks are spawned here).
 
 - ``lookup_cost``, ``resolve_exchange`` (a mesh stand-in with ``shape`` and
-  ``axis_names``), ``resolve_update_exchange`` and ``slab_aligned`` equal
-  to the reference's on a grid of (P, n, d, m, alloc_row, fused flags,
-  buckets).  Where ``resolve_exchange`` derives a fused flag from m, the
+  ``axis_names``), ``resolve_update_exchange``, ``slab_aligned`` and the
+  sparse-update cost model (``dedup_sort_bytes``, ``sparse_update_cost``,
+  ``sparse_worthwhile``) equal to the reference's on a grid of (P, n, d,
+  m, alloc_row, fused flags, buckets, row mode).  Where ``resolve_exchange`` derives a fused flag from m, the
   grid's m lies where the reference's VMEM gates pass, which the port (no
   VMEM gate) always does for a pool P divides.
-- A mesh with a 'data' axis larger than 1, a store whose rows do not
-  divide by P, a pool that P does not divide, and NCCL with two ranks on
-  one device each raise a clear error.
+- A mesh's axes, its data-major world and its ranks' bounds; a store whose
+  rows do not divide by P, a pool that P does not divide, and NCCL with two
+  ranks on one device each raise a clear error.
 """
 from __future__ import annotations
 
@@ -114,10 +115,18 @@ def test_eligibility_and_gates():
         pad_rows(padded, 4, 0)
 
 
-def test_mesh_refuses_a_data_axis():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Mesh(model=4, data=2)
+def test_mesh_with_a_data_axis():
+    """A (data=2, model=2) mesh numbers its world data-major, as the
+    reference's ``jax.make_mesh((D, P), ("data", "model"))``; a (1, P) mesh
+    is what it was."""
+    for w in range(4):
+        m = Mesh(model=2, rank=w % 2, data=2, data_rank=w // 2)
+        assert m.shape == {"data": 2, "model": 2} and m.world == 4
+        assert m.world_rank == w and dp_axes(m) == ("data",)
+    with pytest.raises(ValueError):
+        Mesh(model=2, data=2, data_rank=2)
     mesh = Mesh(model=4, rank=1)
+    assert mesh.world == 4 and mesh.world_rank == 1 and mesh.data_rank == 0
     assert mesh.shape == {"data": 1, "model": 4}
     assert dp_axes(mesh) == ("data",) and dp_axes() == ()
     assert axis_sizes() == {}
@@ -170,3 +179,30 @@ def test_lma_under_a_mesh_never_gathers_the_store_locally():
     with use_mesh(Mesh(model=4)), pytest.raises(RuntimeError,
                                                 match="exchange"):
         get_scheme("lma").fused_inputs(e, {}, torch.zeros(3, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("P", PS)
+@pytest.mark.parametrize("row_mode", [False, True])
+def test_sparse_update_cost_model_equals_reference(P, row_mode):
+    """``dedup_sort_bytes``, ``sparse_update_cost`` and
+    ``sparse_worthwhile`` (the reference's sparse-vs-dense gate, also under
+    each forced strategy) equal the reference's over a grid of n, d, m and
+    buckets."""
+    for k, b in itertools.product((0, 1, 2, 4096, 13_312, 1_703_936),
+                                  (0, 16, 64, 24)):
+        assert exl.dedup_sort_bytes(k, b) == jexl.dedup_sort_bytes(k, b)
+    for n, d, m, b in itertools.product((4096, 13_312, 1_703_936), DS,
+                                        (1 << 20, 135_053_312),
+                                        (0, 16, 64, 24)):
+        assert exl.sparse_update_cost(P, n, d, m, row_mode, b) == \
+            jexl.sparse_update_cost(P, n, d, m, row_mode, b)
+        for forced in (None, "psum", "ring", "all_to_all"):
+            exl.FORCED = jexl.FORCED = forced
+            try:
+                assert exl.sparse_worthwhile(_mesh(P), n, d, m, row_mode,
+                                             b) == \
+                    jexl.sparse_worthwhile(_mesh(P), n, d, m, row_mode, b)
+            finally:
+                exl.FORCED = jexl.FORCED = None
+    assert exl.sparse_worthwhile(None, 4096, 64, 1 << 20) == \
+        jexl.sparse_worthwhile(None, 4096, 64, 1 << 20)

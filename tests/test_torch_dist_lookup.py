@@ -57,14 +57,14 @@ def _reference(c: dict, vocabs=dr.VOCABS):
 @pytest.fixture(scope="module")
 def four():
     cases = [dr.case(n, seed=i) for i, n in enumerate(NAMES)]
-    return cases, run_ranks(dr.lookups, 4, cases)
+    return cases, run_ranks(dr.lookups, 4, cases, device="cpu")
 
 
 @pytest.fixture(scope="module")
 def two_odd():
     cases = [dr.case(n, seed=7, batch=13, fields=False)
              for n in ("lma", "hashed_elem")]
-    return cases, run_ranks(dr.lookups, 2, cases)
+    return cases, run_ranks(dr.lookups, 2, cases, device="cpu")
 
 
 @pytest.mark.parametrize("strategy", dr.STRATEGIES)

@@ -46,7 +46,7 @@ LAYOUT = {"lma": (False, dr.DIM, (dr.BUDGET,)),
 
 @pytest.fixture(scope="module")
 def sharded():
-    return run_ranks(dr.sparse_train_all, P, RUNS)
+    return run_ranks(dr.sparse_train_all, P, RUNS, device="cpu")
 
 
 def _reference_train(name: str, algo: str, steps: int = 10) -> np.ndarray:
@@ -125,7 +125,7 @@ def dlrm():
         jt.cfg.total_steps = s
         jlosses.append(jt.fit(log=lambda _: None)["loss"])
     return (np.asarray(jlosses), run_ranks(dr.dlrm_train, P, np_params,
-                                           np_bufs),
+                                           np_bufs, device="cpu"),
             dr.dlrm_train(None, np_params, np_bufs))
 
 

@@ -14,6 +14,11 @@ guard's rollback, pool integrity, the chaos soak) against the reference's
   within 1e-6 of it.
 - A reference Trainer's checkpoint resumes in the port's Trainer through
   ``state_from_jax``, and the reverse through ``state_to_jax``.
+- Checkpoints under a mesh of gloo ranks: a (1, 4) save byte-identical to
+  the one-process save; its checkpoint resumed at (2, 2), at (1, 2) and on
+  one process, and the reference's on 4 ranks, each ending bit-identical to
+  the run it continues; a chaos soak on 4 ranks bit-identical to its clean
+  run.
 - The launcher's durability flags on the CPU.
 """
 from __future__ import annotations
@@ -47,7 +52,6 @@ from repro_torch.checkpoint import manager as tm  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.convert import (params_from_jax, state_from_jax,  # noqa: E402
                                  state_to_jax)
-from repro_torch.dist.context import Mesh, use_mesh  # noqa: E402
 from repro_torch.embed import EmbeddingTable, get_scheme  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.models import recsys as trec  # noqa: E402
@@ -55,6 +59,7 @@ from repro_torch.optim import optimizers as opt_lib  # noqa: E402
 from repro_torch.resilience import chaos  # noqa: E402
 from repro_torch.resilience import faults as flt  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+import dist_ranks as dr  # noqa: E402
 
 QUIET = {"log": lambda _: None}
 
@@ -342,10 +347,122 @@ def test_restore_sanitizes_pool_and_accumulator(tmp_path):
     assert torch.isfinite(t2.opt_state["embedding.memory"]).all()
 
 
-def test_checkpoints_under_a_mesh_are_not_ported(tmp_path):
-    with use_mesh(Mesh(model=2, rank=0)):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            _linear(1, ckpt_dir=str(tmp_path))
+# ------------------------------------------------ checkpoints under a mesh
+# The CTR problem on gloo ranks (``dist_ranks.ckpt_mesh`` / ``ckpt_resume``:
+# the same problem, built without JAX): a (1, 4) run saves at step 4 and
+# goes on to 8; the step-4 checkpoint resumes at (2, 2), at (1, 2) and on
+# one process; the reference's checkpoint resumes on 4 ranks; a chaos soak
+# runs on 4 ranks.
+
+
+def _whole(ranks, P):
+    """Whole arrays from the first P ranks' states (data index 0): pool
+    slabs concatenated, every other leaf as rank 0 holds it."""
+    out = {}
+    for k, v in ranks[0].items():
+        out[k] = (np.concatenate([r[k] for r in ranks[:P]])
+                  if "memory" in k.split("/") and np.ndim(v) else v)
+    return out
+
+
+def _assert_states_equal(a, b):
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                                      err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def mesh_ckpt(tmp_path_factory):
+    import shutil
+
+    from repro_torch.dist.collectives import run_ranks
+
+    root = tmp_path_factory.mktemp("mesh_ckpt")
+    init = np.asarray(_jctr()[2]()["embedding"]["memory"])
+    jdir = str(root / "jax")
+    _jfactory(jdir, 4)().fit(**QUIET)           # the reference saves step 4
+    for name in ("jax_ranks", "jax_one", "jax_ref"):
+        shutil.copytree(jdir, str(root / name))
+    spec = chaos.make_schedule(24, seed=21, kinds=SOAK_KINDS, n_faults=5,
+                               min_step=5)
+    r14 = root / "r14"
+    a = run_ranks(dr.ckpt_mesh, 4, init, str(r14), str(root / "jax_ranks"),
+                  spec, device="cpu")
+    for name in ("at4_22", "at4_12", "at4_one"):
+        shutil.copytree(str(r14 / "at4"), str(root / name))
+    b = run_ranks(dr.ckpt_resume, 4, init, str(root / "at4_22"), 8, data=2,
+                  device="cpu")
+    c = run_ranks(dr.ckpt_resume, 2, init, str(root / "at4_12"), 8,
+                  device="cpu")
+    one = dr.ckpt_resume(None, init, str(root / "at4_one"), 8)
+    return {"root": root, "init": init, "spec": spec, "a": a,
+            "resumed": {"(2, 2)": (b, 2), "(1, 2)": (c, 2),
+                        "one process": ([one], 1)}}
+
+
+def test_mesh_save_is_byte_identical_to_one_process(mesh_ckpt, tmp_path):
+    """A (1, 4) save (the pool and its accumulator gathered, written by
+    rank 0) is the one-process save of the same state, file for file."""
+    t = _factory(tmp_path / "one", 4)()
+    t.fit(**QUIET)
+    for f in ("manifest.json", "arrays.npz"):
+        got = (mesh_ckpt["root"] / "r14" / "at4" / "step_0000000004" / f
+               ).read_bytes()
+        want = (tmp_path / "one" / "step_0000000004" / f).read_bytes()
+        assert got == want, f
+
+
+@pytest.mark.parametrize("where", ["(2, 2)", "(1, 2)", "one process"])
+def test_mesh_checkpoint_resumes_elastically(mesh_ckpt, where):
+    """The (1, 4) step-4 checkpoint resumed at another mesh (or on one
+    process) ends bit-identical to the uninterrupted (1, 4) run."""
+    ranks, P = mesh_ckpt["resumed"][where]
+    want = _whole([r["uninterrupted"] for r in mesh_ckpt["a"]], 4)
+    for r in ranks:
+        assert r["resumed"] == 4 and r["step"] == 8
+    _assert_states_equal(_whole([r["state"] for r in ranks], P), want)
+    if where == "(2, 2)":
+        for d in range(P):                        # replicas bit-equal
+            _assert_states_equal(ranks[d]["state"], ranks[P + d]["state"])
+
+
+def test_reference_checkpoint_resumes_on_four_ranks(mesh_ckpt):
+    """The reference Trainer's step-4 checkpoint resumes on 4 ranks: the
+    end state bit-identical to the port's one-process resume of it, and
+    within 1e-6 of the reference continuing itself."""
+    root, init = mesh_ckpt["root"], mesh_ckpt["init"]
+    ranks = [r["jax"] for r in mesh_ckpt["a"]]
+    assert all(r["resumed"] == 4 and r["step"] == 8 for r in ranks)
+    got = _whole([r["state"] for r in ranks], 4)
+    _assert_states_equal(got, dr.ckpt_resume(None, init, str(root / "jax_one"),
+                                             8)["state"])
+    jt = _jfactory(str(root / "jax_ref"), 8)()
+    jt.fit(**QUIET)
+    want = jm._flatten(jax.tree_util.tree_map(np.asarray, jt._state()))
+    assert set(want) == set(got)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_chaos_soak_on_four_ranks_ends_bit_identical(mesh_ckpt):
+    """24 steps on a (1, 4) mesh under the same fault schedule on every rank
+    (a preemption, a torn save, pool rot, a NaN gradient): every rank's
+    durable state bit-identical to its clean run's."""
+    spec = mesh_ckpt["spec"]
+    assert {t.split("@")[0] for t in spec.split(",")} == set(SOAK_KINDS)
+    for r in mesh_ckpt["a"]:
+        ch = r["chaos"]
+        assert ch["res"]["step"] == 24 and not ch["res"]["preempted"]
+        assert ch["incarnations"] == spec.count("preempt@") + 1
+        assert ch["res"]["chaos_max_lost_steps"] <= 4
+        assert chaos.states_bit_identical(ch["state"], ch["clean"])
+    agreed = ("skipped_steps", "rollbacks", "torn_writes_detected",
+              "quarantined_chunks", "chaos_restarts", "loss")
+    for r in mesh_ckpt["a"][1:]:
+        for k in agreed:
+            assert r["chaos"]["res"][k] == mesh_ckpt["a"][0]["chaos"]["res"][k]
 
 
 # ------------------------------------------------------------- chaos soak

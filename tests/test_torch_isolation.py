@@ -50,6 +50,7 @@ def _entry_points():
     from repro_torch.core.signatures import (planted_dense_store,
                                              synthetic_dense_store)
     from repro_torch.core.signatures import synthetic_signature_store
+    from repro_torch.dist.collectives import run_ranks
     from repro_torch.embed import EmbeddingTable
     from repro_torch.launch import train as launcher
     from repro_torch.models.recsys import Recsys
@@ -103,6 +104,9 @@ def _entry_points():
         "launcher tiered": lambda: launcher.main(
             ["--arch", "din", "--smoke", "--steps", "1",
              "--tier-budget-mb", "0.01"]),
+        "run_ranks data": lambda: run_ranks(print, 4, data=2),
+        "launcher exchange": lambda: launcher.main(
+            ["--smoke", "--steps", "1", "--exchange", "ring"]),
     }
 
 
@@ -119,13 +123,50 @@ def _entry_points():
                                   "Trainer", "Trainer durable",
                                   "launcher durable",
                                   "EmbeddingTable.make_buffers csr",
-                                  "TieredStore", "launcher tiered"])
+                                  "TieredStore", "launcher tiered",
+                                  "run_ranks data", "launcher exchange"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """With no device named, tensors go to the card; without one, raise."""
     import torch
+
+    from repro_torch.dist import exchange as exl
+    monkeypatch.setattr(exl, "FORCED", exl.FORCED)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[name]()
+
+
+def test_guard_and_sharded_restore_take_no_device(tmp_path, monkeypatch):
+    """``ExchangeGuard`` and the sharded checkpoint restore make no tensor
+    on any device of their own: the guard compares what its probe returns,
+    and the restore gives host arrays, a rank's slab of each pool leaf
+    (``slab_shardings``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.dist import exchange as exl
+    from repro_torch.dist.context import Mesh
+    from repro_torch.dist.sharding import slab_shardings
+    from repro_torch.resilience.exchange_guard import ExchangeGuard
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        assert ExchangeGuard(lambda name: np.zeros(3, np.float32),
+                             log=lambda _: None).validate() == "all_to_all"
+    finally:
+        exl.reset_demotions()
+    pool = np.arange(8, dtype=np.float32)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(2, {"params": {"embedding": {"memory": pool}},
+                 "opt_state": {"w": np.ones(3, np.float32)},
+                 "step": np.asarray(2, np.int32)})
+    step, tree = mgr.restore(shardings=slab_shardings(Mesh(model=4, rank=1)))
+    assert step == 2
+    np.testing.assert_array_equal(tree["params"]["embedding"]["memory"],
+                                  pool[2:4])
+    np.testing.assert_array_equal(tree["opt_state"]["w"], np.ones(3))
+    assert isinstance(tree["params"]["embedding"]["memory"], np.ndarray)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -140,6 +181,10 @@ def test_importing_the_port_loads_no_jax():
             "from repro_torch.dist.context import Mesh, use_mesh\n"
             "with use_mesh(Mesh(model=4, rank=1)) as mesh:\n"
             "    assert mesh.shape == {'data': 1, 'model': 4}\n"
+            "assert Mesh(model=2, rank=1, data=2, data_rank=1).world_rank == 3\n"
+            "from repro_torch.resilience.exchange_guard import ExchangeGuard\n"
+            "from repro_torch.resilience.faults import wrap_exchange\n"
+            "from repro_torch.dist.sharding import slab_shardings\n"
             "import repro_torch.embed.freq\n"
             "from repro_torch.data.synthetic_ctr import DINGenerator, DINSpec\n"
             "from repro_torch.embed import list_schemes\n"

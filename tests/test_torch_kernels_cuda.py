@@ -947,3 +947,45 @@ def test_tier_install_waits_for_the_staging_copy(cuda):
         got = tree["memory"][card.hot_slots:card.hot_slots
                              + len(blocks) * card.block].cpu().numpy()
         np.testing.assert_array_equal(got, rows[blocks].reshape(-1))
+
+
+# ------------------------------------------- the rest of distribution
+
+def _ranks_on(device, fn, *args, data=1):
+    from repro_torch.dist.collectives import run_ranks
+    return run_ranks(fn, 4, *args, data=data, device=device)
+
+
+def test_data_axis_sparse_adagrad_step_on_the_card(cuda):
+    """A (data=2, model=2) sparse Adagrad step (lma striped, hashed_row,
+    hashed_elem; psum and all_to_all) by 4 gloo ranks on cuda:0 (the
+    lookup and update kernels) against the same step by 4 ranks on the
+    CPU (their plain versions): losses and every slab within 1e-6."""
+    import dist_ranks as dr
+    runs = [(n, "adagrad", s) for n in ("lma", "hashed_row", "hashed_elem")
+            for s in ("psum", "all_to_all")]
+    card = _ranks_on("cuda:0", dr.card_step, runs, 2, data=2)
+    host = _ranks_on("cpu", dr.card_step, runs, 2, data=2)
+    for a, b in zip(card, host):
+        for run in runs:
+            np.testing.assert_allclose(a[run][0], b[run][0], rtol=1e-6)
+            np.testing.assert_allclose(a[run][1], b[run][1], rtol=1e-6,
+                                       atol=1e-6)
+
+
+def test_csr_sharded_set_lookup_on_the_card(cuda):
+    """The CSR store sharded over (1, 4) ranks on cuda:0: the set rows,
+    masks and supports under every strategy bit-equal to the CPU ranks',
+    and the LMA lookups through it (the chunk kernels) bit-equal too."""
+    import dist_ranks as dr
+    c, csr = dr.case("lma", seed=41), dr.csr_arrays()
+    card = _ranks_on("cuda:0", dr.csr_lookups, c, csr)
+    host = _ranks_on("cpu", dr.csr_lookups, c, csr)
+    for a, b in zip(card, host):
+        assert a["keys"] == b["keys"]
+        for s in dr.STRATEGIES:
+            for x, y in zip(a[(s, "sets")], b[(s, "sets")]):
+                np.testing.assert_array_equal(x, y)
+            for k in ("csr", "dense"):
+                np.testing.assert_array_equal(a[(s, k)], b[(s, k)])
+            assert a[(s, "ran")] == b[(s, "ran")] == s

@@ -5,8 +5,10 @@ projection within 1e-6, ``embed_bag`` (sum and mean) within 1e-6; the
 schemes' sizing (``param_count``, qr's per-table budget, md's dims, freq's
 hot tier), ``describe`` and ``list_schemes`` equal to the reference's;
 freq's hot ids, row ids and locations bit-identical with seeds >= 2^31; the
-resolver's choice on a card pool; and 5 Trainer steps of dlrm-rm2's smoke
-config with each scheme within 1e-5 of the reference's Trainer."""
+resolver's choice on a card pool; freq under a (1, 4) mesh of gloo ranks
+(the generic location lookup, every strategy) bit-identical to one
+process; and 5 Trainer steps of dlrm-rm2's smoke config with each scheme
+within 1e-5 of the reference's Trainer."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,7 +35,7 @@ from repro.train.trainer import TrainerConfig as JTrainerConfig  # noqa: E402
 from repro_torch.configs import _recsys_common as trc  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.convert import buffers_from_numpy, params_from_jax  # noqa: E402
-from repro_torch.dist.context import Mesh, use_mesh  # noqa: E402
+from repro_torch.dist.collectives import run_ranks  # noqa: E402
 from repro_torch.embed import (FUSED, SPLIT, EmbeddingTable,  # noqa: E402
                                get_scheme, list_schemes, resolve_backend)
 from repro_torch.embed import freq as tfreq  # noqa: E402
@@ -42,6 +44,7 @@ from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.models import recsys as trec  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from test_torch_isolation import _OnCard  # noqa: E402
+import dist_ranks as dr  # noqa: E402
 
 KINDS = ["qr", "md", "freq"]
 VOCABS = trc.smoke_vocabs(6)
@@ -265,12 +268,38 @@ def test_resolver_sends_freq_to_split_and_pools_with_a_spec_to_fused():
         assert resolve_backend(cfg, {}) is None
 
 
-def test_freq_under_a_mesh_refuses():
-    jcfg, _, tt, _, tp, _, tb = _pair("freq")
-    ids = torch.from_numpy(_ids(np.random.default_rng(0), 4))
-    with use_mesh(Mesh(model=4, rank=1)):
-        with pytest.raises(NotImplementedError, match="freq"):
-            tt.embed_fields(tp, tb, ids)
+@pytest.fixture(scope="module")
+def freq_mesh():
+    """freq's lookups on a (1, 4) mesh of gloo ranks (``dist_ranks.
+    freq_lookups``, every strategy) and on one process."""
+    c = dr.case("hashed_row", seed=31)        # a pool, field ids, g
+    return c, run_ranks(dr.freq_lookups, 4, c, device="cpu"), dr.freq_lookups(None, c)
+
+
+@pytest.mark.parametrize("strategy", dr.STRATEGIES)
+def test_freq_under_a_mesh_matches_one_process(freq_mesh, strategy):
+    """The generic location lookup (``sharded_location_lookup``) under each
+    strategy: every rank's output bit-identical to the one-process lookup
+    and to the reference's, the hot ids replicated, each slab's gradient
+    within 1e-6 of the one-process gradient's slab."""
+    c, ranks, one = freq_mesh
+    jt = JTable(jscheme("freq").build_config(dr.VOCABS, dr.DIM, dr.BUDGET,
+                                             seed=9, hot_k=dr.FREQ_HOT))
+    want = jt.embed_fields({"memory": jnp.asarray(c["memory"])},
+                           jt.make_buffers(dr.freq_counts()),
+                           jnp.asarray(c["ids"]))
+    np.testing.assert_array_equal(one[(None, "out")], np.asarray(want))
+    slab = dr.BUDGET // 4
+    for r, res in enumerate(ranks):
+        assert res[(strategy, "ran")] == strategy
+        np.testing.assert_array_equal(res[(strategy, "hot")],
+                                      one[(None, "hot")])
+        np.testing.assert_array_equal(res[(strategy, "out")],
+                                      one[(None, "out")])
+        np.testing.assert_allclose(res[(strategy, "grad")],
+                                   one[(None, "grad")][r * slab:
+                                                       (r + 1) * slab],
+                                   rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("kind", KINDS)
