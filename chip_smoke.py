@@ -7,7 +7,9 @@ full-width DCN-v2, dlrm-rm2 with the qr, md and freq
 embeddings, full-width DIN, then full-width xDeepFM, then dlrm-rm2 with
 its pool and D' store sharded over 4 ranks on the same card: a (1, 4) mesh,
 then a (data=2, model=2) mesh, freq and the CSR store under a mesh, the
-exchange guard and a checkpoint under a mesh.
+exchange guard and a checkpoint under a mesh, and last the dense LM
+tinyllama-1.1b at full width (bf16, an int8 KV cache): prefill, decode,
+the LMServer, decode_32k, prefill_32k and an LMA token table.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 sm_90 card and ``nvcc``; it imports only torch, numpy and ``repro_torch``
@@ -242,8 +244,33 @@ Phases (any failure raises and ends the run with a non-zero code):
      slabs bit-equal between replicas; steps/s, each rank's peak, the
      host-staged s and GiB a step by axis; and (e) the (1, 4) checkpoint
      restored at (2, 2): one further step within 1e-5 of the uninterrupted
-     run's; print one line per kernel, the ``kernels`` JSON line, the card
-     line, and last the result line.
+     run's;
+ 35. (the dense LM, ``run_lm``, after freeing everything before it)
+     tinyllama-1.1b at full width (22 layers, d 2,048, 32 heads, KV 4,
+     d_ff 5,632, vocab 32,000, bf16, int8 KV cache), random weights from
+     the seed: (a) its parameter count (1,099,956,224 by param_count),
+     bytes and cache bytes a token (11,968); (b) at B=8, S=2,048 tokens
+     from LMGenerator(32000, seed=0), the decode of the last token from
+     the int8 prefill cache of the first S - 1 against the prefill over
+     all S, both against a float32 copy of the weights with a float cache:
+     within rtol 0.1, atol 0.15 (tests/test_kv_quant.py's bound), the
+     float32 top-1 among the int8 top-5, the float32 decode within 2e-3 of
+     its prefill; (c) the LMServer over 64 prompts of 128-1,024 tokens
+     (seed 1), n_slots 32, max_new_tokens 128, max_len 1,152: prefill ms a
+     wave, the median decode-step ms, generated tokens/s, peak GiB, and
+     its first wave recomputed by prefill + decode_step, tokens equal; (d)
+     decode_32k, B=128 against a 32,768-token int8 cache (50.2 GB,
+     quantized from random K/V): 5 steps at cache_len 32,763-32,767, the
+     median ms, peak GiB, one layer's dequantization, blocked attention
+     and F.scaled_dot_product_attention on its dequantized K/V; (e)
+     prefill_32k at B=4 (the published 32 is a mesh's global batch): s,
+     tokens/s, peak GiB, one layer's blocked attention and causal SDPA;
+     (f) the model with an LMA token table (4,096,000 striped slots over a
+     planted 32,000 x 32 D' store): embed_tokens through row 2 bit-equal
+     to the plain split path on (b)'s batch, row 2 timed at the prefill
+     and decode shapes, a prefill and 16 decode steps launching row 2
+     once each; print one line per kernel, the ``kernels`` JSON line, the
+     card line, and last the result line.
 """
 from __future__ import annotations
 
@@ -5114,6 +5141,430 @@ def run_tiering(torch, cfg, model, bufs, gen, dev, kernels, card) -> dict:
                         "launcher": launch}}
 
 
+# ------------------------------------------------ the dense LM (phase 35)
+
+LM_ARCH = "tinyllama-1.1b"
+LM_PARAMS = 1_099_956_224       # param_count of tinyllama-1.1b
+LM_CACHE_TOKEN_BYTES = 11_968   # int8 K/V + float32 scales, 22 layers
+LM_B, LM_S = 8, 2048            # 35b
+INT8_RTOL, INT8_ATOL, INT8_TOPK = 0.1, 0.15, 5   # tests/test_kv_quant.py
+CONSISTENCY_TOL = 2e-3          # tests/test_models_smoke.py, float32
+SERVE_PROMPTS, SERVE_LENS = 64, (128, 1024)      # 35c, lengths from seed 1
+SERVE_SLOTS, SERVE_NEW, SERVE_MAX_LEN = 32, 128, 1152
+DECODE_B, DECODE_L, DECODE_STEPS = 128, 32768, 5  # 35d, decode_32k
+FILL_ROWS = 16                  # sequences quantized into the cache at once
+PREFILL_B, PREFILL_S = 4, 32768  # 35e, prefill_32k (published B = 32)
+LMA_DECODE_STEPS = 16           # 35f
+LMA_CHUNK = 512                 # tokens a plain location call takes
+BF16_FLOP_PER_S = 989e12        # dense, on the tensor cores
+
+
+@contextlib.contextmanager
+def lm_timed(torch, calls: dict):
+    """Within: ``transformer.prefill`` and ``decode_step`` record each
+    call's device time (CUDA events, the call synchronised) in ``calls``."""
+    from repro_torch.models import transformer
+
+    saved = {n: getattr(transformer, n) for n in ("prefill", "decode_step")}
+
+    def wrap(name):
+        def fn(*a, **kw):
+            out, ms = events_ms(torch, lambda: saved[name](*a, **kw))
+            calls.setdefault(name, []).append(ms)
+            return out
+        return fn
+    try:
+        for n in saved:
+            setattr(transformer, n, wrap(n))
+        yield calls
+    finally:
+        for n, f in saved.items():
+            setattr(transformer, n, f)
+
+
+def int8_close(torch, got, want, what: str) -> float:
+    """``got`` within the int8 bound of ``want`` (rtol 0.1, atol 0.15);
+    -> the largest |err|."""
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    if not torch.allclose(g, w, rtol=INT8_RTOL, atol=INT8_ATOL):
+        raise AssertionError(f"{what}: max |err| {err:.4g} outside rtol "
+                             f"{INT8_RTOL}, atol {INT8_ATOL}")
+    return err
+
+
+def lm_check(torch, cfg, model, tokens, dev) -> dict:
+    """35b: decode of the last token from the int8 prefill cache of the
+    first S - 1 against the prefill over all S, both against a float32 copy
+    of the weights with a float cache (and its own decode)."""
+    import copy
+    from repro_torch.models import transformer as tt
+
+    B, S = tokens.shape
+    res = {}
+    with torch.no_grad():
+        full, _ = tt.prefill(model, cfg, tokens)
+        cache = tt.init_cache(cfg, B, S, dev)
+        _, cache = tt.prefill(model, cfg, tokens[:, :-1], cache=cache)
+        dec, _ = tt.decode_step(model, cfg, tokens[:, -1], cache, S - 1)
+        del cache
+        cfg32 = dataclasses.replace(cfg, dtype="float32", kv_cache_dtype=None)
+        m32 = copy.deepcopy(model).float()
+        f32, _ = tt.prefill(m32, cfg32, tokens)
+        cache = tt.init_cache(cfg32, B, S, dev)
+        _, cache = tt.prefill(m32, cfg32, tokens[:, :-1], cache=cache)
+        dec32, _ = tt.decode_step(m32, cfg32, tokens[:, -1], cache, S - 1)
+        del cache, m32
+    for t in (full, dec, f32, dec32):
+        if t.shape != (B, cfg.vocab_size) or not bool(t.isfinite().all()):
+            raise AssertionError("LM logits are not finite [B, V]")
+    res["decode_vs_prefill"] = int8_close(torch, dec, full,
+                                          "int8 decode vs bf16 prefill")
+    res["decode_vs_float32"] = int8_close(torch, dec, f32,
+                                          "int8 decode vs float32 prefill")
+    res["prefill_vs_float32"] = int8_close(torch, full, f32,
+                                           "bf16 prefill vs float32 prefill")
+    res["float32_decode_vs_prefill"] = float((dec32 - f32).abs().max())
+    if not torch.allclose(dec32, f32, rtol=CONSISTENCY_TOL,
+                          atol=CONSISTENCY_TOL):
+        raise AssertionError("float32 decode vs prefill: max |err| "
+                             f"{res['float32_decode_vs_prefill']:.3g}")
+    top5 = torch.topk(dec.float(), INT8_TOPK, dim=-1).indices
+    top1 = f32.argmax(-1)
+    if not bool((top5 == top1[:, None]).any(-1).all()):
+        raise AssertionError("the float32 top-1 is not among the int8 "
+                             f"decode's top-{INT8_TOPK}")
+    res["top1_equal"] = int((dec.float().argmax(-1) == top1).sum())
+    log(f"35b: B={B} S={S}: int8 decode vs bf16 prefill max |err| "
+        f"{res['decode_vs_prefill']:.4f}, vs float32 "
+        f"{res['decode_vs_float32']:.4f}; bf16 prefill vs float32 "
+        f"{res['prefill_vs_float32']:.4f} (rtol {INT8_RTOL}, atol "
+        f"{INT8_ATOL}); float32 decode vs prefill "
+        f"{res['float32_decode_vs_prefill']:.3g} (tol {CONSISTENCY_TOL}); "
+        f"float32 top-1 in the int8 top-{INT8_TOPK} for all {B}, equal for "
+        f"{res['top1_equal']}")
+    return res
+
+
+def wave_by_hand(torch, cfg, model, wave, max_new, max_len, dev):
+    """One LMServer wave recomputed with prefill + decode_step."""
+    from repro_torch.models import transformer as tt
+
+    n, plen = len(wave), max(len(p) for p in wave)
+    toks = np.zeros((n, plen), np.int32)
+    for i, p in enumerate(wave):
+        toks[i, plen - len(p):] = p
+    pad_to = min(max_len, plen + max_new)
+    cache = tt.init_cache(cfg, n, pad_to, dev)
+    logits, cache = tt.prefill(model, cfg, torch.from_numpy(toks).to(dev),
+                               cache=cache)
+    out = [torch.argmax(logits, -1).to(torch.int32)]
+    for step in range(1, max_new):
+        if plen + step >= pad_to:
+            break
+        logits, cache = tt.decode_step(model, cfg, out[-1], cache,
+                                       plen + step - 1)
+        out.append(torch.argmax(logits, -1).to(torch.int32))
+    return torch.stack(out, dim=1).cpu().tolist()
+
+
+def lm_serve(torch, cfg, model, dev) -> dict:
+    """35c: the LMServer over 64 prompts of 128-1,024 tokens in waves of
+    32; one wave recomputed by hand, its tokens equal."""
+    from repro_torch.serve import LMServer
+
+    rng = np.random.default_rng(SEED + 1)
+    lens = rng.integers(SERVE_LENS[0], SERVE_LENS[1] + 1, SERVE_PROMPTS)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in lens]
+    server = LMServer(model, cfg, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    free(torch)
+    calls = {}
+    with lm_timed(torch, calls):
+        t0 = time.perf_counter()
+        results = server.generate(prompts, max_new_tokens=SERVE_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hand = wave_by_hand(torch, cfg, model, prompts[:SERVE_SLOTS], SERVE_NEW,
+                        SERVE_MAX_LEN, dev)
+    if [r.tokens for r in results[:SERVE_SLOTS]] != hand:
+        raise AssertionError("the LMServer's first wave differs from its "
+                             "recomputation by prefill + decode_step")
+    gen = server.stats["generated"]
+    out = {"prompts": SERVE_PROMPTS, "lengths": [int(lens.min()),
+                                                 int(lens.max())],
+           "stats": dict(server.stats),
+           "prefill_ms_a_wave": calls["prefill"],
+           "decode_step_ms_median": float(np.median(calls["decode_step"])),
+           "generated_tokens_per_s": gen / wall, "wall_s": wall,
+           "peak_gib": peak}
+    log(f"35c: LMServer {SERVE_PROMPTS} prompts ({out['lengths'][0]}-"
+        f"{out['lengths'][1]} tokens), n_slots {SERVE_SLOTS}, max_new "
+        f"{SERVE_NEW}, max_len {SERVE_MAX_LEN}: {server.stats}; prefill "
+        f"{', '.join(f'{x:.1f}' for x in calls['prefill'])} ms a wave, "
+        f"decode step median {out['decode_step_ms_median']:.2f} ms, "
+        f"{out['generated_tokens_per_s']:.1f} generated tokens/s "
+        f"({wall:.2f} s), peak {peak:.2f} GiB; wave 1 equal to its "
+        "recomputation")
+    return out
+
+
+def fill_cache(torch, cfg, cache, dev) -> None:
+    """Every row of an int8 cache quantized from random K/V (from the
+    seed), FILL_ROWS sequences at a time."""
+    from repro_torch.nn.attention import quantize_kv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+    for c in cache.values():
+        count, B, L, KV, hd = c["k"].shape
+        for li in range(count):
+            for lo in range(0, B, FILL_ROWS):
+                hi = min(lo + FILL_ROWS, B)
+                for name in ("k", "v"):
+                    x = torch.randn((hi - lo, L, KV, hd), generator=gen,
+                                    device=dev, dtype=torch.bfloat16)
+                    q, s = quantize_kv(x)
+                    c[name][li, lo:hi] = q
+                    c[f"{name}_scale"][li, lo:hi] = s
+
+
+def gqa_sdpa_ms(torch, q, k, v, causal: bool, iters: int) -> float:
+    """One ``F.scaled_dot_product_attention`` call at these shapes (q [B,
+    H, S, hd], k/v [B, KV, T, hd], grouped heads): the library figure."""
+    import torch.nn.functional as F
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True), iters, warmup=1)
+
+
+def lm_decode_32k(torch, cfg, model, dev) -> dict:
+    """35d: B = 128 against a 32,768-token int8 cache, 5 steps; one
+    layer's dequantization, the port's attention and SDPA beside them."""
+    from repro_torch.models import transformer as tt
+    from repro_torch.nn.attention import blocked_attention, dequantize_kv
+
+    free(torch)
+    cache = tt.init_cache(cfg, DECODE_B, DECODE_L, dev)
+    cache_gb = sum(t.numel() * t.element_size() for c in cache.values()
+                   for t in c.values()) / 1e9
+    t0 = time.perf_counter()
+    fill_cache(torch, cfg, cache, dev)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 36)
+    ms = []
+    with torch.no_grad():
+        for step in range(DECODE_STEPS):
+            tok = torch.randint(0, cfg.vocab_size, (DECODE_B,),
+                                generator=gen, device=dev, dtype=torch.int32)
+            at = DECODE_L - DECODE_STEPS + step
+            (logits, _), t = events_ms(torch, lambda: tt.decode_step(
+                model, cfg, tok, cache, at))
+            ms.append(t)
+            if not bool(logits.isfinite().all()):
+                raise AssertionError("decode_32k logits are not finite")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        c = cache["layers_0"]
+        kf, t_deq_k = events_ms(torch, lambda: dequantize_kv(
+            c["k"][0], c["k_scale"][0], cfg.torch_dtype))
+        vf, t_deq_v = events_ms(torch, lambda: dequantize_kv(
+            c["v"][0], c["v_scale"][0], cfg.torch_dtype))
+        q = torch.randn((DECODE_B, 1, cfg.n_heads, cfg.hd), generator=gen,
+                        device=dev, dtype=cfg.torch_dtype)
+        pos = torch.full((1,), DECODE_L - 1, dtype=torch.int32, device=dev)
+        kv_pos = torch.arange(DECODE_L, dtype=torch.int32, device=dev)
+        attn_ms = time_ms(torch, lambda: blocked_attention(
+            q, kf, vf, causal=False, q_positions=pos, kv_positions=kv_pos,
+            kv_valid_len=DECODE_L, block=cfg.attn_block), 3, warmup=1)
+        del cache, c
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (kf, vf))
+        sdpa = gqa_sdpa_ms(torch, q.transpose(1, 2), kt, vt, False, 5)
+    med = float(np.median(ms))
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    bound_ms = (cache_gb * 1e9 + weights) / HBM_BYTES_PER_S * 1e3
+    out = {"B": DECODE_B, "cache_len": DECODE_L, "steps_ms": ms,
+           "median_ms": med, "cache_gb": cache_gb, "peak_gib": peak,
+           "fill_s": fill_s, "bytes_bound_ms": bound_ms,
+           "layer_dequantize_ms": t_deq_k + t_deq_v,
+           "layer_attention_ms": attn_ms, "layer_sdpa_ms": sdpa}
+    log(f"35d: decode_32k B={DECODE_B} against a {DECODE_L}-token int8 "
+        f"cache ({cache_gb:.2f} GB, filled in {fill_s:.1f} s): steps "
+        f"{', '.join(f'{x:.1f}' for x in ms)} ms, median {med:.1f} ms "
+        f"(reading the cache and weights once: {bound_ms:.2f} ms), peak "
+        f"{peak:.2f} GiB; one layer: dequantize K and V "
+        f"{t_deq_k + t_deq_v:.2f} ms, blocked attention {attn_ms:.2f} ms, "
+        f"SDPA on the dequantized K/V {sdpa:.3f} ms")
+    return out
+
+
+def lm_prefill_32k(torch, cfg, model, dev) -> dict:
+    """35e: prefill_32k at B = 4 (the published 32 is a mesh's global
+    batch); one layer's blocked attention and causal SDPA beside it."""
+    from repro_torch.models import transformer as tt
+    from repro_torch.nn.attention import blocked_attention
+
+    free(torch)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+    tok = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                        generator=gen, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        cache = tt.init_cache(cfg, PREFILL_B, PREFILL_S, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tt.prefill(model, cfg, tok, cache=cache)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if not bool(logits.isfinite().all()):
+            raise AssertionError("prefill_32k logits are not finite")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del cache, logits
+        shape = (PREFILL_B, PREFILL_S)
+        q = torch.randn((*shape, cfg.n_heads, cfg.hd), generator=gen,
+                        device=dev, dtype=cfg.torch_dtype)
+        k, v = (torch.randn((*shape, cfg.n_kv_heads, cfg.hd), generator=gen,
+                            device=dev, dtype=cfg.torch_dtype)
+                for _ in range(2))
+        pos = torch.arange(PREFILL_S, dtype=torch.int32, device=dev)
+        _, attn_ms = events_ms(torch, lambda: blocked_attention(
+            q, k, v, causal=True, q_positions=pos, kv_positions=pos,
+            block=cfg.attn_block))
+        sdpa = gqa_sdpa_ms(torch, *(x.transpose(1, 2).contiguous()
+                                    for x in (q, k, v)), True, 3)
+    tokens = PREFILL_B * PREFILL_S
+    out = {"B": PREFILL_B, "S": PREFILL_S, "seconds": secs,
+           "tokens_per_s": tokens / secs, "peak_gib": peak,
+           "layer_attention_ms": attn_ms, "layer_sdpa_causal_ms": sdpa,
+           "reduced": "batch 32 -> 4 (the published 32 is a mesh's global "
+                      "batch)"}
+    log(f"35e: prefill_32k B={PREFILL_B} S={PREFILL_S}: {secs:.2f} s, "
+        f"{tokens / secs:.0f} tokens/s, peak {peak:.2f} GiB; one layer: "
+        f"blocked attention {attn_ms:.1f} ms, causal SDPA {sdpa:.2f} ms")
+    return out
+
+
+def lm_lma(torch, cfg, tokens, dev, kernels) -> dict:
+    """35f: tinyllama-1.1b with an LMA token table over a planted 32,000 x
+    32 D' store: row 2's lookup (``embed_tokens``) bit-equal to the plain
+    split path on 35b's batch, timed at the prefill and decode shapes; a
+    prefill and 16 decode steps, row 2 once each."""
+    from repro_torch.configs._recsys_common import embedding_of_kind
+    from repro_torch.embed import get_scheme, make_buffers
+    from repro_torch.kernels.fused_embed import ops as fe
+    from repro_torch.kernels.fused_embed import ref as fref
+    from repro_torch.kernels.fused_embed.kernel import fused_lookup_cuda
+    from repro_torch.models import transformer as tt
+
+    free(torch)
+    e = embedding_of_kind("lma", (cfg.vocab_size,), cfg.d_model,
+                          expansion=16.0, max_set=32)
+    lcfg = dataclasses.replace(cfg, embedding=e)
+    model = tt.init(lcfg, seed=SEED, device=dev).eval()
+    bufs = make_buffers(e, planted_store(torch, e, dev))
+    p = e.lma
+    spec = fe.lma_spec(p)
+    mem = model.embed["memory"].detach()
+    B, S = tokens.shape
+    gids = tokens.reshape(-1).contiguous()
+    rows, support = get_scheme("lma").fused_inputs(e, bufs, gids)
+    with torch.no_grad():
+        zero(kernels)
+        got = tt.embed_tokens(model, lcfg, tokens, bufs)
+        if counts(kernels) != {"fused_embed": 1}:
+            raise AssertionError(f"embed_tokens launched {counts(kernels)}")
+        plain_ms = 0.0
+        for lo in range(0, gids.numel(), LMA_CHUNK):
+            part = (gids[lo:lo + LMA_CHUNK], rows[lo:lo + LMA_CHUNK],
+                    support[lo:lo + LMA_CHUNK])
+            want, t = events_ms(torch, lambda: mem[
+                fref.locations_ref(spec, *part).long()])
+            plain_ms += t
+            if not torch.equal(got.reshape(-1, p.d)[lo:lo + LMA_CHUNK],
+                               want):
+                raise AssertionError("the LMA token table's lookup differs "
+                                     f"from the plain split path (tokens "
+                                     f"{lo}..)")
+        n_fb = int((support < p.min_support).sum())
+        timing = {}
+        for label, n in (("prefill", gids.numel()), ("decode", B)):
+            a = (gids[:n], rows[:n], support[:n])
+            r = timing[label] = {"tokens": n}
+            r["ms"] = graph_ms(torch, lambda: fused_lookup_cuda(
+                spec, mem, *a), 20)
+            r["bound_ms"], r["bound_by"] = bound(
+                *lma_work(torch, p, a[1], a[2], fallback=True),
+                INT32_OP_PER_S)
+        timing["prefill"]["plain_ms"] = plain_ms
+        zero(kernels)
+        cache = tt.init_cache(lcfg, B, S + LMA_DECODE_STEPS, dev)
+        logits, cache = tt.prefill(model, lcfg, tokens, bufs, cache=cache)
+        launches = {"lm lma prefill": counts(kernels)}
+        zero(kernels)
+        cur = logits.argmax(-1).to(torch.int32)
+        for step in range(LMA_DECODE_STEPS):
+            logits, cache = tt.decode_step(model, lcfg, cur, cache, S + step,
+                                           bufs)
+            cur = logits.argmax(-1).to(torch.int32)
+        launches["lm lma decode"] = counts(kernels)
+        if not bool(logits.isfinite().all()):
+            raise AssertionError("LMA LM logits are not finite")
+    want = {"lm lma prefill": {"fused_embed": 1},
+            "lm lma decode": {"fused_embed": LMA_DECODE_STEPS}}
+    if launches != want:
+        raise AssertionError(f"LMA LM launches {launches}, want {want}")
+    out = {"pool_slots": p.m, "stripe": p.stripe, "fallback_tokens": n_fb,
+           "row2": timing, "launches": launches}
+    log(f"35f: LMA token table m={p.m} (stripe {p.stripe}, d={p.d}, n_h="
+        f"{p.n_h}, max_set {p.max_set}): embed_tokens over {gids.numel()} "
+        f"tokens ({n_fb} fallback) bit-equal to the plain split path "
+        f"({plain_ms:.1f} ms in {-(-gids.numel() // LMA_CHUNK)} chunks); "
+        f"row 2 at {gids.numel()} tokens {timing['prefill']['ms']:.4f} ms "
+        f"(bound {timing['prefill']['bound_ms']:.4f} ms), at {B} tokens "
+        f"{timing['decode']['ms']:.4f} ms (bound "
+        f"{timing['decode']['bound_ms']:.4f} ms); launches {launches}")
+    return out
+
+
+def run_lm(torch, dev, kernels, card) -> dict:
+    """Phase 35: tinyllama-1.1b at full width on the card, bf16 with an
+    int8 cache, random weights from the seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import LMGenerator
+    from repro_torch.models import transformer as tt
+
+    t_phase = time.perf_counter()
+    free(torch)
+    cfg = get_config(LM_ARCH).make_model()
+    t0 = time.perf_counter()
+    model = tt.init(cfg, seed=SEED, device=dev).eval()
+    torch.cuda.synchronize()
+    n_params = tt.param_count(cfg)[0]
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    per_token = tt.cache_bytes_per_token(cfg)
+    if n_params != LM_PARAMS or per_token != LM_CACHE_TOKEN_BYTES:
+        raise AssertionError(f"{LM_ARCH}: {n_params} parameters, {per_token} "
+                             "cache bytes a token")
+    log(f"35a: {LM_ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, KV {cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}, {cfg.kv_cache_dtype} cache): "
+        f"{n_params:,} parameters by param_count, {nbytes / 1e9:.3f} GB; "
+        f"{per_token:,} cache bytes a token; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    toks = torch.from_numpy(LMGenerator(cfg.vocab_size, seed=SEED).batch(
+        LM_B, LM_S, 0)["tokens"]).to(dev)
+    out = {"arch": LM_ARCH, "params": n_params, "bytes": nbytes,
+           "cache_bytes_per_token": per_token, "card": card}
+    out["check"] = lm_check(torch, cfg, model, toks, dev)
+    out["serve"] = lm_serve(torch, cfg, model, dev)
+    out["decode_32k"] = lm_decode_32k(torch, cfg, model, dev)
+    out["prefill_32k"] = lm_prefill_32k(torch, cfg, model, dev)
+    del model
+    out["lma"] = lm_lma(torch, cfg, toks, dev, kernels)
+    free(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 35: {out['seconds']:.1f} s")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 SOURCES = {
@@ -5282,6 +5733,10 @@ def main() -> int:
         distribution = run_distribution(torch, card, shard, tmp)
     paths.update(shard["paths"])
     paths.update(distribution["paths"])
+    # the dense LM at full width (phase 35), last: it needs the card whole
+    free(torch)
+    lm = run_lm(torch, dev, kernels, card)
+    paths.update(lm["lma"]["launches"])
     for name, e in shard["err"].items():
         err[name] = max(err.get(name, 0.0), e)
     res.update(shard["res"])
@@ -5316,6 +5771,12 @@ def main() -> int:
                 extra[f"at_batch_{other}"] = r[other]
                 where += (f" (B={other}: {r[other]['ms']:.4f} ms, bound "
                           f"{r[other]['bound_ms']:.4f} ms)")
+        if name == "fused_embed":       # the LMA token table, d = 2,048
+            extra["at_lm"] = lm["lma"]["row2"]
+            where += (f" (LM d=2048, {lm['lma']['row2']['prefill']['tokens']}"
+                      f" tokens: {lm['lma']['row2']['prefill']['ms']:.4f} ms,"
+                      f" bound {lm['lma']['row2']['prefill']['bound_ms']:.4f}"
+                      " ms)")
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
@@ -5348,6 +5809,8 @@ def main() -> int:
     log(json.dumps({"distribution": distribution["summary"], "card": card}))
     log(json.dumps({"durability": durable["summary"], "card": card}))
     log(json.dumps({"tiering": tiering["summary"], "card": card}))
+    log(json.dumps({"lm": {k: v for k, v in lm.items() if k != "card"},
+                    "card": card}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ numpy arrays: the caller converts the reference pytree with ``np.asarray``
 leaf by leaf, and these functions name and lay them out for the port.
 ``state_to_jax`` / ``state_from_jax`` do the same for a Trainer's whole
 durable state (what its checkpoints hold), so a checkpoint of either
-package's Trainer resumes in the other's.
+package's Trainer resumes in the other's.  ``lm_params_from_jax`` lays a
+reference LM's stacked parameters out as the port's per-layer modules, and
+``cache_from_jax`` / ``cache_to_jax`` carry a decode cache both ways.
 """
 from __future__ import annotations
 
@@ -58,6 +60,61 @@ def params_from_jax(np_params: dict, cfg: RecsysConfig, device=None,
         for name, layer in np_params[mlp].items():
             _dense_into(state, f"{mlp}.{name}", layer, dev)
     return state
+
+
+def lm_params_from_jax(np_params: dict, cfg, device=None) -> dict:
+    """Reference transformer parameter pytree (numpy leaves) -> the port's
+    ``Transformer`` state dict, on the card unless ``device`` says
+    otherwise.  Each ``layers_{gi}`` leaf's leading (layer) axis is
+    unstacked into ``layers_{gi}.{i}``; a ``kernel [in, out]`` becomes
+    ``weight [out, in]``; ``embed`` (``table_0``, or the embedding scheme's
+    parameters: an LMA pool's ``memory``), ``lm_head`` and ``final_norm``
+    carry over by name."""
+    dev = resolve_device(device)
+    state = {}
+
+    def put(name: str, a) -> None:
+        a = np.asarray(a)
+        if name.endswith(".kernel"):
+            name, a = name[:-len("kernel")] + "weight", a.T
+        state[name] = _np_to_torch(a).to(dev)
+
+    for top in ("embed", "lm_head", "final_norm"):
+        for k, v in _flatten(np_params.get(top, {})).items():
+            put(f"{top}.{k.replace('/', '.')}", v)
+    for gi, (_kind, count) in enumerate(cfg.layer_groups()):
+        for k, v in _flatten(np_params[f"layers_{gi}"]).items():
+            for i in range(count):
+                put(f"layers_{gi}.{i}.{k.replace('/', '.')}",
+                    np.asarray(v)[i])
+    return state
+
+
+def _np_to_torch(a) -> torch.Tensor:
+    """A writable, contiguous copy; ml_dtypes' bfloat16 by its bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def cache_from_jax(np_cache: dict, device=None) -> dict:
+    """A reference decode cache (numpy leaves; ``layers_{gi}`` -> ``k``,
+    ``v``, ``k_scale``, ``v_scale``) -> the port's, same layout and
+    dtypes."""
+    dev = resolve_device(device)
+    return {g: {k: _np_to_torch(v).to(dev) for k, v in c.items()}
+            for g, c in np_cache.items()}
+
+
+def cache_to_jax(cache: dict) -> dict:
+    """The port's decode cache -> numpy leaves (bf16 as float32, which
+    holds every bf16 value exactly)."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return {g: {k: host(v) for k, v in c.items()} for g, c in cache.items()}
 
 
 def _dense_into(state: dict, prefix: str, layer: dict, dev) -> None:

@@ -129,7 +129,8 @@ __global__ void fused_lookup_kernel(const uint32_t* __restrict__ sets,
   extern __shared__ uint32_t smem[];
   const int d = f.a.d;
   const int warp = threadIdx.x / lma::WARP, lane = threadIdx.x % lma::WARP;
-  uint32_t* set = smem + warp * (S + d);
+  // a warp's set, then (bag only) its [d] sums: lookup_smem's layout
+  uint32_t* set = smem + warp * (weights ? S + d : S);
   float* acc = reinterpret_cast<float*>(set + S);  // bag sums, own columns
   const int stride = gridDim.x * WARPS_PER_BLOCK;
   for (int b = blockIdx.x * WARPS_PER_BLOCK + warp; b < B; b += stride) {
@@ -301,6 +302,25 @@ int blocks_for(int rows) {
   return (rows + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
 }
 
+// Dynamic shared memory past the 48 KB a launch gets by default needs the
+// kernel's opt-in (up to 227 KB a block on Hopper).  The bag lookup's sums
+// take d floats a warp, so d = 2,048 (an LM's token table) asks 66.5 KB;
+// the other launches stage only sets, 8 * S * 4 bytes.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// The lookup's shared memory: each warp's staged set, and for a bag its
+// [d] sums; a flat lookup writes its gathers straight out and keeps none.
+size_t lookup_smem(int S, int d, bool bag) {
+  return WARPS_PER_BLOCK * static_cast<size_t>(S + (bag ? d : 0)) *
+         sizeof(uint32_t);
+}
+
 }  // namespace
 
 // Flat lookup: weights == nullptr, L == 1, out [N, d].
@@ -318,7 +338,9 @@ extern "C" int fused_lookup_launch(const void* sets, const void* gids,
                                    cudaStream_t stream) {
   if (B == 0) return 0;
   FusedArgs f{scheme, min_support, {d, n_h, independent, seed, m, stripe}};
-  const size_t shm = WARPS_PER_BLOCK * (S + d) * sizeof(uint32_t);
+  const size_t shm = lookup_smem(S, d, weights != nullptr);
+  const cudaError_t attr = allow_smem(fused_lookup_kernel, shm);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   fused_lookup_kernel<<<blocks_for(B), WARPS_PER_BLOCK * lma::WARP, shm,
                         stream>>>(
       static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),

@@ -1,0 +1,281 @@
+"""Attention: RoPE, int8 KV quantization, the blocked online softmax and
+GQA (grouped KV heads); port of ``repro.nn.attention`` without a mesh.
+
+``blocked_attention`` is the reference's flash dataflow written with
+``torch.matmul`` on blocks: a Python loop over query chunks, an online
+softmax over KV blocks inside, live memory one (q_block x kv_block) score
+tile per (batch, head).  The reference computes it outside any Pallas
+kernel, so it has no TPU kernel to port; it runs as plain PyTorch on the
+card as on the CPU.
+
+The reference's score and value products take bf16 operands with
+``preferred_element_type=float32``: exact products summed in float32.
+``torch.matmul`` on bf16 operands returns bf16, so both operands are cast
+up to float32 first (a product of two bf16 values is exact in float32).
+
+Decode writes the new token's K/V into the caller's cache in place (the
+reference's ``dynamic_update_slice`` on a loop carry, which XLA does in
+place): the cache dict's tensors are views of the model's stacked cache.
+
+Not ported yet (ROADMAP.md, Queue 1, "MoE + MLA serving"): MLA attention and
+the decode under a mesh (``repro.dist.flash_decode``); both raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.nn.modules import dense
+
+_NEG_INF = -1e30
+_PAD_POS = 2 ** 30                 # position of a padded KV entry
+LATER = ("not ported yet: ROADMAP.md, Queue 1, 'MoE + MLA serving' "
+         "(nn/moe.py, MLA and dist/flash_decode.py)")
+
+
+def rope_table(positions: torch.Tensor, dim: int, theta: float = 10000.0):
+    """positions [...] -> (cos, sin) each [..., dim/2], float32."""
+    freqs = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                          device=positions.device) / dim))
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x [..., S, H, hd]; cos/sin [..., S, hd/2], broadcast over heads and
+    cast to x's dtype before the multiply (as the reference)."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    c = cos[..., None, :].to(x.dtype)
+    s = sin[..., None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def quantize_kv(x: torch.Tensor, eps: float = 1e-8):
+    """Per-token-per-head absmax int8: x [..., hd] -> (q int8 [..., hd],
+    scale float32 [...])."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp_min(torch.amax(torch.abs(xf), dim=-1), eps) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """``(float32(q) * scale).astype(dtype)``; the product is taken in place
+    in the float32 copy (the same bits, one [.., hd] float32 buffer less)."""
+    x = q.to(torch.float32)
+    x.mul_(scale[..., None])
+    return x.to(dtype)
+
+
+def _pad_block(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x [B, t, ...] zero-padded to [B, n, ...] along axis 1."""
+    if x.shape[1] == n:
+        return x
+    pad = [0, 0] * (x.dim() - 2) + [0, n - x.shape[1]]
+    return F.pad(x, pad)
+
+
+def _attn_q_chunk(qr: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+                  kv_valid_len, kv_block: int) -> torch.Tensor:
+    """Online softmax over KV blocks for one query chunk.
+
+    qr [B, qb, KV, G, hd] (scaled, in q's dtype), k [B, Tc, KV, hd], v [B,
+    Tc, KV, vd], q_pos [qb], kv_pos [Tc] -> [B, qb, KV, G, vd] in qr's
+    dtype.  The last block is zero-padded with position 2^30, as the
+    reference pads the whole KV (only that block has padding)."""
+    B, qb, KV, G, hd = qr.shape
+    Tc, vd = k.shape[1], v.shape[-1]
+    dev = qr.device
+    # [B, KV, G*qb, hd] float32: the score product's left operand
+    q32 = qr.to(torch.float32).permute(0, 2, 3, 1, 4).reshape(B, KV, G * qb,
+                                                               hd)
+    m = torch.full((B, KV, G, qb), _NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, qb), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, G, qb, vd), dtype=torch.float32, device=dev)
+    vl = None
+    if kv_valid_len is not None:
+        vl = torch.as_tensor(kv_valid_len, dtype=torch.int32,
+                             device=dev).reshape(-1).expand(B)
+    for lo in range(0, Tc, kv_block):
+        hi = min(lo + kv_block, Tc)
+        kj = _pad_block(k[:, lo:hi], kv_block)
+        vj = _pad_block(v[:, lo:hi], kv_block)
+        pj = kv_pos[lo:hi]
+        if hi - lo < kv_block:
+            pj = F.pad(pj, (0, kv_block - (hi - lo)), value=_PAD_POS)
+        s = torch.matmul(q32, kj.to(torch.float32).permute(0, 2, 3, 1))
+        # in place on fresh tiles only, which autograd keeps no copy of (the
+        # product's backward reads its operands; exp_'s its own result):
+        # each score tile is a few hundred MB at prefill_32k
+        s = s.view(B, KV, G, qb, kv_block)
+        if causal:
+            s.masked_fill_(~(pj[None, :] <= q_pos[:, None]), _NEG_INF)
+        if vl is not None:
+            s.masked_fill_(
+                ~(pj[None, :] < vl[:, None])[:, None, None, None, :],
+                _NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        corr = torch.exp(m - m_new)
+        p = (s - m_new[..., None]).exp_()
+        l = l * corr + torch.sum(p, dim=-1)
+        pv = torch.matmul(p.to(vj.dtype).to(torch.float32).view(
+            B, KV, G * qb, kv_block),
+            vj.to(torch.float32).permute(0, 2, 1, 3))
+        acc = acc * corr[..., None] + pv.view(B, KV, G, qb, vd)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    # cast per chunk, as the reference: the float32 sums already happened
+    return out.permute(0, 3, 1, 2, 4).to(qr.dtype)        # [B, qb, KV, G, vd]
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, q_positions: torch.Tensor,
+                      kv_positions: torch.Tensor, kv_valid_len=None,
+                      block: int = 1024, q_block: int = 512,
+                      sm_scale: float | None = None,
+                      aligned: bool | None = None) -> torch.Tensor:
+    """q [B, S, H, hd], k [B, T, KV, hd], v [B, T, KV, vd] -> [B, S, H, vd]
+    in q's dtype.  ``kv_valid_len`` (None, an int, or [B]): KV entries at
+    positions < it are valid.  Causal and aligned (query i at position i
+    of the same prefix) chunks skip the KV blocks wholly in their future, a
+    static triangle at ``block`` granularity, as the reference."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = sm_scale if sm_scale is not None else 1.0 / np.sqrt(hd)
+    if aligned is None:
+        aligned = causal
+    qr = (q * scale).to(q.dtype).reshape(B, S, KV, G, hd)
+    qb = min(q_block, S)
+    outs = []
+    for lo in range(0, S, qb):
+        hi = min(lo + qb, S)
+        t_need = min(T, -(-hi // block) * block) if causal and aligned \
+            else T
+        outs.append(_attn_q_chunk(qr[:, lo:hi], k[:, :t_need],
+                                  v[:, :t_need], q_positions[lo:hi],
+                                  kv_positions[:t_need], causal,
+                                  kv_valid_len, block))
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+
+
+# ------------------------------------------------------------ GQA attention
+
+@dataclasses.dataclass(frozen=True)
+class GQAConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int | None = None
+    qkv_bias: bool = False       # Qwen1.5 uses QKV bias
+    rope_theta: float = 10000.0
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim is not None \
+            else self.d_model // self.n_heads
+
+
+class GQA(nn.Module):
+    """The projections ``wq``, ``wk``, ``wv`` (bias if ``qkv_bias``) and
+    ``wo`` (no bias), named as the reference's leaves."""
+
+    def __init__(self, cfg: GQAConfig, generator: torch.Generator, device,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        hd, d = cfg.hd, cfg.d_model
+        self.wq = dense(d, cfg.n_heads * hd, generator, device, cfg.qkv_bias,
+                        dtype=dtype)
+        self.wk = dense(d, cfg.n_kv_heads * hd, generator, device,
+                        cfg.qkv_bias, dtype=dtype)
+        self.wv = dense(d, cfg.n_kv_heads * hd, generator, device,
+                        cfg.qkv_bias, dtype=dtype)
+        self.wo = dense(cfg.n_heads * hd, d, generator, device, False,
+                        dtype=dtype)
+
+
+def gqa_init(cfg: GQAConfig, generator: torch.Generator, device,
+             dtype: torch.dtype = torch.float32) -> GQA:
+    return GQA(cfg, generator, device, dtype)
+
+
+def gqa_qkv(p: GQA, cfg: GQAConfig, x: torch.Tensor,
+            positions: torch.Tensor):
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = p.wq(x).reshape(B, S, cfg.n_heads, hd)
+    k = p.wk(x).reshape(B, S, cfg.n_kv_heads, hd)
+    v = p.wv(x).reshape(B, S, cfg.n_kv_heads, hd)
+    cos, sin = rope_table(positions, hd, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def gqa_train(p: GQA, cfg: GQAConfig, x: torch.Tensor, block: int = 512,
+              return_kv: bool = False):
+    """Causal self-attention over a full sequence (training / prefill)."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    q, k, v = gqa_qkv(p, cfg, x, pos)
+    o = blocked_attention(q, k, v, causal=True, q_positions=pos,
+                          kv_positions=pos, block=block)
+    out = p.wo(o.reshape(B, S, cfg.n_heads * cfg.hd))
+    if return_kv:
+        return out, {"k": k, "v": v}
+    return out
+
+
+def gqa_decode(p: GQA, cfg: GQAConfig, x: torch.Tensor, cache: dict,
+               cache_len: int, block: int = 1024):
+    """One-token decode.  x [B, 1, d]; cache {"k", "v"} [B, L, KV, hd]
+    (int8 with "k_scale" / "v_scale" [B, L, KV]).  The new token's K/V are
+    written at ``cache_len`` in place; returns (out [B, 1, d], cache)."""
+    from repro_torch.dist.context import current_mesh
+    if current_mesh() is not None:
+        raise NotImplementedError(f"gqa_decode under a mesh is {LATER}")
+    B = x.shape[0]
+    L = cache["k"].shape[1]
+    cache_len = int(cache_len)
+    if not 0 <= cache_len < L:
+        raise ValueError(f"cache_len {cache_len} outside a cache of {L}")
+    pos = torch.full((1,), cache_len, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = gqa_qkv(p, cfg, x, pos)
+    at = slice(cache_len, cache_len + 1)
+    if cache["k"].dtype == torch.int8:
+        for name, new in (("k", k_new), ("v", v_new)):
+            qn, sn = quantize_kv(new)
+            cache[name][:, at] = qn
+            cache[f"{name}_scale"][:, at] = sn
+        kf = dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
+        vf = dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        cache["k"][:, at] = k_new.to(cache["k"].dtype)
+        cache["v"][:, at] = v_new.to(cache["v"].dtype)
+        kf, vf = cache["k"], cache["v"]
+    kv_pos = torch.arange(L, dtype=torch.int32, device=x.device)
+    o = blocked_attention(q, kf, vf, causal=False, q_positions=pos,
+                          kv_positions=kv_pos, kv_valid_len=cache_len + 1,
+                          block=block)
+    return p.wo(o.reshape(B, 1, cfg.n_heads * cfg.hd)), cache
+
+
+# ------------------------------------------------------------ MLA attention
+
+def mla_init(*args, **kwargs):
+    raise NotImplementedError(f"MLA attention is {LATER}")
+
+
+def mla_train(*args, **kwargs):
+    raise NotImplementedError(f"MLA attention is {LATER}")
+
+
+def mla_decode(*args, **kwargs):
+    raise NotImplementedError(f"MLA attention is {LATER}")

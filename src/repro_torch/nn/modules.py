@@ -1,10 +1,16 @@
-"""Dense layers and MLPs as ``nn.Module``s (port of ``repro.nn.modules``).
+"""Dense layers, MLPs, norms and the gated FFN as ``nn.Module``s (port of
+``repro.nn.modules``).
 
 Initialization follows the reference: weights ~ N(0, 1/d_in), zero bias,
 drawn from an explicit ``torch.Generator``.  A reference ``kernel [in, out]``
 is this module's ``Linear.weight [out, in]`` transposed
-(``repro_torch.convert``).  Submodule names (``layer_{i}``) mirror the
-reference's parameter paths.
+(``repro_torch.convert``).  Submodule and parameter names (``layer_{i}``;
+``scale`` and ``bias`` of the norms; ``gate``, ``up`` and ``down`` of the
+FFN) mirror the reference's parameter paths.
+
+The norms compute in the input's dtype, one reference operation at a time
+(in bf16: ``mean(square(x))``, then ``rsqrt(var + eps)`` in bf16), not
+through ``F.rms_norm`` / ``F.layer_norm``, which keep float32 inside.
 """
 from __future__ import annotations
 
@@ -54,3 +60,56 @@ class MLP(nn.Module):
             elif self.final_act is not None:
                 x = self.final_act(x)
         return x
+
+
+class RMSNorm(nn.Module):
+    """``x * rsqrt(mean(x^2) + eps) * scale``, eps 1e-6 (the reference's)."""
+
+    def __init__(self, d: int, device, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-6):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+        return x * torch.rsqrt(var + self.eps) * self.scale
+
+
+class LayerNorm(nn.Module):
+    """``(x - mu) * rsqrt(var + eps) * scale + bias``, eps 1e-5."""
+
+    def __init__(self, d: int, device, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mu = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+        y = (x - mu) * torch.rsqrt(var + self.eps)
+        return y * self.scale + self.bias
+
+
+class GluFFN(nn.Module):
+    """SwiGLU gated FFN (LLaMA family): ``down(silu(gate(x)) * up(x))``."""
+
+    def __init__(self, d_model: int, d_ff: int, generator: torch.Generator,
+                 device, bias: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.gate = dense(d_model, d_ff, generator, device, bias, dtype=dtype)
+        self.up = dense(d_model, d_ff, generator, device, bias, dtype=dtype)
+        self.down = dense(d_ff, d_model, generator, device, bias, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(torch.nn.functional.silu(self.gate(x)) * self.up(x))
+
+
+def count_params(params) -> int:
+    """Elements of a module's parameters, or of a dict of tensors."""
+    leaves = params.parameters() if isinstance(params, nn.Module) \
+        else params.values()
+    return sum(int(x.numel()) for x in leaves)

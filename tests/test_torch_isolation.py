@@ -190,9 +190,15 @@ def test_importing_the_port_loads_no_jax():
             "from repro_torch.embed import list_schemes\n"
             "assert len(list_schemes()) == 7, list_schemes()\n"
             "DINGenerator(DINSpec(n_items=50, n_clusters=5)).batch(2, 0)\n"
+            "import repro_torch.models.transformer as tt\n"
+            "from repro_torch.serve import LMServer\n"
+            "from repro_torch.data.lm_data import LMGenerator\n"
             "for a in c.list_archs():\n"
             "    cfg = c.get_config(a).make_smoke()\n"
-            "    repro_torch.models.recsys.init(cfg, device='cpu')\n"
+            "    if c.get_config(a).family == 'lm':\n"
+            "        tt.init(cfg, device='cpu')\n"
+            "    else:\n"
+            "        repro_torch.models.recsys.init(cfg, device='cpu')\n"
             "for k in ('qr', 'md', 'freq'):\n"
             "    cfg = c.get_config('dlrm-rm2').make_smoke(embedding_kind=k)\n"
             "    repro_torch.models.recsys.init(cfg, device='cpu')\n"

@@ -989,3 +989,101 @@ def test_csr_sharded_set_lookup_on_the_card(cuda):
             for k in ("csr", "dense"):
                 np.testing.assert_array_equal(a[(s, k)], b[(s, k)])
             assert a[(s, "ran")] == b[(s, "ran")] == s
+
+
+# ------------------------------------------------------------- the dense LM
+
+def test_fused_lookup_and_bag_at_lm_width(cuda):
+    """Row 2 at an LM token table's width, d = 2,048 (tinyllama-1.1b's
+    LMA table: 4,096,000 striped slots, max_set 32): the flat lookup
+    bit-exact, and the bag, whose per-warp sums ask 66.5 KB of shared
+    memory (past the 48 KB a launch gets without the opt-in)."""
+    rng = np.random.default_rng(23)
+    d, S = 2048, 32
+    p = LMAParams(d=d, m=4_096_000, n_h=4, max_set=S, seed=0x2048_0017,
+                  striped=True, min_support=2)
+    spec = fe.lma_spec(p)
+    mem = _mem(cuda, p.m)
+    B, L = 24, 3
+    sets = _sets(rng, B * L, S).to(cuda)
+    support = torch.from_numpy(rng.integers(0, 6, B * L).astype(np.int32))
+    gids = torch.from_numpy(rng.integers(0, 32000, B * L).astype(np.int32))
+    support, gids = support.to(cuda), gids.to(cuda)
+    assert (support < p.min_support).any()
+    got = fe.fused_lookup(spec, mem, gids, sets, support)
+    assert torch.equal(got, fref.fused_lookup_ref(spec, mem, gids, sets,
+                                                  support))
+    w = torch.from_numpy(rng.random((B, L)).astype(np.float32)).to(cuda)
+    args = (gids.reshape(B, L), w, sets.reshape(B, L, S),
+            support.reshape(B, L))
+    torch.testing.assert_close(fe.fused_embed_bag(spec, mem, *args),
+                               fref.fused_embed_bag_ref(spec, mem, *args),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_lm_prefill_and_decode_on_the_card(cuda, kv):
+    """tinyllama's smoke config with an LMA token table on the card (row 2
+    once per prefill and per decode step) against the same model on the
+    CPU: token embeddings bit-equal, prefill logits within 1e-4 (float32
+    matmuls and sums in another order); with a float cache the decode
+    logits within 1e-4 too; with an int8 cache, whose K/V can round to
+    neighbouring steps on the two sides, the cache one step apart at most
+    and the decode logits within 5e-3 (an H100 read 4.3e-4 to 8.2e-4 over
+    the four decode steps, with logits up to 4.2 in magnitude)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs._recsys_common import embedding_of_kind
+    from repro_torch.core.signatures import synthetic_dense_store
+    from repro_torch.embed import EmbeddingTable
+    from repro_torch.kernels.fused_embed.kernel import fused_lookup_cuda
+    from repro_torch.models import transformer as tt
+
+    base = get_config("tinyllama-1.1b").make_smoke()
+    e = embedding_of_kind("lma", (base.vocab_size,), base.d_model,
+                          expansion=16.0, max_set=32)
+    cfg = dataclasses.replace(base, embedding=e, kv_cache_dtype=kv)
+    store = synthetic_dense_store(base.vocab_size, 16, max_set=32, seed=0,
+                                  device="cpu")
+    host = tt.init(cfg, seed=1, device="cpu")
+    card = tt.init(cfg, seed=1, device=cuda)
+    card.load_state_dict(host.state_dict())
+    hb = EmbeddingTable(e).make_buffers(store, device="cpu")
+    cb = {k: v.to(cuda) for k, v in hb.items()}
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, base.vocab_size, (3, 20)).astype(np.int32))
+    assert torch.equal(tt.embed_tokens(card, cfg, tok.to(cuda), cb).cpu(),
+                       tt.embed_tokens(host, cfg, tok, hb))
+    outs = []
+    for model, bufs, dev in ((host, hb, "cpu"), (card, cb, cuda)):
+        cache = tt.init_cache(cfg, 3, 24, dev)
+        fused_lookup_cuda.launches = 0
+        logits, cache = tt.prefill(model, cfg, tok.to(dev), bufs,
+                                   cache=cache)
+        steps = [logits]
+        cur = logits.argmax(-1).to(torch.int32)
+        for s in range(4):
+            logits, cache = tt.decode_step(model, cfg, cur, cache, 20 + s,
+                                           bufs)
+            steps.append(logits)
+            cur = logits.argmax(-1).to(torch.int32)
+        assert fused_lookup_cuda.launches == (5 if dev == cuda else 0)
+        outs.append(([x.cpu() for x in steps],
+                     {k: v.cpu() for k, v in cache["layers_0"].items()}))
+    (h_steps, h_cache), (c_steps, c_cache) = outs
+    torch.testing.assert_close(h_steps[0], c_steps[0], rtol=1e-4, atol=1e-4)
+    tol = dict(rtol=1e-4, atol=1e-4) if kv is None \
+        else dict(rtol=0.0, atol=5e-3)
+    for name in ("k", "v"):                        # the prefill's rows
+        h, c = h_cache[name][:, :, :20], c_cache[name][:, :, :20]
+        if kv is None:
+            torch.testing.assert_close(h, c, rtol=1e-4, atol=1e-4)
+        else:
+            assert (h.int() - c.int()).abs().max() <= 1
+    # each side decodes its own argmax: held while the inputs agree
+    for i in range(1, len(h_steps)):
+        if not torch.equal(h_steps[i - 1].argmax(-1),
+                           c_steps[i - 1].argmax(-1)):
+            break
+        torch.testing.assert_close(h_steps[i], c_steps[i], **tol)
