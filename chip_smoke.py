@@ -7,9 +7,11 @@ full-width DCN-v2, dlrm-rm2 with the qr, md and freq
 embeddings, full-width DIN, then full-width xDeepFM, then dlrm-rm2 with
 its pool and D' store sharded over 4 ranks on the same card: a (1, 4) mesh,
 then a (data=2, model=2) mesh, freq and the CSR store under a mesh, the
-exchange guard and a checkpoint under a mesh, and last the dense LM
+exchange guard and a checkpoint under a mesh, the dense LM
 tinyllama-1.1b at full width (bf16, an int8 KV cache): prefill, decode,
-the LMServer, decode_32k, prefill_32k and an LMA token table.
+the LMServer, decode_32k, prefill_32k and an LMA token table, and last the
+GAT (gat-cora) trained at full width on its four shapes, ogbn-products'
+126,167,309 edges included, and through an LMA node-id table.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 sm_90 card and ``nvcc``; it imports only torch, numpy and ``repro_torch``
@@ -269,8 +271,32 @@ Phases (any failure raises and ends the run with a non-zero code):
      planted 32,000 x 32 D' store): embed_tokens through row 2 bit-equal
      to the plain split path on (b)'s batch, row 2 timed at the prefill
      and decode shapes, a prefill and 16 decode steps launching row 2
-     once each; print one line per kernel, the ``kernels`` JSON line, the
-     card line, and last the result line.
+     once each;
+ 36. (the GAT, ``run_gat``, last; its two large graphs built by
+     ``GraphBuilder``, a spawned process, while phases 23-35 run) gat-cora
+     at full width (2 layers, 8 heads of 8, Adam at lr 5e-3 through the
+     Trainer), the edge-chunked aggregation (``models/gnn.py``): (a) Cora
+     (2,708 nodes, 23,820 edges, 1,433 features): the logits and every
+     parameter gradient chunked against ``gat_conv_plain`` at the default
+     chunk and at 997 edges (which splits in-edge lists), within 1e-5 and
+     1e-4 of the plain max |value|; 200 steps, accuracy on and off the
+     train mask; (b) molecule (128 graphs x 30 nodes, 20,224 edges, the
+     mean readout): 50 steps on one batch, the loss falling; (c)
+     minibatch_lg: the Reddit-like graph (232,965 nodes, 229,464,749
+     edges) and its sampler; one block padded to 169,984 nodes and 338,944
+     edges held chunked against plain; 20 steps on fresh blocks, the host's
+     sampling beside the device step; (d) ogb_products full-batch
+     (2,449,029 nodes, 126,167,309 edges): 5 steps, losses finite and
+     falling; one step at layer 1's default chunk C and at C / 4 from one
+     state (losses within 1e-5, parameter changes within 1e-2 of the
+     step); steps/s, each layer's forward and backward (CUDA events),
+     layer 1 by kernel (``torch.profiler``), peak memory; (e) node ids
+     (arange(N)) through an LMA table (vocab 2,449,029, d 64, alpha 16,
+     max_set 32) over a planted D' store: 65,536 ids through row 2
+     bit-equal to the plain split path, 3 Trainer steps launching rows 2,
+     4 and 9 once each a step (sparse pool gradient; row 5 on the dense
+     rule); print one line per kernel, the ``kernels`` JSON line, the card
+     line, and last the result line.
 """
 from __future__ import annotations
 
@@ -5565,6 +5591,520 @@ def run_lm(torch, dev, kernels, card) -> dict:
     return out
 
 
+# ------------------------------------------------------ the GAT (phase 36)
+
+GAT_ARCH = "gat-cora"
+CORA_STEPS, MOLECULE_STEPS, BLOCK_STEPS = 200, 50, 20
+PRODUCTS_STEPS, GAT_LMA_STEPS = 5, 3
+CORA_SPLIT_CHUNK = 997          # a chunk length that splits in-edge lists
+# chunked against plain on the card, each max |err| over the max |value|:
+# both sum by atomic adds, in no fixed order
+GAT_OUT_TOL, GAT_GRAD_TOL = 1e-5, 1e-4
+# one step at chunk C and at C / 4 from one state: the losses, and each
+# parameter's change, which may differ by the atomics' rounding only
+GAT_LOSS_RTOL, GAT_STEP_RTOL = 1e-5, 1e-2
+GAT_LMA_DIM, GAT_LMA_ALPHA, GAT_LMA_MAX_SET = 64, 16.0, 32
+GAT_LMA_CHECK, GAT_LMA_CHUNK = 65_536, 8_192   # ids held bit-exact, a call
+
+
+def build_graphs(path: str, shapes: dict) -> None:
+    """Phase 36's two large graphs from the seed, pickled into ``path``:
+    ogbn-products' ``sbm_graph`` and the Reddit-like graph's
+    ``NeighborSampler`` (its CSR built), with each one's seconds in
+    ``seconds.json``; ``shapes``: their rows of ``GNN_SHAPE_TABLE``.  Run
+    in a spawned process while the card runs the phases before 36 (host
+    numpy, minutes at these sizes)."""
+    import pickle
+
+    from repro_torch.data.graph import NeighborSampler, sbm_graph
+
+    secs = {}
+    for name, shape in (("products", "ogb_products"),
+                        ("reddit", "minibatch_lg")):
+        t = shapes[shape]
+        t0 = time.perf_counter()
+        obj = sbm_graph(t["n_nodes"], t["n_edges"], t["d_feat"],
+                        t["n_classes"], seed=SEED)
+        if "fanout" in t:
+            obj = NeighborSampler(obj, t["fanout"], seed=SEED)
+        with open(os.path.join(path, f"{name}.pkl"), "wb") as f:
+            pickle.dump(obj, f, protocol=5)
+        secs[name] = time.perf_counter() - t0
+        del obj
+    with open(os.path.join(path, "seconds.json"), "w") as f:
+        json.dump(secs, f)
+
+
+class GraphBuilder:
+    """``build_graphs`` in a spawned process, into a temporary directory
+    under build/; ``take`` waits for it and loads the two objects, ``close``
+    stops the process (if it still runs) and removes the directory."""
+
+    def __init__(self):
+        import multiprocessing
+        import tempfile
+
+        from repro_torch.configs.gat_cora import GNN_SHAPE_TABLE
+
+        self.tmp = tempfile.TemporaryDirectory(prefix="graphs-",
+                                               dir=ROOT / "build")
+        shapes = {k: GNN_SHAPE_TABLE[k] for k in ("ogb_products",
+                                                  "minibatch_lg")}
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=build_graphs, args=(self.tmp.name, shapes), daemon=True)
+        self.proc.start()
+
+    def take(self) -> tuple:
+        """-> (products Graph, Reddit-like NeighborSampler, seconds)."""
+        import pickle
+
+        t0 = time.perf_counter()
+        self.proc.join()
+        if self.proc.exitcode != 0:
+            raise RuntimeError(f"building the graphs failed (exit code "
+                               f"{self.proc.exitcode})")
+        waited = time.perf_counter() - t0
+        out = []
+        for name in ("products", "reddit"):
+            with open(os.path.join(self.tmp.name, f"{name}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        with open(os.path.join(self.tmp.name, "seconds.json")) as f:
+            secs = json.load(f)
+        secs.update(waited=waited, load=time.perf_counter() - t0 - waited)
+        return out[0], out[1], secs
+
+    def close(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
+        self.tmp.cleanup()
+
+
+def gat_parity(torch, model, batch, chunks, bufs=None) -> dict:
+    """The chunked aggregation against ``gat_conv_plain`` on the card: the
+    logits and every parameter's gradient of the loss at each chunk length
+    (None: the default from bytes), each max |err| over the plain max
+    |value|.  -> {chunk: (logits err, gradient err)}."""
+    from repro_torch.models import gnn
+
+    def run(**kw):
+        model.zero_grad(set_to_none=True)
+        loss, _ = gnn.loss_fn(model, batch, bufs, **kw)
+        loss.backward()
+        with torch.no_grad():
+            logits = model(batch, bufs, **kw)
+        return logits, {k: p.grad.clone() for k, p in
+                        model.named_parameters()}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    want, want_g = run(plain=True)
+    out = {}
+    for c in chunks:
+        got, got_g = run(chunk=c)
+        e_out = rel(got, want)
+        e_g = max(rel(got_g[k], want_g[k]) for k in want_g)
+        if not (e_out <= GAT_OUT_TOL and e_g <= GAT_GRAD_TOL):
+            raise AssertionError(f"chunked (chunk {c}) vs plain: logits "
+                                 f"{e_out:.3g} (tol {GAT_OUT_TOL}), "
+                                 f"gradients {e_g:.3g} (tol {GAT_GRAD_TOL})")
+        out["default" if c is None else str(c)] = {"logits": e_out,
+                                                   "grads": e_g}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def gat_trainer(torch, cfg, model, batch_fn, dev, bufs=None, chunk=None):
+    """The port's Trainer over ``model`` with the arch's optimizer (Adam,
+    lr 5e-3), CUDA events at its phase marks, and ``loss_fn`` reading the
+    chunk length from ``tr.chunk`` (None: from bytes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models import gnn
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    timer = PhaseTimer(torch)
+    tr = Trainer(TrainerConfig(total_steps=0, log_every=0),
+                 lambda m, b: gnn.loss_fn(m, b, bufs, tr.chunk), model,
+                 make_optimizer(get_config(GAT_ARCH)), batch_fn, device=dev,
+                 on_phase=timer.mark)
+    tr.chunk, tr.timer = chunk, timer
+    return tr
+
+
+def gat_steps(torch, tr, steps: int, what: str) -> list:
+    """``steps`` more steps of ``tr``, one ``fit`` each; -> their losses,
+    all finite, none skipped."""
+    losses = []
+    for _ in range(steps):
+        tr.cfg.total_steps = tr.step + 1
+        losses.append(tr.fit(log=lambda _: None)["loss"])
+    if tr.health.skipped_steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{what}: losses {losses}, "
+                             f"{tr.health.skipped_steps} skipped steps")
+    return losses
+
+
+def gat_run_stats(torch, tr) -> dict:
+    th = tr.throughput()
+    return {"steps_per_sec": th["steps_per_sec"],
+            "batch_sec": th["batch_sec"], "split_ms": tr.timer.split_ms(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def gat_accuracy(torch, model, batch) -> dict:
+    """Accuracy on the label mask and off it."""
+    with torch.no_grad():
+        hit = model(batch).argmax(-1) == batch["labels"].long()
+    m = batch["label_mask"]
+    return {"train": float(hit[m].float().mean()),
+            "held_out": float(hit[~m].float().mean())}
+
+
+def no_launches(kernels, what: str) -> None:
+    if counts(kernels):
+        raise AssertionError(f"{what} launched {counts(kernels)}; the "
+                             "GAT's aggregation runs no kernel of the table")
+
+
+def graph_on_card(torch, g, dev) -> dict:
+    return {"features": torch.from_numpy(g.features).to(dev),
+            "src": torch.from_numpy(g.src).to(dev),
+            "dst": torch.from_numpy(g.dst).to(dev),
+            "labels": torch.from_numpy(g.labels).to(dev),
+            "label_mask": torch.from_numpy(g.train_mask).to(dev)}
+
+
+def gat_cora(torch, dev, kernels) -> dict:
+    """36a: Cora (N 2,708, E 23,820): chunked vs plain at the default chunk
+    and at one that splits in-edge lists; 200 steps; accuracy on and off
+    the train mask."""
+    from repro_torch.configs.gat_cora import GNN_SHAPE_TABLE, make_model
+    from repro_torch.data.graph import sbm_graph
+    from repro_torch.models import gnn
+
+    t = GNN_SHAPE_TABLE["full_graph_sm"]
+    g = sbm_graph(t["n_nodes"], t["n_edges"], t["d_feat"], t["n_classes"],
+                  seed=SEED)
+    cfg = make_model("full_graph_sm")
+    batch = graph_on_card(torch, g, dev)
+    model = gnn.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    zero(kernels)
+    parity = gat_parity(torch, model, batch, (None, CORA_SPLIT_CHUNK))
+    free(torch)
+    tr = gat_trainer(torch, cfg, model, lambda s: batch, dev)
+    losses = gat_steps(torch, tr, CORA_STEPS, "Cora")
+    no_launches(kernels, "36a")
+    out = {"nodes": g.n_nodes, "edges": len(g.src), "parity": parity,
+           "loss_first_last": [losses[0], losses[-1]],
+           "accuracy": gat_accuracy(torch, model, batch),
+           **gat_run_stats(torch, tr)}
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"Cora's loss did not fall: {losses}")
+    log(f"36a: Cora N={g.n_nodes} E={len(g.src)}: chunked vs plain "
+        f"{parity}; {CORA_STEPS} steps, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, accuracy {out['accuracy']}; "
+        f"{out['steps_per_sec']:.1f} steps/s, split {out['split_ms']}, peak "
+        f"{out['peak_gib']:.3f} GiB")
+    return out
+
+
+def gat_molecule(torch, dev, kernels) -> dict:
+    """36b: 128 molecules x 30 nodes (20,224 edges), the mean readout: 50
+    steps on one batch, the loss falling."""
+    from repro_torch.configs.gat_cora import GNN_SHAPE_TABLE, make_model
+    from repro_torch.data.graph import molecule_batch
+    from repro_torch.models import gnn
+
+    t = GNN_SHAPE_TABLE["molecule"]
+    cfg = make_model("molecule")
+    mb = molecule_batch(t["batch"], t["n_nodes"], t["n_edges"], t["d_feat"],
+                        t["n_classes"], seed=SEED)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in mb.items()
+             if k != "n_graphs"}
+    batch["n_graphs"] = mb["n_graphs"]
+    model = gnn.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    free(torch)
+    zero(kernels)
+    tr = gat_trainer(torch, cfg, model, lambda s: batch, dev)
+    losses = gat_steps(torch, tr, MOLECULE_STEPS, "molecule")
+    no_launches(kernels, "36b")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"the molecule loss did not fall: {losses}")
+    out = {"graphs": t["batch"], "edges": len(mb["src"]),
+           "loss_first_last": [losses[0], losses[-1]],
+           **gat_run_stats(torch, tr)}
+    log(f"36b: molecule {t['batch']} graphs x {t['n_nodes']} nodes, "
+        f"{len(mb['src'])} edges: {MOLECULE_STEPS} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {out['steps_per_sec']:.1f} "
+        f"steps/s, split {out['split_ms']}")
+    return out
+
+
+def block_fn(sampler, t):
+    """A step's padded block: 1,024 seed nodes from the step's seed, the
+    sampler's fanouts, padded to the shape's fixed sizes."""
+    from repro_torch.data.graph import pad_block
+
+    b, (f1, f2) = t["batch_nodes"], t["fanout"]
+    max_nodes = b + b * f1 + b * f1 * f2
+    max_edges = b * f1 + b * f1 * f2 + max_nodes
+
+    def batch_fn(step):
+        rng = np.random.default_rng((SEED, 36, step))
+        block = sampler.sample(rng.choice(t["n_nodes"], b, replace=False))
+        pad = pad_block(block, max_nodes, max_edges)
+        return {"features": pad["features"], "src": pad["src"],
+                "dst": pad["dst"],
+                "edge_mask": np.arange(max_edges) < len(block["src"]),
+                "labels": pad["labels"], "label_mask": pad["label_mask"]}
+    return batch_fn, max_nodes, max_edges
+
+
+def gat_block(torch, dev, kernels, sampler) -> dict:
+    """36c: the Reddit-like graph's sampled blocks (fan-out 15-10 of 1,024
+    seeds, padded to 169,984 nodes and 338,944 edges): one block chunked vs
+    plain (its [338,944, 8, 41] messages), 20 steps on fresh blocks, host
+    sampling time against the device step."""
+    from repro_torch.configs.gat_cora import GNN_SHAPE_TABLE, make_model
+    from repro_torch.models import gnn
+
+    t = GNN_SHAPE_TABLE["minibatch_lg"]
+    cfg = make_model("minibatch_lg")
+    batch_fn, max_nodes, max_edges = block_fn(sampler, t)
+    t0 = time.perf_counter()
+    host = batch_fn(BLOCK_STEPS)            # a block no step trains on
+    sample_s = time.perf_counter() - t0
+    live = int(host["edge_mask"].sum())
+    block = {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+    model = gnn.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    free(torch)
+    zero(kernels)
+    parity = gat_parity(torch, model, block, (None,))
+    parity_peak = torch.cuda.max_memory_allocated() / 2**30
+    del block
+    free(torch)
+    tr = gat_trainer(torch, cfg, model, batch_fn, dev)
+    losses = gat_steps(torch, tr, BLOCK_STEPS, "minibatch_lg")
+    no_launches(kernels, "36c")
+    out = {"graph_edges": len(sampler.graph.src), "max_nodes": max_nodes,
+           "max_edges": max_edges, "live_edges_of_check_block": live,
+           "parity": parity, "parity_peak_gib": parity_peak,
+           "check_block_sample_s": sample_s,
+           "loss_first_last": [losses[0], losses[-1]],
+           **gat_run_stats(torch, tr)}
+    log(f"36c: minibatch_lg, a graph of {len(sampler.graph.src)} edges; "
+        f"blocks padded to {max_nodes} nodes / {max_edges} edges (the check "
+        f"block {live} live, sampled in {sample_s:.2f} s): chunked vs plain "
+        f"{parity} (peak {parity_peak:.2f} GiB); {BLOCK_STEPS} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; host batch "
+        f"{out['batch_sec'] * 1e3:.1f} ms against a step of "
+        f"{1e3 / out['steps_per_sec']:.1f} ms (median), device split "
+        f"{out['split_ms']}")
+    return out
+
+
+def layer_split(torch, model, batch) -> dict:
+    """Each layer's forward and backward alone, by CUDA events (layer 1's
+    backward under a random cotangent, layer 0's from layer 1's input
+    gradient, through the ELU; the second of two passes, the first leaving
+    the caching allocator its blocks), and a profile of layer 1's forward
+    and backward by kernel name."""
+    from repro_torch.models import gnn
+
+    cfg, src, dst = model.cfg, batch["src"], batch["dst"]
+    n = batch["features"].shape[0]
+    p0, p1 = model.layer_0, model.layer_1
+    kw = dict(negative_slope=cfg.negative_slope)
+    x0 = batch["features"]
+
+    def split():
+        out = {}
+        h0, out["layer_0_forward_ms"] = events_ms(
+            torch, lambda: gnn.gat_conv(p0, x0, src, dst, n,
+                                        concat_heads=True, **kw))
+        x1 = torch.nn.functional.elu(h0)
+        x1d = x1.detach().requires_grad_()
+        h1, out["layer_1_forward_ms"] = events_ms(
+            torch, lambda: gnn.gat_conv(p1, x1d, src, dst, n,
+                                        concat_heads=False, **kw))
+        cot = torch.randn(h1.shape, generator=torch.Generator(
+            device=h1.device).manual_seed(SEED), device=h1.device)
+        g1, out["layer_1_backward_ms"] = events_ms(
+            torch, lambda: torch.autograd.grad(h1, [x1d, *p1.values()],
+                                               cot))
+        _, out["layer_0_backward_ms"] = events_ms(
+            torch, lambda: torch.autograd.grad(x1, list(p0.values()),
+                                               g1[0]))
+        return out, x1d.detach()
+
+    split()
+    out, x1d = split()
+    x1d.requires_grad_()
+
+    def layer1():
+        y = gnn.gat_conv(p1, x1d, src, dst, n, concat_heads=False, **kw)
+        torch.autograd.grad(y.sum(), [x1d, *p1.values()])
+    out["layer_1_profile_ms"] = dict(list(profile_ms(torch, layer1,
+                                                     iters=1).items())[:12])
+    return out
+
+
+def gat_products(torch, dev, kernels, g) -> dict:
+    """36d: ogbn-products full-batch (N 2,449,029, E 126,167,309): 5 steps,
+    losses finite and falling; one step at chunk C (layer 1's default) and
+    at C / 4 from one state; steps/s, each layer's forward and backward,
+    peak memory."""
+    from repro_torch.configs.gat_cora import make_model
+    from repro_torch.models import gnn
+
+    cfg = make_model("ogb_products")
+    free(torch)
+    batch = graph_on_card(torch, g, dev)
+    model = gnn.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.reset_peak_memory_stats()
+    zero(kernels)
+    tr = gat_trainer(torch, cfg, model, lambda s: batch, dev)
+    losses = gat_steps(torch, tr, PRODUCTS_STEPS, "ogb_products")
+    no_launches(kernels, "36d")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"ogb_products' loss did not fall: {losses}")
+    stats = gat_run_stats(torch, tr)
+    C = gnn.edge_chunk(cfg.n_heads, cfg.n_classes)
+    p0 = {k: v.detach().clone() for k, v in tr.params.items()}
+    s0, step0 = clone_state(torch, tr.opt_state), tr.step
+    by_chunk = {}
+    for c in (C, C // 4):
+        with torch.no_grad():
+            for k, v in tr.params.items():
+                v.copy_(p0[k])
+        tr.opt_state, tr.step, tr.chunk = clone_state(torch, s0), step0, c
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = gat_steps(torch, tr, 1, f"chunk {c}")[0]
+        secs = time.perf_counter() - t0
+        by_chunk[c] = (loss, secs, {k: v.detach().clone()
+                                    for k, v in tr.params.items()})
+    (la, sa, pa), (lb, sb, pb) = by_chunk[C], by_chunk[C // 4]
+    loss_err = abs(la - lb) / abs(la)
+    step_err = max(float((pa[k] - pb[k]).abs().max()
+                         / (pa[k] - p0[k]).abs().max().clamp_min(1e-30))
+                   for k in p0)
+    if not (loss_err <= GAT_LOSS_RTOL and step_err <= GAT_STEP_RTOL):
+        raise AssertionError(f"chunk {C} vs {C // 4}: loss {loss_err:.3g} "
+                             f"(tol {GAT_LOSS_RTOL}), step {step_err:.3g} "
+                             f"(tol {GAT_STEP_RTOL})")
+    split = layer_split(torch, model, batch)
+    out = {"nodes": g.n_nodes, "edges": len(g.src), "chunk": C,
+           "losses": losses, **stats,
+           "chunk_check": {"C": C, "C/4": C // 4, "loss_rel": loss_err,
+                           "step_rel": step_err, "step_s": [sa, sb]},
+           **split, "peak_gib_all": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"36d: ogb_products N={g.n_nodes} E={len(g.src)}: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; {stats['steps_per_sec']:.3f}"
+        f" steps/s, split {stats['split_ms']}, peak {stats['peak_gib']:.2f} "
+        f"GiB; one step at chunk {C} / {C // 4}: {sa:.2f} / {sb:.2f} s, loss "
+        f"rel {loss_err:.3g}, parameter change rel {step_err:.3g}; layer 0 "
+        f"forward {split['layer_0_forward_ms']:.1f} ms, backward "
+        f"{split['layer_0_backward_ms']:.1f} ms; layer 1 forward "
+        f"{split['layer_1_forward_ms']:.1f} ms, backward "
+        f"{split['layer_1_backward_ms']:.1f} ms; layer 1 by kernel "
+        f"{split['layer_1_profile_ms']}")
+    return out
+
+
+def gat_lma(torch, dev, kernels, g) -> dict:
+    """36e: the id-feature path at ogb_products: node ids arange(N) through
+    an LMA table (vocab N, d 64, alpha 16, max_set 32) over a planted D'
+    store; one lookup of 65,536 ids through row 2 bit-exact against the
+    plain split path; 3 Trainer steps, row 2 once a forward and the
+    Trainer's sparse (rows 4 and 9) or dense (row 5) rule."""
+    from repro_torch.configs._recsys_common import embedding_of_kind
+    from repro_torch.configs.gat_cora import make_model
+    from repro_torch.embed import EmbeddingTable, get_scheme, make_buffers
+    from repro_torch.kernels.fused_embed import ops as fe
+    from repro_torch.kernels.fused_embed import ref as fref
+    from repro_torch.models import gnn
+
+    free(torch)
+    N = g.n_nodes
+    e = embedding_of_kind("lma", (N,), GAT_LMA_DIM, expansion=GAT_LMA_ALPHA,
+                          max_set=GAT_LMA_MAX_SET)
+    cfg = dataclasses.replace(make_model("ogb_products"), d_in=GAT_LMA_DIM,
+                              node_id_embedding=e)
+    bufs = make_buffers(e, planted_store(torch, e, dev))
+    model = gnn.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    batch = graph_on_card(torch, g, dev)
+    del batch["features"]
+    batch["node_ids"] = torch.arange(N, dtype=torch.int32, device=dev)
+    p = e.lma
+    ids = torch.arange(0, N, N // GAT_LMA_CHECK, dtype=torch.int32,
+                       device=dev)[:GAT_LMA_CHECK]
+    mem = model.node_embed["memory"].detach()
+    with torch.no_grad():
+        zero(kernels)
+        got = EmbeddingTable(e).embed(dict(model.node_embed), bufs, 0, ids)
+        if counts(kernels) != {"fused_embed": 1}:
+            raise AssertionError(f"the node lookup launched {counts(kernels)}")
+        rows, support = get_scheme("lma").fused_inputs(e, bufs, ids)
+        spec = fe.lma_spec(p)
+        for lo in range(0, GAT_LMA_CHECK, GAT_LMA_CHUNK):
+            s = slice(lo, lo + GAT_LMA_CHUNK)
+            want = mem[fref.locations_ref(spec, ids[s], rows[s],
+                                          support[s]).long()]
+            if not torch.equal(got[s], want):
+                raise AssertionError("the node lookup differs from the plain "
+                                     f"split path (ids {lo}..)")
+        n_fb = int((support < p.min_support).sum())
+    zero(kernels)
+    tr = gat_trainer(torch, cfg, model, lambda s: batch, dev, bufs=bufs)
+    losses = gat_steps(torch, tr, GAT_LMA_STEPS, "gat lma")
+    launches = counts(kernels)
+    k = GAT_LMA_STEPS
+    want = ({"fused_embed": k, "fused_locations": k, "sparse_adam": k}
+            if tr.sparse_grads else {"fused_embed": k,
+                                     "fused_scatter_add": k})
+    if launches != want:
+        raise AssertionError(f"gat lma launched {launches}, want {want}")
+    if tr.sparse_grads and tr.params["node_embed.memory"].grad is not None:
+        raise AssertionError("the node pool's .grad is set on the sparse "
+                             "path")
+    out = {"pool_slots": p.m, "stripe": p.stripe, "dim": p.d,
+           "checked_ids": GAT_LMA_CHECK, "fallback_ids": n_fb,
+           "sparse_grads": tr.sparse_grads, "losses": losses,
+           "launches": {"gat lma": launches}, **gat_run_stats(torch, tr)}
+    log(f"36e: node ids through LMA m={p.m} (stripe {p.stripe}, d={p.d}, "
+        f"max_set {p.max_set}): {GAT_LMA_CHECK} ids ({n_fb} fallback) "
+        f"bit-equal to the plain split path; {k} steps "
+        f"({'sparse' if tr.sparse_grads else 'dense'} pool gradient), losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}, launches {launches}; "
+        f"{out['steps_per_sec']:.3f} steps/s, split {out['split_ms']}, peak "
+        f"{out['peak_gib']:.2f} GiB")
+    return out
+
+
+def run_gat(torch, dev, kernels, card, graphs: GraphBuilder) -> dict:
+    """Phase 36: the GAT (gat-cora's four shapes) trained at full width on
+    the card, and its id-feature path through an LMA table."""
+    t_phase = time.perf_counter()
+    free(torch)
+    out = {"card": card, "cora": gat_cora(torch, dev, kernels),
+           "molecule": gat_molecule(torch, dev, kernels)}
+    products, sampler, secs = graphs.take()
+    out["graphs_s"] = secs
+    log(f"36: graphs built beside the earlier phases ({secs}); products "
+        f"{len(products.src)} edges, Reddit-like {len(sampler.graph.src)}")
+    out["minibatch_lg"] = gat_block(torch, dev, kernels, sampler)
+    del sampler
+    out["ogb_products"] = gat_products(torch, dev, kernels, products)
+    out["lma"] = gat_lma(torch, dev, kernels, products)
+    free(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 36: {out['seconds']:.1f} s")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 SOURCES = {
@@ -5724,19 +6264,27 @@ def main() -> int:
         "GiB (xdeepfm phases)")
 
     # free xDeepFM, then dlrm-rm2 sharded over 4 ranks on this card: at
-    # (1, 4) (phases 23-28), then the rest of distribution (phase 34)
+    # (1, 4) (phases 23-28), then the rest of distribution (phase 34); the
+    # GAT's two large graphs are built on the host meanwhile (phase 36)
     import tempfile
     free(torch)
-    with tempfile.TemporaryDirectory(prefix="sharded-",
-                                     dir=ROOT / "build") as tmp:
-        shard = run_sharded(torch, dev, kernels, card, tmp)
-        distribution = run_distribution(torch, card, shard, tmp)
-    paths.update(shard["paths"])
-    paths.update(distribution["paths"])
-    # the dense LM at full width (phase 35), last: it needs the card whole
-    free(torch)
-    lm = run_lm(torch, dev, kernels, card)
-    paths.update(lm["lma"]["launches"])
+    graphs = GraphBuilder()
+    try:
+        with tempfile.TemporaryDirectory(prefix="sharded-",
+                                         dir=ROOT / "build") as tmp:
+            shard = run_sharded(torch, dev, kernels, card, tmp)
+            distribution = run_distribution(torch, card, shard, tmp)
+        paths.update(shard["paths"])
+        paths.update(distribution["paths"])
+        # the dense LM at full width (phase 35): it needs the card whole
+        free(torch)
+        lm = run_lm(torch, dev, kernels, card)
+        paths.update(lm["lma"]["launches"])
+        # the GAT at full width (phase 36), last
+        gat = run_gat(torch, dev, kernels, card, graphs)
+        paths.update(gat["lma"]["launches"])
+    finally:
+        graphs.close()
     for name, e in shard["err"].items():
         err[name] = max(err.get(name, 0.0), e)
     res.update(shard["res"])
@@ -5810,6 +6358,8 @@ def main() -> int:
     log(json.dumps({"durability": durable["summary"], "card": card}))
     log(json.dumps({"tiering": tiering["summary"], "card": card}))
     log(json.dumps({"lm": {k: v for k, v in lm.items() if k != "card"},
+                    "card": card}))
+    log(json.dumps({"gat": {k: v for k, v in gat.items() if k != "card"},
                     "card": card}))
     log(json.dumps({"kernels": rows}))
     log(card)

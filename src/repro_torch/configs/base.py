@@ -1,8 +1,8 @@
 """Arch config registry (port of ``repro.configs.base``): the recsys
 architectures (dlrm-rm2, dcn-v2, xdeepfm, din, lma-dlrm-criteo,
-lma-dlrm-avazu) and the dense LMs (tinyllama-1.1b, stablelm-3b,
-qwen1.5-32b).  The MoE and MLA LMs (llama4-scout, deepseek-v3) come with
-``nn/moe.py`` and MLA (ROADMAP.md, Queue 1)."""
+lma-dlrm-avazu), the dense LMs (tinyllama-1.1b, stablelm-3b,
+qwen1.5-32b) and the GAT (gat-cora).  The MoE and MLA LMs (llama4-scout,
+deepseek-v3) come with ``nn/moe.py`` and MLA (ROADMAP.md, Queue 1)."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,7 +14,7 @@ _REGISTRY: dict[str, "ArchConfig"] = {}
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
-    family: str                      # recsys | lm
+    family: str                      # recsys | lm | gnn
     make_model: Callable             # (shape_id: str|None) -> full-scale config
     make_smoke: Callable             # () -> reduced config
     shapes: tuple[str, ...]
@@ -43,6 +43,7 @@ def list_archs() -> list[str]:
 
 def _ensure_loaded():
     from repro_torch.configs import (dcn_v2, din, dlrm_rm2,  # noqa: F401
-                                    lma_dlrm_avazu, lma_dlrm_criteo,
+                                    gat_cora, lma_dlrm_avazu,
+                                    lma_dlrm_criteo,
                                     qwen1_5_32b, stablelm_3b,
                                     tinyllama_1_1b, xdeepfm)

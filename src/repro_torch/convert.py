@@ -8,7 +8,8 @@ leaf by leaf, and these functions name and lay them out for the port.
 durable state (what its checkpoints hold), so a checkpoint of either
 package's Trainer resumes in the other's.  ``lm_params_from_jax`` lays a
 reference LM's stacked parameters out as the port's per-layer modules, and
-``cache_from_jax`` / ``cache_to_jax`` carry a decode cache both ways.
+``cache_from_jax`` / ``cache_to_jax`` carry a decode cache both ways;
+``gnn_params_from_jax`` names a reference GAT's parameters for the port.
 """
 from __future__ import annotations
 
@@ -87,6 +88,23 @@ def lm_params_from_jax(np_params: dict, cfg, device=None) -> dict:
             for i in range(count):
                 put(f"layers_{gi}.{i}.{k.replace('/', '.')}",
                     np.asarray(v)[i])
+    return state
+
+
+def gnn_params_from_jax(np_params: dict, cfg, device=None) -> dict:
+    """Reference GAT parameter pytree (numpy leaves) -> the port's ``GAT``
+    state dict, on the card unless ``device`` says otherwise:
+    ``layer_{i}/{w,a_src,a_dst}`` and ``node_embed/*`` by name, the readout
+    ``head/layer_{i}`` as ``nn.Linear`` (``kernel`` transposed)."""
+    dev = resolve_device(device)
+    state = {}
+    for li in range(cfg.n_layers):
+        for k, v in np_params[f"layer_{li}"].items():
+            state[f"layer_{li}.{k}"] = _tensor(v, dev)
+    for k, v in np_params.get("node_embed", {}).items():
+        state[f"node_embed.{k}"] = _tensor(v, dev)
+    for name, layer in np_params.get("head", {}).items():
+        _dense_into(state, f"head.{name}", layer, dev)
     return state
 
 

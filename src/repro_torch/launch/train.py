@@ -7,7 +7,12 @@ is the port's form of ``examples/train_lma_dlrm.py``: run it once with lma
 and once with hashed_elem to compare the two at an equal budget.  A pool
 over ``--tier-budget-mb`` trains through the tiered store
 (``repro_torch.tier``: HBM-hot / host-cold, bit-identical to the resident
-run), updated densely, and evaluates through the full pool.
+run), updated densely, and evaluates through the full pool.  An ``lm``
+arch trains its smoke config on bigram tokens (``LMGenerator``, min(batch,
+16) sequences of 64) with the arch's optimizer, as the reference's
+launcher does; a ``gnn`` arch is refused with the reference's words (the
+GAT trains through ``repro_torch.models.gnn`` and the Trainer directly, as
+``chip_smoke.py`` drives it).
 
   python -m repro_torch.launch.train --arch lma-dlrm-criteo --steps 300
   python -m repro_torch.launch.train --arch lma-dlrm-criteo \\
@@ -24,6 +29,8 @@ run), updated densely, and evaluates through the full pool.
       --ckpt-dir build/ckpt --ckpt-delta --faults nan_grad@50,rot_row@120:8
   python -m repro_torch.launch.train --arch din --tier-budget-mb 40 \\
       --batch 4 --steps 300
+  python -m repro_torch.launch.train --arch tinyllama-1.1b --device cpu \\
+      --steps 20
 
 ``--embedding-kind`` takes any registered scheme (``list_schemes``): full,
 hashed_elem, hashed_row, qr, lma, md, freq.  Durability follows the
@@ -278,25 +285,43 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     arch = get_config(args.arch)
-    if arch.family != "recsys":
-        raise SystemExit(f"{args.arch}: only recsys archs are ported")
     kind_kw = {} if args.embedding_kind is None \
         else {"embedding_kind": args.embedding_kind}
-    cfg = arch.make_smoke(**kind_kw) if args.smoke \
+    cfg = arch.make_smoke(**kind_kw) if (args.smoke or arch.family == "lm") \
         else arch.make_model(None, **kind_kw)
-    gen, bufs, batch_fn, loss_fn = _recsys_setup(
-        arch, cfg, args.n_signatures, args.batch, dev)
-    model = recsys.init(cfg, device=dev)
-    from repro_torch.tier import tier_budget_mb
-    budget_mb = (args.tier_budget_mb if args.tier_budget_mb is not None
-                 else tier_budget_mb())
-    tiered_loss, tier_ctrl = _maybe_tier(cfg, arch, model, bufs, batch_fn,
-                                         budget_mb)
-    if tier_ctrl is not None:
-        loss_fn = tiered_loss
+    tier_ctrl = None
+    if arch.family == "recsys":
+        gen, bufs, batch_fn, loss_fn = _recsys_setup(
+            arch, cfg, args.n_signatures, args.batch, dev)
+        model = recsys.init(cfg, device=dev)
+        from repro_torch.tier import tier_budget_mb
+        budget_mb = (args.tier_budget_mb if args.tier_budget_mb is not None
+                     else tier_budget_mb())
+        tiered_loss, tier_ctrl = _maybe_tier(cfg, arch, model, bufs,
+                                             batch_fn, budget_mb)
+        if tier_ctrl is not None:
+            loss_fn = tiered_loss
+        lps = lookups_per_step(cfg, args.batch)
+        label = f"{args.arch} ({cfg.embedding.kind})"
+    elif arch.family == "lm":
+        # the reference's smoke LM run: bigram tokens, 64 a sequence
+        from repro_torch.data.lm_data import LMGenerator
+        from repro_torch.models import transformer
+        lm_gen = LMGenerator(cfg.vocab_size, seed=0)
+
+        def batch_fn(step):
+            return lm_gen.batch(min(args.batch, 16), 64, step)
+
+        def loss_fn(m, b):
+            return transformer.loss_fn(m, cfg, b["tokens"], b["labels"])
+
+        model = transformer.init(cfg, device=dev)
+        lps = min(args.batch, 16) * 64
+        label = args.arch
+    else:
+        raise SystemExit(f"use examples/ for family {arch.family}")
     n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
-    print(f"{args.arch} ({cfg.embedding.kind}): {n_params:,} parameters on "
-          f"{dev}")
+    print(f"{label}: {n_params:,} parameters on {dev}")
     injector = None
     if args.faults:
         from repro_torch.resilience.faults import FaultInjector
@@ -305,7 +330,7 @@ def main(argv=None) -> dict:
     trainer = Trainer(
         TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                       ckpt_every=100, log_every=max(args.steps // 10, 1),
-                      lookups_per_step=lookups_per_step(cfg, args.batch),
+                      lookups_per_step=lps,
                       ckpt_delta=args.ckpt_delta,
                       ckpt_compact_every=args.ckpt_compact_every,
                       guard_step=False if args.no_guard else None),
@@ -343,9 +368,10 @@ def main(argv=None) -> dict:
                           "stage_blocks": st.stage_blocks,
                           "device_bytes": st.compact_bytes}
         print(f"tier: {result['tier']}")
-    met = evaluate(model, gen, bufs, args.eval_batches, dev, eval_params)
-    print(f"eval: {met}")
-    result["eval"] = met
+    if arch.family == "recsys":
+        met = evaluate(model, gen, bufs, args.eval_batches, dev, eval_params)
+        print(f"eval: {met}")
+        result["eval"] = met
     return result
 
 

@@ -193,10 +193,16 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.models.transformer as tt\n"
             "from repro_torch.serve import LMServer\n"
             "from repro_torch.data.lm_data import LMGenerator\n"
+            "import repro_torch.models.gnn as gnn\n"
+            "from repro_torch.data.graph import sbm_graph, NeighborSampler\n"
+            "NeighborSampler(sbm_graph(30, 60, 4, 3), (2,)).sample([0, 1])\n"
+            "assert c.get_config('gat-cora').family == 'gnn'\n"
             "for a in c.list_archs():\n"
             "    cfg = c.get_config(a).make_smoke()\n"
             "    if c.get_config(a).family == 'lm':\n"
             "        tt.init(cfg, device='cpu')\n"
+            "    elif c.get_config(a).family == 'gnn':\n"
+            "        gnn.init(cfg, device='cpu')\n"
             "    else:\n"
             "        repro_torch.models.recsys.init(cfg, device='cpu')\n"
             "for k in ('qr', 'md', 'freq'):\n"
