@@ -9,9 +9,11 @@ its pool and D' store sharded over 4 ranks on the same card: a (1, 4) mesh,
 then a (data=2, model=2) mesh, freq and the CSR store under a mesh, the
 exchange guard and a checkpoint under a mesh, the dense LM
 tinyllama-1.1b at full width (bf16, an int8 KV cache): prefill, decode,
-the LMServer, decode_32k, prefill_32k and an LMA token table, and last the
-GAT (gat-cora) trained at full width on its four shapes, ogbn-products'
-126,167,309 edges included, and through an LMA node-id table.
+the LMServer, decode_32k, prefill_32k and an LMA token table, the GAT
+(gat-cora) trained at full width on its four shapes, ogbn-products'
+126,167,309 edges included, and through an LMA node-id table, and last the
+MoE and MLA LMs (deepseek-v3-671b, llama4-scout-17b-a16e) served at full
+width and 4 layers.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 sm_90 card and ``nvcc``; it imports only torch, numpy and ``repro_torch``
@@ -152,7 +154,8 @@ Phases (any failure raises and ends the run with a non-zero code):
      equal, staging retried, restarts equal to preempts; save, restore
      and ``sanitize_cold`` times; (c) full-width DIN through the launcher
      with ``--tier-budget-mb 40 --batch 4 --steps 300`` beside the same
-     run untiered: compact leaves within 40 MiB, both eval AUCs;
+     run untiered (the DIN batches drawn once for both): compact leaves
+     within 40 MiB, both eval AUCs;
  29. free dlrm-rm2's pool and training state, keep its D' store, and
      build full-width DCN-v2 on that store (the same 26 vocabularies and
      max_set): a 33,763,328-slot striped pool, d=16, x0 of 429, 3 cross
@@ -295,8 +298,38 @@ Phases (any failure raises and ends the run with a non-zero code):
      max_set 32) over a planted D' store: 65,536 ids through row 2
      bit-equal to the plain split path, 3 Trainer steps launching rows 2,
      4 and 9 once each a step (sparse pool gradient; row 5 on the dense
-     rule); print one line per kernel, the ``kernels`` JSON line, the card
-     line, and last the result line.
+     rule);
+ 37. (the MoE and MLA LMs, ``run_moe``, last; one model on the card at a
+     time) deepseek-v3-671b and llama4-scout-17b-a16e at full width and
+     4 layers (deepseek: 3 dense + 1 MoE layer, MLA; scout: 4 MoE
+     layers, GQA), bf16, int8 cache, random weights from the seed: (a)
+     each one's parameter count by param_count (15,111,028,736 and
+     10,877,337,600) and cache bytes a token (2,320 and 8,448), its build
+     time; (b) at the reference's drop-free capacity factor E / k * 1.05,
+     B=4, S=128: the decode of the last token from the int8 prefill cache
+     of S - 1 tokens against the prefill over S (rtol 0.1, atol 0.15, the
+     prefill's top-1 among the decode's top-5) for each sequence whose MoE
+     routes agree at every layer, 3 of the 4 at least; every sequence's
+     router input within that bound and its router logits within
+     0.08 of the prefill's at each MoE layer up to the first where
+     its experts part;
+     deepseek's first MLA layer copied to float32, its absorbed decode
+     against mla_train's last position within 1e-4; the MoE layer against
+     a per-expert float32 loop on the bf16 weights, normwise within 2e-2;
+     (c) the LMServer over
+     32 prompts of 128-1,024 tokens (seed 1) in waves of 16, 64 new tokens
+     each, at the config's capacity factor: generated tokens/s, the median
+     decode step, each wave's MoE capacity and dropped assignments; (d)
+     deepseek's decode_32k, B=128 against a 32,768-token int8 latent cache
+     (9.73 GB): 5 steps, peak memory, the MoE layer's share and bytes
+     bound, one layer's whole-cache dequantization; (e) deepseek's
+     prefill_32k at B=1 (C = 1,280); (f) scout's (b), (c) and prefill_32k
+     (C = 2,560, the dropped assignments logged); (g) deepseek with an LMA
+     token table (129,280 x 7,168 at alpha 16, a planted D' store): row 2
+     bit-equal to the plain split path over 4,096 tokens, timed at the
+     prefill and decode shapes beside its bound, a prefill and 16 decode
+     steps launching row 2 once each; print one line per kernel, the
+     ``kernels`` JSON line, the card line, and last the result line.
 """
 from __future__ import annotations
 
@@ -5080,6 +5113,29 @@ def tiered_durability(torch, arch, hr_cfg, hr_model, hr_bufs, init, root,
     return out
 
 
+@contextlib.contextmanager
+def din_batches_once():
+    """Within: ``DINGenerator.batch`` draws each (spec, size, index) once
+    and hands out copies after: part c's two launcher runs take the same
+    batches (the D' rows, the steps, the eval), which the host draws one
+    ``rng.choice`` at a time."""
+    from repro_torch.data import synthetic_ctr
+
+    draw = synthetic_ctr.DINGenerator.batch
+    seen = {}
+
+    def batch(self, batch_size, batch_idx):
+        key = (self.spec, batch_size, batch_idx)
+        if key not in seen:
+            seen[key] = draw(self, batch_size, batch_idx)
+        return {k: v.copy() for k, v in seen[key].items()}
+    synthetic_ctr.DINGenerator.batch = batch
+    try:
+        yield
+    finally:
+        synthetic_ctr.DINGenerator.batch = draw
+
+
 def tiered_launcher(torch, kernels, card) -> dict:
     """Part c: full-width DIN through the launcher with and without
     --tier-budget-mb DIN_TIER_BUDGET_MB; the tiered run's compact leaves
@@ -5087,20 +5143,21 @@ def tiered_launcher(torch, kernels, card) -> dict:
     from repro_torch.launch import train as launcher
 
     out = {}
-    for name, extra in (("tiered", ["--tier-budget-mb",
-                                    str(DIN_TIER_BUDGET_MB)]),
-                        ("resident", [])):
-        zero(kernels)
-        t0 = time.perf_counter()
-        res = launcher.main(DIN_TIER_ARGS + extra)
-        tr = res["train"]
-        if tr["step"] != 300 or not np.isfinite(tr["loss"]):
-            raise AssertionError(f"launcher din {name}: {tr}")
-        out[name] = {"auc": res["eval"]["auc"], "loss": tr["loss"],
-                     "steps_per_sec": tr["steps_per_sec"],
-                     "seconds": time.perf_counter() - t0,
-                     "launches": counts(kernels),
-                     "tier": res.get("tier")}
+    with din_batches_once():
+        for name, extra in (("tiered", ["--tier-budget-mb",
+                                        str(DIN_TIER_BUDGET_MB)]),
+                            ("resident", [])):
+            zero(kernels)
+            t0 = time.perf_counter()
+            res = launcher.main(DIN_TIER_ARGS + extra)
+            tr = res["train"]
+            if tr["step"] != 300 or not np.isfinite(tr["loss"]):
+                raise AssertionError(f"launcher din {name}: {tr}")
+            out[name] = {"auc": res["eval"]["auc"], "loss": tr["loss"],
+                         "steps_per_sec": tr["steps_per_sec"],
+                         "seconds": time.perf_counter() - t0,
+                         "launches": counts(kernels),
+                         "tier": res.get("tier")}
     t = out["tiered"]["tier"]
     budget = DIN_TIER_BUDGET_MB * 2**20
     if t is None or t["device_bytes"] > budget:
@@ -5112,7 +5169,9 @@ def tiered_launcher(torch, kernels, card) -> dict:
         f" staged blocks a step) eval AUC {out['tiered']['auc']:.4f}, "
         f"{out['tiered']['steps_per_sec']:.1f} steps/s; resident AUC "
         f"{out['resident']['auc']:.4f}, {out['resident']['steps_per_sec']:.1f}"
-        f" steps/s; launches {out['tiered']['launches']}; card {card}")
+        f" steps/s; {out['tiered']['seconds']:.1f} + "
+        f"{out['resident']['seconds']:.1f} s (the batches drawn once); "
+        f"launches {out['tiered']['launches']}; card {card}")
     return out
 
 
@@ -5337,19 +5396,21 @@ def lm_serve(torch, cfg, model, dev) -> dict:
 
 
 def fill_cache(torch, cfg, cache, dev) -> None:
-    """Every row of an int8 cache quantized from random K/V (from the
-    seed), FILL_ROWS sequences at a time."""
+    """Every row of an int8 cache quantized from random K/V (or MLA
+    latents; from the seed), FILL_ROWS sequences at a time."""
     from repro_torch.nn.attention import quantize_kv
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 35)
     for c in cache.values():
-        count, B, L, KV, hd = c["k"].shape
+        names = [n for n in c if not n.endswith("_scale")]
+        count, B = c[names[0]].shape[:2]
         for li in range(count):
             for lo in range(0, B, FILL_ROWS):
                 hi = min(lo + FILL_ROWS, B)
-                for name in ("k", "v"):
-                    x = torch.randn((hi - lo, L, KV, hd), generator=gen,
-                                    device=dev, dtype=torch.bfloat16)
+                for name in names:
+                    x = torch.randn((hi - lo, *c[name].shape[2:]),
+                                    generator=gen, device=dev,
+                                    dtype=torch.bfloat16)
                     q, s = quantize_kv(x)
                     c[name][li, lo:hi] = q
                     c[f"{name}_scale"][li, lo:hi] = s
@@ -6105,6 +6166,557 @@ def run_gat(torch, dev, kernels, card, graphs: GraphBuilder) -> dict:
     return out
 
 
+# ---------------------------------------- the MoE and MLA LMs (phase 37)
+
+MOE_LAYERS = 4                  # full width, reduced depth: the one cut
+MOE_ARCH, SCOUT_ARCH = "deepseek-v3-671b", "llama4-scout-17b-a16e"
+# param_count at MOE_LAYERS (deepseek: 3 dense + 1 MoE layer; scout: 4 MoE)
+MOE_PARAMS = {MOE_ARCH: 15_111_028_736, SCOUT_ARCH: 10_877_337_600}
+# int8 cache bytes a token: MLA's fused latent (512 + 64) + a float32 scale
+# a layer; scout's K and V (8 heads of 128) + 16 scales a layer
+MOE_CACHE_TOKEN_BYTES = {MOE_ARCH: 4 * 580, SCOUT_ARCH: 4 * 2_112}
+# 37b: 4 sequences, most of which must keep their routes (route_check)
+MOE_CHECK_B, MOE_CHECK_S = 4, 128
+MOE_AGREE = 3
+# the largest router-logit shift of the int8 decode against the prefill
+# at a MoE layer whose input routes agreed so far: the H100 read 0.0602
+# (deepseek-v3) and 0.0590 (scout) over 4 sequences; a third above that
+ROUTE_SHIFT = 0.08
+MLA_F32_TOL = 1e-4              # absorbed decode vs expanded, float32
+MOE_NORM_TOL = 2e-2             # bf16's 2^-8 on h, ye and the combine
+MOE_SERVE_PROMPTS, MOE_SERVE_NEW = 32, 64        # 37c, lengths SERVE_LENS
+# 16 slots a wave: a wave's prefill holds [16, 128, 512, 1,024] float32
+# score tiles (4.3 GB) beside 30 GB of weights
+MOE_SERVE_SLOTS = 16
+MOE_SERVE_MAX_LEN = SERVE_LENS[1] + MOE_SERVE_NEW
+MOE_PREFILL_B = 1               # 37e, 37f (the published 32 is a mesh's)
+MOE_LMA_B, MOE_LMA_S = 4, 1024  # 37g
+MOE_LMA_DECODE_STEPS = 16
+
+
+@contextlib.contextmanager
+def moe_calls(torch, calls: list, keep: bool = False):
+    """Within: each ``moe.moe_apply`` call appends to ``calls`` its tokens
+    T and, from the call's own ``stats``, its capacity C and expert load,
+    with CUDA events recorded around it; nothing waits on the card and
+    nothing is routed twice.  On leaving (one synchronize): each call's
+    largest expert load, the (token, expert) assignments dropped past C
+    (``moe.dropped``) and its device ms.  With ``keep``: also its input x,
+    router logits and each token's experts ``top_i``."""
+    from repro_torch.nn import moe
+
+    apply = moe.moe_apply
+
+    def wrapped(p, cfg, x):
+        stats = {}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = apply(p, cfg, x, stats=stats)
+        end.record()
+        rec = {"T": x.shape[0], "C": stats["C"], "load": stats["load"],
+               "events": (start, end)}
+        if keep:
+            rec.update(x=x, logits=stats["logits"], top_i=stats["top_i"])
+        calls.append(rec)
+        return out
+    moe.moe_apply = wrapped
+    try:
+        yield calls
+    finally:
+        moe.moe_apply = apply
+        torch.cuda.synchronize()
+        for c in calls:
+            start, end = c.pop("events")
+            load = c.pop("load")
+            c.update(max_load=int(load.max()),
+                     dropped=int(moe.dropped(load, c["C"])),
+                     ms=start.elapsed_time(end))
+
+
+def moe_model(torch, arch: str, dev, card: str, embedding=None):
+    """``arch`` at full width and MOE_LAYERS layers (with ``embedding``:
+    its token table), random weights from the seed, on the card; its
+    parameter count and cache bytes a token checked."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+
+    free(torch)
+    cfg = dataclasses.replace(get_config(arch).make_model(),
+                              n_layers=MOE_LAYERS, embedding=embedding)
+    t0 = time.perf_counter()
+    model = tt.init(cfg, seed=SEED, device=dev).eval()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    total, active = tt.param_count(cfg)
+    per_token = tt.cache_bytes_per_token(cfg)
+    if per_token != MOE_CACHE_TOKEN_BYTES[arch] or (
+            embedding is None and total != MOE_PARAMS[arch]):
+        raise AssertionError(f"{arch}: {total} parameters, {per_token} "
+                             "cache bytes a token")
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"{arch} at {MOE_LAYERS} of {get_config(arch).make_model().n_layers}"
+        f" layers {cfg.layer_groups()} (d {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.attention}, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k} + {cfg.moe.n_shared_experts} shared, d_ff "
+        f"{cfg.moe.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"{cfg.kv_cache_dtype} cache"
+        f"{', an LMA token table' if embedding else ''}"
+        f"): {total:,} parameters ({active:,} active) by param_count, "
+        f"{nbytes / 1e9:.3f} GB; {per_token:,} cache bytes a token; built "
+        f"in {secs:.1f} s ({card})")
+    return cfg, model, {"params": total, "active": active, "bytes": nbytes,
+                        "cache_bytes_per_token": per_token,
+                        "build_s": secs}
+
+
+def drop_free(cfg):
+    """``cfg`` at the reference's drop-free capacity factor E / k * 1.05
+    (``tests/test_models_smoke.py``): C >= T for any batch."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k * 1.05))
+
+
+def plain_moe(torch, p, cfg, x):
+    """The MoE layer written independently: each token's top-k experts by
+    the float32 router, each expert's tokens through its FFN in float32 on
+    the bf16 weights, summed per token in float32; the shared expert too.
+    No capacity: the caller's cfg drops nothing."""
+    import torch.nn.functional as F
+
+    xf = x.float()
+    logits = xf @ p.router.weight.T
+    scores = torch.sigmoid(logits) if cfg.router == "sigmoid" \
+        else torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(scores, cfg.top_k, dim=-1)
+    w = w / w.sum(dim=-1, keepdim=True)
+    out = torch.zeros_like(xf)
+    for e in range(cfg.n_experts):
+        tok, slot = (idx == e).nonzero(as_tuple=True)
+        if tok.numel() == 0:
+            continue
+        xe = xf[tok]
+        h = F.silu(xe @ p.w_gate[e].float()) * (xe @ p.w_up[e].float())
+        out.index_add_(0, tok, (h @ p.w_down[e].float()) * w[tok, slot, None])
+    if cfg.n_shared_experts > 0:
+        s = p.shared
+        out += F.linear(F.silu(F.linear(xf, s.gate.weight.float()))
+                        * F.linear(xf, s.up.weight.float()),
+                        s.down.weight.float())
+    return out
+
+
+def route_check(torch, pre: list, dec: list, S: int) -> list:
+    """Per sequence b, the int8 decode's MoE calls against the prefill's
+    at token S - 1, layer by layer up to the first whose experts differ:
+    the router's input x within the int8 bound (``int8_close``) and its
+    largest logit shift; -> [{"shift": [...], "x_err": [...], "parted":
+    (layer, the prefill router's gap between the two experts that
+    swapped) or None}]."""
+    out = []
+    for b in range(dec[0]["top_i"].shape[0]):
+        t = b * S + S - 1
+        r = {"shift": [], "x_err": [], "parted": None}
+        for li, (p, d) in enumerate(zip(pre, dec)):
+            zp, zd = p["logits"][t], d["logits"][b]
+            r["shift"].append(float((zd - zp).abs().max()))
+            r["x_err"].append(int8_close(
+                torch, d["x"][b], p["x"][t],
+                f"sequence {b}'s MoE layer {li} input, int8 decode vs "
+                "prefill"))
+            ep, ed = set(p["top_i"][t].tolist()), set(d["top_i"][b].tolist())
+            if ep != ed:
+                r["parted"] = (li, float(zp[list(ep - ed)].min()
+                                         - zp[list(ed - ep)].max()))
+                break
+        out.append(r)
+    return out
+
+
+def moe_check(torch, cfg, model, dev, card: str) -> dict:
+    """37b: at the drop-free capacity factor, the decode of the last token
+    from the int8 prefill cache of S - 1 tokens against the prefill over
+    all S (the int8 bound, the prefill's top-1 among the decode's top-5);
+    one MLA layer copied to float32, its absorbed decode against
+    ``mla_train``'s last position (MLA_F32_TOL); the MoE layer against
+    ``plain_moe`` (normwise MOE_NORM_TOL).
+
+    The int8 cache moves a router's logits a little (ROUTE_SHIFT at
+    most), and a token whose k-th and (k+1)-th logits are closer than that
+    swaps an expert: its output then jumps by a whole expert's (top-1: all
+    of it), which no logits bound covers.  So ``route_check`` holds every
+    sequence's router input within the int8 bound and its logit shift
+    within ROUTE_SHIFT at each MoE layer up to the first where its experts
+    part (its hidden state, up to the layer before the flip); the logits
+    bound holds the sequences whose routes agree throughout, MOE_AGREE of
+    the B at least."""
+    import copy
+
+    from repro_torch.data.lm_data import LMGenerator
+    from repro_torch.models import transformer as tt
+    from repro_torch.nn import moe
+    from repro_torch.nn.attention import mla_decode, mla_train
+
+    B, S = MOE_CHECK_B, MOE_CHECK_S
+    tokens = torch.from_numpy(LMGenerator(cfg.vocab_size, seed=SEED).batch(
+        B, S, 0)["tokens"]).to(dev)
+    dcfg = drop_free(cfg)
+    res = {"B": B, "S": S, "capacity_factor": dcfg.moe.capacity_factor}
+    n_moe = dict(cfg.layer_groups())["moe"]
+    calls = []
+    with torch.no_grad(), moe_calls(torch, calls, keep=True):
+        full, _ = tt.prefill(model, dcfg, tokens)
+        cache = tt.init_cache(dcfg, B, S, dev)
+        _, cache = tt.prefill(model, dcfg, tokens[:, :-1], cache=cache)
+        dec, _ = tt.decode_step(model, dcfg, tokens[:, -1], cache, S - 1)
+        del cache
+    for t in (full, dec):
+        if t.shape != (B, cfg.vocab_size) or not bool(t.isfinite().all()):
+            raise AssertionError("MoE LM logits are not finite [B, V]")
+    routes = route_check(torch, calls[:n_moe], calls[2 * n_moe:], S)
+    del calls
+    res["routes"] = routes
+    res["route_shift_max"] = max(max(r["shift"]) for r in routes)
+    kept = [b for b, r in enumerate(routes) if r["parted"] is None]
+    parted = {b: r["parted"] for b, r in enumerate(routes)
+              if r["parted"] is not None}
+    shifts = [[round(x, 5) for x in r["shift"]] for r in routes]
+    if res["route_shift_max"] > ROUTE_SHIFT or len(kept) < MOE_AGREE:
+        raise AssertionError(
+            f"routes of the int8 decode vs the prefill: router logit "
+            f"shifts by sequence and layer {shifts} (tol {ROUTE_SHIFT}); "
+            f"parted (layer, gap) {parted}; {len(kept)} of {B} agree "
+            f"(want {MOE_AGREE})")
+    res["decode_vs_prefill"] = int8_close(torch, dec[kept], full[kept],
+                                          "int8 decode vs prefill")
+    top5 = torch.topk(dec[kept].float(), INT8_TOPK, dim=-1).indices
+    if not bool((top5 == full[kept].float().argmax(-1)[:, None]).any(
+            -1).all()):
+        raise AssertionError("the prefill's top-1 is not among the int8 "
+                             f"decode's top-{INT8_TOPK}")
+    with torch.no_grad():
+        x = tt.embed_tokens(model, cfg, tokens).to(cfg.torch_dtype)
+        if cfg.attention == "mla":
+            layer = model.groups()[0][0]
+            m32 = copy.deepcopy(layer.attn).float()
+            h = layer.norm_attn(x).float()
+            out, kv = mla_train(m32, cfg.mla, h, block=cfg.attn_block,
+                                return_kv=True)
+            c = {"ckv": torch.zeros_like(kv["ckv"])}
+            c["ckv"][:, :S - 1] = kv["ckv"][:, :S - 1]
+            got, _ = mla_decode(m32, cfg.mla, h[:, -1:], c, S - 1,
+                                block=cfg.attn_block)
+            res["mla_float32_decode_vs_train"] = float(
+                (got - out[:, -1:]).abs().max())
+            if not torch.allclose(got, out[:, -1:], rtol=MLA_F32_TOL,
+                                  atol=MLA_F32_TOL):
+                raise AssertionError(
+                    "absorbed MLA decode vs mla_train: max |err| "
+                    f"{res['mla_float32_decode_vs_train']:.3g}")
+            del m32, out, kv, c
+        layer = model.groups()[-1][0]
+        h = layer.norm_ffn(x).reshape(B * S, cfg.d_model)
+        got, _ = moe.moe_apply(layer.moe, dcfg.moe, h)
+        want = plain_moe(torch, layer.moe, dcfg.moe, h)
+        res["moe_vs_plain_normwise"] = float(
+            torch.linalg.norm(got.float() - want) / torch.linalg.norm(want))
+    if res["moe_vs_plain_normwise"] > MOE_NORM_TOL:
+        raise AssertionError("the MoE layer vs its per-expert loop: "
+                             f"normwise {res['moe_vs_plain_normwise']:.3g}")
+    log(f"37b ({cfg.name}): B={B} S={S}, capacity factor "
+        f"{res['capacity_factor']:.2f} (drop-free): router logit shifts of "
+        f"the int8 decode by sequence and MoE layer {shifts} (largest "
+        f"{res['route_shift_max']:.4g}, tol {ROUTE_SHIFT}), router inputs "
+        f"within the int8 bound (largest |err| "
+        f"{max(max(r['x_err']) for r in routes):.4f}); routes parted "
+        f"(layer, gap) {parted or 'nowhere'}; int8 decode vs prefill over "
+        f"the {len(kept)} sequences whose routes agree: max |err| "
+        f"{res['decode_vs_prefill']:.4f} (rtol {INT8_RTOL}, atol "
+        f"{INT8_ATOL}), the prefill's top-1 in the decode's top-{INT8_TOPK}"
+        + (f"; one MLA layer in float32, absorbed decode vs mla_train "
+           f"{res['mla_float32_decode_vs_train']:.3g} (tol {MLA_F32_TOL})"
+           if "mla_float32_decode_vs_train" in res else "")
+        + f"; the MoE layer vs its per-expert float32 loop normwise "
+        f"{res['moe_vs_plain_normwise']:.3g} (tol {MOE_NORM_TOL}) ({card})")
+    return res
+
+
+def moe_serve(torch, cfg, model, dev, card: str) -> dict:
+    """37c: the LMServer over 32 prompts of 128-1,024 tokens (seed 1), 64
+    new tokens each, at the config's own capacity factor."""
+    from repro_torch.serve import LMServer
+
+    rng = np.random.default_rng(SEED + 1)
+    lens = rng.integers(SERVE_LENS[0], SERVE_LENS[1] + 1, MOE_SERVE_PROMPTS)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in lens]
+    server = LMServer(model, cfg, n_slots=MOE_SERVE_SLOTS,
+                      max_len=MOE_SERVE_MAX_LEN)
+    free(torch)
+    calls, mcalls = {}, []
+    with lm_timed(torch, calls), moe_calls(torch, mcalls):
+        t0 = time.perf_counter()
+        results = server.generate(prompts, max_new_tokens=MOE_SERVE_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    waves = -(-MOE_SERVE_PROMPTS // MOE_SERVE_SLOTS)
+    want = {"waves": waves, "decode_steps": waves * (MOE_SERVE_NEW - 1),
+            "generated": MOE_SERVE_PROMPTS * MOE_SERVE_NEW}
+    if server.stats != want or not all(
+            len(r.tokens) == MOE_SERVE_NEW
+            and all(0 <= t < cfg.vocab_size for t in r.tokens)
+            for r in results):
+        raise AssertionError(f"LMServer stats {server.stats}, want {want}")
+    # the MoE calls of a wave: its prefill's n_moe, then n_moe a step
+    n_moe = dict(cfg.layer_groups())["moe"]
+    per_wave = n_moe * MOE_SERVE_NEW
+    prefill_moe = [c for i, c in enumerate(mcalls) if i % per_wave < n_moe]
+    decode_moe = [c["ms"] for i, c in enumerate(mcalls)
+                  if i % per_wave >= n_moe]
+    out = {"prompts": MOE_SERVE_PROMPTS, "slots": MOE_SERVE_SLOTS,
+           "lengths": [int(lens.min()), int(lens.max())],
+           "stats": dict(server.stats), "prefill_ms": calls["prefill"],
+           "decode_step_ms_median": float(np.median(calls["decode_step"])),
+           "generated_tokens_per_s": server.stats["generated"] / wall,
+           "wall_s": wall, "peak_gib": peak,
+           "prefill_moe": prefill_moe,
+           "decode_moe_ms_median": float(np.median(decode_moe)) * n_moe}
+    log(f"37c ({cfg.name}): LMServer {MOE_SERVE_PROMPTS} prompts "
+        f"({out['lengths'][0]}-{out['lengths'][1]} tokens), n_slots "
+        f"{MOE_SERVE_SLOTS}, max_new {MOE_SERVE_NEW}: {server.stats}; "
+        f"prefill {', '.join(f'{x:.1f}' for x in calls['prefill'])} ms a "
+        f"wave (MoE T={[c['T'] for c in prefill_moe[::n_moe]]}, C="
+        f"{[c['C'] for c in prefill_moe[::n_moe]]}, dropped "
+        f"{sum(c['dropped'] for c in prefill_moe)}), decode step median "
+        f"{out['decode_step_ms_median']:.2f} ms (its MoE layers "
+        f"{out['decode_moe_ms_median']:.2f} ms), "
+        f"{out['generated_tokens_per_s']:.1f} generated tokens/s "
+        f"({wall:.2f} s), peak {peak:.2f} GiB ({card})")
+    return out
+
+
+def moe_decode_32k(torch, cfg, model, dev, card: str) -> dict:
+    """37d: decode_32k, B = 128 against a 32,768-token int8 cache, 5
+    steps: the median step, peak memory, the MoE layers' share and their
+    bytes bound (every expert read), one layer's whole-cache
+    dequantization."""
+    from repro_torch.models import transformer as tt
+    from repro_torch.nn.attention import dequantize_kv
+
+    free(torch)
+    cache = tt.init_cache(cfg, DECODE_B, DECODE_L, dev)
+    cache_gb = sum(t.numel() * t.element_size() for c in cache.values()
+                   for t in c.values()) / 1e9
+    t0 = time.perf_counter()
+    fill_cache(torch, cfg, cache, dev)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 38)
+    ms, mcalls = [], []
+    with torch.no_grad(), moe_calls(torch, mcalls):
+        for step in range(DECODE_STEPS):
+            tok = torch.randint(0, cfg.vocab_size, (DECODE_B,),
+                                generator=gen, device=dev, dtype=torch.int32)
+            at = DECODE_L - DECODE_STEPS + step
+            (logits, _), t = events_ms(torch, lambda: tt.decode_step(
+                model, cfg, tok, cache, at))
+            ms.append(t)
+            if not bool(logits.isfinite().all()):
+                raise AssertionError("decode_32k logits are not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    name = "ckv" if cfg.attention == "mla" else "k"
+    c = cache["layers_0"]
+    with torch.no_grad():
+        _, deq_ms = events_ms(torch, lambda: dequantize_kv(
+            c[name][0], c[f"{name}_scale"][0], cfg.torch_dtype))
+    del cache, c
+    med = float(np.median(ms))
+    n_moe = dict(cfg.layer_groups())["moe"]
+    moe_ms = float(np.median([x["ms"] for x in mcalls])) * n_moe
+    experts = sum(p.numel() * p.element_size()
+                  for g in model.groups() for layer in g
+                  if layer.kind == "moe"
+                  for p in (layer.moe.w_gate, layer.moe.w_up,
+                            layer.moe.w_down))
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    out = {"B": DECODE_B, "cache_len": DECODE_L, "steps_ms": ms,
+           "median_ms": med, "cache_gb": cache_gb, "peak_gib": peak,
+           "fill_s": fill_s,
+           "bytes_bound_ms": (cache_gb * 1e9 + weights)
+           / HBM_BYTES_PER_S * 1e3,
+           "moe_ms": moe_ms, "moe_share": moe_ms / med,
+           "moe_T": mcalls[0]["T"], "moe_C": mcalls[0]["C"],
+           "moe_bytes_bound_ms": experts / HBM_BYTES_PER_S * 1e3,
+           "layer_dequantize_ms": deq_ms}
+    log(f"37d ({cfg.name}): decode_32k B={DECODE_B} against a {DECODE_L}-"
+        f"token int8 cache ({cache_gb:.2f} GB, filled in {fill_s:.1f} s): "
+        f"steps {', '.join(f'{x:.1f}' for x in ms)} ms, median {med:.1f} ms "
+        f"(reading the cache and weights once: {out['bytes_bound_ms']:.2f} "
+        f"ms), peak {peak:.2f} GiB; MoE layers {moe_ms:.2f} ms a step "
+        f"({100 * out['moe_share']:.1f}%; T={out['moe_T']}, C="
+        f"{out['moe_C']}: every expert read, bound "
+        f"{out['moe_bytes_bound_ms']:.2f} ms); one layer's whole-cache "
+        f"dequantization {deq_ms:.2f} ms ({card})")
+    return out
+
+
+def moe_prefill_32k(torch, cfg, model, dev, card: str) -> dict:
+    """37e / 37f: prefill_32k at B = 1 (the published 32 is a mesh's
+    global batch): s, tokens/s, peak memory, the MoE layers' time, C and
+    the assignments dropped past it."""
+    from repro_torch.models import transformer as tt
+
+    free(torch)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 39)
+    tok = torch.randint(0, cfg.vocab_size, (MOE_PREFILL_B, PREFILL_S),
+                        generator=gen, device=dev, dtype=torch.int32)
+    mcalls = []
+    with torch.no_grad(), moe_calls(torch, mcalls):
+        cache = tt.init_cache(cfg, MOE_PREFILL_B, PREFILL_S, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tt.prefill(model, cfg, tok, cache=cache)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if not bool(logits.isfinite().all()):
+            raise AssertionError("prefill_32k logits are not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del cache, logits
+    tokens = MOE_PREFILL_B * PREFILL_S
+    out = {"B": MOE_PREFILL_B, "S": PREFILL_S, "seconds": secs,
+           "tokens_per_s": tokens / secs, "peak_gib": peak,
+           "moe": mcalls, "moe_s": sum(c["ms"] for c in mcalls) / 1e3,
+           "dropped": sum(c["dropped"] for c in mcalls),
+           "reduced": "batch 32 -> 1 (the published 32 is a mesh's global "
+                      "batch)"}
+    log(f"37{'e' if cfg.attention == 'mla' else 'f'} ({cfg.name}): "
+        f"prefill_32k B={MOE_PREFILL_B} S={PREFILL_S}: {secs:.2f} s, "
+        f"{tokens / secs:.0f} tokens/s, peak {peak:.2f} GiB; MoE layers "
+        f"{out['moe_s']:.2f} s (T={mcalls[0]['T']}, C={mcalls[0]['C']}, "
+        f"largest expert load {max(c['max_load'] for c in mcalls)}, "
+        f"{out['dropped']} assignments dropped over {len(mcalls)} layers) "
+        f"({card})")
+    return out
+
+
+def moe_lma(torch, dev, kernels, card: str) -> dict:
+    """37g: deepseek-v3 with an LMA token table (129,280 x 7,168 at alpha
+    16 over a planted D' store): row 2's lookup (``embed_tokens``)
+    bit-equal to the plain split path, timed at the prefill and decode
+    shapes beside its bound; a prefill and 16 decode steps, row 2 once
+    each."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs._recsys_common import embedding_of_kind
+    from repro_torch.data.lm_data import LMGenerator
+    from repro_torch.embed import get_scheme, make_buffers
+    from repro_torch.kernels.fused_embed import ops as fe
+    from repro_torch.kernels.fused_embed import ref as fref
+    from repro_torch.kernels.fused_embed.kernel import fused_lookup_cuda
+    from repro_torch.models import transformer as tt
+
+    base = get_config(MOE_ARCH).make_model()
+    e = embedding_of_kind("lma", (base.vocab_size,), base.d_model,
+                          expansion=16.0, max_set=32)
+    cfg, model, info = moe_model(torch, MOE_ARCH, dev, card, embedding=e)
+    bufs = make_buffers(e, planted_store(torch, e, dev))
+    p = e.lma
+    spec = fe.lma_spec(p)
+    mem = model.embed["memory"].detach()
+    B, S = MOE_LMA_B, MOE_LMA_S
+    tokens = torch.from_numpy(LMGenerator(cfg.vocab_size, seed=SEED).batch(
+        B, S, 0)["tokens"]).to(dev)
+    gids = tokens.reshape(-1).contiguous()
+    rows, support = get_scheme("lma").fused_inputs(e, bufs, gids)
+    with torch.no_grad():
+        zero(kernels)
+        got = tt.embed_tokens(model, cfg, tokens, bufs)
+        if counts(kernels) != {"fused_embed": 1}:
+            raise AssertionError(f"embed_tokens launched {counts(kernels)}")
+        plain_ms = 0.0
+        for lo in range(0, gids.numel(), LMA_CHUNK):
+            part = (gids[lo:lo + LMA_CHUNK], rows[lo:lo + LMA_CHUNK],
+                    support[lo:lo + LMA_CHUNK])
+            want, t = events_ms(torch, lambda: mem[
+                fref.locations_ref(spec, *part).long()])
+            plain_ms += t
+            if not torch.equal(got.reshape(-1, p.d)[lo:lo + LMA_CHUNK],
+                               want):
+                raise AssertionError("the LMA token table's lookup differs "
+                                     f"from the plain split path (tokens "
+                                     f"{lo}..)")
+        del got, want
+        n_fb = int((support < p.min_support).sum())
+        timing = {}
+        for label, n in (("prefill", gids.numel()), ("decode", B)):
+            a = (gids[:n], rows[:n], support[:n])
+            r = timing[label] = {"tokens": n}
+            r["ms"] = graph_ms(torch, lambda: fused_lookup_cuda(
+                spec, mem, *a), 20)
+            r["bound_ms"], r["bound_by"] = bound(
+                *lma_work(torch, p, a[1], a[2], fallback=True),
+                INT32_OP_PER_S)
+        timing["prefill"]["plain_ms"] = plain_ms
+        zero(kernels)
+        cache = tt.init_cache(cfg, B, S + MOE_LMA_DECODE_STEPS, dev)
+        logits, cache = tt.prefill(model, cfg, tokens, bufs, cache=cache)
+        launches = {"lm moe lma prefill": counts(kernels)}
+        zero(kernels)
+        cur = logits.argmax(-1).to(torch.int32)
+        for step in range(MOE_LMA_DECODE_STEPS):
+            logits, cache = tt.decode_step(model, cfg, cur, cache, S + step,
+                                           bufs)
+            cur = logits.argmax(-1).to(torch.int32)
+        launches["lm moe lma decode"] = counts(kernels)
+        if not bool(logits.isfinite().all()):
+            raise AssertionError("LMA MoE LM logits are not finite")
+    want = {"lm moe lma prefill": {"fused_embed": 1},
+            "lm moe lma decode": {"fused_embed": MOE_LMA_DECODE_STEPS}}
+    if launches != want:
+        raise AssertionError(f"LMA MoE LM launches {launches}, want {want}")
+    out = {"pool_slots": p.m, "stripe": p.stripe, "fallback_tokens": n_fb,
+           "row2": timing, "launches": launches, "build": info}
+    log(f"37g: {MOE_ARCH} with an LMA token table m={p.m} (stripe "
+        f"{p.stripe}, d={p.d}, n_h={p.n_h}, max_set {p.max_set}): "
+        f"embed_tokens over {gids.numel()} tokens ({n_fb} fallback) "
+        f"bit-equal to the plain split path ({plain_ms:.1f} ms in "
+        f"{-(-gids.numel() // LMA_CHUNK)} chunks); row 2 at {gids.numel()} "
+        f"tokens {timing['prefill']['ms']:.4f} ms (bound "
+        f"{timing['prefill']['bound_ms']:.4f} ms), at {B} tokens "
+        f"{timing['decode']['ms']:.4f} ms (bound "
+        f"{timing['decode']['bound_ms']:.4f} ms); launches {launches} "
+        f"({card})")
+    del model
+    return out
+
+
+def run_moe(torch, dev, kernels, card) -> dict:
+    """Phase 37: deepseek-v3-671b and llama4-scout-17b-a16e at full width
+    and MOE_LAYERS layers on the card, bf16 with an int8 cache, random
+    weights from the seed, one model at a time."""
+    t_phase = time.perf_counter()
+    out = {"card": card, "layers": MOE_LAYERS}
+    cfg, model, out["deepseek"] = moe_model(torch, MOE_ARCH, dev, card)
+    ds = out["deepseek"]
+    ds["check"] = moe_check(torch, cfg, model, dev, card)
+    ds["serve"] = moe_serve(torch, cfg, model, dev, card)
+    ds["decode_32k"] = moe_decode_32k(torch, cfg, model, dev, card)
+    ds["prefill_32k"] = moe_prefill_32k(torch, cfg, model, dev, card)
+    del model
+    cfg, model, out["scout"] = moe_model(torch, SCOUT_ARCH, dev, card)
+    sc = out["scout"]
+    sc["check"] = moe_check(torch, cfg, model, dev, card)
+    sc["serve"] = moe_serve(torch, cfg, model, dev, card)
+    sc["prefill_32k"] = moe_prefill_32k(torch, cfg, model, dev, card)
+    del model
+    out["lma"] = moe_lma(torch, dev, kernels, card)
+    free(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 37: {out['seconds']:.1f} s")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 SOURCES = {
@@ -6166,6 +6778,11 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     log(card)
+    t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
+
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
@@ -6177,6 +6794,7 @@ def main() -> int:
             log(f"  {name}: {fn}: {st['registers']} registers, "
                 f"{st['stack']} B stack, {st['spill']} B spill stores")
     kernels = shard_kernels()
+    mark("phase 1 (the build)")
 
     cfg, model, bufs = build_model(torch, dev)
     rng = np.random.default_rng(SEED)
@@ -6193,6 +6811,7 @@ def main() -> int:
     res["dot_interaction"] = measure_dot(torch, cfg, model, bufs, dev)
     err["dot_interaction"] = max([err["dot_interaction"]] + [
         r["max_abs_err"] for r in res["dot_interaction"].values()])
+    mark("phases 2-6")
 
     gen = ctr_generator(cfg)
     B_train = RECSYS_SHAPE_TABLE["train_batch"]["batch"]
@@ -6211,7 +6830,9 @@ def main() -> int:
         counts[name] = train["launches"][name]
     paths["dlrm-rm2 train sparse"] = train["sparse"]["launches"]
     paths["dlrm-rm2 train dense"] = train["dense"]["launches"]
+    mark("phases 7-8")
     launcher = launcher_comparison(torch, kernels)
+    mark("phase 9")
     bag_counts, bag_err = bag_backward(torch, cfg, model, bufs, dev, kernels)
     counts["fused_weight_grad"] = bag_counts["fused_weight_grad"]
     paths["dlrm-rm2 bag backward"] = bag_counts
@@ -6228,12 +6849,15 @@ def main() -> int:
     counts["sparse_adam"] = sum(c.get("sparse_adam", 0)
                                 for c in paths.values())
     counts["embedding_bag"] = paths["embedding_bag op"]["embedding_bag"]
+    mark("phases 10-11, 18-22")
     durable = run_durability(
         torch, cfg, model, bufs, gen, B_train, dev, kernels,
         launcher["lma-dlrm-criteo"]["lma"]["auc"], card)
     paths.update(durable["paths"])
+    mark("phase 32")
     tiering = run_tiering(torch, cfg, model, bufs, gen, dev, kernels, card)
     paths.update(tiering["paths"])
+    mark("phase 33")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB (dlrm-rm2 phases)")
 
@@ -6254,6 +6878,7 @@ def main() -> int:
     free(torch)
     log(f"after freeing dlrm-rm2, DCN-v2 and DIN: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    mark("phases 29-31")
     xcounts, err["cin"], xres, xserving, xtrain = run_xdeepfm(torch, dev,
                                                               kernels)
     res["cin"] = xres
@@ -6262,6 +6887,7 @@ def main() -> int:
                   for k, c in xcounts.items()})
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB (xdeepfm phases)")
+    mark("phases 12-17")
 
     # free xDeepFM, then dlrm-rm2 sharded over 4 ranks on this card: at
     # (1, 4) (phases 23-28), then the rest of distribution (phase 34); the
@@ -6273,18 +6899,27 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="sharded-",
                                          dir=ROOT / "build") as tmp:
             shard = run_sharded(torch, dev, kernels, card, tmp)
+            mark("phases 23-28")
             distribution = run_distribution(torch, card, shard, tmp)
+            mark("phase 34")
         paths.update(shard["paths"])
         paths.update(distribution["paths"])
         # the dense LM at full width (phase 35): it needs the card whole
         free(torch)
         lm = run_lm(torch, dev, kernels, card)
         paths.update(lm["lma"]["launches"])
-        # the GAT at full width (phase 36), last
+        mark("phase 35")
+        # the GAT at full width (phase 36)
         gat = run_gat(torch, dev, kernels, card, graphs)
         paths.update(gat["lma"]["launches"])
+        mark("phase 36")
     finally:
         graphs.close()
+    # the MoE and MLA LMs at full width and reduced depth (phase 37), last
+    free(torch)
+    moe_lm = run_moe(torch, dev, kernels, card)
+    paths.update(moe_lm["lma"]["launches"])
+    mark("phase 37")
     for name, e in shard["err"].items():
         err[name] = max(err.get(name, 0.0), e)
     res.update(shard["res"])
@@ -6319,12 +6954,14 @@ def main() -> int:
                 extra[f"at_batch_{other}"] = r[other]
                 where += (f" (B={other}: {r[other]['ms']:.4f} ms, bound "
                           f"{r[other]['bound_ms']:.4f} ms)")
-        if name == "fused_embed":       # the LMA token table, d = 2,048
+        if name == "fused_embed":       # LMA token tables, d = 2,048, 7,168
             extra["at_lm"] = lm["lma"]["row2"]
-            where += (f" (LM d=2048, {lm['lma']['row2']['prefill']['tokens']}"
-                      f" tokens: {lm['lma']['row2']['prefill']['ms']:.4f} ms,"
-                      f" bound {lm['lma']['row2']['prefill']['bound_ms']:.4f}"
-                      " ms)")
+            extra["at_moe_lm"] = moe_lm["lma"]["row2"]
+            for d, r in ((2048, lm["lma"]["row2"]),
+                         (7168, moe_lm["lma"]["row2"])):
+                where += (f" (LM d={d}, {r['prefill']['tokens']} tokens: "
+                          f"{r['prefill']['ms']:.4f} ms, bound "
+                          f"{r['prefill']['bound_ms']:.4f} ms)")
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
@@ -6361,6 +6998,8 @@ def main() -> int:
                     "card": card}))
     log(json.dumps({"gat": {k: v for k, v in gat.items() if k != "card"},
                     "card": card}))
+    log(json.dumps({"moe_lm": {k: v for k, v in moe_lm.items()
+                               if k != "card"}, "card": card}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """Arch config registry (port of ``repro.configs.base``): the recsys
 architectures (dlrm-rm2, dcn-v2, xdeepfm, din, lma-dlrm-criteo,
 lma-dlrm-avazu), the dense LMs (tinyllama-1.1b, stablelm-3b,
-qwen1.5-32b) and the GAT (gat-cora).  The MoE and MLA LMs (llama4-scout,
-deepseek-v3) come with ``nn/moe.py`` and MLA (ROADMAP.md, Queue 1)."""
+qwen1.5-32b), the MoE and MLA LMs (deepseek-v3-671b,
+llama4-scout-17b-a16e) and the GAT (gat-cora).  Every arch of the
+reference is here; the LMs under a mesh are not ported yet (ROADMAP.md,
+Queue 1, "The LM under a mesh")."""
 from __future__ import annotations
 
 import dataclasses
@@ -42,8 +44,9 @@ def list_archs() -> list[str]:
 
 
 def _ensure_loaded():
-    from repro_torch.configs import (dcn_v2, din, dlrm_rm2,  # noqa: F401
-                                    gat_cora, lma_dlrm_avazu,
-                                    lma_dlrm_criteo,
+    from repro_torch.configs import (dcn_v2,  # noqa: F401
+                                    deepseek_v3_671b, din, dlrm_rm2,
+                                    gat_cora, llama4_scout_17b_a16e,
+                                    lma_dlrm_avazu, lma_dlrm_criteo,
                                     qwen1_5_32b, stablelm_3b,
                                     tinyllama_1_1b, xdeepfm)

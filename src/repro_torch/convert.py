@@ -68,9 +68,12 @@ def lm_params_from_jax(np_params: dict, cfg, device=None) -> dict:
     ``Transformer`` state dict, on the card unless ``device`` says
     otherwise.  Each ``layers_{gi}`` leaf's leading (layer) axis is
     unstacked into ``layers_{gi}.{i}``; a ``kernel [in, out]`` becomes
-    ``weight [out, in]``; ``embed`` (``table_0``, or the embedding scheme's
-    parameters: an LMA pool's ``memory``), ``lm_head`` and ``final_norm``
-    carry over by name."""
+    ``weight [out, in]`` (every dense, the MoE's ``router`` and MLA's
+    ``wq_a`` ... ``wo`` included); the MoE's stacked experts ``w_gate`` /
+    ``w_up`` [E, d, f] and ``w_down`` [E, f, d], the norms' ``scale``,
+    ``embed`` (``table_0``, or the embedding scheme's parameters: an LMA
+    pool's ``memory``), ``lm_head`` and ``final_norm`` carry over by
+    name."""
     dev = resolve_device(device)
     state = {}
 
@@ -119,8 +122,8 @@ def _np_to_torch(a) -> torch.Tensor:
 
 def cache_from_jax(np_cache: dict, device=None) -> dict:
     """A reference decode cache (numpy leaves; ``layers_{gi}`` -> ``k``,
-    ``v``, ``k_scale``, ``v_scale``) -> the port's, same layout and
-    dtypes."""
+    ``v``, ``k_scale``, ``v_scale``, or MLA's ``ckv``, ``ckv_scale``) ->
+    the port's, same layout and dtypes."""
     dev = resolve_device(device)
     return {g: {k: _np_to_torch(v).to(dev) for k, v in c.items()}
             for g, c in np_cache.items()}

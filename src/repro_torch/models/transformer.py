@@ -1,28 +1,30 @@
-"""Config-driven decoder-only transformer LM, the dense path (port of
+"""Config-driven decoder-only transformer LM (port of
 ``repro.models.transformer``).
 
-GQA attention, optional QKV bias, LayerNorm or RMSNorm, SwiGLU FFN, untied
-or tied output, and an optional compressed token table: a
-``repro_torch.embed`` :class:`EmbeddingTable` (the paper's LMA applied to
-the vocabulary), whose lookup on the card is the fused kernel.  MoE and MLA
-configs are refused (``LATER``).
+GQA or MLA attention, optional QKV bias, LayerNorm or RMSNorm, a SwiGLU FFN
+or a MoE (shared + routed experts, top-k, sigmoid or softmax router) with
+``first_k_dense`` leading dense layers, untied or tied output, and an
+optional compressed token table: a ``repro_torch.embed``
+:class:`EmbeddingTable` (the paper's LMA applied to the vocabulary), whose
+lookup on the card is the fused kernel.
 
 Where the reference stacks each layer group's parameters on a leading axis
 and scans them, the port keeps one module a layer (``layers_{gi}``, an
 ``nn.ModuleList``; ``repro_torch.convert.lm_params_from_jax`` unstacks).
 The decode cache keeps the reference's stacked layout, ``layers_{gi}`` ->
 ``k``, ``v`` (and ``k_scale``, ``v_scale`` for int8) of shape [count, B, L,
-KV, hd], and is written in place: ``prefill`` and ``decode_step`` assign
-slices of the preallocated tensors (the reference's in-place
-dynamic-update-index on a loop carry); a functional copy would double a
-cache that is 50 GB at tinyllama-1.1b's decode_32k shape.  ``remat`` has no
-effect here (serving keeps no activations for a backward; the training
-path is autograd's default).
+KV, hd], or for MLA the fused latent ``ckv`` [count, B, L, r + rope_dim]
+(and ``ckv_scale`` [count, B, L]), and is written in place: ``prefill``
+and ``decode_step`` assign slices of the preallocated tensors (the
+reference's in-place dynamic-update-index on a loop carry); a functional
+copy would double a cache that is 50 GB at tinyllama-1.1b's decode_32k
+shape.  ``remat`` has no effect here (serving keeps no activations for a
+backward; the training path is autograd's default).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -30,9 +32,11 @@ from torch import nn
 
 from repro_torch.device import make_generator, resolve_device
 from repro_torch.embed import EmbeddingConfig, EmbeddingTable
-from repro_torch.nn.attention import (LATER, GQAConfig, gqa_decode,
-                                      gqa_init, gqa_train, quantize_kv)
+from repro_torch.nn.attention import (GQAConfig, MLAConfig, gqa_decode,
+                                      gqa_init, gqa_train, mla_decode,
+                                      mla_init, mla_train, quantize_kv)
 from repro_torch.nn.modules import GluFFN, LayerNorm, RMSNorm, dense
+from repro_torch.nn.moe import MoEConfig, moe_dispatch, moe_init
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -45,28 +49,23 @@ class TransformerConfig:
     d_model: int
     n_heads: int
     n_kv_heads: int
-    d_ff: int                      # dense FFN width
+    d_ff: int                      # dense FFN width (shared width for MoE)
     vocab_size: int
     head_dim: Optional[int] = None
     norm: str = "rmsnorm"          # rmsnorm | layernorm
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     tied_embeddings: bool = True
-    attention: str = "gqa"         # gqa (mla: not ported yet)
-    mla: Optional[Any] = None
-    moe: Optional[Any] = None
-    first_k_dense: int = 0
+    attention: str = "gqa"         # gqa | mla
+    mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
+    first_k_dense: int = 0         # leading dense layers before MoE layers
     dtype: str = "float32"
     remat: bool = True
     attn_block: int = 512          # KV block of the online softmax
     embedding: Optional[EmbeddingConfig] = None  # None -> full vocab table
     loss_chunk: int = 0            # 0 -> unchunked cross-entropy
     kv_cache_dtype: Optional[str] = None         # "int8" or None (dtype)
-
-    def __post_init__(self):
-        if self.moe is not None or self.attention != "gqa":
-            raise NotImplementedError(
-                f"{self.name}: MoE and MLA layers are {LATER}")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -81,8 +80,14 @@ class TransformerConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def layer_groups(self) -> list[tuple[str, int]]:
-        """[(kind, count)] homogeneous groups: one dense group."""
-        return [("dense", self.n_layers)]
+        """[(kind, count)] homogeneous groups."""
+        if self.moe is None:
+            return [("dense", self.n_layers)]
+        groups = []
+        if self.first_k_dense > 0:
+            groups.append(("dense", self.first_k_dense))
+        groups.append(("moe", self.n_layers - self.first_k_dense))
+        return groups
 
 
 def _attn_cfg(cfg: TransformerConfig) -> GQAConfig:
@@ -96,15 +101,24 @@ def _norm(cfg: TransformerConfig, device) -> nn.Module:
 
 
 class Block(nn.Module):
-    """One dense layer: ``norm_attn``, ``attn``, ``norm_ffn``, ``ffn``."""
+    """One layer: ``norm_attn``, ``attn`` (GQA or MLA), ``norm_ffn``, and
+    ``ffn`` (kind "dense") or ``moe`` (kind "moe")."""
 
-    def __init__(self, cfg: TransformerConfig, generator, device):
+    def __init__(self, cfg: TransformerConfig, kind: str, generator, device):
         super().__init__()
         dt = cfg.torch_dtype
+        self.kind = kind
         self.norm_attn = _norm(cfg, device)
-        self.attn = gqa_init(_attn_cfg(cfg), generator, device, dt)
+        if cfg.attention == "mla":
+            self.attn = mla_init(cfg.mla, generator, device, dt)
+        else:
+            self.attn = gqa_init(_attn_cfg(cfg), generator, device, dt)
         self.norm_ffn = _norm(cfg, device)
-        self.ffn = GluFFN(cfg.d_model, cfg.d_ff, generator, device, dtype=dt)
+        if kind == "moe":
+            self.moe = moe_init(cfg.moe, generator, device, dt)
+        else:
+            self.ffn = GluFFN(cfg.d_model, cfg.d_ff, generator, device,
+                              dtype=dt)
 
 
 class Transformer(nn.Module):
@@ -129,9 +143,9 @@ class Transformer(nn.Module):
             self.lm_head = dense(cfg.d_model, cfg.vocab_size, generator,
                                  device, bias=False, dtype=dt)
         self.final_norm = _norm(cfg, device)
-        for gi, (_kind, count) in enumerate(cfg.layer_groups()):
+        for gi, (kind, count) in enumerate(cfg.layer_groups()):
             self.add_module(f"layers_{gi}", nn.ModuleList(
-                Block(cfg, generator, device) for _ in range(count)))
+                Block(cfg, kind, generator, device) for _ in range(count)))
 
     def groups(self):
         return [getattr(self, f"layers_{gi}")
@@ -145,16 +159,32 @@ def init(cfg: TransformerConfig, seed: int = 0, device=None) -> Transformer:
     return Transformer(cfg, make_generator(seed, dev), dev)
 
 
+def _ffn(cfg: TransformerConfig, layer: Block, h: torch.Tensor):
+    """The layer's FFN on h [B, S, d] -> (f [B, S, d], aux); a MoE takes
+    the B * S tokens as one [T, d] batch."""
+    if layer.kind == "moe":
+        B, S, d = h.shape
+        f, aux = moe_dispatch(layer.moe, cfg.moe, h.reshape(B * S, d))
+        return f.reshape(B, S, d), aux
+    return layer.ffn(h), torch.zeros((), dtype=torch.float32,
+                                     device=h.device)
+
+
 def _block(cfg: TransformerConfig, layer: Block, x: torch.Tensor,
            return_kv: bool = False):
+    """One layer on x [B, S, d] -> (y, aux), or (y, aux, kv)."""
     h = layer.norm_attn(x)
-    a = gqa_train(layer.attn, _attn_cfg(cfg), h, block=cfg.attn_block,
-                  return_kv=return_kv)
+    if cfg.attention == "mla":
+        a = mla_train(layer.attn, cfg.mla, h, block=cfg.attn_block,
+                      return_kv=return_kv)
+    else:
+        a = gqa_train(layer.attn, _attn_cfg(cfg), h, block=cfg.attn_block,
+                      return_kv=return_kv)
     if return_kv:
         a, kv = a
     x = x + a
-    y = x + layer.ffn(layer.norm_ffn(x))
-    return (y, kv) if return_kv else y
+    f, aux = _ffn(cfg, layer, layer.norm_ffn(x))
+    return (x + f, aux, kv) if return_kv else (x + f, aux)
 
 
 def embed_tokens(model: Transformer, cfg: TransformerConfig,
@@ -182,10 +212,11 @@ def forward(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor,
             buffers: dict | None = None):
     """tokens [B, S] -> (hidden [B, S, d], aux)."""
     x = embed_tokens(model, cfg, tokens, buffers).to(cfg.torch_dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for group in model.groups():
         for layer in group:
-            x = _block(cfg, layer, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _block(cfg, layer, x)
+            aux = aux + a
     return model.final_norm(x), aux
 
 
@@ -225,34 +256,45 @@ def loss_fn(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor,
 
 # ------------------------------------------------------------------ serving
 
+def _cache_leaves(cfg: TransformerConfig) -> dict:
+    """Each cache leaf's per-token shape: GQA's ``k``, ``v`` [KV, hd], or
+    MLA's fused latent ``ckv`` [r + rope_dim]."""
+    if cfg.attention == "mla":
+        return {"ckv": (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim,)}
+    return {name: (cfg.n_kv_heads, cfg.hd) for name in ("k", "v")}
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """Zeroed stacked KV caches: ``layers_{gi}`` -> ``k``, ``v`` [count,
-    batch, max_len, KV, hd] (int8 with float32 ``k_scale``, ``v_scale``
-    [count, batch, max_len, KV]; else the model's dtype)."""
+    """Zeroed stacked caches, ``layers_{gi}`` -> ``k``, ``v`` [count,
+    batch, max_len, KV, hd], or MLA's ``ckv`` [count, batch, max_len, r +
+    rope_dim]; int8 with a float32 ``{name}_scale`` (the shape without its
+    last axis), else the model's dtype."""
     dev = resolve_device(device)
     dt = torch.int8 if cfg.kv_quantized else cfg.torch_dtype
     cache = {}
     for gi, (_kind, count) in enumerate(cfg.layer_groups()):
-        shape = (count, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        g = {"k": torch.zeros(shape, dtype=dt, device=dev),
-             "v": torch.zeros(shape, dtype=dt, device=dev)}
-        if cfg.kv_quantized:
-            g["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
-                                       device=dev)
-            g["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
-                                       device=dev)
+        g = {}
+        for name, per in _cache_leaves(cfg).items():
+            shape = (count, batch, max_len, *per)
+            g[name] = torch.zeros(shape, dtype=dt, device=dev)
+            if cfg.kv_quantized:
+                g[f"{name}_scale"] = torch.zeros(
+                    shape[:-1], dtype=torch.float32, device=dev)
         cache[f"layers_{gi}"] = g
     return cache
 
 
 def cache_bytes_per_token(cfg: TransformerConfig) -> int:
-    """Cache bytes one token of one sequence holds, over all layers."""
-    kv = cfg.n_kv_heads
-    per = 2 * kv * cfg.hd * (1 if cfg.kv_quantized
-                             else torch.finfo(cfg.torch_dtype).bits // 8)
-    if cfg.kv_quantized:
-        per += 2 * kv * 4
+    """Cache bytes one token of one sequence holds, over all layers: an
+    int8 element a byte plus a float32 scale a row of the last axis."""
+    per = 0
+    for shape in _cache_leaves(cfg).values():
+        n = int(np.prod(shape))
+        if cfg.kv_quantized:
+            per += n + 4 * (n // shape[-1])
+        else:
+            per += n * (torch.finfo(cfg.torch_dtype).bits // 8)
     return cfg.n_layers * per
 
 
@@ -272,19 +314,19 @@ def prefill(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor,
         cache = init_cache(cfg, B, S, x.device)
     for gi, group in enumerate(model.groups()):
         c = cache[f"layers_{gi}"]
-        if c["k"].shape[2] < S or c["k"].shape[1] != B:
-            raise ValueError(f"a cache of {tuple(c['k'].shape[1:3])} cannot "
-                             f"take a prefill of {(B, S)}")
+        rows = next(iter(c.values())).shape[1:3]
+        if rows[1] < S or rows[0] != B:
+            raise ValueError(f"a cache of {tuple(rows)} cannot take a "
+                             f"prefill of {(B, S)}")
         for li, layer in enumerate(group):
-            x, kv = _block(cfg, layer, x, return_kv=True)
-            if cfg.kv_quantized:
-                for name in ("k", "v"):
-                    q, s = quantize_kv(kv[name])
+            x, _aux, kv = _block(cfg, layer, x, return_kv=True)
+            for name, new in kv.items():
+                if cfg.kv_quantized:
+                    q, s = quantize_kv(new)
                     c[name][li, :, :S] = q
                     c[f"{name}_scale"][li, :, :S] = s
-            else:
-                for name in ("k", "v"):
-                    c[name][li, :, :S] = kv[name].to(c[name].dtype)
+                else:
+                    c[name][li, :, :S] = new.to(c[name].dtype)
     x = model.final_norm(x)
     return logits_fn(model, cfg, x[:, -1, :], buffers), cache
 
@@ -297,25 +339,49 @@ def decode_step(model: Transformer, cfg: TransformerConfig,
     token is written at ``cache_len`` (the current valid length) in place;
     the returned cache is the one given."""
     x = embed_tokens(model, cfg, tokens[:, None], buffers).to(cfg.torch_dtype)
-    acfg = _attn_cfg(cfg)
     for gi, group in enumerate(model.groups()):
         c_full = cache[f"layers_{gi}"]
         for li, layer in enumerate(group):
             c_layer = {k: t[li] for k, t in c_full.items()}
-            a, _ = gqa_decode(layer.attn, acfg, layer.norm_attn(x), c_layer,
-                              cache_len, block=cfg.attn_block)
+            h = layer.norm_attn(x)
+            if cfg.attention == "mla":
+                a, _ = mla_decode(layer.attn, cfg.mla, h, c_layer, cache_len,
+                                  block=cfg.attn_block)
+            else:
+                a, _ = gqa_decode(layer.attn, _attn_cfg(cfg), h, c_layer,
+                                  cache_len, block=cfg.attn_block)
             x = x + a
-            x = x + layer.ffn(layer.norm_ffn(x))
+            f, _ = _ffn(cfg, layer, layer.norm_ffn(x))
+            x = x + f
     x = model.final_norm(x)
     return logits_fn(model, cfg, x[:, 0, :], buffers), cache
 
 
 def param_count(cfg: TransformerConfig) -> tuple[int, int]:
-    """(total, active) parameter counts of the dense path."""
+    """(total, active) parameter counts: a MoE layer's active count takes
+    its top-k routed experts."""
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
-    attn = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
-            + cfg.n_heads * hd * d)
+    if cfg.attention == "mla":
+        m = cfg.mla
+        attn = (d * m.q_lora_rank + m.q_lora_rank * cfg.n_heads * m.qk_dim
+                if m.q_lora_rank else d * cfg.n_heads * m.qk_dim)
+        attn += d * (m.kv_lora_rank + m.qk_rope_dim)
+        attn += m.kv_lora_rank * cfg.n_heads * (m.qk_nope_dim + m.v_head_dim)
+        attn += cfg.n_heads * m.v_head_dim * d
+    else:
+        attn = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+                + cfg.n_heads * hd * d)
     emb = cfg.vocab_size * d * (1 if cfg.tied_embeddings else 2)
-    total = emb + sum(count * (attn + 3 * d * f)
-                      for _kind, count in cfg.layer_groups())
-    return int(total), int(total)
+    total = active = emb
+    for kind, count in cfg.layer_groups():
+        if kind == "dense":
+            total += count * (attn + 3 * d * f)
+            active += count * (attn + 3 * d * f)
+        else:
+            mo = cfg.moe
+            expert = 3 * d * mo.d_ff
+            shared = 3 * d * mo.d_ff * mo.n_shared_experts
+            router = d * mo.n_experts
+            total += count * (attn + mo.n_experts * expert + shared + router)
+            active += count * (attn + mo.top_k * expert + shared + router)
+    return int(total), int(active)

@@ -17,9 +17,15 @@ Decode writes the new token's K/V into the caller's cache in place (the
 reference's ``dynamic_update_slice`` on a loop carry, which XLA does in
 place): the cache dict's tensors are views of the model's stacked cache.
 
-Not ported yet (ROADMAP.md, Queue 1, "MoE + MLA serving"): MLA attention and
-the decode under a mesh (``repro.dist.flash_decode``); both raise
-``NotImplementedError``.
+MLA (multi-head latent attention, DeepSeek-V3) trains and prefills through
+the naive expansion of its latents into per-head keys and values, and
+decodes by the absorbed products against the fused latent cache ``ckv``
+[B, L, r + rope_dim]: one KV head of width r + rope_dim, the query heads
+grouped over it.
+
+Not ported yet (ROADMAP.md, Queue 1, "The LM under a mesh"): the decode
+under a mesh (``repro.dist.flash_decode``); ``gqa_decode`` and
+``mla_decode`` raise ``NotImplementedError`` under an installed ``Mesh``.
 """
 from __future__ import annotations
 
@@ -30,12 +36,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.nn.modules import dense
+from repro_torch.nn.modules import RMSNorm, dense
 
 _NEG_INF = -1e30
 _PAD_POS = 2 ** 30                 # position of a padded KV entry
-LATER = ("not ported yet: ROADMAP.md, Queue 1, 'MoE + MLA serving' "
-         "(nn/moe.py, MLA and dist/flash_decode.py)")
+LATER = ("not ported yet: ROADMAP.md, Queue 1, 'The LM under a mesh' "
+         "(dist/flash_decode.py, moe_apply_sharded)")
 
 
 def rope_table(positions: torch.Tensor, dim: int, theta: float = 10000.0):
@@ -269,13 +275,146 @@ def gqa_decode(p: GQA, cfg: GQAConfig, x: torch.Tensor, cache: dict,
 
 # ------------------------------------------------------------ MLA attention
 
-def mla_init(*args, **kwargs):
-    raise NotImplementedError(f"MLA attention is {LATER}")
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536      # 0 -> direct q projection
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+    @property
+    def qk_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
 
 
-def mla_train(*args, **kwargs):
-    raise NotImplementedError(f"MLA attention is {LATER}")
+class MLA(nn.Module):
+    """``wq_a``, ``q_norm``, ``wq_b`` (or ``wq`` when ``q_lora_rank`` is
+    0), ``wkv_a``, ``kv_norm``, ``wkv_b`` and ``wo``, bias-free, named as
+    the reference's leaves."""
+
+    def __init__(self, cfg: MLAConfig, generator: torch.Generator, device,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        H, d = cfg.n_heads, cfg.d_model
+        if cfg.q_lora_rank > 0:
+            self.wq_a = dense(d, cfg.q_lora_rank, generator, device, False,
+                              dtype=dtype)
+            self.q_norm = RMSNorm(cfg.q_lora_rank, device, dtype)
+            self.wq_b = dense(cfg.q_lora_rank, H * cfg.qk_dim, generator,
+                              device, False, dtype=dtype)
+        else:
+            self.wq = dense(d, H * cfg.qk_dim, generator, device, False,
+                            dtype=dtype)
+        self.wkv_a = dense(d, cfg.kv_lora_rank + cfg.qk_rope_dim, generator,
+                           device, False, dtype=dtype)
+        self.kv_norm = RMSNorm(cfg.kv_lora_rank, device, dtype)
+        self.wkv_b = dense(cfg.kv_lora_rank,
+                           H * (cfg.qk_nope_dim + cfg.v_head_dim), generator,
+                           device, False, dtype=dtype)
+        self.wo = dense(H * cfg.v_head_dim, d, generator, device, False,
+                        dtype=dtype)
 
 
-def mla_decode(*args, **kwargs):
-    raise NotImplementedError(f"MLA attention is {LATER}")
+def mla_init(cfg: MLAConfig, generator: torch.Generator, device,
+             dtype: torch.dtype = torch.float32) -> MLA:
+    return MLA(cfg, generator, device, dtype)
+
+
+def _mla_q(p: MLA, cfg: MLAConfig, x: torch.Tensor,
+           positions: torch.Tensor):
+    """x [B, S, d] -> (q_nope [B, S, H, nope], q_rope [B, S, H, rd])."""
+    B, S, _ = x.shape
+    if cfg.q_lora_rank > 0:
+        q = p.wq_b(p.q_norm(p.wq_a(x)))
+    else:
+        q = p.wq(x)
+    q = q.reshape(B, S, cfg.n_heads, cfg.qk_dim)
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], -1)
+    cos, sin = rope_table(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_ckv(p: MLA, cfg: MLAConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    """x [B, S, d] -> (c_kv [B, S, r] normed, k_rope [B, S, rd]: the one
+    rope key all heads share)."""
+    c_kv, k_rope = torch.split(p.wkv_a(x),
+                               [cfg.kv_lora_rank, cfg.qk_rope_dim], -1)
+    c_kv = p.kv_norm(c_kv)
+    cos, sin = rope_table(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    return c_kv, apply_rope(k_rope[..., None, :], cos, sin)[..., 0, :]
+
+
+def mla_train(p: MLA, cfg: MLAConfig, x: torch.Tensor, block: int = 512,
+              return_kv: bool = False):
+    """Causal MLA over a full sequence (training / prefill), the latents
+    expanded into per-head keys and values; ``return_kv`` also gives the
+    fused latent ``{"ckv": cat(c_kv, k_rope)}`` [B, S, r + rd]."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, pos)
+    c_kv, k_rope = _mla_ckv(p, cfg, x, pos)
+    kv = p.wkv_b(c_kv).reshape(B, S, H, cfg.qk_nope_dim + cfg.v_head_dim)
+    k_nope, v = torch.split(kv, [cfg.qk_nope_dim, cfg.v_head_dim], -1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, cfg.qk_rope_dim)], dim=-1)
+    o = blocked_attention(q, k, v, causal=True, q_positions=pos,
+                          kv_positions=pos, block=block,
+                          sm_scale=1.0 / np.sqrt(cfg.qk_dim))
+    out = p.wo(o.reshape(B, S, H * cfg.v_head_dim))
+    if return_kv:
+        return out, {"ckv": torch.cat([c_kv, k_rope], dim=-1)}
+    return out
+
+
+def mla_decode(p: MLA, cfg: MLAConfig, x: torch.Tensor, cache: dict,
+               cache_len: int, block: int = 2048):
+    """Absorbed-matmul decode against the fused latent cache.  x [B, 1, d];
+    cache {"ckv": [B, L, r + rd]} (int8 with "ckv_scale" [B, L]: one scale
+    a token over the fused width).  The new token's latent is written at
+    ``cache_len`` in place; attention runs in latent space,
+    ``(q_nope W_uk | q_rope) . (c_kv | k_rope)``, one KV head of width r +
+    rd that all H query heads share, values the latents' first r columns,
+    then ``W_uv`` and ``wo``.  -> (out [B, 1, d], cache)."""
+    from repro_torch.dist.context import current_mesh
+    if current_mesh() is not None:
+        raise NotImplementedError(f"mla_decode under a mesh is {LATER}")
+    B = x.shape[0]
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    nope, vd = cfg.qk_nope_dim, cfg.v_head_dim
+    L = cache["ckv"].shape[1]
+    cache_len = int(cache_len)
+    if not 0 <= cache_len < L:
+        raise ValueError(f"cache_len {cache_len} outside a cache of {L}")
+    pos = torch.full((1,), cache_len, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, pos)                  # [B, 1, H, *]
+    c_new, kr_new = _mla_ckv(p, cfg, x, pos)
+    # wkv_b.weight is the reference's kernel [r, H * (nope + vd)] transposed
+    w = p.wkv_b.weight.view(H, nope + vd, r)
+    w_uk, w_uv = w[:, :nope], w[:, nope:]                   # [H, *, r]
+    q_c = torch.einsum("bshn,hnr->bshr", q_nope, w_uk)
+    q_cat = torch.cat([q_c, q_rope], dim=-1)                 # [B, 1, H, r+rd]
+    kn_cat = torch.cat([c_new, kr_new], dim=-1)              # [B, 1, r+rd]
+    at = slice(cache_len, cache_len + 1)
+    if cache["ckv"].dtype == torch.int8:
+        kn_q, kn_s = quantize_kv(kn_cat)
+        cache["ckv"][:, at] = kn_q
+        cache["ckv_scale"][:, at] = kn_s
+        ck_f = dequantize_kv(cache["ckv"], cache["ckv_scale"], x.dtype)
+    else:
+        cache["ckv"][:, at] = kn_cat.to(cache["ckv"].dtype)
+        ck_f = cache["ckv"]
+    kv_pos = torch.arange(L, dtype=torch.int32, device=x.device)
+    o_lat = blocked_attention(q_cat, ck_f[:, :, None, :],
+                              ck_f[:, :, None, :r], causal=False,
+                              q_positions=pos, kv_positions=kv_pos,
+                              kv_valid_len=cache_len + 1, block=block,
+                              sm_scale=1.0 / np.sqrt(cfg.qk_dim))
+    o = torch.einsum("bshr,hvr->bshv", o_lat, w_uv)
+    return p.wo(o.reshape(B, 1, H * vd)), cache

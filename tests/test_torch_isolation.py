@@ -53,6 +53,7 @@ def _entry_points():
     from repro_torch.dist.collectives import run_ranks
     from repro_torch.embed import EmbeddingTable
     from repro_torch.launch import train as launcher
+    from repro_torch.models import transformer
     from repro_torch.models.recsys import Recsys
     from repro_torch.resilience.faults import FaultInjector
     from repro_torch.optim.optimizers import adagrad
@@ -107,6 +108,10 @@ def _entry_points():
         "run_ranks data": lambda: run_ranks(print, 4, data=2),
         "launcher exchange": lambda: launcher.main(
             ["--smoke", "--steps", "1", "--exchange", "ring"]),
+        "Transformer deepseek": lambda: transformer.init(
+            get_config("deepseek-v3-671b").make_smoke()),
+        "Transformer llama4": lambda: transformer.init(
+            get_config("llama4-scout-17b-a16e").make_smoke()),
     }
 
 
@@ -124,7 +129,9 @@ def _entry_points():
                                   "launcher durable",
                                   "EmbeddingTable.make_buffers csr",
                                   "TieredStore", "launcher tiered",
-                                  "run_ranks data", "launcher exchange"])
+                                  "run_ranks data", "launcher exchange",
+                                  "Transformer deepseek",
+                                  "Transformer llama4"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """With no device named, tensors go to the card; without one, raise."""
     import torch
@@ -191,6 +198,7 @@ def test_importing_the_port_loads_no_jax():
             "assert len(list_schemes()) == 7, list_schemes()\n"
             "DINGenerator(DINSpec(n_items=50, n_clusters=5)).batch(2, 0)\n"
             "import repro_torch.models.transformer as tt\n"
+            "import repro_torch.nn.moe\n"
             "from repro_torch.serve import LMServer\n"
             "from repro_torch.data.lm_data import LMGenerator\n"
             "import repro_torch.models.gnn as gnn\n"

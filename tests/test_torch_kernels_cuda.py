@@ -1133,3 +1133,77 @@ def test_gat_chunked_layer_matches_plain_on_the_card(cuda, concat):
         assert not got[N - 10:].abs().any()
         for g, w in zip(got_g, want_g):
             assert rel(g, w) <= 1e-4, chunk
+
+
+# ---------------------------------------------------- the MoE and MLA LMs
+
+def test_fused_lookup_at_deepseek_width(cuda):
+    """Row 2 at deepseek-v3's token table width, d = 7,168 (129,280 x
+    7,168 at alpha = 16: 57,917,440 striped slots, max_set 32): the flat
+    lookup bit-exact against its plain version, fallback rows included.
+    Its shared memory is the warps' staged sets only, whatever d."""
+    rng = np.random.default_rng(71)
+    d, S = 7168, 32
+    p = LMAParams(d=d, m=57_917_440, n_h=4, max_set=S, seed=0x7168_0019,
+                  striped=True, min_support=2)
+    spec = fe.lma_spec(p)
+    mem = _mem(cuda, p.m)
+    n = 300
+    sets = _sets(rng, n, S).to(cuda)
+    support = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32))
+    gids = torch.from_numpy(rng.integers(0, 129_280, n).astype(np.int32))
+    support, gids = support.to(cuda), gids.to(cuda)
+    assert (support < p.min_support).any()
+    got = fe.fused_lookup(spec, mem, gids, sets, support)
+    assert torch.equal(got, fref.fused_lookup_ref(spec, mem, gids, sets,
+                                                  support))
+
+
+@pytest.mark.parametrize("E,T,k", [(4, 512, 160), (16, 32768, 2560),
+                                   (256, 1024, 40)])
+def test_stable_top_c_on_the_card_equals_the_cpu(cuda, E, T, k):
+    """The MoE's per-expert top-C over tied routing weights (top-1: every
+    routed weight exactly 1.0; a few distinct values): the card's stable
+    sort keeps the same tokens, in the same order, as the CPU's, ties to
+    the lower token index."""
+    from repro_torch.nn.moe import top_k
+    rng = np.random.default_rng(E)
+    choice = rng.integers(0, E, T)
+    R = np.zeros((T, E), np.float32)
+    R[np.arange(T), choice] = 1.0
+    R[rng.random(T) < 0.1, :] *= 0.5
+    RT = torch.from_numpy(np.ascontiguousarray(R.T))
+    want_v, want_i = top_k(RT, k)
+    got_v, got_i = top_k(RT.to(cuda), k)
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_v.cpu(), want_v)
+    tied = want_v[:, 1:] == want_v[:, :-1]   # ties to the lower index
+    assert bool((want_i[:, 1:] > want_i[:, :-1])[tied].all())
+
+
+def test_moe_apply_on_the_card_equals_the_cpu(cuda):
+    """llama4-scout's smoke experts, float32, top-1 past capacity (the
+    router pulled to expert 0): the same tokens kept on the card as on
+    the CPU, outputs within 1e-4 (float32 products in another order) and
+    aux within 1e-6."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import moe
+    cfg = get_config("llama4-scout-17b-a16e").make_smoke().moe
+    host = moe.moe_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    with torch.no_grad():
+        host.router.weight[:, 0] = 0.0
+        host.router.weight[0, 0] = 50.0
+    card = moe.moe_init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        cuda)
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(512, cfg.d_model)).astype(np.float32)
+    x[:, 0] = np.where(rng.random(512) < 0.8, 1.0, -1.0)
+    x = torch.from_numpy(x)
+    with torch.no_grad():
+        want, waux = moe.moe_apply(host, cfg, x)
+        got, aux = moe.moe_apply(card, cfg, x.to(cuda))
+    assert int((moe.route(host, cfg, x)[2] == 0).sum()) > \
+        moe.moe_capacity(cfg, 512)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), waux, rtol=1e-6, atol=1e-6)

@@ -218,13 +218,30 @@ def test_glu_ffn_and_count_params():
 
 
 def test_mla_and_mesh_decode_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ta.mla_init()
+    """Under a mesh the reference's decode takes ``dist.flash_decode`` and
+    its MoE ``moe_apply_sharded``, neither ported yet: GQA's and MLA's
+    decode and the MoE dispatch raise, naming ROADMAP's item."""
     from repro_torch.dist.context import Mesh, use_mesh
+    from repro_torch.nn import moe as tmoe
     rng = np.random.default_rng(0)
     cfg = ja.GQAConfig(64, 8, 2, None, False, 1e4)
     _jp, mod, tcfg = _gqa_pair(rng, cfg)
     cache = {"k": torch.zeros(1, 4, 2, 8), "v": torch.zeros(1, 4, 2, 8)}
+    gen = torch.Generator().manual_seed(0)
+    mcfg = ta.MLAConfig(64, 4, 32, 16, 16, 8, 16)
+    mla = ta.mla_init(mcfg, gen, "cpu")
+    ckv = {"ckv": torch.zeros(1, 4, 24)}
+    ecfg = tmoe.MoEConfig(64, 32, 4, 1, 1)
+    experts = tmoe.moe_init(ecfg, gen, "cpu")
+    x = torch.zeros(1, 1, 64)
     with use_mesh(Mesh(model=2, rank=0)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ta.gqa_decode(mod, tcfg, torch.zeros(1, 1, 64), cache, 0)
+            ta.gqa_decode(mod, tcfg, x, cache, 0)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ta.mla_decode(mla, mcfg, x, ckv, 0)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmoe.moe_dispatch(experts, ecfg, x[0])
+    # without a mesh each runs
+    ta.gqa_decode(mod, tcfg, x, cache, 0)
+    ta.mla_decode(mla, mcfg, x, ckv, 0)
+    tmoe.moe_dispatch(experts, ecfg, x[0])
