@@ -274,7 +274,9 @@ Phases (any failure raises and ends the run with a non-zero code):
      planted 32,000 x 32 D' store): embed_tokens through row 2 bit-equal
      to the plain split path on (b)'s batch, row 2 timed at the prefill
      and decode shapes, a prefill and 16 decode steps launching row 2
-     once each;
+     once each; row 2 at 1, 4, 8, 16 and 128 tokens (``row2_sweep``),
+     each bit-equal to the plain split path and timed beside its bound,
+     the launch floor and the one-tile grid;
  36. (the GAT, ``run_gat``, last; its two large graphs built by
      ``GraphBuilder``, a spawned process, while phases 23-35 run) gat-cora
      at full width (2 layers, 8 heads of 8, Adam at lr 5e-3 through the
@@ -328,8 +330,12 @@ Phases (any failure raises and ends the run with a non-zero code):
      token table (129,280 x 7,168 at alpha 16, a planted D' store): row 2
      bit-equal to the plain split path over 4,096 tokens, timed at the
      prefill and decode shapes beside its bound, a prefill and 16 decode
-     steps launching row 2 once each; print one line per kernel, the
-     ``kernels`` JSON line, the card line, and last the result line.
+     steps launching row 2 once each, and 35f's sweep at d = 7,168; (h)
+     the port's launcher (``launch.train.main``) for every registered LM
+     arch, its smoke config for 3 steps on the card: every loss finite,
+     deepseek-v3's optimizer Adafactor, steps/s; print one line per
+     kernel, the ``kernels`` JSON line, the card line, and last the
+     result line.
 """
 from __future__ import annotations
 
@@ -5241,6 +5247,10 @@ FILL_ROWS = 16                  # sequences quantized into the cache at once
 PREFILL_B, PREFILL_S = 4, 32768  # 35e, prefill_32k (published B = 32)
 LMA_DECODE_STEPS = 16           # 35f
 LMA_CHUNK = 512                 # tokens a plain location call takes
+# 35f and 37g: row 2 at few tokens, the decode batches of 35b / 37g, the
+# LMServer's waves of 16 and decode_32k's B = 128
+SWEEP_TOKENS = (1, 4, 8, 16, 128)
+SWEEP_ITERS = 100               # launches a CUDA graph replays
 BF16_FLOP_PER_S = 989e12        # dense, on the tensor cores
 
 
@@ -5529,6 +5539,45 @@ def lm_prefill_32k(torch, cfg, model, dev) -> dict:
     return out
 
 
+def row2_sweep(torch, p, spec, mem, gids, rows, support, dev) -> dict:
+    """Row 2 over the first n tokens, n in SWEEP_TOKENS: bit-equal to the
+    plain split path (locations, then the gather), timed by CUDA-graph
+    replay beside its bound, the launch floor (a one-element fill, cold as
+    row 13 is timed and warm) and the same source's one-tile grid (tile =
+    d: one warp a row, the grid of a launch whose rows fill the card)."""
+    from repro_torch.kernels.fused_embed import ref as fref
+    from repro_torch.kernels.fused_embed.kernel import (fused_lookup_cuda,
+                                                        lookup_tile, sm_count)
+
+    one = torch.zeros(1, device=dev)
+    floor = {"launch_floor_ms": cold_graph_ms(torch, lambda: one.fill_(0.0),
+                                              50, dev),
+             "launch_floor_warm_ms": graph_ms(torch, lambda: one.fill_(0.0),
+                                              50)}
+    out = {}
+    for n in SWEEP_TOKENS:
+        a = (gids[:n], rows[:n], support[:n])
+        want = mem[fref.locations_ref(spec, *a).long()]
+        if not torch.equal(fused_lookup_cuda(spec, mem, *a), want):
+            raise AssertionError(f"row 2 at {n} tokens, d={p.d}, differs "
+                                 "from the plain split path")
+        tile = lookup_tile(n, p.d, sm_count(mem.device.index))
+        r = out[n] = {"tokens": n, "tile": tile, **floor}
+        r["ms"] = graph_ms(torch, lambda: fused_lookup_cuda(spec, mem, *a),
+                           SWEEP_ITERS)
+        r["one_tile_ms"] = graph_ms(torch, lambda: fused_lookup_cuda(
+            spec, mem, *a, tile=p.d), SWEEP_ITERS)
+        r["bound_ms"], r["bound_by"] = bound(
+            *lma_work(torch, p, a[1], a[2], fallback=True), INT32_OP_PER_S)
+        log(f"  row 2 at {n} tokens, d={p.d} (tile {tile}: "
+            f"{n * -(-p.d // tile)} warps): {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launch floor "
+            f"{floor['launch_floor_warm_ms']:.4f} ms warm / "
+            f"{floor['launch_floor_ms']:.4f} ms cold; one tile a row "
+            f"{r['one_tile_ms']:.4f} ms; bit-equal to the plain split path")
+    return out
+
+
 def lm_lma(torch, cfg, tokens, dev, kernels) -> dict:
     """35f: tinyllama-1.1b with an LMA token table over a planted 32,000 x
     32 D' store: row 2's lookup (``embed_tokens``) bit-equal to the plain
@@ -5581,6 +5630,8 @@ def lm_lma(torch, cfg, tokens, dev, kernels) -> dict:
                 *lma_work(torch, p, a[1], a[2], fallback=True),
                 INT32_OP_PER_S)
         timing["prefill"]["plain_ms"] = plain_ms
+        timing["sweep"] = row2_sweep(torch, p, spec, mem, gids, rows,
+                                     support, dev)
         zero(kernels)
         cache = tt.init_cache(lcfg, B, S + LMA_DECODE_STEPS, dev)
         logits, cache = tt.prefill(model, lcfg, tokens, bufs, cache=cache)
@@ -6192,6 +6243,8 @@ MOE_SERVE_MAX_LEN = SERVE_LENS[1] + MOE_SERVE_NEW
 MOE_PREFILL_B = 1               # 37e, 37f (the published 32 is a mesh's)
 MOE_LMA_B, MOE_LMA_S = 4, 1024  # 37g
 MOE_LMA_DECODE_STEPS = 16
+LAUNCH_STEPS = 3                # 37h: each LM arch's smoke config
+LAUNCH_LOSS = re.compile(r"\[trainer\] step (\d+) loss (\S+)")
 
 
 @contextlib.contextmanager
@@ -6658,6 +6711,8 @@ def moe_lma(torch, dev, kernels, card: str) -> dict:
                 *lma_work(torch, p, a[1], a[2], fallback=True),
                 INT32_OP_PER_S)
         timing["prefill"]["plain_ms"] = plain_ms
+        timing["sweep"] = row2_sweep(torch, p, spec, mem, gids, rows,
+                                     support, dev)
         zero(kernels)
         cache = tt.init_cache(cfg, B, S + MOE_LMA_DECODE_STEPS, dev)
         logits, cache = tt.prefill(model, cfg, tokens, bufs, cache=cache)
@@ -6691,6 +6746,73 @@ def moe_lma(torch, dev, kernels, card: str) -> dict:
     return out
 
 
+def lm_launchers(torch, card: str) -> dict:
+    """37h: the port's launcher (``repro_torch.launch.train.main``) on the
+    card for every registered LM arch, its smoke config for LAUNCH_STEPS
+    steps: every step's loss finite (the launcher's log line each step), no
+    step skipped, deepseek-v3's optimizer state Adafactor's and the others'
+    Adam's (the Trainer the launcher built); steps/s (the median step, the
+    Trainer's clock) and each run's seconds."""
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import list_archs
+    from repro_torch.launch import train as launch
+    from repro_torch.optim.optimizers import AdafactorState, AdamState
+
+    made = []
+
+    class Recorded(launch.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    out = {}
+    t_all = time.perf_counter()
+    plain, launch.Trainer = launch.Trainer, Recorded
+    try:
+        for arch in [a for a in list_archs()
+                     if get_config(a).family == "lm"]:
+            text = io.StringIO()
+            made.clear()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                res = launch.main(["--arch", arch,
+                                   "--steps", str(LAUNCH_STEPS)])
+            seconds = time.perf_counter() - t0
+            losses = [float(v)
+                      for _, v in LAUNCH_LOSS.findall(text.getvalue())]
+            name = get_config(arch).optimizer
+            st = made[0].opt_state
+            # multi_transform keeps a state a parameter
+            ran = (isinstance(st, AdafactorState) if name == "adafactor"
+                   else name == "adam" and all(
+                       isinstance(x, AdamState) for x in
+                       (st.values() if isinstance(st, dict) else [st])))
+            if (len(losses) != LAUNCH_STEPS or not np.isfinite(losses).all()
+                    or res["train"]["skipped_steps"] or not ran):
+                raise AssertionError(
+                    f"37h: the launcher's {arch} run: losses {losses}, "
+                    f"{res['train']}, optimizer state "
+                    f"{type(st).__name__} (the arch's {name})")
+            out[arch] = {"losses": losses, "optimizer": name,
+                         "steps_per_sec": res["train"]["steps_per_sec"],
+                         "seconds": seconds}
+            log(f"37h: the launcher's {arch} (smoke, {name}): losses "
+                f"{', '.join(f'{x:.4f}' for x in losses)}, "
+                f"{res['train']['steps_per_sec']:.2f} steps/s, "
+                f"{seconds:.1f} s ({card})")
+    finally:
+        launch.Trainer = plain
+    if set(out) != {"tinyllama-1.1b", "stablelm-3b", "qwen1.5-32b",
+                    MOE_ARCH, SCOUT_ARCH}:
+        raise AssertionError(f"37h: LM archs {sorted(out)}")
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"37h: {len(out) - 1} LM archs through the launcher in "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 def run_moe(torch, dev, kernels, card) -> dict:
     """Phase 37: deepseek-v3-671b and llama4-scout-17b-a16e at full width
     and MOE_LAYERS layers on the card, bf16 with an int8 cache, random
@@ -6711,6 +6833,8 @@ def run_moe(torch, dev, kernels, card) -> dict:
     sc["prefill_32k"] = moe_prefill_32k(torch, cfg, model, dev, card)
     del model
     out["lma"] = moe_lma(torch, dev, kernels, card)
+    free(torch)
+    out["launcher"] = lm_launchers(torch, card)
     free(torch)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 37: {out['seconds']:.1f} s")
@@ -6959,9 +7083,10 @@ def main() -> int:
             extra["at_moe_lm"] = moe_lm["lma"]["row2"]
             for d, r in ((2048, lm["lma"]["row2"]),
                          (7168, moe_lm["lma"]["row2"])):
-                where += (f" (LM d={d}, {r['prefill']['tokens']} tokens: "
-                          f"{r['prefill']['ms']:.4f} ms, bound "
-                          f"{r['prefill']['bound_ms']:.4f} ms)")
+                for t in [r["prefill"], *r["sweep"].values()]:
+                    where += (f" (LM d={d}, {t['tokens']} tokens: "
+                              f"{t['ms']:.4f} ms, bound "
+                              f"{t['bound_ms']:.4f} ms)")
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],

@@ -39,9 +39,13 @@
 // fallback rows skip the minhash entirely (a warp-uniform branch), and each
 // lane owns its columns, so a warp's gathers, stores and atomics cover
 // adjacent slots of a stripe row-wise.  hashed_* schemes are gather-bound
-// and take the same path with no minhash.  The chunk gather and scatter
-// (given locations, no hashing) are bound by bytes: one thread per element,
-// neighbouring threads on neighbouring locations and outputs.
+// and take the same path with no minhash.  A lookup of few rows (an LM's
+// decode, 1-128 tokens) splits each row's columns into tiles, one warp per
+// (row, tile): one warp a row would leave most of the 132 SMs idle while
+// each lane walks d / 32 columns in series.  Rows enough to fill the card
+// keep one tile a row.  The chunk gather and scatter (given locations, no
+// hashing) are bound by bytes: one thread per element, neighbouring
+// threads on neighbouring locations and outputs.
 //
 // Backward, in the same one-warp-per-value shape:
 //   - locations: the slot function written to [N, d] int32 (no gather);
@@ -119,40 +123,54 @@ __device__ __forceinline__ Value load_value(const FusedArgs& f,
 
 // rows: B output rows of L values each (L = 1 and weights == nullptr for
 // the flat lookup).  sets [B*L, S] (lma only), gids/support [B*L].
+//
+// A warp owns one (row, column tile): `tile` adjacent columns (the binding's
+// lookup_tile: d, one tile a row, when the rows alone fill the card; else
+// 32, so that a few rows still give every SM several warps; any multiple of
+// 32 is taken).
+// The row's tiles go to adjacent warps, each of which stages the row's set
+// itself (one coalesced load of at most S words, from L2 after the first).
+// An output element depends only on its value and column (a bag: also its
+// own column's sum in l order), so every tiling writes the same bits.
 __global__ void fused_lookup_kernel(const uint32_t* __restrict__ sets,
                                     const int32_t* __restrict__ gids,
                                     const int32_t* __restrict__ support,
                                     const float* __restrict__ weights,
                                     const float* __restrict__ mem, int B,
                                     int L, int S, int base, int m_local,
-                                    FusedArgs f, float* __restrict__ out) {
+                                    int tile, FusedArgs f,
+                                    float* __restrict__ out) {
   extern __shared__ uint32_t smem[];
   const int d = f.a.d;
+  const int n_tiles = (d + tile - 1) / tile;
   const int warp = threadIdx.x / lma::WARP, lane = threadIdx.x % lma::WARP;
-  // a warp's set, then (bag only) its [d] sums: lookup_smem's layout
-  uint32_t* set = smem + warp * (weights ? S + d : S);
+  // a warp's set, then (bag only) its tile's sums: lookup_smem's layout
+  uint32_t* set = smem + warp * (weights ? S + tile : S);
   float* acc = reinterpret_cast<float*>(set + S);  // bag sums, own columns
+  const int units = B * n_tiles;
   const int stride = gridDim.x * WARPS_PER_BLOCK;
-  for (int b = blockIdx.x * WARPS_PER_BLOCK + warp; b < B; b += stride) {
+  for (int u = blockIdx.x * WARPS_PER_BLOCK + warp; u < units; u += stride) {
+    const int b = u / n_tiles;
+    const int c0 = (u - b * n_tiles) * tile, c1 = min(d, c0 + tile);
     if (weights)
-      for (int c = lane; c < d; c += lma::WARP) acc[c] = 0.0f;
+      for (int c = c0 + lane; c < c1; c += lma::WARP) acc[c - c0] = 0.0f;
     for (int l = 0; l < L; ++l) {
       const size_t v = static_cast<size_t>(b) * L + l;
       const Value x = load_value(f, sets, gids, support, v, S, set, lane);
       const float w = weights ? weights[v] : 0.0f;
-      for (int c = lane; c < d; c += lma::WARP) {
+      for (int c = c0 + lane; c < c1; c += lma::WARP) {
         const float e = slab_read(
             mem, slot(f, x.fallback, set, x.n, x.gid, c), base, m_local);
         if (weights)  // product, then sum: no fused multiply-add
-          acc[c] = __fadd_rn(acc[c], __fmul_rn(w, e));
+          acc[c - c0] = __fadd_rn(acc[c - c0], __fmul_rn(w, e));
         else
           out[v * d + c] = e;
       }
       __syncwarp();  // the set buffer is restaged for the next value
     }
     if (weights)
-      for (int c = lane; c < d; c += lma::WARP)
-        out[static_cast<size_t>(b) * d + c] = acc[c];
+      for (int c = c0 + lane; c < c1; c += lma::WARP)
+        out[static_cast<size_t>(b) * d + c] = acc[c - c0];
   }
 }
 
@@ -304,8 +322,8 @@ int blocks_for(int rows) {
 
 // Dynamic shared memory past the 48 KB a launch gets by default needs the
 // kernel's opt-in (up to 227 KB a block on Hopper).  The bag lookup's sums
-// take d floats a warp, so d = 2,048 (an LM's token table) asks 66.5 KB;
-// the other launches stage only sets, 8 * S * 4 bytes.
+// take a tile of floats a warp, so one tile of d = 2,048 asks 66.5 KB; the
+// other launches stage only sets, 8 * S * 4 bytes.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -315,9 +333,9 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // The lookup's shared memory: each warp's staged set, and for a bag its
-// [d] sums; a flat lookup writes its gathers straight out and keeps none.
-size_t lookup_smem(int S, int d, bool bag) {
-  return WARPS_PER_BLOCK * static_cast<size_t>(S + (bag ? d : 0)) *
+// tile's sums; a flat lookup writes its gathers straight out and keeps none.
+size_t lookup_smem(int S, int tile, bool bag) {
+  return WARPS_PER_BLOCK * static_cast<size_t>(S + (bag ? tile : 0)) *
          sizeof(uint32_t);
 }
 
@@ -326,11 +344,12 @@ size_t lookup_smem(int S, int d, bool bag) {
 // Flat lookup: weights == nullptr, L == 1, out [N, d].
 // Bag lookup: weights [B, L], out [B, d].
 // mem is the [m_local] slab from global slot base (base 0, m_local m: the
-// whole pool).
+// whole pool).  A warp covers `tile` columns of a row (0 < tile, d or a
+// multiple of 32): ceil(B * ceil(d / tile) / 8) blocks.
 extern "C" int fused_lookup_launch(const void* sets, const void* gids,
                                    const void* support, const void* weights,
                                    const void* mem, int B, int L, int S,
-                                   int base, int m_local,
+                                   int base, int m_local, int tile,
                                    int scheme, int d, int n_h,
                                    int independent, uint32_t seed,
                                    uint32_t m, uint32_t stripe,
@@ -338,15 +357,16 @@ extern "C" int fused_lookup_launch(const void* sets, const void* gids,
                                    cudaStream_t stream) {
   if (B == 0) return 0;
   FusedArgs f{scheme, min_support, {d, n_h, independent, seed, m, stripe}};
-  const size_t shm = lookup_smem(S, d, weights != nullptr);
+  const size_t shm = lookup_smem(S, tile, weights != nullptr);
   const cudaError_t attr = allow_smem(fused_lookup_kernel, shm);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  fused_lookup_kernel<<<blocks_for(B), WARPS_PER_BLOCK * lma::WARP, shm,
+  const int units = B * ((d + tile - 1) / tile);
+  fused_lookup_kernel<<<blocks_for(units), WARPS_PER_BLOCK * lma::WARP, shm,
                         stream>>>(
       static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
       static_cast<const int32_t*>(support),
       static_cast<const float*>(weights), static_cast<const float*>(mem), B,
-      L, S, base, m_local, f, static_cast<float*>(out));
+      L, S, base, m_local, tile, f, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

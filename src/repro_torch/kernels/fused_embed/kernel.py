@@ -74,16 +74,35 @@ def _check_slab(m: int, m_local: int, base: int):
                          f"lie in a pool of {m}")
 
 
+WARPS_PER_BLOCK = 8               # csrc/fused_embed.cu
+
+
+def lookup_tile(B: int, d: int, sms: int) -> int:
+    """Columns one warp of the lookup covers, a tile of a row: ``d``, one
+    tile a row, when ceil(B / 8) blocks of 8 warps fill the card's ``sms``
+    SMs (every recsys and prefill launch); else 32 (or ``d`` when
+    narrower), so that an LM's few decode tokens spread over the card."""
+    return d if -(-B // WARPS_PER_BLOCK) >= sms else min(32, d)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def fused_lookup_cuda(spec, memory: torch.Tensor, gids: torch.Tensor,
                       sets: torch.Tensor | None = None,
                       support: torch.Tensor | None = None,
                       weights: torch.Tensor | None = None,
-                      base: int | None = None) -> torch.Tensor:
+                      base: int | None = None,
+                      tile: int | None = None) -> torch.Tensor:
     """Flat: gids [N] (+ sets [N, S], support [N]) -> [N, d].
     Bag: gids [B, L] (+ sets [B, L, S], support [B, L]), weights [B, L]
     -> [B, d].  Ids, sets (int32 bit patterns, PAD = -1) and support are
     int32; memory [spec.m] (or the [m_local] slab from ``base``) and
-    weights float32; all contiguous on the card."""
+    weights float32; all contiguous on the card.  ``tile``: the columns a
+    warp covers (d, or a multiple of 32), by default ``lookup_tile``'s; any
+    tile gives the same bits."""
     pool = weights is not None
     base = _check_pool(spec, memory, base)
     sets, support, S = _value_inputs(spec, gids, sets, support,
@@ -93,12 +112,17 @@ def fused_lookup_cuda(spec, memory: torch.Tensor, gids: torch.Tensor,
         build.require(weights, "weights", torch.float32, 2)
         if weights.shape != gids.shape:
             raise ValueError("weights do not match gids")
+    if tile is None:
+        tile = lookup_tile(B, spec.d, sm_count(memory.device.index))
+    if not (tile == spec.d or (tile > 0 and tile % 32 == 0)):
+        raise ValueError(f"tile {tile}: neither d = {spec.d} nor a positive "
+                         f"multiple of 32")
     out = torch.empty((B, spec.d), dtype=torch.float32, device=memory.device)
     with torch.cuda.device(memory.device):
-        code = _entry("fused_lookup_launch", (_P,) * 5 + (_I,) * 5)(
+        code = _entry("fused_lookup_launch", (_P,) * 5 + (_I,) * 6)(
             build.ptr(sets), build.ptr(gids), build.ptr(support),
             build.ptr(weights), build.ptr(memory), B, L, S, base,
-            memory.shape[0], *_spec_args(spec), build.ptr(out),
+            memory.shape[0], tile, *_spec_args(spec), build.ptr(out),
             build.stream(memory.device))
     build.check(code, "fused_lookup")
     fused_lookup_cuda.launches += 1

@@ -9,10 +9,11 @@ over ``--tier-budget-mb`` trains through the tiered store
 (``repro_torch.tier``: HBM-hot / host-cold, bit-identical to the resident
 run), updated densely, and evaluates through the full pool.  An ``lm``
 arch trains its smoke config on bigram tokens (``LMGenerator``, min(batch,
-16) sequences of 64) with the arch's optimizer, as the reference's
-launcher does; a ``gnn`` arch is refused with the reference's words (the
-GAT trains through ``repro_torch.models.gnn`` and the Trainer directly, as
-``chip_smoke.py`` drives it).
+16) sequences of 64) with the arch's optimizer (deepseek-v3-671b's is
+``adafactor``), as the reference's launcher does; a ``gnn`` arch is
+refused with the reference's words (the GAT trains through
+``repro_torch.models.gnn`` and the Trainer directly, as ``chip_smoke.py``
+drives it).
 
   python -m repro_torch.launch.train --arch lma-dlrm-criteo --steps 300
   python -m repro_torch.launch.train --arch lma-dlrm-criteo \\
@@ -31,6 +32,8 @@ GAT trains through ``repro_torch.models.gnn`` and the Trainer directly, as
       --batch 4 --steps 300
   python -m repro_torch.launch.train --arch tinyllama-1.1b --device cpu \\
       --steps 20
+  python -m repro_torch.launch.train --arch deepseek-v3-671b --device cpu \\
+      --steps 2
 
 ``--embedding-kind`` takes any registered scheme (``list_schemes``): full,
 hashed_elem, hashed_row, qr, lma, md, freq.  Durability follows the
@@ -76,17 +79,19 @@ def make_optimizer(arch, sparse_ok: bool = True) -> opt_lib.Optimizer:
     parameter to the dense one -- Adagrad and sparse Adagrad; momentum SGD
     (0.9) and lazy momentum SGD; Adam and lazy row-wise Adam -- else the
     dense optimizer takes every parameter (a tiered pool, whose moments
-    mirror the compact pool).  Whether the pool's gradient is sparse is the
-    Trainer's choice (``sparse_grads``); the sparse optimizer takes either
-    form."""
+    mirror the compact pool).  Adafactor has no sparse partner, so it takes
+    every parameter, the pool included (a sparse gradient densified).
+    Whether the pool's gradient is sparse is the Trainer's choice
+    (``sparse_grads``); the sparse optimizer takes either form."""
     lr = arch.learning_rate
     dense, sparse = {
         "adagrad": (opt_lib.adagrad, sparse_lib.sparse_adagrad),
         "sgd": (lambda lr: opt_lib.sgd(lr, momentum=0.9),
                 lambda lr: sparse_lib.sparse_sgd(lr, momentum=0.9)),
         "adam": (opt_lib.adam, sparse_lib.sparse_rowwise_adam),
+        "adafactor": (opt_lib.adafactor, None),
     }[arch.optimizer]
-    if sparse_ok and sparse_lib.sparse_enabled():
+    if sparse_ok and sparse_lib.sparse_enabled() and sparse is not None:
         return opt_lib.multi_transform([(r"(^|\.)memory$", sparse(lr))],
                                        default=dense(lr))
     return dense(lr)
@@ -212,6 +217,22 @@ def _recsys_setup(arch, cfg, n_s: int, batch: int, device):
     return gen, bufs, batch_fn, loss_fn
 
 
+def _lm_setup(cfg, batch: int):
+    """The reference's smoke LM run: -> (batch_fn, loss_fn) over bigram
+    tokens (``LMGenerator``, seed 0), min(batch, 16) sequences of 64."""
+    from repro_torch.data.lm_data import LMGenerator
+    from repro_torch.models import transformer
+    gen = LMGenerator(cfg.vocab_size, seed=0)
+
+    def batch_fn(step):
+        return gen.batch(min(batch, 16), 64, step)
+
+    def loss_fn(m, b):
+        return transformer.loss_fn(m, cfg, b["tokens"], b["labels"])
+
+    return batch_fn, loss_fn
+
+
 def evaluate(model, gen, bufs, n_batches: int, device,
              params: dict | None = None) -> dict:
     """Streaming AUC / logloss / accuracy over held-out batches (every key
@@ -304,17 +325,8 @@ def main(argv=None) -> dict:
         lps = lookups_per_step(cfg, args.batch)
         label = f"{args.arch} ({cfg.embedding.kind})"
     elif arch.family == "lm":
-        # the reference's smoke LM run: bigram tokens, 64 a sequence
-        from repro_torch.data.lm_data import LMGenerator
         from repro_torch.models import transformer
-        lm_gen = LMGenerator(cfg.vocab_size, seed=0)
-
-        def batch_fn(step):
-            return lm_gen.batch(min(args.batch, 16), 64, step)
-
-        def loss_fn(m, b):
-            return transformer.loss_fn(m, cfg, b["tokens"], b["labels"])
-
+        batch_fn, loss_fn = _lm_setup(cfg, args.batch)
         model = transformer.init(cfg, device=dev)
         lps = min(args.batch, 16) * 64
         label = args.arch

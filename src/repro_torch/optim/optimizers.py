@@ -1,7 +1,7 @@
 """Optimizers over a model's named parameters (port of
-``repro.optim.optimizers``: ``sgd``, ``adagrad``, ``adam``/``adamw``, the
-transforms ``scale``, ``scale_by_schedule``, ``clip_by_global_norm``,
-``chain`` and ``multi_transform``; ``adafactor`` comes with the LM slice).
+``repro.optim.optimizers``: ``sgd``, ``adagrad``, ``adam``/``adamw``,
+``adafactor``, the transforms ``scale``, ``scale_by_schedule``,
+``clip_by_global_norm``, ``chain`` and ``multi_transform``).
 
 The port keeps the reference's explicit ``init`` / ``update`` pair instead of
 subclassing ``torch.optim.Optimizer``, for two reasons: the pool's gradient
@@ -18,11 +18,11 @@ each routed optimizer one leaf, as the reference's does):
 A state is what the reference's is: Adagrad's accumulators and SGD's
 momenta mirror the parameters; Adam's is ``AdamState(step, mu, nu)``, whose
 ``step`` (a Python int, 0 before the first update) drives the bias
-corrections; ``chain``'s a tuple, ``multi_transform``'s a dict of each
-parameter's own state.  Moments and parameters are updated in place (the
-pool's moments are as large as the pool, so a functional copy per step
-would double them); the step counters are new values in the returned
-state.  A parameter with no gradient is skipped (the reference sees a zero
+corrections; Adafactor's ``AdafactorState(step, vs)``; ``chain``'s a
+tuple, ``multi_transform``'s a dict of each parameter's own state.
+Moments and parameters are updated in place (the pool's moments are as
+large as the pool, so a functional copy per step would double them); the
+step counters are new values in the returned state.  A parameter with no gradient is skipped (the reference sees a zero
 gradient there; no model of the port leaves a parameter out of its loss).
 ``torch.optim`` is not used: its fused updates (``addcdiv_`` and the like)
 round differently from the reference's formulas, which are kept here one
@@ -30,6 +30,7 @@ rounded operation at a time.
 """
 from __future__ import annotations
 
+import math
 import re
 from typing import Callable, NamedTuple
 
@@ -235,6 +236,162 @@ def _adam(lr, b1, b2, eps, weight_decay, state_cls, nu_shape) -> Optimizer:
 
 def adamw(lr: float, weight_decay: float = 0.01, **kw) -> Optimizer:
     return adam(lr, weight_decay=weight_decay, **kw)
+
+
+class AdafactorState(NamedTuple):
+    step: int                      # the global step, 0 before the first
+    vs: object                     # by name: {"v_row", "v_col"} or {"v"}
+
+
+# The reference keeps an LM layer group's parameters stacked, [count, ...],
+# and the port one module a layer, ``layers_{g}.{i}.<name>``
+# (``convert.lm_params_from_jax``); ``_map_leading`` updates a stacked leaf
+# layer by layer past this many bytes (at 4 bytes an element)
+_LAYER = re.compile(r"^(layers_\d+)\.\d+\.(.+)$")
+MAP_LEADING_BYTES = 1 << 27
+
+
+def _transposed(name: str | None, shape) -> bool:
+    """A Linear's ``weight [out, in]`` is the reference's ``kernel [in,
+    out]``; every other parameter keeps the reference's layout."""
+    return name is not None and name.endswith(".weight") and len(shape) == 2
+
+
+def _mapped(shape) -> bool:
+    """``_map_leading``'s test on a reference leaf's shape."""
+    return (len(shape) >= 3 and shape[0] > 1
+            and math.prod(shape) * 4 > MAP_LEADING_BYTES)
+
+
+def _clip_units(shapes: dict) -> list[list]:
+    """The leaves of the reference's update, each as the names of the
+    parameters whose updates share one RMS clip: all layers of one
+    ``layers_{g}.*.<name>`` (the stacked leaf), or each layer alone when
+    the stacked leaf is mapped; any other parameter is its own leaf."""
+    groups: dict = {}
+    for k in shapes:
+        m = _LAYER.match(k) if k is not None else None
+        groups.setdefault(m.groups() if m else k, []).append(k)
+    units = []
+    for key, names in groups.items():
+        if isinstance(key, tuple) and _mapped(
+                (len(names),) + tuple(shapes[names[0]])):
+            units.extend([k] for k in names)
+        else:
+            units.append(names)
+    return units
+
+
+def adafactor(lr: float, decay_exp: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0,
+              min_factor_dim: int = 128) -> Optimizer:
+    """Adafactor (Shazeer & Stern 2018) with the reference's formulas: the
+    second moment of an ``[..., n, m]`` leaf with both n, m >= 128 kept as
+    row and column means (``v_row`` [..., n], ``v_col`` [..., m]), else in
+    full (``v``); ``beta2 = 1 - step ** -decay_exp``; ``u = g /
+    sqrt(vhat + eps)`` divided by ``max(1, rms(u) / clip_threshold)``;
+    update ``-lr u`` in the gradient's dtype.
+
+    The layouts are the reference's: ``v_row`` runs over a kernel's input
+    rows (a ``weight``'s columns), ``v_col`` over its outputs, a MoE expert
+    stack's moments are per expert over its last two axes, and ``v``
+    mirrors the parameter.  The RMS clip is taken over the reference's leaf
+    (``_clip_units``): every layer of a layer group together, or each layer
+    alone where the reference maps the stacked leaf layer by layer.  Two
+    layouts no registered config has are refused: a 1-D parameter of a
+    group of 128 layers or more (the reference factors it across them),
+    and a parameter outside the layer groups that the reference maps by
+    its leading axis (3-D and over ``MAP_LEADING_BYTES``).
+    The whole named tree is one update (as the launcher builds it); a lone
+    tensor is its own leaf.  A SparseGrad is densified (the factored moment
+    is global), in the parameter's layout."""
+
+    def factored(shape) -> bool:
+        return (len(shape) >= 2 and shape[-1] >= min_factor_dim
+                and shape[-2] >= min_factor_dim)
+
+    def init(params):
+        named = params if isinstance(params, dict) else {None: params}
+        counts: dict = {}
+        for k in named:
+            m = _LAYER.match(k) if k is not None else None
+            if m:
+                counts[m.groups()] = counts.get(m.groups(), 0) + 1
+
+        def one(k, x):
+            shape = tuple(x.shape)
+            if _transposed(k, shape):
+                shape = shape[::-1]
+            m = _LAYER.match(k) if k is not None else None
+            if m and x.dim() == 1 and factored((counts[m.groups()],) + shape):
+                raise NotImplementedError(
+                    f"{k}: a 1-D parameter factored across the "
+                    f"{counts[m.groups()]} layers of its group")
+            if not m and _mapped(shape):
+                raise NotImplementedError(
+                    f"{k}: a {shape} parameter clipped by its leading axis")
+            zeros = lambda s: torch.zeros(s, dtype=torch.float32,  # noqa: E731
+                                          device=x.device)
+            if factored(shape):
+                return {"v_row": zeros(shape[:-1]),
+                        "v_col": zeros(shape[:-2] + shape[-1:])}
+            return {"v": zeros(x.shape)}
+
+        vs = {k: one(k, x) for k, x in named.items()}
+        return AdafactorState(0, vs if isinstance(params, dict) else vs[None])
+
+    def second_moment(k, g2, v, b2, ob2):
+        """vhat in the parameter's layout; the moments updated in place."""
+        if "v" in v:
+            return v["v"].mul_(b2).add_(g2.mul_(ob2))
+        tr = _transposed(k, g2.shape)
+        row, col = v["v_row"], v["v_col"]
+        row.mul_(b2).add_(torch.mean(g2, dim=-2 if tr else -1).mul_(ob2))
+        col.mul_(b2).add_(torch.mean(g2, dim=-1 if tr else -2).mul_(ob2))
+        r = row / torch.clamp(torch.mean(row, dim=-1, keepdim=True), min=eps)
+        if tr:
+            return col[:, None] * r[None, :]
+        return r[..., :, None] * col[..., None, :]
+
+    @torch.no_grad()
+    def update(grads, state, params=None):
+        from repro_torch.kernels.sparse_update.ref import div, ieee_sqrt
+        one = not isinstance(grads, dict)
+        named = {None: grads} if one else grads
+        vs = {None: state.vs} if one else state.vs
+        step = state.step + 1
+        b2 = 1 - torch.tensor(float(step), dtype=torch.float32) ** \
+            torch.tensor(-decay_exp, dtype=torch.float32)
+        b2, ob2 = float(b2), float(1 - b2)
+        dense = {}
+        for k, g in named.items():
+            if _is_sparse(g):
+                g = g.densify()
+                ref = vs[k].get("v")
+                if ref is not None and g.shape != ref.shape:
+                    g = g.reshape(ref.shape)
+            dense[k] = g
+        updates = {}
+        for names in _clip_units({k: g.shape for k, g in dense.items()}):
+            us = []
+            for k in names:
+                gf = dense[k].to(torch.float32)
+                vhat = second_moment(k, torch.square(gf).add_(eps), vs[k],
+                                     b2, ob2)
+                us.append(gf * torch.rsqrt(vhat + eps))
+            # mean(u^2) over the leaf, summed in float64 (XLA's float32 sum
+            # of a large stacked leaf strays past 1e-6 relative)
+            ssq = sum(torch.sum(torch.square(u), dtype=torch.float64)
+                      for u in us)
+            mean = (ssq / sum(u.numel() for u in us)).to(torch.float32)
+            factor = torch.clamp(div(ieee_sqrt(mean + eps), clip_threshold),
+                                 min=1.0)
+            for k, u in zip(names, us):
+                updates[k] = _scaled(u / factor, -lr).to(dense[k].dtype)
+        return (updates[None] if one else updates), AdafactorState(
+            step, state.vs)
+
+    return Optimizer(init, update)
 
 
 def chain(*transforms: Optimizer) -> Optimizer:

@@ -95,3 +95,44 @@ def test_spec_fields_match_reference():
         == (2_110_208, 256)
     with pytest.raises(ValueError):
         fe.hashed_spec("lma", D, M, 0)
+
+
+# ------------------------------------------- row 2's tiles (lookup_tile)
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("B,d", [(512 * 26, 64), (4096 * 26, 64),
+                                 (65536 * 26, 64), (512 * 26, 16),
+                                 (16384, 2048), (4096, 7168),
+                                 (65536, 64), (1056, 7168)])
+def test_lookup_tile_keeps_one_tile_where_rows_fill_the_card(B, d):
+    """The recsys serving and training batches (26 fields), the LM
+    prefills (16,384 tokens at d = 2,048, 4,096 at 7,168), the GAT's
+    65,536 node ids and the first B whose blocks fill 132 SMs: one tile a
+    row, the grid of one warp a row."""
+    from repro_torch.kernels.fused_embed.kernel import lookup_tile
+    assert lookup_tile(B, d, H100_SMS) == d
+
+
+@pytest.mark.parametrize("d", [2048, 7168, 64, 18, 10])
+@pytest.mark.parametrize("B", [1, 3, 4, 8, 16, 128, 1000])
+def test_lookup_tile_covers_every_column_once(B, d):
+    """At the decode shapes (and below a card's worth of rows) the kernel's
+    walk, emulated: warp u takes row u // n_tiles and columns [c0, c1) of
+    tile u % n_tiles, lane l the columns c0 + l, c0 + l + 32, ...; every
+    (row, column) is written exactly once, and a tile is d or 32."""
+    from repro_torch.kernels.fused_embed.kernel import lookup_tile
+    tile = lookup_tile(B, d, H100_SMS)
+    assert tile == min(32, d)
+    n_tiles = -(-d // tile)
+    u = np.arange(B * n_tiles)[:, None, None]
+    b = u // n_tiles
+    c0 = (u - b * n_tiles) * tile
+    c1 = np.minimum(d, c0 + tile)
+    col = c0 + np.arange(32)[None, :, None] \
+        + 32 * np.arange(-(-tile // 32))[None, None, :]
+    live = col < c1
+    hits = np.zeros((B, d), np.int64)
+    np.add.at(hits, (np.broadcast_to(b, col.shape)[live], col[live]), 1)
+    assert (hits == 1).all()

@@ -1159,6 +1159,85 @@ def test_fused_lookup_at_deepseek_width(cuda):
                                                   support))
 
 
+# ------------------------------------------- row 2 at an LM's decode sizes
+
+FEW_ROWS = (1, 3, 4, 8, 16, 128)
+
+
+def _few_rows_case(cuda, scheme: str, n: int, d: int):
+    """A pool of 64 slots a column (striped lma with fallback rows, else
+    hashed) and n values: (spec, mem, gids, extra)."""
+    rng = np.random.default_rng(n * 7919 + d)
+    m = 64 * d
+    if scheme != "lma":
+        gids = torch.from_numpy(rng.integers(
+            0, 2**31 - 1, n).astype(np.int32)).to(cuda)
+        return fe.hashed_spec(scheme, d, m, 0x9E37_0029), _mem(cuda, m), \
+            gids, ()
+    S = 32
+    p = LMAParams(d=d, m=m, n_h=4, max_set=S, seed=0x8B0A_D001, striped=True,
+                  min_support=2)
+    sets = _sets(rng, n, S, empty_rows=min(n, 1)).to(cuda)
+    support = rng.integers(0, 6, n).astype(np.int32)
+    support[0] = 0                  # a fallback row at every n
+    gids = rng.integers(2**31 - 200_000, 2**31 - 1, n).astype(np.int32)
+    return fe.lma_spec(p), _mem(cuda, m), torch.from_numpy(gids).to(cuda), \
+        (sets, torch.from_numpy(support).to(cuda))
+
+
+@pytest.mark.parametrize("d", [64, 2048, 7168])
+@pytest.mark.parametrize("n", FEW_ROWS)
+@pytest.mark.parametrize("scheme", ["lma", "hashed_elem", "hashed_row"])
+def test_few_row_lookup_bit_equal(cuda, scheme, n, d):
+    """Row 2 at few rows, where the launch splits each row's columns into
+    tiles (``lookup_tile``): the flat lookup bit-equal to its plain version,
+    and in slab mode; the bag bit-equal to the plain gather summed in l
+    order, product then sum (the kernel's order), and within 1e-6 of
+    ``fused_embed_bag_ref``; every forced tile (32, 64, 96, d) gives the
+    same bits."""
+    spec, mem, gids, extra = _few_rows_case(cuda, scheme, n, d)
+    assert fk.lookup_tile(n, d, fk.sm_count(mem.device.index)) < d
+    got = fk.fused_lookup_cuda(spec, mem, gids, *extra)
+    assert torch.equal(got, fref.fused_lookup_ref(spec, mem, gids, *extra))
+    for forced in (32, 64, 96, d):
+        assert torch.equal(fk.fused_lookup_cuda(spec, mem, gids, *extra,
+                                                tile=forced), got), forced
+    base, m_local = spec.m // 4, spec.m // 2
+    slab = mem[base:base + m_local].contiguous()
+    assert torch.equal(
+        fk.fused_lookup_cuda(spec, slab, gids, *extra, base=base),
+        fref.fused_lookup_ref(spec, slab, gids, *extra, base=base))
+    L = 3
+    bg = torch.cat([gids, gids.flip(0), gids.roll(1)]).reshape(L, n).T
+    bx = [torch.cat([x, x.flip(0), x.roll(1, 0)]).reshape(
+        (L, n) + x.shape[1:]).transpose(0, 1).contiguous() for x in extra]
+    w = torch.from_numpy(np.random.default_rng(n).random(
+        (n, L)).astype(np.float32)).to(cuda)
+    e = fref.fused_lookup_ref(spec, mem, bg.reshape(-1),
+                              *(x.reshape((n * L,) + x.shape[2:])
+                                for x in bx)).reshape(n, L, d)
+    want = torch.zeros((n, d), device=cuda)
+    for li in range(L):
+        want = want + w[:, li:li + 1] * e[:, li]
+    bag = fk.fused_lookup_cuda(spec, mem, bg.contiguous(), *bx, weights=w)
+    assert torch.equal(bag, want)
+    torch.testing.assert_close(
+        bag, fref.fused_embed_bag_ref(spec, mem, bg, w, *bx), rtol=1e-6,
+        atol=1e-6)
+    for forced in (32, 64) + ((d,) if d <= 2048 else ()):
+        assert torch.equal(fk.fused_lookup_cuda(
+            spec, mem, bg.contiguous(), *bx, weights=w, tile=forced), bag)
+
+
+def test_lookup_rejects_a_ragged_tile(cuda):
+    spec = fe.hashed_spec("hashed_elem", 2048, 64 * 2048, 1)
+    gids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    mem = torch.zeros(spec.m, device=cuda)
+    for tile in (0, 48, -32):
+        with pytest.raises(ValueError, match="tile"):
+            fk.fused_lookup_cuda(spec, mem, gids, tile=tile)
+
+
 @pytest.mark.parametrize("E,T,k", [(4, 512, 160), (16, 32768, 2560),
                                    (256, 1024, 40)])
 def test_stable_top_c_on_the_card_equals_the_cpu(cuda, E, T, k):
