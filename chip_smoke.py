@@ -13,7 +13,12 @@ the LMServer, decode_32k, prefill_32k and an LMA token table, the GAT
 (gat-cora) trained at full width on its four shapes, ogbn-products'
 126,167,309 edges included, and through an LMA node-id table, and last the
 MoE and MLA LMs (deepseek-v3-671b, llama4-scout-17b-a16e) served at full
-width and 4 layers.
+width and 4 layers, then the LMs trained at train_4k (S = 4,096):
+tinyllama-1.1b at full width and depth, with and without an LMA token
+table, and the MoE LMs at the depth one card holds.  The host batches of
+the launcher runs (phases 9, 33c) and of the LM training (phase 38) are
+drawn in a spawned process (``HostDraws``) while the card runs the phases
+before them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 sm_90 card and ``nvcc``; it imports only torch, numpy and ``repro_torch``
@@ -62,7 +67,9 @@ Phases (any failure raises and ends the run with a non-zero code):
   9. the paper's comparison through the port's launcher, 300 steps at
      B=512 and alpha = 16: lma-dlrm-criteo with every registered kind but
      full (freq, hashed_elem, hashed_row, lma, md, qr), lma-dlrm-avazu
-     with lma and hashed_elem; eval AUC of each;
+     with lma and hashed_elem; eval AUC of each; their host batches (D'
+     rows, steps, eval) drawn aside and handed out by
+     (spec, size, index);
  10. a bag's backward on the full pool (scatter-add and weight-gradient
      kernels) against the plain versions;
  11. time the training kernels (CUDA-graph replay) beside their bounds,
@@ -154,7 +161,7 @@ Phases (any failure raises and ends the run with a non-zero code):
      equal, staging retried, restarts equal to preempts; save, restore
      and ``sanitize_cold`` times; (c) full-width DIN through the launcher
      with ``--tier-budget-mb 40 --batch 4 --steps 300`` beside the same
-     run untiered (the DIN batches drawn once for both): compact leaves
+     run untiered (the DIN batches drawn aside for both): compact leaves
      within 40 MiB, both eval AUCs;
  29. free dlrm-rm2's pool and training state, keep its D' store, and
      build full-width DCN-v2 on that store (the same 26 vocabularies and
@@ -333,9 +340,32 @@ Phases (any failure raises and ends the run with a non-zero code):
      steps launching row 2 once each, and 35f's sweep at d = 7,168; (h)
      the port's launcher (``launch.train.main``) for every registered LM
      arch, its smoke config for 3 steps on the card: every loss finite,
-     deepseek-v3's optimizer Adafactor, steps/s; print one line per
-     kernel, the ``kernels`` JSON line, the card line, and last the
-     result line.
+     deepseek-v3's optimizer Adafactor, steps/s;
+ 38. (the LMs trained, ``run_lm_train``, last) train_4k (S = 4,096),
+     remat on (each layer and each loss chunk checkpointed), through the
+     port's Trainer with the arch's optimizer as ``launch.train``'s
+     ``make_optimizer`` builds it, batches from LMGenerator(vocab, seed=0):
+     (a) tinyllama-1.1b at 22 layers, d 2,048, bf16, Adam at lr 4e-4, B
+     = 8 (the largest power of two the reckoning, ``train_reckoning``,
+     fits; its peak measured beside it): one warm step and 3 timed,
+     every loss finite, steps/s and tokens/s (host clock), the Trainer's
+     phase split (CUDA events), peak GiB and the model-FLOP utilisation,
+     tokens/s x (6 N + 6 L S d) / 989 TFLOP/s; (b) the same with 35f's LMA
+     token table and sparse pool gradients at B = 8: one step from a
+     common state taken densely (rows 2 and 5) and sparse (rows 2, 4 and
+     9), held to each other by ``check_step`` (losses bit-equal), one
+     more sparse step; each path's launches exactly one of each of its
+     rows a step; row 4's locations bit-equal to ``locations_ref`` and
+     row 2's lookups to their gather over the batch, chunk by chunk;
+     rows 2, 4, 5 and 9 timed at these shapes beside their bounds, plain
+     versions and (row 9) torch.optim.SparseAdam; (c) deepseek-v3-671b
+     (Adafactor) and llama4-scout-17b-a16e (Adam) at B = 1 and the
+     deepest depth the reckoning fits (deepseek from one dense and one
+     MoE layer, scout from one MoE layer): one warm step and 2 timed,
+     each MoE layer's C and dropped assignments (its recompute routing
+     alike); an arch that fits at no depth prints its reckoning and is
+     not run.  Then print one line per kernel, the ``kernels`` JSON line,
+     the card line, and last the result line.
 """
 from __future__ import annotations
 
@@ -366,6 +396,10 @@ CIN_CHECK_BATCHES = (512, 4096, 333)
 # the training batch
 DOT_BATCHES = (16, 512, 4096, 65536)
 LAUNCHER_STEPS, LAUNCHER_BATCH = 300, 512
+# launch.train's --n-signatures and --eval-batches defaults, and the eval
+# batches its ``evaluate`` draws: (size, first index)
+LAUNCHER_SIGNATURES, LAUNCHER_EVAL_BATCHES = 10_000, 8
+LAUNCHER_EVAL_B, LAUNCHER_EVAL_FROM = 2048, 700_000
 FULL_CHUNK = 4096 * 26         # values per plain call over a B=65,536 batch
 # A pool slot's gradient is a float32 sum of its run of n contributions (n
 # up to ~22,000 at the hottest slot of a B=65,536 step).  Two summation
@@ -5119,37 +5153,154 @@ def tiered_durability(torch, arch, hr_cfg, hr_model, hr_bufs, init, root,
     return out
 
 
+# ------------------------------------ host batches, drawn aside
+
+def launcher_draws(table: dict, argv: list) -> None:
+    """The CTR or DIN batches ``launch.train.main(argv)`` draws, into
+    ``table`` by (spec, size, index): its D' rows (or id counts), each
+    training step's batch and the eval batches, drawn on the host through
+    the launcher's own setup (on the CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_ctr
+    from repro_torch.launch import train as launcher
+
+    saved = {c: c.batch for c in (synthetic_ctr.CTRGenerator,
+                                  synthetic_ctr.DINGenerator)}
+
+    def recorder(draw):
+        def batch(self, batch_size, batch_idx):
+            out = draw(self, batch_size, batch_idx)
+            table[(self.spec, batch_size, batch_idx)] = out
+            return out
+        return batch
+    args = dict(zip(argv[::2], argv[1::2]))
+    try:
+        for c, draw in saved.items():
+            c.batch = recorder(draw)
+        arch = get_config(args["--arch"])
+        gen, _, batch_fn, _ = launcher._recsys_setup(
+            arch, arch.make_model(None), LAUNCHER_SIGNATURES,
+            int(args["--batch"]), "cpu")
+        for step in range(int(args["--steps"])):
+            batch_fn(step)
+        for i in range(LAUNCHER_EVAL_BATCHES):
+            gen.batch(LAUNCHER_EVAL_B, LAUNCHER_EVAL_FROM + i)
+    finally:
+        for c, draw in saved.items():
+            c.batch = draw
+
+
+def draw_host_batches(path: str, jobs: list) -> None:
+    """The host batches of the launcher runs (phase 9, 33c) and of the LM
+    training (phase 38), drawn in a spawned process while the card runs
+    the phases before them: each job ``(name, what)`` pickled into
+    ``path/name.pkl`` (written whole, then renamed), in the order the
+    phases take them.  ``what`` is a list of ``("launcher", argv)``
+    (``launcher_draws``) or of ``("lm", arch, B, S, steps)``
+    (``LMGenerator(vocab, seed=SEED)`` batches by (arch, B, step))."""
+    import pickle
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import LMGenerator
+
+    for name, what in jobs:
+        t0 = time.perf_counter()
+        table: dict = {}
+        for item in what:
+            if item[0] == "launcher":
+                launcher_draws(table, item[1])
+            else:
+                _, arch, B, S, steps = item
+                gen = LMGenerator(get_config(arch).make_model().vocab_size,
+                                  seed=SEED)
+                for step in range(steps):
+                    table[(arch, B, step)] = gen.batch(B, S, step)
+        table["seconds"] = time.perf_counter() - t0
+        tmp = os.path.join(path, f"{name}.tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump(table, f, protocol=5)
+        os.replace(tmp, os.path.join(path, f"{name}.pkl"))
+
+
+class HostDraws:
+    """``draw_host_batches`` in a spawned process, into a temporary
+    directory under build/; ``take(name)`` waits for that job's file and
+    loads it, ``close`` stops the process and removes the directory."""
+
+    def __init__(self, jobs: list):
+        import multiprocessing
+        import tempfile
+
+        os.makedirs(ROOT / "build", exist_ok=True)
+        self.tmp = tempfile.TemporaryDirectory(prefix="batches-",
+                                               dir=ROOT / "build")
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=draw_host_batches, args=(self.tmp.name, jobs),
+            daemon=True)
+        self.proc.start()
+
+    def take(self, name: str) -> dict:
+        """-> the job's table, with the seconds it took to draw
+        (``seconds``) and that the caller waited for it (``waited``)."""
+        import pickle
+
+        path = os.path.join(self.tmp.name, f"{name}.pkl")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if not self.proc.is_alive() and not os.path.exists(path):
+                raise RuntimeError(f"drawing the host batches failed (exit "
+                                   f"code {self.proc.exitcode})")
+            time.sleep(0.05)
+        with open(path, "rb") as f:
+            table = pickle.load(f)
+        table["waited"] = time.perf_counter() - t0
+        return table
+
+    def close(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
+        self.tmp.cleanup()
+
+
 @contextlib.contextmanager
-def din_batches_once():
-    """Within: ``DINGenerator.batch`` draws each (spec, size, index) once
-    and hands out copies after: part c's two launcher runs take the same
-    batches (the D' rows, the steps, the eval), which the host draws one
-    ``rng.choice`` at a time."""
+def drawn_batches(table: dict):
+    """Within: ``CTRGenerator.batch`` and ``DINGenerator.batch`` hand out
+    copies of the batches ``table`` holds by (spec, size, index), drawing
+    any other as before; ``table["hits"]`` / ``["misses"]`` count them."""
     from repro_torch.data import synthetic_ctr
 
-    draw = synthetic_ctr.DINGenerator.batch
-    seen = {}
+    saved = {c: c.batch for c in (synthetic_ctr.CTRGenerator,
+                                  synthetic_ctr.DINGenerator)}
+    table["hits"] = table["misses"] = 0
 
-    def batch(self, batch_size, batch_idx):
-        key = (self.spec, batch_size, batch_idx)
-        if key not in seen:
-            seen[key] = draw(self, batch_size, batch_idx)
-        return {k: v.copy() for k, v in seen[key].items()}
-    synthetic_ctr.DINGenerator.batch = batch
+    def cached(draw):
+        def batch(self, batch_size, batch_idx):
+            got = table.get((self.spec, batch_size, batch_idx))
+            if got is None:
+                table["misses"] += 1
+                return draw(self, batch_size, batch_idx)
+            table["hits"] += 1
+            return {k: v.copy() for k, v in got.items()}
+        return batch
     try:
-        yield
+        for c, draw in saved.items():
+            c.batch = cached(draw)
+        yield table
     finally:
-        synthetic_ctr.DINGenerator.batch = draw
+        for c, draw in saved.items():
+            c.batch = draw
 
 
-def tiered_launcher(torch, kernels, card) -> dict:
+def tiered_launcher(torch, kernels, card, drawn: dict) -> dict:
     """Part c: full-width DIN through the launcher with and without
     --tier-budget-mb DIN_TIER_BUDGET_MB; the tiered run's compact leaves
-    within the budget, its eval through the full pool."""
+    within the budget, its eval through the full pool.  Both runs take
+    their batches from ``drawn`` (``HostDraws``' DIN job)."""
     from repro_torch.launch import train as launcher
 
     out = {}
-    with din_batches_once():
+    with drawn_batches(drawn):
         for name, extra in (("tiered", ["--tier-budget-mb",
                                         str(DIN_TIER_BUDGET_MB)]),
                             ("resident", [])):
@@ -5176,12 +5327,15 @@ def tiered_launcher(torch, kernels, card) -> dict:
         f"{out['tiered']['steps_per_sec']:.1f} steps/s; resident AUC "
         f"{out['resident']['auc']:.4f}, {out['resident']['steps_per_sec']:.1f}"
         f" steps/s; {out['tiered']['seconds']:.1f} + "
-        f"{out['resident']['seconds']:.1f} s (the batches drawn once); "
+        f"{out['resident']['seconds']:.1f} s (the batches drawn aside in "
+        f"{drawn['seconds']:.1f} s, waited for {drawn['waited']:.1f} s; "
+        f"{drawn['hits']} taken, {drawn['misses']} drawn here); "
         f"launches {out['tiered']['launches']}; card {card}")
     return out
 
 
-def run_tiering(torch, cfg, model, bufs, gen, dev, kernels, card) -> dict:
+def run_tiering(torch, cfg, model, bufs, gen, dev, kernels, card,
+                din_drawn: dict) -> dict:
     """Phase 33 (after phase 32, dlrm-rm2 with LMA and its D' store still on
     the card): (d) the distinct blocks of one planned LMA batch; hashed_row
     dlrm-rm2 tiered under TIER_BUDGET_MB: (a) checked training beside
@@ -5222,7 +5376,7 @@ def run_tiering(torch, cfg, model, bufs, gen, dev, kernels, card) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     del hr_model, init
     free(torch)
-    launch = tiered_launcher(torch, kernels, card)
+    launch = tiered_launcher(torch, kernels, card, din_drawn)
     return {"paths": {"dlrm-rm2 tiered train": run["launches"]["tiered"],
                       "dlrm-rm2 tiered resident check":
                           run["launches"]["resident"],
@@ -6841,6 +6995,543 @@ def run_moe(torch, dev, kernels, card) -> dict:
     return out
 
 
+# ------------------------------------------------ LM training (phase 38)
+
+TRAIN_S = 4096                  # train_4k's sequence (LM_SHAPE_TABLE)
+# 38a / 38b: the largest power of two that fits one card, by the reckoning
+# (``train_reckoning``: 8 fits, 16 does not) and the measured peak
+TRAIN_B = 8
+TRAIN_TIMED = 3                 # 38a: steps timed after one warm step
+LMA_TRAIN_TIMED = 1             # 38b: after its checked step (time limit)
+MOE_TRAIN_TIMED = 2             # 38c, after one warm step
+# 38c's depths: each arch's fewest layers that hold a MoE layer (and for
+# deepseek a dense one) up to phase 37's MOE_LAYERS; the leading dense
+# layers as the config has them, cut to leave the last layer a MoE one
+MOE_TRAIN_MIN = {MOE_ARCH: 2, SCOUT_ARCH: 1}
+FIT_SHARE = 0.97                # of the card's memory a reckoned peak may take
+GB = 1e9
+
+
+def train_reckoning(torch, cfg, batches, optimizer: str) -> dict:
+    """What a train_4k step of ``cfg`` holds on the card at each batch B of
+    ``batches``, reckoned from the code before it runs (parameter shapes
+    from a model on the meta device); -> {B: reckoning}:
+    - ``state``: each parameter in its dtype, its gradient (the same),
+      Adam's two float32 moments (12 B a bf16 parameter) or Adafactor's
+      factored float32 moments, and the updates, which the Trainer holds in
+      the parameter's dtype until it applies them;
+    - ``backward``, beyond the state: every layer's input ([B, S, d], the
+      checkpoint), one layer's recompute (the causal triangle's score
+      tiles, [B, H, q_block, attn_block] float32, three kept a tile: the
+      scores, their exponent, its float32 copy for the value product; four
+      [B, S, d_ff] activations of its FFN, or of a MoE its shared expert and
+      [E, C, d_ff] expert buffers), the float32 output table and its
+      gradient, and one loss chunk's [B, chunk, V] float32 logits (three);
+    - ``update``, beyond the state, one leaf at a time: Adam's temporaries,
+      32 B an element of the largest leaf or of its ``ADAM_SLICE`` rows
+      (the float32 gradient, its square, the scaled first moment, nu's
+      quotient and its float64 copy and root); Adafactor's five float32
+      temporaries of the largest leaf.
+    The peak is the state plus the larger of the two."""
+    from repro_torch.models import transformer as tt
+    from repro_torch.nn.moe import moe_capacity
+    from repro_torch.optim.optimizers import adafactor
+    from repro_torch.optim.sparse import ADAM_SLICE
+
+    with torch.device("meta"):
+        model = tt.Transformer(cfg, torch.Generator(), torch.device("meta"))
+    params = dict(model.named_parameters())
+    n = sum(p.numel() for p in params.values())
+    own = sum(p.numel() * p.element_size() for p in params.values())
+    largest = max(p.numel() for p in params.values())
+    if optimizer == "adafactor":
+        st = adafactor(1e-3).init(params)
+        moments = 4 * sum(x.numel() for v in st.vs.values()
+                          for x in v.values())
+        update = 5 * 4 * largest
+    else:
+        moments, update = 8 * n, 32 * min(largest, ADAM_SLICE)
+    state = 3 * own + moments
+    S, d, H, V = TRAIN_S, cfg.d_model, cfg.n_heads, cfg.vocab_size
+    qb, blk = min(512, S), cfg.attn_block
+    tiles = sum(-(-min(lo + qb, S) // blk) for lo in range(0, S, qb))
+    act = 2 if cfg.dtype == "bfloat16" else 4
+    chunk = cfg.loss_chunk if 0 < cfg.loss_chunk < S else S
+    out = {}
+    for B in batches:
+        layer = 3 * tiles * B * H * qb * blk * 4
+        if cfg.moe is None:
+            layer += 4 * B * S * cfg.d_ff * act
+        else:
+            m = cfg.moe
+            C = min(moe_capacity(m, B * S), B * S)
+            layer += 4 * act * (B * S * m.d_ff * m.n_shared_experts
+                                + m.n_experts * C * (m.d_ff + d))
+        backward = (cfg.n_layers * B * S * d * act + layer + 2 * V * d * 4
+                    + 3 * B * chunk * V * 4)
+        out[B] = {"B": B, "S": S, "layers": cfg.n_layers, "params": n,
+                  "state_gb": state / GB, "backward_gb": backward / GB,
+                  "update_gb": update / GB,
+                  "peak_gb": (state + max(backward, update)) / GB,
+                  "optimizer": optimizer}
+    return out
+
+
+def reckoning_line(r: dict, card_gb: float) -> str:
+    fits = r["peak_gb"] <= FIT_SHARE * card_gb
+    return (f"{r['layers']} layers, B={r['B']}, S={r['S']}: {r['params']:,} "
+            f"parameters, {r['optimizer']} state {r['state_gb']:.1f} GB + "
+            f"max(backward {r['backward_gb']:.1f}, update "
+            f"{r['update_gb']:.1f}) GB = {r['peak_gb']:.1f} GB reckoned "
+            f"against {FIT_SHARE:.0%} of the card's {card_gb:.1f} GB: "
+            + ("fits" if fits else "does not fit"))
+
+
+def lm_steps(torch, tr, first: int, n: int) -> tuple:
+    """Steps ``first`` .. ``first + n - 1`` of ``tr`` (its batches by
+    index), each timed on the host clock between synchronizations;
+    -> (losses, seconds)."""
+    losses, secs = [], []
+    for step in range(first, first + n):
+        tr.step, tr.cfg.total_steps = step, step + 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tr.fit(log=lambda _: None)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if res["skipped_steps"] or not np.isfinite(res["loss"]):
+            raise AssertionError(f"LM training step {step}: {res}")
+        losses.append(res["loss"])
+    return losses, secs
+
+
+def lm_trainer(torch, arch_id, cfg, model, batches, B, dev, bufs=None,
+               sparse=None, timer=None, opt=None):
+    """The port's Trainer over ``cfg``'s ``loss_fn`` with the arch's
+    optimizer as the launcher builds it (``make_optimizer``), the drawn
+    batches of (arch, B, step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models import transformer as tt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    def loss(m, b):
+        return tt.loss_fn(m, cfg, b["tokens"], b["labels"], bufs)
+    return Trainer(TrainerConfig(total_steps=0, log_every=0), loss, model,
+                   opt or make_optimizer(get_config(arch_id)),
+                   lambda step: batches[(arch_id, B, step)],
+                   sparse_grads=sparse,
+                   on_phase=timer.mark if timer else None, device=dev)
+
+
+def train_rates(B: int, secs: list) -> dict:
+    sps = 1.0 / float(np.median(secs))
+    return {"steps_per_sec": sps, "tokens_per_sec": sps * B * TRAIN_S,
+            "step_s": secs}
+
+
+def lm_train_dense(torch, dev, kernels, card, batches) -> dict:
+    """38a: tinyllama-1.1b at full width and depth, train_4k at TRAIN_B:
+    one warm step and TRAIN_TIMED timed, Adam as the launcher builds it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+
+    cfg = get_config(LM_ARCH).make_model()
+    if not (cfg.remat and cfg.loss_chunk == 512):
+        raise AssertionError(f"{LM_ARCH}: remat {cfg.remat}, loss_chunk "
+                             f"{cfg.loss_chunk}")
+    card_gb = torch.cuda.get_device_properties(0).total_memory / GB
+    rk = train_reckoning(torch, cfg, (TRAIN_B, 2 * TRAIN_B), "adam")
+    for B, r in rk.items():
+        log(f"38a reckoning, {LM_ARCH} {reckoning_line(r, card_gb)}")
+    if (rk[TRAIN_B]["peak_gb"] > FIT_SHARE * card_gb
+            or rk[2 * TRAIN_B]["peak_gb"] <= FIT_SHARE * card_gb):
+        raise AssertionError(f"B={TRAIN_B} is not the largest power of two "
+                             "the reckoning fits")
+    model = tt.init(cfg, seed=SEED, device=dev)
+    timer = PhaseTimer(torch)
+    tr = lm_trainer(torch, LM_ARCH, cfg, model, batches, TRAIN_B, dev,
+                    timer=timer)
+    zero(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = lm_steps(torch, tr, 0, 1 + TRAIN_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if counts(kernels):
+        raise AssertionError(f"the dense LM launched {counts(kernels)}")
+    total = tt.param_count(cfg)[0]
+    N = total - cfg.vocab_size * cfg.d_model
+    L, S, d = cfg.n_layers, TRAIN_S, cfg.d_model
+    flops = 6 * N + 6 * L * S * d
+    out = {"arch": LM_ARCH, "B": TRAIN_B, "S": S, "layers": L,
+           "losses": losses, **train_rates(TRAIN_B, secs[1:]),
+           "phase_ms": timer.split_ms(), "peak_gib": peak,
+           "reckoning": rk, "non_embedding_params": N,
+           "flops_per_token": flops}
+    out["mfu"] = out["tokens_per_sec"] * flops / BF16_FLOP_PER_S
+    log(f"38a: {LM_ARCH} ({L} layers, d {d}, {cfg.dtype}, remat, loss_chunk "
+        f"{cfg.loss_chunk}, Adam lr {get_config(LM_ARCH).learning_rate}) "
+        f"train_4k at B={TRAIN_B}, S={S}: losses "
+        + " ".join(f"{x:.5f}" for x in losses)
+        + f"; {out['steps_per_sec']:.4f} steps/s, "
+        f"{out['tokens_per_sec']:,.0f} tokens/s (host clock, median of "
+        f"{TRAIN_TIMED} after a warm step); phases (ms, median) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["phase_ms"].items())
+        + f"; peak {peak:.2f} GiB (reckoned {rk[TRAIN_B]['peak_gb']:.1f} "
+        f"GB); model-FLOP utilisation {out['mfu']:.2%} = tokens/s x (6 N + "
+        f"6 L S d) / 989 TFLOP/s (dense bf16), N = {N:,} parameters "
+        f"without the {cfg.vocab_size:,} x {d} token table, {flops:.4g} "
+        "flops a token; the attention's score and value products run in "
+        f"float32 (67 TFLOP/s); card {card}")
+    return out
+
+
+def copy_state_(torch, dst, src):
+    """``src``'s optimizer state copied into ``dst``'s tensors in place
+    (no third copy of a model's moments); -> the state."""
+    if isinstance(dst, torch.Tensor):
+        return dst.copy_(src)
+    if isinstance(dst, dict):
+        return {k: copy_state_(torch, dst[k], src[k]) for k in dst}
+    if isinstance(dst, tuple):
+        parts = [copy_state_(torch, a, b) for a, b in zip(dst, src)]
+        return type(dst)(*parts) if hasattr(dst, "_fields") else tuple(parts)
+    return src
+
+
+def lm_train_kernels(torch, arch, p, spec, mem, tokens, bufs, e, sg,
+                     dev) -> dict:
+    """38b's kernels at its shapes: row 4's locations bit-equal to
+    ``locations_ref`` and row 2's lookups to the gather of those, chunk by
+    chunk (LMA_CHUNK tokens); rows 2, 4, 5 and 9 timed by CUDA-graph replay
+    beside their bounds (as PERF.md counts them: ``lma_work`` / ``hash_work``
+    plus the floats each reads and writes; row 9's bytes: each index and
+    value read, each update written, each touched slot's two moments read
+    and written) and their plain versions, summed over the chunks: the
+    locations (row 4), then the gather (row 2) or an ``index_add_`` (row
+    5, ``scatter_add_ref``'s two parts), each part timed; row 9 also beside
+    torch.optim.SparseAdam on the live entries' COO gradient."""
+    from repro_torch.embed import get_scheme
+    from repro_torch.kernels.fused_embed import ref as fref
+    from repro_torch.kernels.fused_embed.kernel import (fused_locations_cuda,
+                                                        fused_lookup_cuda,
+                                                        fused_scatter_add_cuda)
+    from repro_torch.kernels.sparse_update import ref as sref
+    from repro_torch.kernels.sparse_update.kernel import sparse_adam_cuda
+
+    gids = tokens.reshape(-1).contiguous()
+    rows, support = get_scheme("lma").fused_inputs(e, bufs, gids)
+    N = gids.numel()
+    g = torch.randn((N, p.d), generator=torch.Generator(device=dev)
+                    .manual_seed(SEED + 38), device=dev) * 1e-3
+    plain = {"fused_embed": 0.0, "fused_locations": 0.0,
+             "fused_scatter_add": 0.0}
+    with torch.no_grad():
+        loc = fused_locations_cuda(spec, gids, rows, support)
+        looked = fused_lookup_cuda(spec, mem, gids, rows, support)
+        dm = torch.zeros(p.m, device=dev)
+        for lo in range(0, N, LMA_CHUNK):
+            part = (gids[lo:lo + LMA_CHUNK], rows[lo:lo + LMA_CHUNK],
+                    support[lo:lo + LMA_CHUNK])
+            want, ms = events_ms(torch, lambda: fref.locations_ref(spec,
+                                                                    *part))
+            if not torch.equal(loc[lo:lo + LMA_CHUNK], want):
+                raise AssertionError(f"row 4's locations differ from "
+                                     f"locations_ref (tokens {lo}..)")
+            got, gather = events_ms(torch, lambda: mem[want.long()])
+            if not torch.equal(looked[lo:lo + LMA_CHUNK], got):
+                raise AssertionError(f"row 2's lookup differs from the plain "
+                                     f"split path (tokens {lo}..)")
+            # the plain scatter-add is those locations, then an index_add_
+            _, add = events_ms(torch, lambda: dm.index_add_(
+                0, want.reshape(-1).long(), g[lo:lo + LMA_CHUNK].reshape(-1)))
+            plain["fused_locations"] += ms
+            plain["fused_embed"] += ms + gather
+            plain["fused_scatter_add"] += ms + add
+        del loc, looked, dm
+        in_bytes, ops = hash_work(torch, p, rows, support)
+        res = {}
+        for name, fn, nbytes, work in (
+                ("fused_embed", lambda: fused_lookup_cuda(
+                    spec, mem, gids, rows, support),
+                 *lma_work(torch, p, rows, support, fallback=True)),
+                ("fused_locations", lambda: fused_locations_cuda(
+                    spec, gids, rows, support), in_bytes + N * p.d * 4, ops),
+                ("fused_scatter_add", lambda: fused_scatter_add_cuda(
+                    spec, g, gids, rows, support),
+                 in_bytes + N * p.d * 4 + N * p.d * 8 + p.m * 4, ops)):
+            r = res[name] = {"tokens": N}
+            r["ms"] = graph_ms(torch, fn, 5)
+            r["plain_ms"] = plain[name]
+            r["bound_ms"], r["bound_by"] = bound(nbytes, work, INT32_OP_PER_S)
+            r["library_ms"] = None
+        del g
+        shape = tuple(sg.dense_shape)
+        mu, nu = (torch.zeros(shape, device=dev) for _ in range(2))
+        hyper = lazy_hyper(arch, 1)
+        live = sg.indices[sg.indices < shape[0]]
+        slots = int(torch.unique_consecutive(live).numel())
+        K = sg.indices.numel()
+
+        def run():
+            return sparse_adam_cuda(sg.indices, sg.values, mu, nu,
+                                    unique=sg.unique, **hyper)
+        r = res["sparse_adam"] = {"K": K, "live": live.numel(),
+                                  "slots": slots}
+        r["ms"] = graph_ms(torch, run, 5)
+        r["plain_ms"] = time_ms(torch, lambda: sref.sparse_adam_ref(
+            sg.indices, sg.values, mu, nu, unique=sg.unique, **hyper), 2,
+            warmup=1)
+        r["bound_ms"], r["bound_by"] = bound(
+            K * 8 + live.numel() * 4 + slots * 16, 0, 1.0)
+    r["library_ms"] = library_sparse_ms(torch, torch.optim.SparseAdam, sg,
+                                        shape, dev,
+                                        lr=arch.learning_rate)
+    del mu, nu
+    for name, r in res.items():
+        log(f"  38b {name} at "
+            + (f"K={r['K']} ({r['slots']} slots)" if "K" in r
+               else f"{r['tokens']} tokens, d={p.d}")
+            + f": {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of bound, "
+            f"plain {r['plain_ms']:.3f} ms"
+            + (f", torch.optim.SparseAdam {r['library_ms']:.3f} ms of device "
+               "time" if r["library_ms"] is not None else ""))
+    return res
+
+
+def lm_train_lma(torch, dev, kernels, card, batches) -> dict:
+    """38b: 38a's model with 35f's LMA token table (alpha 16, 4,096,000
+    striped slots over a planted 32,000 x 32 D' store) and sparse pool
+    gradients at TRAIN_B: one step from a common state taken densely (a
+    second Trainer, sparse_grads=False: rows 2 and 5) and sparse (rows 2, 4
+    and 9), held to each other by ``check_step``; then LMA_TRAIN_TIMED
+    sparse steps timed; each path launches its rows once a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs._recsys_common import embedding_of_kind
+    from repro_torch.embed import make_buffers
+    from repro_torch.kernels.fused_embed import ops as fe
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models import transformer as tt
+
+    arch = get_config(LM_ARCH)
+    base = arch.make_model()
+    e = embedding_of_kind("lma", (base.vocab_size,), base.d_model,
+                          expansion=16.0, max_set=32)
+    cfg = dataclasses.replace(base, embedding=e)
+    model = tt.init(cfg, seed=SEED, device=dev)
+    bufs = make_buffers(e, planted_store(torch, e, dev))
+    p = e.lma
+    pool = "embed.memory"
+    params = dict(model.named_parameters())
+    timer = PhaseTimer(torch)
+    opts = {name: Recorder(make_optimizer(arch))
+            for name in ("sparse", "dense")}
+    trs = {name: lm_trainer(torch, LM_ARCH, cfg, model, batches, TRAIN_B,
+                            dev, bufs=bufs, sparse=name == "sparse",
+                            timer=timer if name == "sparse" else None,
+                            opt=opts[name]) for name in ("sparse", "dense")}
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        p0 = {k: q.detach().clone() for k, q in params.items()}
+        st0 = {pool: clone_state(torch, trs["sparse"].opt_state[pool])}
+        trs["dense"].opt_state = copy_state_(
+            torch, trs["dense"].opt_state, trs["sparse"].opt_state)
+    zero(kernels)
+    dense_losses, _ = lm_steps(torch, trs["dense"], 0, 1)
+    launches["lm train lma dense"] = counts(kernels)
+    with torch.no_grad():
+        p_dense = {k: q.detach().clone() for k, q in params.items()}
+        for k, q in params.items():
+            q.copy_(p0[k])
+    zero(kernels)
+    with raw_streams(torch, {}) as streams:
+        losses, secs = lm_steps(torch, trs["sparse"], 0, 1)
+    if params[pool].grad is not None:
+        raise AssertionError(f"{pool} has a dense .grad on the sparse path")
+    if losses != dense_losses:
+        raise AssertionError(f"the sparse and dense steps' losses differ: "
+                             f"{losses} / {dense_losses}")
+    parity = {}
+    states = {"sparse": trs["sparse"].opt_state,
+              "dense": trs["dense"].opt_state}
+    with torch.no_grad():
+        check_step(torch, 1, p0, st0, p_dense, params, states, opts, arch,
+                   parity, streams)
+    sg = opts["sparse"].grads[pool]
+    opts["sparse"].grads = opts["dense"].grads = None
+    del p0, st0, p_dense, streams, states, trs["dense"]
+    free(torch)
+    more, secs_t = lm_steps(torch, trs["sparse"], 1, LMA_TRAIN_TIMED)
+    losses += more
+    launches["lm train lma"] = counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"lm train lma": {"fused_embed": 1 + LMA_TRAIN_TIMED,
+                             "fused_locations": 1 + LMA_TRAIN_TIMED,
+                             "sparse_adam": 1 + LMA_TRAIN_TIMED},
+            "lm train lma dense": {"fused_embed": 1, "fused_scatter_add": 1}}
+    if launches != want:
+        raise AssertionError(f"LMA LM training launched {launches}, want "
+                             f"{want}")
+    tokens = torch.from_numpy(batches[(LM_ARCH, TRAIN_B, 0)]["tokens"]).to(
+        dev)
+    with torch.no_grad():
+        mem = params[pool].detach()
+        rows = lm_train_kernels(torch, arch, p, fe.lma_spec(p), mem, tokens,
+                                bufs, e, sg, dev)
+    par = parity[pool]
+    out = {"arch": LM_ARCH, "B": TRAIN_B, "S": TRAIN_S, "pool_slots": p.m,
+           "losses": losses, "dense_loss": dense_losses[0],
+           **train_rates(TRAIN_B, secs_t), "phase_ms": timer.split_ms(),
+           "peak_gib": peak, "launches": launches, "rows": rows,
+           "parity": {k: v for k, v in par.items() if k != "worst"}}
+    log(f"38b: {LM_ARCH} with an LMA token table (m={p.m}, stripe "
+        f"{p.stripe}, d={p.d}), sparse pool gradients, train_4k at "
+        f"B={TRAIN_B}: losses " + " ".join(f"{x:.5f}" for x in losses)
+        + f" (the dense oracle's step 1 {dense_losses[0]:.5f}, bit-equal); "
+        f"check_step: non-pool parameters and Adam states bit-identical, "
+        f"pool slot sums within {par['max_sum_ratio']:.3g} of sum |g| "
+        f"({par['max_tol_share']:.3g} of sum_tol), the sparse pool exactly "
+        f"the plain lazy Adam of its SparseGrad, max |pool diff| "
+        f"{par['max_pool_param_diff']:.3g}; {out['steps_per_sec']:.4f} "
+        f"steps/s, {out['tokens_per_sec']:,.0f} tokens/s; phases (ms, "
+        f"median) " + ", ".join(f"{k} {v:.1f}"
+                                for k, v in out["phase_ms"].items())
+        + f"; peak {peak:.2f} GiB (the check's copies included); launches "
+        f"{launches}; card {card}")
+    return out
+
+
+def lm_train_moe(torch, arch_id, dev, kernels, card, batches) -> dict:
+    """38c: ``arch_id`` at full width, train_4k at B=1, remat, its
+    optimizer as the launcher builds it, at the deepest depth the
+    reckoning fits (from MOE_TRAIN_MIN up to MOE_LAYERS); none fitting,
+    the reckoning is the result.  One warm step, MOE_TRAIN_TIMED timed;
+    each MoE layer's C and dropped assignments from its calls (the
+    forward's and, as remat recomputes the layer, the backward's, which
+    must route alike)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.nn import moe
+
+    arch = get_config(arch_id)
+    full = arch.make_model()
+    card_gb = torch.cuda.get_device_properties(0).total_memory / GB
+    chosen, lines = None, []
+    for L in range(MOE_TRAIN_MIN[arch_id], MOE_LAYERS + 1):
+        cfg = dataclasses.replace(full, n_layers=L, first_k_dense=min(
+            full.first_k_dense, L - 1))
+        r = train_reckoning(torch, cfg, (1,), arch.optimizer)[1]
+        lines.append(r)
+        log(f"38c reckoning, {arch_id} {cfg.layer_groups()}: "
+            f"{reckoning_line(r, card_gb)}")
+        if r["peak_gb"] > FIT_SHARE * card_gb:
+            break
+        chosen = (cfg, r)
+    out = {"arch": arch_id, "optimizer": arch.optimizer, "reckoning": lines}
+    if chosen is None:
+        out["fits"] = False
+        log(f"38c: {arch_id} ({arch.optimizer}) does not fit one card at "
+            f"{MOE_TRAIN_MIN[arch_id]} layers, its fewest with a MoE layer"
+            f"{' and a dense one' if full.first_k_dense else ''}; not run "
+            f"(ROADMAP.md, Queue 1 item 2); card {card}")
+        return out
+    cfg, r = chosen
+    free(torch)
+    model = tt.init(cfg, seed=SEED, device=dev)
+    tr = lm_trainer(torch, arch_id, cfg, model, batches, 1, dev)
+    zero(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    calls: list = []
+    with moe_routes(torch, calls):
+        losses, secs = lm_steps(torch, tr, 0, 1 + MOE_TRAIN_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if counts(kernels):
+        raise AssertionError(f"{arch_id} launched {counts(kernels)}")
+    n_moe = sum(c for k, c in cfg.layer_groups() if k == "moe")
+    if len(calls) != 2 * n_moe * (1 + MOE_TRAIN_TIMED):
+        raise AssertionError(f"{arch_id}: {len(calls)} MoE calls in "
+                             f"{1 + MOE_TRAIN_TIMED} steps of {n_moe} MoE "
+                             "layers, each recomputed once")
+    layers = []
+    for i in range(0, len(calls), 2 * n_moe):
+        fwd, rec = calls[i:i + n_moe], calls[i + n_moe:i + 2 * n_moe][::-1]
+        for a, b in zip(fwd, rec):
+            if a["C"] != b["C"] or not torch.equal(a["load"], b["load"]):
+                raise AssertionError(f"{arch_id}: a MoE layer's recompute "
+                                     "routed otherwise than its forward")
+        layers.append([{"T": c["T"], "C": c["C"],
+                        "dropped": int(moe.dropped(c["load"], c["C"])),
+                        "max_load": int(c["load"].max())} for c in fwd])
+    del calls
+    del model, tr
+    free(torch)
+    out.update(fits=True, layers=cfg.n_layers, groups=cfg.layer_groups(),
+               B=1, S=TRAIN_S, losses=losses, **train_rates(1, secs[1:]),
+               peak_gib=peak, reckoned_gb=r["peak_gb"], moe=layers)
+    log(f"38c: {arch_id} at {cfg.n_layers} of {full.n_layers} layers "
+        f"{cfg.layer_groups()} (full width, {arch.optimizer}), train_4k at "
+        f"B=1: losses " + " ".join(f"{x:.5f}" for x in losses)
+        + f"; {out['steps_per_sec']:.4f} steps/s, "
+        f"{out['tokens_per_sec']:,.0f} tokens/s; peak {peak:.2f} GiB "
+        f"(reckoned {r['peak_gb']:.1f} GB); MoE layers by step (C, dropped "
+        "of T x k): " + "; ".join(
+            ", ".join(f"C {c['C']} dropped {c['dropped']}" for c in s)
+            for s in layers) + f"; card {card}")
+    return out
+
+
+@contextlib.contextmanager
+def moe_routes(torch, calls: list):
+    """Within: each ``moe.moe_apply`` call appends its tokens T and its
+    ``stats`` (capacity C, expert load) to ``calls`` before it runs, so a
+    remat recompute that stops once it has rebuilt what the backward needs
+    (past the stats, inside the call) is recorded too; nothing waits on
+    the card."""
+    from repro_torch.nn import moe
+
+    apply = moe.moe_apply
+
+    def wrapped(p, cfg, x):
+        stats = {"T": x.shape[0]}
+        calls.append(stats)
+        return apply(p, cfg, x, stats=stats)
+    moe.moe_apply = wrapped
+    try:
+        yield calls
+    finally:
+        moe.moe_apply = apply
+    for c in calls:
+        if "load" not in c:
+            raise AssertionError("a MoE call stopped before its stats")
+
+
+def run_lm_train(torch, dev, kernels, card, batches) -> dict:
+    """Phase 38: the LMs trained on the card, train_4k (S = 4,096), remat
+    on: (a) tinyllama-1.1b, (b) with an LMA token table, (c) the MoE and
+    MLA LMs at the depth one card holds."""
+    t_phase = time.perf_counter()
+    out, secs = {"card": card}, {}
+    for part, key, fn in (
+            ("38a", "dense", lambda: lm_train_dense(torch, dev, kernels, card,
+                                                    batches)),
+            ("38b", "lma", lambda: lm_train_lma(torch, dev, kernels, card,
+                                                batches)),
+            ("38c", "moe", lambda: {a: lm_train_moe(torch, a, dev, kernels,
+                                                    card, batches)
+                                    for a in (MOE_ARCH, SCOUT_ARCH)})):
+        free(torch)
+        t0 = time.perf_counter()
+        out[key] = fn()
+        secs[part] = time.perf_counter() - t0
+    free(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds_by_part"] = secs
+    log(f"phase 38: {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 SOURCES = {
@@ -6894,15 +7585,39 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs._recsys_common import RECSYS_SHAPE_TABLE
-    from repro_torch.kernels import KERNELS, build
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
     log(card)
     t_start = time.perf_counter()
+    # the host batches of phases 9, 33c and 38, drawn in a spawned process
+    # while the card runs the phases before them
+    draws = HostDraws(host_jobs())
+    try:
+        return run_phases(torch, dev, card, t_start, draws)
+    finally:
+        draws.close()
+
+
+def host_jobs() -> list:
+    """``HostDraws``' jobs, in the order the phases take them: phase 9's
+    launcher runs (each arch once: its kinds draw the same batches), 33c's
+    DIN runs, phase 38's train_4k batches."""
+    lm = [("lm", LM_ARCH, TRAIN_B, TRAIN_S, 1 + TRAIN_TIMED)] + [
+        ("lm", a, 1, TRAIN_S, 1 + MOE_TRAIN_TIMED)
+        for a in (MOE_ARCH, SCOUT_ARCH)]
+    return [("ctr", [("launcher", ["--arch", a, "--steps",
+                                   str(LAUNCHER_STEPS), "--batch",
+                                   str(LAUNCHER_BATCH)])
+                     for a in ("lma-dlrm-criteo", "lma-dlrm-avazu")]),
+            ("din", [("launcher", DIN_TIER_ARGS)]),
+            ("lm", lm)]
+
+
+def run_phases(torch, dev, card: str, t_start: float, draws) -> int:
+    from repro_torch.configs._recsys_common import RECSYS_SHAPE_TABLE
+    from repro_torch.kernels import KERNELS, build
 
     def mark(what: str) -> None:
         log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
@@ -6955,7 +7670,11 @@ def main() -> int:
     paths["dlrm-rm2 train sparse"] = train["sparse"]["launches"]
     paths["dlrm-rm2 train dense"] = train["dense"]["launches"]
     mark("phases 7-8")
-    launcher = launcher_comparison(torch, kernels)
+    with drawn_batches(draws.take("ctr")) as drawn:
+        launcher = launcher_comparison(torch, kernels)
+    log(f"phase 9's batches drawn aside in {drawn['seconds']:.1f} s, waited "
+        f"for {drawn['waited']:.1f} s; {drawn['hits']} taken, "
+        f"{drawn['misses']} drawn here")
     mark("phase 9")
     bag_counts, bag_err = bag_backward(torch, cfg, model, bufs, dev, kernels)
     counts["fused_weight_grad"] = bag_counts["fused_weight_grad"]
@@ -6979,7 +7698,8 @@ def main() -> int:
         launcher["lma-dlrm-criteo"]["lma"]["auc"], card)
     paths.update(durable["paths"])
     mark("phase 32")
-    tiering = run_tiering(torch, cfg, model, bufs, gen, dev, kernels, card)
+    tiering = run_tiering(torch, cfg, model, bufs, gen, dev, kernels, card,
+                          draws.take("din"))
     paths.update(tiering["paths"])
     mark("phase 33")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
@@ -7044,6 +7764,11 @@ def main() -> int:
     moe_lm = run_moe(torch, dev, kernels, card)
     paths.update(moe_lm["lma"]["launches"])
     mark("phase 37")
+    # the LMs trained at train_4k (phase 38), last
+    free(torch)
+    lm_train = run_lm_train(torch, dev, kernels, card, draws.take("lm"))
+    paths.update(lm_train["lma"]["launches"])
+    mark("phase 38")
     for name, e in shard["err"].items():
         err[name] = max(err.get(name, 0.0), e)
     res.update(shard["res"])
@@ -7078,6 +7803,12 @@ def main() -> int:
                 extra[f"at_batch_{other}"] = r[other]
                 where += (f" (B={other}: {r[other]['ms']:.4f} ms, bound "
                           f"{r[other]['bound_ms']:.4f} ms)")
+        if name in lm_train["lma"]["rows"]:     # 38b's shapes
+            t = extra["at_lm_train"] = lm_train["lma"]["rows"][name]
+            where += (f" (LM train_4k, "
+                      + (f"K={t['K']}" if "K" in t
+                         else f"{t['tokens']} tokens") + f": {t['ms']:.4f} "
+                      f"ms, bound {t['bound_ms']:.4f} ms)")
         if name == "fused_embed":       # LMA token tables, d = 2,048, 7,168
             extra["at_lm"] = lm["lma"]["row2"]
             extra["at_moe_lm"] = moe_lm["lma"]["row2"]
@@ -7125,6 +7856,8 @@ def main() -> int:
                     "card": card}))
     log(json.dumps({"moe_lm": {k: v for k, v in moe_lm.items()
                                if k != "card"}, "card": card}))
+    log(json.dumps({"lm_train": {k: v for k, v in lm_train.items()
+                                 if k != "card"}, "card": card}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

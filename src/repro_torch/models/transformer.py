@@ -18,8 +18,19 @@ KV, hd], or for MLA the fused latent ``ckv`` [count, B, L, r + rope_dim]
 and ``decode_step`` assign slices of the preallocated tensors (the
 reference's in-place dynamic-update-index on a loop carry); a functional
 copy would double a cache that is 50 GB at tinyllama-1.1b's decode_32k
-shape.  ``remat`` has no effect here (serving keeps no activations for a
-backward; the training path is autograd's default).
+shape.
+
+Rematerialisation, as the reference's ``jax.checkpoint``s: with
+``cfg.remat`` and grad mode on, ``forward`` runs each layer's ``_block``
+under ``torch.utils.checkpoint`` (non-reentrant), so a step keeps each
+layer's input and recomputes its activations (the attention's score tiles
+among them) in the backward; ``loss_fn`` runs each cross-entropy chunk
+under one whenever grad mode is on, ``remat`` or not, so no chunk's [B,
+chunk, V] float32 logits outlive it.  Values are the same with and without
+it.  The recomputed regions hold no side effect: the token table's lookup
+(and a sparse-gradient capture's record of it) and the output table run
+once, outside them, and a MoE layer's routing is deterministic.  ``prefill``
+and ``decode_step`` run under ``no_grad``, where nothing is checkpointed.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import make_generator, resolve_device
 from repro_torch.embed import EmbeddingConfig, EmbeddingTable
@@ -210,12 +222,17 @@ def _output_table(model: Transformer, cfg: TransformerConfig,
 
 def forward(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor,
             buffers: dict | None = None):
-    """tokens [B, S] -> (hidden [B, S, d], aux)."""
+    """tokens [B, S] -> (hidden [B, S, d], aux); with ``cfg.remat`` under
+    grad mode each layer is checkpointed."""
     x = embed_tokens(model, cfg, tokens, buffers).to(cfg.torch_dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for group in model.groups():
         for layer in group:
-            x, a = _block(cfg, layer, x)
+            if remat:
+                x, a = checkpoint(_block, cfg, layer, x, use_reentrant=False)
+            else:
+                x, a = _block(cfg, layer, x)
             aux = aux + a
     return model.final_norm(x), aux
 
@@ -230,7 +247,8 @@ def loss_fn(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor,
             labels: torch.Tensor, buffers: dict | None = None):
     """Causal LM cross-entropy in float32; ``cfg.loss_chunk`` > 0 (and
     below S) takes it a sequence chunk at a time, so the [B, S, V] logits
-    are never whole.  -> (loss, {"ce", "aux"})."""
+    are never whole; under grad mode each chunk is checkpointed, so its
+    logits are recomputed in the backward.  -> (loss, {"ce", "aux"})."""
     hidden, aux = forward(model, cfg, tokens, buffers)
     table = _output_table(model, cfg, buffers).to(torch.float32)
 
@@ -239,6 +257,12 @@ def loss_fn(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor,
         lse = torch.logsumexp(lg, dim=-1)
         gold = torch.gather(lg, -1, y.long()[..., None])[..., 0]
         return lse - gold
+
+    if torch.is_grad_enabled():
+        plain = xent
+
+        def xent(h, y):
+            return checkpoint(plain, h, y, use_reentrant=False)
 
     S = tokens.shape[1]
     if cfg.loss_chunk and cfg.loss_chunk < S:

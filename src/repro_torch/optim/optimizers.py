@@ -1,7 +1,8 @@
 """Optimizers over a model's named parameters (port of
 ``repro.optim.optimizers``: ``sgd``, ``adagrad``, ``adam``/``adamw``,
 ``adafactor``, the transforms ``scale``, ``scale_by_schedule``,
-``clip_by_global_norm``, ``chain`` and ``multi_transform``).
+``clip_by_global_norm``, ``chain`` and ``multi_transform``, and the
+schedules ``warmup_cosine`` and ``constant``).
 
 The port keeps the reference's explicit ``init`` / ``update`` pair instead of
 subclassing ``torch.optim.Optimizer``, for two reasons: the pool's gradient
@@ -431,3 +432,36 @@ def multi_transform(rules: list[tuple[str, Optimizer]],
         return updates, states
 
     return Optimizer(init, update)
+
+
+# ------------------------------------------------------------------- schedules
+
+def _step32(step) -> torch.Tensor:
+    """The step ``scale_by_schedule`` passes (a Python int or an integer
+    tensor) as a float32 0-dim tensor, as the reference's
+    ``step.astype(float32)``."""
+    return torch.as_tensor(step).to(torch.float32)
+
+
+def warmup_cosine(peak_lr: float, warmup: int, total: int,
+                  floor: float = 0.0) -> Callable:
+    """Linear warmup to ``peak_lr`` over ``warmup`` steps, then a cosine
+    decay to ``floor`` at ``total``; -> a float32 0-dim tensor.  The
+    reference's float32 arithmetic, one operation at a time (Python floats
+    combine first, as there, then round to float32 against the step)."""
+
+    def schedule(step) -> torch.Tensor:
+        step = _step32(step)
+        warm = peak_lr * step / max(warmup, 1)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0,
+                           1.0)
+        cos = floor + (peak_lr - floor) * 0.5 * (1 + torch.cos(math.pi
+                                                               * prog))
+        return torch.where(step < warmup, warm, cos)
+
+    return schedule
+
+
+def constant(lr: float) -> Callable:
+    """``lr`` at every step, a float32 0-dim tensor."""
+    return lambda step: torch.tensor(lr, dtype=torch.float32)

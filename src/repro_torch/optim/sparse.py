@@ -374,6 +374,11 @@ def adagrad_leaf(g, acc, p=None, *, lr, eps=1e-10):
     return (-lr * g / (ieee_sqrt(acc) + eps)).to(g.dtype), acc
 
 
+# elements past which a dense leaf's Adam update is taken a slice of rows at
+# a time (``adam_leaf``)
+ADAM_SLICE = 1 << 26
+
+
 def adam_leaf(g, mu, nu, p=None, *, lr, b1=0.9, b2=0.999, bc1=1.0, bc2=1.0,
               eps=1e-8, weight_decay=0.0):
     """One leaf of Adam, ``mu``/``nu`` updated in place.  A SparseGrad is
@@ -381,7 +386,9 @@ def adam_leaf(g, mu, nu, p=None, *, lr, b1=0.9, b2=0.999, bc1=1.0, bc2=1.0,
     and decoupled weight decay is lazy too, ``lr * weight_decay * p`` taken
     off the touched slots' updates only (once per duplicate run).  A dense
     gradient gets the same formulas everywhere, with a row-wise second
-    moment when ``nu`` is 1-D against a 2-D or wider gradient."""
+    moment when ``nu`` is 1-D against a 2-D or wider gradient; a dense
+    leaf past ``ADAM_SLICE`` elements (with an elementwise ``nu``) is
+    updated a slice of rows at a time, to the same bits."""
     if is_sparse(g):
         u, _ = _leaf_sparse_update("adam", g, (mu, nu), lr=lr, b1=b1, b2=b2,
                                    bc1=bc1, bc2=bc2, eps=eps)
@@ -409,6 +416,27 @@ def adam_leaf(g, mu, nu, p=None, *, lr, b1=0.9, b2=0.999, bc1=1.0, bc2=1.0,
             u = u.map_values(lambda v: v - torch.where(
                 keep, lr * weight_decay * rows, 0))
         return u, mu, nu
+    hyper = dict(lr=lr, b1=b1, b2=b2, bc1=bc1, bc2=bc2, eps=eps,
+                 weight_decay=weight_decay)
+    n = g.numel()
+    if nu.shape != g.shape or n <= ADAM_SLICE or g.dim() == 0 \
+            or g.shape[0] < 2:
+        return _adam_dense(g, mu, nu, p, **hyper), mu, nu
+    # a large leaf a slice of rows at a time: the formulas are elementwise,
+    # so the bits are the same, and the float32 and float64 temporaries
+    # (about 32 bytes an element) are a slice's, not the leaf's
+    u = torch.empty_like(g)
+    step = max(1, ADAM_SLICE // (n // g.shape[0]))
+    for lo in range(0, g.shape[0], step):
+        rows = slice(lo, lo + step)
+        u[rows] = _adam_dense(g[rows], mu[rows], nu[rows],
+                              None if p is None else p[rows], **hyper)
+    return u, mu, nu
+
+
+def _adam_dense(g, mu, nu, p, *, lr, b1, b2, bc1, bc2, eps, weight_decay):
+    """Adam's dense formulas on one leaf (or a slice of its rows), ``mu``
+    and ``nu`` updated in place; -> the update in g's dtype."""
     gf = g.to(torch.float32)
     mu.mul_(b1).add_((1 - b1) * gf)
     v2 = gf * gf
@@ -421,7 +449,7 @@ def adam_leaf(g, mu, nu, p=None, *, lr, b1=0.9, b2=0.999, bc1=1.0, bc2=1.0,
     u = -lr * div(mu, bc1) / (ieee_sqrt(div(nu_b, bc2)) + eps)
     if weight_decay and p is not None:
         u = u - lr * weight_decay * p.to(torch.float32)
-    return u.to(g.dtype), mu, nu
+    return u.to(g.dtype)
 
 
 # --------------------------------------------------------- sparse optimizers

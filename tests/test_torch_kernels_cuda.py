@@ -1021,6 +1021,43 @@ def test_fused_lookup_and_bag_at_lm_width(cuda):
                                rtol=1e-6, atol=1e-6)
 
 
+def test_training_rows_at_lm_train_shape(cuda):
+    """Rows 4, 5 and 9 at an LM token table's training shape (phase 38b's:
+    tinyllama-1.1b's LMA table, d = 2,048 over 4,096,000 striped slots,
+    max_set 32), 4,096 tokens with fallback rows and hot tokens repeated:
+    row 4's locations bit-equal to ``locations_ref``; row 9 (lazy Adam on
+    the flat pool) on the bucketed SparseGrad of those locations, 8,388,608
+    entries, bit-equal to its plain version (updates, moments, untouched
+    slots); row 5 within 1e-6 of each slot's sum |g|."""
+    from repro_torch.optim.sparse import from_bucketed_locations
+    rng = np.random.default_rng(2049)
+    d, S, n = 2048, 32, 4096
+    p = LMAParams(d=d, m=4_096_000, n_h=4, max_set=S, seed=0x2048_0017,
+                  striped=True, min_support=2)
+    spec = fe.lma_spec(p)
+    sets = _sets(rng, n, S)
+    support = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32))
+    ids = torch.from_numpy(rng.integers(0, 32000, n).astype(np.int32))
+    for t in (sets, support, ids):          # 64 tokens, 32 times each
+        t[: n // 2] = t[:64].repeat((32,) + (1,) * (t.dim() - 1))
+    sets, support, gids = sets.to(cuda), support.to(cuda), ids.to(cuda)
+    assert (support < p.min_support).any()
+    loc = fe.fused_locations(spec, gids, sets, support)
+    assert torch.equal(loc, fref.locations_ref(spec, gids, sets, support))
+    g = torch.randn((n, d), generator=torch.Generator(device=cuda)
+                    .manual_seed(5), device=cuda) * 1e-3
+    got = fk.fused_scatter_add_cuda(spec, g, gids, sets, support)
+    want = fref.scatter_add_ref(spec, g, gids, sets, support)
+    abs_sum = torch.zeros(p.m, device=cuda).index_add_(
+        0, loc.reshape(-1).long(), g.abs().reshape(-1))
+    assert bool(((got - want).abs() <= 1e-6 * abs_sum).all())
+    sg = from_bucketed_locations(loc, g, (p.m,))
+    assert sg.indices.numel() == n * d and not sg.unique
+    _check_update(cuda, "adam", sg.indices.cpu().numpy(),
+                  sg.values.cpu().numpy(), _states(cuda, "adam", (p.m,)),
+                  unique=False)
+
+
 @pytest.mark.parametrize("kv", [None, "int8"])
 def test_lm_prefill_and_decode_on_the_card(cuda, kv):
     """tinyllama's smoke config with an LMA token table on the card (row 2

@@ -271,3 +271,28 @@ def test_multi_transform_keeps_one_adam_state_per_leaf():
     _, state = opt.update(grads, state, params)
     _, state = opt.update({"b": grads["b"]}, state, params)
     assert state["b"].step == 2 and state["memory"].step == 1
+
+
+@pytest.mark.parametrize("shape", [(37, 5), (4, 3, 6), (301,)])
+def test_sliced_adam_update_bit_equal(monkeypatch, shape):
+    """A dense leaf past ``ADAM_SLICE`` elements is updated a slice of rows
+    at a time: updates and moments bit-equal to the whole leaf's, weight
+    decay included, for 3 steps."""
+    rng = np.random.default_rng(11)
+    p = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    grads = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+             for _ in range(3)]
+    out = {}
+    for sliced in (False, True):
+        monkeypatch.setattr(tsp, "ADAM_SLICE", 7 if sliced else 1 << 26)
+        opt = topt.adamw(1e-2, weight_decay=0.1)
+        q = {"w": p.clone()}
+        state = opt.init(q)
+        ups = []
+        for g in grads:
+            u, state = opt.update({"w": g}, state, q)
+            topt.apply_updates(q, u)
+            ups.append(u["w"])
+        out[sliced] = ups + [q["w"], state.mu["w"], state.nu["w"]]
+    for a, b in zip(out[False], out[True]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
