@@ -15,12 +15,14 @@ the LMServer, decode_32k, prefill_32k and an LMA token table, the GAT
 MoE and MLA LMs (deepseek-v3-671b, llama4-scout-17b-a16e) served at full
 width and 4 layers, then the LMs trained at train_4k (S = 4,096):
 tinyllama-1.1b at full width and depth, with and without an LMA token
-table, and the MoE LMs at the depth one card holds.  The host batches of
+table, and the MoE LMs at the depth one card holds, then the LMs served
+under a (data, model) mesh of 4 gloo ranks on the card.  The host batches of
 the launcher runs (phases 9, 33c) and of the LM training (phase 38) are
 drawn in a spawned process (``HostDraws``) while the card runs the phases
 before them.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
+Run from the root of a checkout: ``python3 chip_smoke.py`` (``python3
+chip_smoke.py --phase 39`` builds the kernels and runs phase 39 alone).  It needs one
 sm_90 card and ``nvcc``; it imports only torch, numpy and ``repro_torch``
 (from ``src/``), and it exits non-zero, printing no result, when there is
 no card or no port beside it.
@@ -217,8 +219,9 @@ Phases (any failure raises and ends the run with a non-zero code):
      (losses, the final pool and dense parameters); save them on the host
      and free the card;
  24. spawn 4 ranks on this card with the gloo backend (``run_ranks``: a
-     FileStore, the ``spawn`` start method; every collective staged through
-     host memory, counted and timed, so its times are not NVLink's); each
+     FileStore, the ``spawn`` start method; all_gathers of 1 MiB or more
+     through CUDA IPC, every other collective staged through host memory,
+     counted and timed, so its times are not NVLink's); each
      rank builds its slab of the pool and its rows of the store (padded to
      ``store_rows``) from the same seed;
  25. on every rank, rows 10-12 and the slab mode of rows 2 and 5 against
@@ -364,8 +367,34 @@ Phases (any failure raises and ends the run with a non-zero code):
      MoE layer, scout from one MoE layer): one warm step and 2 timed,
      each MoE layer's C and dropped assignments (its recompute routing
      alike); an arch that fits at no depth prints its reckoning and is
-     not run.  Then print one line per kernel, the ``kernels`` JSON line,
-     the card line, and last the result line.
+     not run;
+ 39. (the LMs served under a mesh, ``run_mesh_lm``, last) 4 gloo ranks
+     on the card, spawned as a (data=2, model=2) mesh whose world mesh is
+     the (1, 4) one, wait while the parent computes one-card oracles
+     (bf16, and the same weights upcast to float32: the twin the bf16 runs
+     are held to, beside one card's own distance from it); each rank's
+     int8 cache slab is filled from a seeded function of (layer, leaf,
+     position block, row block): (a) tinyllama-1.1b at 22 layers,
+     long_500k over all four ranks at (1, 4), 3 steps at cache_len
+     524,285..524,287; (b) decode_32k at (2, 2), B = 64 (the published
+     128 cut for four ranks on one card), 3 steps, then the LMServer over
+     16 prompts with float32 weights, its tokens equal to one card's but
+     at top-2 ties; (c) deepseek-v3-671b at 4 layers, (1, 4), 64 experts
+     a rank, decode_32k at the largest B of 128, 64, 32 whose reckoning
+     fits 72 GB, drop-free (the float32 MoE check at the config's C);
+     (d) llama4-scout at 4 layers, (2, 2), E over (data,
+     model), a prefill at B = 2, S = 1,024 (the full-mesh token ladder)
+     and 4 steps, drop-free; (e) the LMA token table at (1, 4) under
+     psum, ring and all_to_all, bit-equal to one card's row 2, launches
+     exact, rows 2, 4, 10 and 11 timed at its shapes.  Each step: layer
+     0's writes bit-equal to one card's, every write and the logits held
+     to the float32 twin (35b's bound, or 1.25 x one card's distance) over
+     the sequences whose MoE routes agree, the last layer's float32
+     attention within 1e-5 of a float64 evaluation over the whole layer,
+     and at the end each slab bit-equal to the seeded cache with exactly
+     the run's writes; a MoE layer in float32 within 1e-5 normwise of one
+     card's ``moe_apply``.  Then print one line per kernel, the
+     ``kernels`` JSON line, the card line, and last the result line.
 """
 from __future__ import annotations
 
@@ -3385,9 +3414,10 @@ def run_sharded(torch, dev, kernels, card: str, tmp: str) -> dict:
     sharded_oracle(torch, dev, kernels, check_batch, batches, path)
     log(f"spawning {SHARD_RANKS} ranks (world size {SHARD_RANKS}, mesh "
         f"data=1 x model={SHARD_RANKS}) on {torch.cuda.get_device_name(0)}"
-        " with the gloo backend: every collective is staged through host "
-        "memory (a gloo all-reduce over loopback), so the exchange times "
-        "below are host-staged, not NVLink's")
+        " with the gloo backend: all_gathers of 1 MiB or more go through "
+        "CUDA IPC, every other collective is staged through host memory "
+        "(gloo over loopback), so the exchange times below are host-staged, "
+        "not NVLink's")
     t0 = time.perf_counter()
     ranks = run_ranks(shard_rank, SHARD_RANKS, path, check_batch,
                       batches, backend="gloo", device="cuda:0")
@@ -3433,7 +3463,9 @@ def run_sharded(torch, dev, kernels, card: str, tmp: str) -> dict:
                     for name in ("sparse", "dense")}}
              for s in STRATEGIES}
     summary = {"ranks": SHARD_RANKS, "backend": "gloo",
-               "collectives": "host-staged (not NVLink)", "wall_s": wall,
+               "collectives": "all_gathers of 1 MiB or more through CUDA "
+                              "IPC, the rest host-staged (not NVLink)",
+               "wall_s": wall,
                "peak_gib": [r["peak_gib"] for r in ranks],
                "staged": ranks[0]["staged"],
                "staged_gib": ranks[0]["staged_gib"],
@@ -3461,7 +3493,7 @@ DIST_DATA = 2                   # the (data, model) mesh of phase 34a: (2, 2)
 DIST_STRATEGIES = ("psum", "all_to_all")
 DIST_STEPS = 4                  # per strategy, sparse and dense, at (2, 2)
 GUARD_STEPS = 2                 # after the demotion: auto, then psum-pinned
-LOSS_RTOL = 1e-5                # losses against the one-card oracle's
+LOSS_RTOL = 1e-5                # a loss against one card's from its state
 # a state at (2, 2) against the same state elsewhere, ||got - want|| /
 # ||want - start|| over each leaf (a wrong or missing update reads O(1)).
 # One step from a common state: the MLPs see half batches, so only the
@@ -3486,7 +3518,7 @@ def world_mesh(mesh):
 
     from repro_torch.dist.context import Mesh
     return Mesh(model=mesh.world, rank=mesh.world_rank, device=mesh.device,
-                group=dist.group.WORLD)
+                group=dist.group.WORLD, one_card=mesh.one_card)
 
 
 def planted_store(torch, e, dev):
@@ -3870,14 +3902,43 @@ def dist_checkpoint(torch, wmesh, cfg, model, bufs, batches, root, dev
     return out
 
 
+def one_card_loss(torch, mesh, one, model, batch, dev) -> float | None:
+    """The whole batch's loss on one card from this (data, model) rank's
+    state: the pool's slabs gathered over 'model' (every rank takes part)
+    and the dense parameters (the same on every rank) copied into
+    ``one``, a (cfg, model, bufs) built with no mesh (its D' store whole),
+    whose forward runs with no mesh installed, as one card runs it.  ->
+    the loss where ``one`` is given (world rank 0), else None."""
+    from repro_torch.dist import collectives as col
+    from repro_torch.models.recsys import loss_fn
+
+    with torch.no_grad():
+        pool = col.all_gather(model.embedding["memory"].detach(), mesh,
+                              "model")
+        if one is None:
+            return None
+        _cfg, twin, bufs = one
+        mine = dict(model.named_parameters())
+        for k, q in twin.named_parameters():
+            w = pool.reshape(-1, *q.shape[1:])[:q.shape[0]] \
+                if k == POOL else mine[k]
+            if w.shape != q.shape:
+                raise AssertionError(f"one-card loss: {k} {tuple(w.shape)} "
+                                     f"against {tuple(q.shape)}")
+            q.copy_(w)
+        return float(loss_fn(twin, on_card(torch, batch, dev), bufs)[0])
+
+
 def dist_data(torch, mesh, check_batch, batches, oracle, kernels, dev,
               root: str, loss2: float) -> dict:
     """34a at (data=2, model=2): dlrm-rm2's pool and D' store sharded over
     'model', each batch split over 'data'.  The 512 batch's lookup share
     bit-equal to the oracle's rows, its logits within LOSS_RTOL of the
     oracle's largest; sparse and dense Adagrad, DIST_STEPS steps each from
-    the seed's state under psum and all_to_all with exact launches, losses
-    within LOSS_RTOL of the one-card oracle's, the final slab and dense
+    the seed's state under psum and all_to_all with exact launches, each
+    step's loss within LOSS_RTOL of the one-card loss from the same state
+    (``one_card_loss``, on world rank 0; every rank's losses are
+    bit-equal, ``run_distribution``), the losses and the final slab and dense
     parameters within TRAJ_RTOL of the oracle's (its sparse run); then the
     (1, 4) checkpoint resumed here, bit-equal to the (1, 4) ranks' step-1
     state, and one step within LOSS_RTOL (loss) and STATE_RTOL (state) of
@@ -3928,6 +3989,8 @@ def dist_data(torch, mesh, check_batch, batches, oracle, kernels, dev,
     with torch.no_grad():
         init = {k: q.detach().clone() for k, q in params.items()}
     base, m_local = slab_of(mesh, cfg.embedding.lma.m)
+    # the one-card model each step's loss is held to (world rank 0)
+    one = build_model(torch, dev) if mesh.world_rank == 0 else None
     torch.cuda.reset_peak_memory_stats()
     for strategy in DIST_STRATEGIES:
         for name in ("sparse", "dense"):
@@ -3939,19 +4002,39 @@ def dist_data(torch, mesh, check_batch, batches, oracle, kernels, dev,
                               sparse=name == "sparse")
             zero(kernels)
             before = axis_snapshot(mesh)
-            t0 = time.perf_counter()
-            losses = run_steps(torch, tr, mesh, 0, DIST_STEPS)
-            wall = time.perf_counter() - t0
+            losses, common, side, wall = [], [], {}, 0.0
+            for k in range(DIST_STEPS):
+                # the one-card loss from this state (the slabs gathered
+                # into a model with no mesh), its launches set aside
+                c0 = counts(kernels)
+                common.append(one_card_loss(torch, mesh, one, model,
+                                            batches[k], dev))
+                for n_, v in counts(kernels).items():
+                    side[n_] = side.get(n_, 0) + v - c0.get(n_, 0)
+                t0 = time.perf_counter()
+                losses += run_steps(torch, tr, mesh, k, 1)
+                wall += time.perf_counter() - t0
             exl.FORCED = None
-            launched = counts(kernels)
+            launched = {n_: v - side.get(n_, 0)
+                        for n_, v in counts(kernels).items()
+                        if v - side.get(n_, 0)}
             want = {k: v * DIST_STEPS
                     for k, v in SHARD_STEP[strategy][name].items()}
             if launched != want:
                 raise AssertionError(f"(2, 2) {strategy} {name} launched "
                                      f"{launched}, expected {want}")
+            # each step's loss within LOSS_RTOL of the one-card loss from
+            # the same state; the trajectory, from the seed's state, within
+            # TRAJ_RTOL of the one-card oracle's (4 steps of rounding apart)
+            rel = max(abs(a - w) / abs(w) for a, w in zip(losses, common)) \
+                if one is not None else float("nan")
             ref = oracle["losses"][name]
-            rel = max(abs(a - w) / abs(w) for a, w in zip(losses, ref))
+            traj = max(abs(a - w) / abs(w) for a, w in zip(losses, ref))
             if not np.isfinite(losses).all() or rel > LOSS_RTOL:
+                raise AssertionError(f"(2, 2) {strategy} {name} losses "
+                                     f"{losses} against the one-card losses "
+                                     f"from the same states {common}")
+            if traj > TRAJ_RTOL:
                 raise AssertionError(f"(2, 2) {strategy} {name} losses "
                                      f"{losses} against one card's {ref}")
             # the last step's update, which no loss sees: the final slab
@@ -3967,6 +4050,7 @@ def dist_data(torch, mesh, check_batch, batches, oracle, kernels, dev,
                     TRAJ_RTOL)
             r = rec["train"][f"{strategy} {name}"] = {
                 "losses": losses, "loss_rel": rel, "launches": launched,
+                "common_losses": common, "traj_rel": traj,
                 "state_rel": state_rel, "wall_s": wall, **tr.throughput(),
                 "axes": axis_per_step(mesh, before, DIST_STEPS),
                 "pools": state_digest(torch, params, True),
@@ -3974,7 +4058,9 @@ def dist_data(torch, mesh, check_batch, batches, oracle, kernels, dev,
             B = batches[0]["label"].shape[0]
             log(f"34a (2, 2) {strategy} {name}: {DIST_STEPS} steps at "
                 f"B={B} ({B // mesh.data} a data index), "
-                f"losses within {rel:.3g} of one card's, the final state "
+                f"each loss within {rel:.3g} of the one-card loss from the "
+                f"same state (the trajectory {traj:.3g} from one card's), "
+                f"the final state "
                 f"within {state_rel[0]:.3g} ({state_rel[1]}) of its; "
                 f"{r['steps_per_sec']:.2f} steps/s; host-staged a step "
                 + ", ".join(f"{a} {v['s']:.3f} s / {v['gib']:.3f} GiB"
@@ -4019,7 +4105,7 @@ def dist_data(torch, mesh, check_batch, batches, oracle, kernels, dev,
         f"({rec['resumed_rel'][1]}) of that run's step-2 state")
     rec["axis_totals"] = {"bytes": dict(mesh.axis_bytes),
                           "s": dict(mesh.axis_s)}
-    del tr, model, bufs, init, params
+    del tr, model, bufs, init, params, one
     free(torch)
     return rec
 
@@ -4096,7 +4182,8 @@ def run_distribution(torch, card: str, shard: dict, tmp: str) -> dict:
     root = str(Path(tmp) / "dist-ckpt")
     log(f"34: spawning {SHARD_RANKS} ranks as a (data={DIST_DATA}, model="
         f"{SHARD_RANKS // DIST_DATA}) mesh on {torch.cuda.get_device_name(0)}"
-        " (gloo, every collective staged through host memory, not NVLink)")
+        " (gloo: all_gathers of 1 MiB or more through CUDA IPC, every other "
+        "collective staged through host memory, not NVLink)")
     t0 = time.perf_counter()
     ranks = run_ranks(dist_rank, SHARD_RANKS, shard["oracle"],
                       shard["check_batch"], shard["batches"], root,
@@ -4140,7 +4227,8 @@ def run_distribution(torch, card: str, shard: dict, tmp: str) -> dict:
     summary = {
         "mesh": f"data={DIST_DATA} x model={P} (and (1, {SHARD_RANKS}))",
         "ranks": SHARD_RANKS, "backend": "gloo",
-        "collectives": "host-staged (not NVLink)", "wall_s": wall,
+        "collectives": "all_gathers of 1 MiB or more through CUDA IPC, the "
+                       "rest host-staged (not NVLink)", "wall_s": wall,
         "peak_gib": [r["data"]["peak_gib"] for r in ranks],
         "train": {run: {k: t[k] for k in ("losses", "loss_rel", "state_rel",
                                           "steps_per_sec", "batch_sec",
@@ -4581,30 +4669,21 @@ def durability_launcher(torch, root: str, kernels, lma_auc: float,
     return out
 
 
-def run_durability(torch, cfg, model, bufs, gen, B, dev, kernels,
-                   lma_auc, card) -> dict:
-    """Phase 32 on full-width dlrm-rm2 with sparse Adagrad (every Trainer
-    starts from the phase's initial parameters, its own fresh optimizer
-    state): the guard, a checkpoint round trip, the chaos soak, the pool
-    scan, the CSR store, and the faulted launcher.  Checkpoints go to a
-    temporary directory under build/, removed at the end."""
-    import shutil
-    import tempfile
-
+def durability_maker(torch, cfg, model, bufs, B: int, batches, dev):
+    """-> (``make``, the parameters, their values now): ``make(reset,
+    timer, faults, **kw)`` is a Trainer of full-width dlrm-rm2 with sparse
+    Adagrad over ``batches``, every one from the values ``model`` holds
+    now (``reset``: copied back in first), its own fresh optimizer
+    state."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import lookups_per_step, make_optimizer
     from repro_torch.models.recsys import loss_fn
-    from repro_torch.resilience import faults as flt
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     arch = get_config("dlrm-rm2")
     params = dict(model.named_parameters())
     with torch.no_grad():
         init = {k: p.detach().clone() for k, p in params.items()}
-    t0 = time.perf_counter()
-    batches = HostBatches([gen.batch(B, s) for s in range(DUR_STEPS)])
-    log(f"durability: {DUR_STEPS} host batches of B={B:,} cached in "
-        f"{time.perf_counter() - t0:.1f} s")
 
     def make(reset: bool = True, timer: bool = False, faults=None, **kw):
         if reset:
@@ -4621,7 +4700,33 @@ def run_durability(torch, cfg, model, bufs, gen, B, dev, kernels,
                     on_phase=pt.mark if pt else None)
         t.timer = pt
         return t
+    return make, params, init
 
+
+def durability_batches(gen, B: int) -> HostBatches:
+    t0 = time.perf_counter()
+    batches = HostBatches([gen.batch(B, s) for s in range(DUR_STEPS)])
+    log(f"durability: {DUR_STEPS} host batches of B={B:,} cached in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return batches
+
+
+def run_durability(torch, cfg, model, bufs, gen, B, dev, kernels,
+                   lma_auc, card) -> dict:
+    """Phase 32 on full-width dlrm-rm2 with sparse Adagrad (every Trainer
+    starts from the phase's initial parameters, its own fresh optimizer
+    state): the guard, a checkpoint round trip, the CSR store, and the
+    faulted launcher; the chaos soak and the pool scan run aside
+    (``durability_aside``).  Checkpoints go to a temporary directory
+    under build/, removed at the end."""
+    import shutil
+    import tempfile
+
+    from repro_torch.resilience import faults as flt
+
+    batches = durability_batches(gen, B)
+    make, params, init = durability_maker(torch, cfg, model, bufs, B,
+                                          batches, dev)
     os.makedirs(ROOT / "build", exist_ok=True)
     root = tempfile.mkdtemp(prefix="durability-", dir=ROOT / "build")
     paths = {}
@@ -4630,11 +4735,6 @@ def run_durability(torch, cfg, model, bufs, gen, B, dev, kernels,
         paths["dlrm-rm2 durability guard skipped step"] = \
             guard["skipped"]["nan_grad"]["launches"]
         ckpt = durability_checkpoint(torch, make, root, card)
-        zero(kernels)
-        soak, last = durability_soak(torch, make, root, B, card)
-        paths["dlrm-rm2 durability soak"] = counts(kernels)
-        integrity = durability_integrity(torch, last, card)
-        del last
         csr = durability_csr(torch, cfg, model, bufs, batches.batch(B, 0),
                              dev, kernels, card)
         paths["dlrm-rm2 durability csr lookup"] = {"fused_embed": 1,
@@ -4648,8 +4748,37 @@ def run_durability(torch, cfg, model, bufs, gen, B, dev, kernels,
             for k, p in params.items():
                 p.copy_(init[k])
     return {"paths": paths, "summary": {
-        "guard": guard, "checkpoint": ckpt, "soak": soak,
-        "integrity": integrity, "csr": csr, "launcher": launch}}
+        "guard": guard, "checkpoint": ckpt, "csr": csr, "launcher": launch}}
+
+
+def durability_aside(torch, dev, kernels, card) -> dict:
+    """Phase 32's chaos soak and pool scan (parts c, d), run in a process
+    of their own (``Aside``) while the card runs phases 32-31: dlrm-rm2
+    built anew from the seed at full width, its soak from those values and
+    the scan of the soak's last Trainer.  -> their summaries and the
+    soak's launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs._recsys_common import RECSYS_SHAPE_TABLE
+    from repro_torch.resilience import faults as flt
+
+    B = RECSYS_SHAPE_TABLE["train_batch"]["batch"]
+    cfg, model, bufs = build_model(torch, dev)
+    make, _, _ = durability_maker(torch, cfg, model, bufs, B,
+                                  durability_batches(ctr_generator(cfg), B),
+                                  dev)
+    os.makedirs(ROOT / "build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="soak-", dir=ROOT / "build")
+    try:
+        zero(kernels)
+        soak, last = durability_soak(torch, make, root, B, card)
+        launches = counts(kernels)
+        integrity = durability_integrity(torch, last, card)
+    finally:
+        flt.install(None)
+        shutil.rmtree(root, ignore_errors=True)
+    return {"soak": soak, "integrity": integrity, "launches": launches}
 
 
 # ------------------------------------------------------------------ tiering
@@ -5263,6 +5392,68 @@ class HostDraws:
         self.tmp.cleanup()
 
 
+def run_aside(path: str, job: str) -> None:
+    """One ``Aside`` job in this (spawned) process: ``ASIDE_JOBS[job]`` on
+    the card, its result pickled into ``path`` (written whole, then
+    renamed); a failure leaves no file and a non-zero exit code."""
+    import pickle
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = ASIDE_JOBS[job](torch, torch.device("cuda"), shard_kernels(),
+                          card_line())
+    with open(path + ".part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(path + ".part", path)
+
+
+class Aside:
+    """A part of a phase whose time is host work (the chaos runs'
+    checkpoint writes, hashes and restores), run in a spawned process of
+    its own while the card runs the phases after it: ``take`` waits for
+    its result, ``close`` stops it.  It builds its model anew from the
+    seed and counts its own launches."""
+
+    def __init__(self, job: str):
+        import multiprocessing
+        import tempfile
+
+        os.makedirs(ROOT / "build", exist_ok=True)
+        self.job, self.t0 = job, time.time()
+        self.tmp = tempfile.TemporaryDirectory(prefix=f"aside-{job}-",
+                                               dir=ROOT / "build")
+        self.path = os.path.join(self.tmp.name, "out.pkl")
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=run_aside, args=(self.path, job), daemon=True)
+        self.proc.start()
+
+    def take(self) -> dict:
+        """-> the job's result, with the seconds from its start to its
+        result's writing (``seconds``, wall clock) and those the caller
+        waited for it (``waited``)."""
+        import pickle
+
+        t0 = time.perf_counter()
+        self.proc.join()
+        if self.proc.exitcode != 0 or not os.path.exists(self.path):
+            raise RuntimeError(f"the aside job {self.job} failed (exit code "
+                               f"{self.proc.exitcode})")
+        with open(self.path, "rb") as f:
+            out = pickle.load(f)
+        out["waited"] = time.perf_counter() - t0
+        out["seconds"] = os.path.getmtime(self.path) - self.t0
+        self.close()
+        return out
+
+    def close(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
+        self.tmp.cleanup()
+
+
 @contextlib.contextmanager
 def drawn_batches(table: dict):
     """Within: ``CTRGenerator.batch`` and ``DINGenerator.batch`` hand out
@@ -5339,10 +5530,8 @@ def run_tiering(torch, cfg, model, bufs, gen, dev, kernels, card,
     """Phase 33 (after phase 32, dlrm-rm2 with LMA and its D' store still on
     the card): (d) the distinct blocks of one planned LMA batch; hashed_row
     dlrm-rm2 tiered under TIER_BUDGET_MB: (a) checked training beside
-    resident dense steps, (b) durability; (c) DIN through the launcher."""
-    import shutil
-    import tempfile
-
+    resident dense steps, (c) DIN through the launcher; (b) durability
+    runs aside (``tiering_aside``)."""
     from repro_torch.configs import get_config
 
     arch = get_config("dlrm-rm2")
@@ -5361,20 +5550,9 @@ def run_tiering(torch, cfg, model, bufs, gen, dev, kernels, card,
         f" {lma['of']:,} {TIER_BLOCK}-slot blocks of the striped LMA pool "
         f"({lma['share']:.1%}; {lma['locations']:,} locations), "
         f"{row['blocks']:,} ({row['share']:.1%}) of hashed_row's; card {card}")
-    with torch.no_grad():
-        init = {k: q.detach().clone()
-                for k, q in hr_model.named_parameters()}
-    os.makedirs(ROOT / "build", exist_ok=True)
-    root = tempfile.mkdtemp(prefix="tiering-", dir=ROOT / "build")
-    try:
-        run = tiered_run(torch, arch, hr_cfg, hr_model, hr_bufs, batches,
-                         dev, kernels, card)
-        free(torch)
-        durable = tiered_durability(torch, arch, hr_cfg, hr_model, hr_bufs,
-                                    init, root, batches, dev, card)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    del hr_model, init
+    run = tiered_run(torch, arch, hr_cfg, hr_model, hr_bufs, batches, dev,
+                     kernels, card)
+    del hr_model
     free(torch)
     launch = tiered_launcher(torch, kernels, card, din_drawn)
     return {"paths": {"dlrm-rm2 tiered train": run["launches"]["tiered"],
@@ -5382,8 +5560,34 @@ def run_tiering(torch, cfg, model, bufs, gen, dev, kernels, card,
                           run["launches"]["resident"],
                       "din launcher tiered": launch["tiered"]["launches"]},
             "summary": {"blocks": {"lma": lma, "hashed_row": row},
-                        "train": run, "durability": durable,
-                        "launcher": launch}}
+                        "train": run, "launcher": launch}}
+
+
+def tiering_aside(torch, dev, kernels, card) -> dict:
+    """Phase 33's durability (part b), run in a process of its own
+    (``Aside``) while the card runs phases 32-31: hashed_row dlrm-rm2
+    built anew from the seed, its tiered clean and chaos runs from those
+    values over the phase's batches.  -> its summary."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    arch = get_config("dlrm-rm2")
+    gen = ctr_generator(arch.make_model())
+    batches = HostBatches([gen.batch(TIER_BATCH, s)
+                           for s in range(TIER_DUR_STEPS)])
+    hr_cfg, hr_model, hr_bufs = build_hashed_row(torch, dev)
+    with torch.no_grad():
+        init = {k: q.detach().clone()
+                for k, q in hr_model.named_parameters()}
+    os.makedirs(ROOT / "build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="tiering-", dir=ROOT / "build")
+    try:
+        return tiered_durability(torch, arch, hr_cfg, hr_model, hr_bufs,
+                                 init, root, batches, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ------------------------------------------------ the dense LM (phase 35)
@@ -7534,6 +7738,1431 @@ def run_lm_train(torch, dev, kernels, card, batches) -> dict:
 
 # -------------------------------------------------------------------- main
 
+# ------------------------------------- the LMs under a mesh (phase 39)
+
+# One spawn of MESH_RANKS gloo ranks on the card as a (data=MESH_DATA,
+# model=2) mesh; its world mesh is the (1, 4) one.  Each part holds the
+# meshed path to a one-card oracle computed in the parent before the spawn.
+MESH_RANKS, MESH_DATA = 4, 2
+MESH_DEVICE = "cuda:0"          # every rank on the one card
+LONG_L = 524_288                # long_500k: B = 1 (LM_SHAPE_TABLE)
+MESH_STEPS = 3                  # decode steps of 39a and 39b
+MESH_B, MESH_L = 64, 32_768     # 39b, decode_32k (published B = 128)
+MESH_SERVE_PROMPTS, MESH_SERVE_NEW = 16, 32      # 39b's LMServer, one wave
+MESH_SERVE_SLOTS = 16
+MESH_SERVE_LENS = (128, 512)
+MESH_MOE_BS = (128, 64, 32)     # 39c: the largest whose reckoning fits
+MESH_BUDGET_GB = 72.0           # of the card's 80 GB, for the four ranks
+CONTEXT_GB = 0.6                # a rank's CUDA context and allocator slack
+SCOUT_B, SCOUT_S, SCOUT_STEPS = 2, 1024, 4       # 39d
+MESH_LMA_B, MESH_LMA_S, MESH_LMA_STEPS = 4, 512, 4   # 39e: 2,048 tokens
+CACHE_BLOCK, CACHE_ROWS = 4096, 16   # a seeded piece of a cache layer
+F32_TOL = 1e-5                  # attention (of max |o|), the MoE (normwise)
+# the meshed bf16 logits' distance from the float32 weights' at most this
+# many times the one-card bf16 run's where 35b's bound holds neither: at
+# decode_32k's B = 64 one card's own reads 0.19 (NVIDIA H100 80GB HBM3,
+# 700.00 W), past its atol of 0.15
+MESH_NOISE = 1.25
+TWIN_BLOCK = 8192               # tinyllama's float32 twin: KV blocks
+TIE = 1e-4                      # a server's parting step: a top-2 tie
+# 39e's launches of one embed_tokens call under each strategy (rank 0):
+# psum's slab lookup (row 2); ring's chunk lookup and three visiting-chunk
+# gathers (rows 10, 11); all_to_all's chunk locations and one gather
+# (rows 4, 11)
+MESH_LMA_ONE = {"fused_embed": 1}     # one card's lookup: row 2
+MESH_LMA_LAUNCHES = {s: {k: v for k, v in f.items() if k != "dot_interaction"}
+                     for s, f in SHARD_FORWARD.items()}
+
+
+def seeded_piece(torch, per: tuple, layer: int, leaf: int, j: int, r: int,
+                 rows: int, n: int, dev):
+    """Rows ``[r * R, r * R + rows)`` and positions ``[j * CACHE_BLOCK,
+    + n)`` of cache leaf ``leaf`` of ``layer``: bf16 normals from a seed of
+    (layer, leaf, position block, row block), quantized -> (int8, scale)."""
+    from repro_torch.nn.attention import quantize_kv
+
+    seed = ((((SEED + 39) * 256 + layer) * 4 + leaf) * 2**16 + j) * 2**16 + r
+    gen = torch.Generator(device=dev).manual_seed(seed % 2**63)
+    return quantize_kv(torch.randn((rows, n, *per), generator=gen, device=dev,
+                                   dtype=torch.bfloat16))
+
+
+def seeded_pieces(cfg, B: int, L: int, slab):
+    """The pieces of the seeded [B, L] cache that meet ``slab`` ((b0, b1),
+    (lo, hi)): (group, layer in group, layer, leaf index, name, per, j, r,
+    piece rows, piece positions, the slab's rows, the slab's positions)."""
+    from repro_torch.models.transformer import _cache_leaves
+
+    (b0, b1), (lo, hi) = slab
+    R = min(CACHE_ROWS, B)
+    layer = 0
+    for gi, (_kind, count) in enumerate(cfg.layer_groups()):
+        for li in range(count):
+            for ni, (name, per) in enumerate(_cache_leaves(cfg).items()):
+                for j in range(lo // CACHE_BLOCK, -(-hi // CACHE_BLOCK)):
+                    p0, p1 = j * CACHE_BLOCK, min((j + 1) * CACHE_BLOCK, L)
+                    for r in range(b0 // R, -(-b1 // R)):
+                        r0, r1 = r * R, min((r + 1) * R, B)
+                        a0, a1 = max(r0, b0), min(r1, b1)
+                        c0, c1 = max(p0, lo), min(p1, hi)
+                        yield (gi, li, layer + li, ni, name, per, j, r,
+                               (slice(a0 - r0, a1 - r0),
+                                slice(c0 - p0, c1 - p0)),
+                               (slice(a0 - b0, a1 - b0),
+                                slice(c0 - lo, c1 - lo)), r1 - r0, p1 - p0)
+        layer += count
+
+
+def fill_seeded(torch, cfg, cache, B: int, L: int, slab, dev) -> None:
+    """Write the seeded cache's ``slab`` rows and positions into ``cache``
+    (a rank's slab, or with the whole slab the one-card cache)."""
+    for (gi, li, layer, ni, name, per, j, r, (pr, pp), (sr, sp), rows,
+         n) in seeded_pieces(cfg, B, L, slab):
+        q, s = seeded_piece(torch, per, layer, ni, j, r, rows, n, dev)
+        c = cache[f"layers_{gi}"]
+        c[name][li, sr, sp] = q[pr, pp]
+        c[f"{name}_scale"][li, sr, sp] = s[pr, pp]
+
+
+def seeded_held(torch, cfg, cache, B: int, L: int, slab, writes: dict,
+                dev, what: str) -> None:
+    """Every element of a rank's slab bit-equal to the seeded cache's,
+    but at the positions in ``writes`` ({pos: {layer: {name: (q, s)}}}, the
+    whole batch's new entries), which it must hold instead: nothing else
+    written, and each write on the slab that owns its position."""
+    (b0, b1), (lo, hi) = slab
+    for (gi, li, layer, ni, name, per, j, r, (pr, pp), (sr, sp), rows,
+         n) in seeded_pieces(cfg, B, L, slab):
+        q, s = seeded_piece(torch, per, layer, ni, j, r, rows, n, dev)
+        q, s = q[pr, pp].clone(), s[pr, pp].clone()
+        c0 = sp.start + lo
+        for pos, w in writes.items():
+            if c0 <= pos < c0 + q.shape[1]:
+                wq, ws = w[layer][name]
+                q[:, pos - c0] = wq[b0 + sr.start:b0 + sr.stop].to(dev)
+                s[:, pos - c0] = ws[b0 + sr.start:b0 + sr.stop].to(dev)
+        c = cache[f"layers_{gi}"]
+        if not (torch.equal(c[name][li, sr, sp], q)
+                and bits_equal(torch, c[f"{name}_scale"][li, sr, sp], s)):
+            raise AssertionError(f"{what}: layer {layer} {name} rows "
+                                 f"{b0 + sr.start}.. positions {c0}.. differ "
+                                 "from the seeded cache with this run's "
+                                 "writes")
+
+
+def written_entries(cache, cfg, pos: int) -> dict:
+    """{layer: {name: (q, s)}}: a cache's entries at ``pos`` (on the
+    host)."""
+    from repro_torch.models.transformer import _cache_leaves
+
+    out, layer = {}, 0
+    for gi, (_kind, count) in enumerate(cfg.layer_groups()):
+        c = cache[f"layers_{gi}"]
+        for li in range(count):
+            out[layer + li] = {
+                name: (c[name][li, :, pos].to("cpu", copy=True),
+                       c[f"{name}_scale"][li, :, pos].to("cpu", copy=True))
+                for name in _cache_leaves(cfg)}
+        layer += count
+    return out
+
+
+@contextlib.contextmanager
+def flash_tap(torch, cfg, rec: dict):
+    """Within (a rank): each ``sharded_flash_decode`` call's new entries are
+    kept by layer in ``rec["writes"][pos]`` (the whole batch's, on the
+    host), and the last layer's call is made once more with a float32
+    query (its output before the cast; the write repeats the same bits):
+    ``rec["last"][pos] = (q, o32)``."""
+    from repro_torch.dist import flash_decode as fd
+
+    orig = fd.sharded_flash_decode
+    names = ("ckv",) if cfg.attention == "mla" else ("k", "v")
+    n_layers = cfg.n_layers
+    state = {"n": 0}
+
+    def tapped(q, k_cache, v_cache, k_new, v_new, cache_len, **kw):
+        layer = state["n"] % n_layers
+        state["n"] += 1
+        out = orig(q, k_cache, v_cache, k_new, v_new, cache_len, **kw)
+        pos = min(int(cache_len), int(kw["length"]) - 1)
+        news = ((k_new, kw.get("k_scale_new")),
+                (v_new, kw.get("v_scale_new")))
+        rec["writes"].setdefault(pos, {})[layer] = {
+            n: (v[:, 0].cpu(), s[:, 0].cpu()) for n, (v, s) in
+            zip(names, news)}
+        if cfg.attention == "mla":          # [B, 1, 1, w] -> [B, w]
+            rec["writes"][pos][layer] = {"ckv": tuple(
+                x[:, 0] for x in rec["writes"][pos][layer]["ckv"])}
+        if layer == n_layers - 1:
+            o32 = orig(q.float(), k_cache, v_cache, k_new, v_new, cache_len,
+                       **kw)
+            rec["last"][pos] = (q.float().cpu(), o32.cpu())
+        return out
+    fd.sharded_flash_decode = tapped
+    try:
+        yield rec
+    finally:
+        fd.sharded_flash_decode = orig
+
+
+def plain_decode_attention(torch, cfg, q, cache_leaf: dict, pos: int,
+                           rows: int = 4):
+    """The last layer's decode attention in float64 over a whole int8
+    cache layer (``{name: (q, s)}`` after this step's write), every row
+    below ``pos + 1`` valid: [B, 1, H, vd]."""
+    import torch.nn.functional as F
+
+    if cfg.attention == "mla":
+        kq, ks = cache_leaf["ckv"]
+        kq, ks = kq[:, :, None], ks[:, :, None]
+        vq, vs = kq[..., :cfg.mla.kv_lora_rank], ks
+        scale = 1.0 / np.sqrt(cfg.mla.qk_dim)
+    else:
+        (kq, ks), (vq, vs) = cache_leaf["k"], cache_leaf["v"]
+        scale = 1.0 / np.sqrt(cfg.hd)
+    B, L, KV = kq.shape[:3]
+    H = q.shape[2]
+    n = pos + 1
+    outs = []
+    for a in range(0, B, rows):
+        k = kq[a:a + rows, :n].double() * ks[a:a + rows, :n, :, None].double()
+        v = vq[a:a + rows, :n].double() * vs[a:a + rows, :n, :, None].double()
+        qq = q[a:a + rows, 0].double().reshape(-1, KV, H // KV, q.shape[-1])
+        s = torch.einsum("bkgh,btkh->bkgt", qq * scale, k)
+        o = torch.einsum("bkgt,btkd->bkgd", F.softmax(s, dim=-1), v)
+        outs.append(o.reshape(o.shape[0], 1, H, v.shape[-1]))
+        del k, v, s
+    return torch.cat(outs)
+
+
+def seeded_layer(torch, cfg, layer: int, B: int, L: int, writes: dict,
+                 dev) -> dict:
+    """One layer of the seeded [B, L] cache, whole, with ``writes``."""
+    from repro_torch.models.transformer import _cache_leaves
+
+    layer_leaves = {}
+    for ni, (name, per) in enumerate(_cache_leaves(cfg).items()):
+        q = torch.empty((B, L, *per), dtype=torch.int8, device=dev)
+        s = torch.empty((B, L, *per[:-1]), dtype=torch.float32, device=dev)
+        layer_leaves[name] = (q, s)
+    for (gi, li, lay, ni, name, per, j, r, (pr, pp), (sr, sp), rows,
+         n) in seeded_pieces(cfg, B, L, ((0, B), (0, L))):
+        if lay != layer:
+            continue
+        pq, ps = seeded_piece(torch, per, lay, ni, j, r, rows, n, dev)
+        layer_leaves[name][0][sr, sp] = pq[pr, pp]
+        layer_leaves[name][1][sr, sp] = ps[pr, pp]
+    for pos, w in writes.items():
+        for name, (wq, ws) in w[layer].items():
+            layer_leaves[name][0][:, pos] = wq.to(dev)
+            layer_leaves[name][1][:, pos] = ws.to(dev)
+    return layer_leaves
+
+
+def route_ok(torch, cfg, mine: list, theirs: list, B: int):
+    """Which tokens took the same experts in two runs at every MoE layer
+    before each layer: ``mine`` and ``theirs`` each MoE call's ``top_i``
+    [B * n, k], in layer order -> [n_layers + 1, B, n] bool (row
+    ``n_layers``: all of them).  A token whose experts part at a layer (a
+    near-tied router swapped them: no fault) holds other values from the
+    next layer on, so its later cache entries and logits are not held."""
+    n = mine[0].shape[0] // B if mine else 1
+    ok = torch.ones((B, n), dtype=torch.bool)
+    out = [ok.clone()]
+    for layer in range(1, cfg.n_layers + 1):
+        i = layer - 1 - cfg.first_k_dense     # the MoE call of layer - 1
+        if cfg.moe is not None and 0 <= i < len(mine):
+            a = mine[i].cpu().sort(-1).values
+            b = theirs[i].cpu().sort(-1).values
+            ok &= (a == b).all(-1).reshape(B, n)
+        out.append(ok.clone())
+    return torch.stack(out)
+
+
+def calls_top_i(torch, cfg, xs: list) -> list:
+    """Each recorded MoE call's (module, whole-batch x) -> its ``top_i``."""
+    from repro_torch.nn import moe
+    return [moe.route(p, cfg.moe, x)[2].cpu() for p, x in xs]
+
+
+def held_close(torch, got, want, what: str, one_err: float) -> float:
+    """``got`` within the int8 bound of the float32 twin's ``want`` (rtol
+    0.1, atol 0.15), or no farther from it than MESH_NOISE times the
+    one-card bf16 run's ``one_err`` -> the largest |err| (0 when empty)."""
+    if got.numel() == 0:
+        return 0.0
+    g, w = got.float(), want.float().to(got.device)
+    err = float((g - w).abs().max())
+    if torch.allclose(g, w, rtol=INT8_RTOL, atol=INT8_ATOL) or \
+            err <= MESH_NOISE * one_err:
+        return err
+    raise AssertionError(f"{what}: max |err| {err:.4g} outside rtol "
+                         f"{INT8_RTOL}, atol {INT8_ATOL}, and over "
+                         f"{MESH_NOISE} x one card's bf16 {one_err:.4g}")
+
+
+def logits_held(torch, got, want, what: str, rows, one_err: float) -> float:
+    """The rows' logits against the float32 twin's: each row's top-1 among
+    its top-5, and ``held_close``."""
+    g, w = got.float()[rows], want.float().to(got.device)[rows]
+    if g.numel():
+        top5 = torch.topk(w, INT8_TOPK, dim=-1).indices
+        if not bool((top5 == g.argmax(-1)[:, None]).any(-1).all()):
+            raise AssertionError(f"{what}: a row's top-1 is not among the "
+                                 "float32 twin's top-5")
+    return held_close(torch, g, w, what, one_err)
+
+
+def deq(q, s):
+    """An int8 cache entry (or slab) dequantized to float32."""
+    return q.float() * s[..., None].float().to(q.device)
+
+
+@contextlib.contextmanager
+def cast_experts(torch, *shared):
+    """Within: the MoE's expert stacks evaluated in their input's dtype,
+    a bf16 stack cast to float32 one expert at a time (no float32 copy of
+    a whole stack: deepseek-v3's are 7.5 GB each in bf16), and each module
+    of ``shared`` (a shared expert of a bf16 model) upcast, its weights
+    restored on the way out."""
+    from repro_torch.nn import moe
+
+    plain = moe._expert_ffn
+
+    def ffn(w_gate, w_up, w_down, xe):
+        if w_gate.dtype == xe.dtype:
+            return plain(w_gate, w_up, w_down, xe)
+        return torch.cat([plain(*(w[e:e + 1].to(xe.dtype)
+                                  for w in (w_gate, w_up, w_down)),
+                                xe[e:e + 1]) for e in range(xe.shape[0])])
+    held = [(q, q.data) for m in shared for q in m.parameters()]
+    moe._expert_ffn = ffn
+    try:
+        for q, w in held:
+            q.data = w.float()
+        yield
+    finally:
+        moe._expert_ffn = plain
+        for q, w in held:
+            q.data = w
+
+
+def float32_twin(torch, cfg, model, attn_block: int | None = None):
+    """``model`` turned in place into its float32 twin: every parameter
+    upcast (the same values) but the expert stacks, which ``cast_experts``
+    casts an expert at a time; -> its config (with ``attn_block``, longer
+    KV blocks: the same sums in another order, a shorter loop)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if not re.search(r"moe\.w_(gate|up|down)$", name):
+                p.data = p.data.float()
+    return dataclasses.replace(cfg, dtype="float32",
+                               attn_block=attn_block or cfg.attn_block)
+
+
+def one_card_noise(torch, cfg, bf: dict, tw: dict, B: int) -> dict:
+    """The one-card bf16 run against its float32 twin, step by step: the
+    sequences whose routes agree before each layer (``ok32``, [n_layers +
+    1, B]), and over those the largest |err| of the logits and of the
+    written entries (dequantized): the bf16 noise one card carries."""
+    out = {"ok32": [], "logit_err": [], "write_err": []}
+    for t, pos in enumerate(bf["writes"]):
+        ok = route_ok(torch, cfg, [c["top_i"] for c in bf["moe"][t]],
+                      [c["top_i"] for c in tw["moe"][t]], B)[:, :, 0]
+        rows = ok[-1]
+        le = float((bf["logits"][t].float() - tw["logits"][t].float())[
+            rows].abs().max()) if bool(rows.any()) else 0.0
+        we = 0.0
+        for layer, leaves in bf["writes"][pos].items():
+            m = ok[layer]
+            for name, (q, sc) in leaves.items():
+                d = (deq(q, sc) - deq(*tw["writes"][pos][layer][name]))[m]
+                if d.numel():
+                    we = max(we, float(d.abs().max()))
+        out["ok32"].append(ok)
+        out["logit_err"].append(le)
+        out["write_err"].append(we)
+    return out
+
+
+def mesh_reckoning(torch, cfg, B: int, L: int, mesh_shape: tuple) -> dict:
+    """A rank's reckoned peak (GB) at (data, model) = ``mesh_shape``: its
+    share of the parameters (a model built on the meta device for rank 0),
+    its cache slab, the decode's float32 block temporaries (a K block and
+    its V, three [B_l, H, block] score tiles) and the logits; the MoE's
+    in-body gather of one layer's experts over 'data'; and a context."""
+    from repro_torch.dist.context import Mesh
+    from repro_torch.dist.flash_decode import cache_split
+    from repro_torch.models import transformer as tt
+
+    D, M = mesh_shape
+    mesh = Mesh(model=M, data=D)
+    with torch.device("meta"):
+        model = tt.Transformer(cfg, torch.Generator(), torch.device("meta"),
+                               mesh=mesh)
+    share = sum(p.numel() * p.element_size() for p in model.parameters())
+    (b0, b1), (lo, hi) = cache_split(mesh, ("data",), B, L)
+    slab = (b1 - b0) * (hi - lo) * tt.cache_bytes_per_token(cfg)
+    width = sum(int(np.prod(s)) for s in tt._cache_leaves(cfg).values())
+    blk = cfg.attn_block
+    temps = 4 * (b1 - b0) * blk * (2 * width + 3 * cfg.n_heads) \
+        + 4 * B * cfg.vocab_size
+    gather = 0
+    if cfg.moe is not None and D > 1:
+        m = cfg.moe
+        gather = 3 * m.n_experts // M * cfg.d_model * m.d_ff * 2
+    per = (share + slab + temps + gather) / 1e9 + CONTEXT_GB
+    return {"share_gb": share / 1e9, "slab_gb": slab / 1e9,
+            "temps_gb": (temps + gather) / 1e9, "rank_gb": per,
+            "total_gb": per * D * M}
+
+
+def reckon_line(what: str, r: dict) -> str:
+    return (f"{what}: reckoned {r['rank_gb']:.2f} GB a rank (share "
+            f"{r['share_gb']:.2f}, cache slab {r['slab_gb']:.2f}, "
+            f"temporaries {r['temps_gb']:.2f}, context {CONTEXT_GB}), "
+            f"{r['total_gb']:.2f} GB over {MESH_RANKS} ranks")
+
+
+def staged_per_step(mesh, before: dict, steps: int) -> dict:
+    """Host-staged seconds a step by collective since ``before``."""
+    return {k: (mesh.staged_s[k] - before.get(k, 0.0)) / steps
+            for k in mesh.staged_s if mesh.staged_s[k] != before.get(k, 0.0)}
+
+
+def oracle_decode(torch, cfg, model, B: int, L: int, first: int,
+                  steps: int, dev) -> dict:
+    """One card: the seeded [B, L] cache, ``steps`` decode steps of seeded
+    tokens at cache_len ``first``..; -> the tokens, each step's logits,
+    written entries and MoE calls (their x and ``top_i``)."""
+    from repro_torch.models import transformer as tt
+
+    cache = tt.init_cache(cfg, B, L, dev)
+    fill_seeded(torch, cfg, cache, B, L, ((0, B), (0, L)), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 391)
+    toks = torch.randint(0, cfg.vocab_size, (steps, B), generator=gen,
+                         device=dev, dtype=torch.int32)
+    out = {"tokens": toks.cpu(), "logits": [], "writes": {}, "moe": [],
+           "ms": []}
+    with torch.no_grad():
+        for t in range(steps):
+            pos = first + t
+            calls = []
+            with moe_calls(torch, calls, keep=True):
+                (logits, _), ms = events_ms(torch, lambda: tt.decode_step(
+                    model, cfg, toks[t], cache, pos))
+            out["ms"].append(ms)
+            out["logits"].append(logits.cpu())
+            out["writes"][min(pos, L - 1)] = written_entries(cache, cfg,
+                                                             min(pos, L - 1))
+            out["moe"].append([{k: (v.cpu() if hasattr(v, "cpu") else v)
+                                for k, v in c.items() if k != "logits"}
+                               for c in calls])
+    del cache
+    return out
+
+
+def rank_decode(torch, mesh, cfg, model, B: int, L: int, oracle: dict,
+                first: int, dev, what: str) -> dict:
+    """A rank: its slab of the seeded cache, the oracle's tokens decoded at
+    ``first``..; each step's writes: layer 0's bit-equal to the one-card
+    oracle's (the same inputs), every layer's held to the float32 twin's
+    (``held_close``); the logits to the twin's (``logits_held``), over the
+    sequences whose MoE routes agree with both one-card runs' (3 in 4 at
+    least); the last layer's float32 attention to a float64 evaluation
+    over the whole layer (rank 0); the slab at the end bit-equal to the
+    seeded one with exactly this run's writes."""
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.models import transformer as tt
+    from repro_torch.nn import moe
+
+    steps = len(oracle["logits"])
+    with use_mesh(mesh):
+        cache = tt.init_cache(cfg, B, L, dev)
+        slab = tt.cache_slab(B, L)
+    t0 = time.perf_counter()
+    fill_seeded(torch, cfg, cache, B, L, slab, dev)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    rec = {"writes": {}, "last": {}}
+    ms, errs, agree, moe_ms = [], [], [], []
+    before = dict(mesh.staged_s)
+    with torch.no_grad(), flash_tap(torch, cfg, rec), use_mesh(mesh):
+        for t in range(steps):
+            pos = first + t
+            xs = []
+            sharded = moe.moe_apply_sharded
+
+            def keep(p, c, x, *a, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = sharded(p, c, x, *a, **kw)
+                end.record()
+                xs.append((p, x, (start, end)))
+                return out
+            moe.moe_apply_sharded = keep
+            try:
+                (logits, _), t_ms = events_ms(torch, lambda: tt.decode_step(
+                    model, cfg, oracle["tokens"][t].to(dev), cache, pos,
+                    length=L))
+            finally:
+                moe.moe_apply_sharded = sharded
+            ms.append(t_ms)
+            moe_ms.append(sum(s.elapsed_time(e) for _, _, (s, e) in xs))
+            wpos = min(pos, L - 1)
+            ok = route_ok(torch, cfg, calls_top_i(torch, cfg,
+                                                  [(p, x) for p, x, _ in xs]),
+                          [c["top_i"] for c in oracle["moe"][t]], B)[:, :, 0]
+            agree.append(int(ok[-1].sum()))
+            ok32 = oracle["ok32"][t]
+            got_w, want_w = rec["writes"][wpos], oracle["writes"][wpos]
+            werr = 0.0
+            for layer, leaves in want_w.items():
+                m = ok[layer] & ok32[layer]
+                for name, (wq, ws) in leaves.items():
+                    gq, gs = got_w[layer][name]
+                    if layer == 0 and not (torch.equal(gq, wq) and
+                                           bits_equal(torch, gs, ws)):
+                        raise AssertionError(f"{what} step {t}: layer 0's "
+                                             f"written {name} differs from "
+                                             "the oracle's")
+                    tq, ts = oracle["writes32"][wpos][layer][name]
+                    werr = max(werr, held_close(
+                        torch, deq(gq, gs)[m], deq(tq, ts)[m],
+                        f"{what} step {t}: layer {layer}'s written {name} "
+                        "(dequantized)", oracle["write_err"][t]))
+            rows = (ok[-1] & ok32[-1]).nonzero()[:, 0].to(dev)
+            errs.append((logits_held(torch, logits, oracle["logits32"][t],
+                                     f"{what} step {t} logits", rows,
+                                     oracle["logit_err"][t]), werr))
+            if mesh.world_rank == 0:
+                q, o32 = rec["last"][wpos]
+                layer = seeded_layer(torch, cfg, cfg.n_layers - 1, B, L,
+                                     {p: w for p, w in rec["writes"].items()},
+                                     dev)
+                ref = plain_decode_attention(torch, cfg, q.to(dev), layer,
+                                             pos)
+                scale = float(ref.abs().max())
+                a_err = float((o32.to(dev).double() - ref).abs().max())
+                del layer, ref
+                if a_err > F32_TOL * scale:
+                    raise AssertionError(f"{what} step {t}: the last layer's "
+                                         f"float32 attention {a_err:.3g} "
+                                         f"from float64's (max {scale:.3g})")
+                errs[-1] = errs[-1] + (a_err / scale,)
+    staged = staged_per_step(mesh, before, steps)
+    if sum(agree) * 4 < 3 * B * steps:
+        raise AssertionError(f"{what}: MoE routes agree for {agree} of {B} "
+                             "sequences a step")
+    seeded_held(torch, cfg, cache, B, L, slab, rec["writes"], dev, what)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del cache
+    return {"ms": ms, "median_ms": float(np.median(ms)), "errs": errs,
+            "staged_s": staged, "fill_s": fill_s, "slab": slab,
+            "peak_gb": peak, "agree": agree, "moe_ms": moe_ms,
+            "x": [x for _, x, _ in xs]}
+
+
+def twin_decode(torch, cfg, model, runs: dict, dev,
+                attn_block: int | None = None) -> dict:
+    """Each (key: (B, L)) of ``runs`` decoded on one card with ``model``
+    (bf16), then with its float32 twin (the same steps from the same
+    seeded cache), the twin's logits and writes and the bf16 run's noise
+    against it beside the bf16 run's.  ``model`` ends as the twin."""
+    out = {k: oracle_decode(torch, cfg, model, B, L, L - MESH_STEPS,
+                            MESH_STEPS, dev) for k, (B, L) in runs.items()}
+    free(torch)
+    cfg32 = float32_twin(torch, cfg, model, attn_block)
+    for k, (B, L) in runs.items():
+        with cast_experts(torch):
+            tw = oracle_decode(torch, cfg32, model, B, L, L - MESH_STEPS,
+                               MESH_STEPS, dev)
+        out[k].update(logits32=tw["logits"], writes32=tw["writes"],
+                      **one_card_noise(torch, cfg, out[k], tw, B))
+        for c in out[k]["moe"]:
+            for call in c:
+                call.pop("x", None)
+        free(torch)
+    return out
+
+
+def mesh_long(torch, dev, card) -> dict:
+    """39a's and 39b's oracles (tinyllama-1.1b on one card, bf16 and its
+    float32 twin), and 39b's LMServer over 16 prompts with float32
+    weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.serve import LMServer
+
+    cfg = get_config(LM_ARCH).make_model()
+    model = tt.init(cfg, seed=SEED, device=dev).eval()
+    out = twin_decode(torch, cfg, model, {"long": (1, LONG_L),
+                                          "decode": (MESH_B, MESH_L)}, dev,
+                      attn_block=TWIN_BLOCK)
+    del model
+    free(torch)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    model = tt.init(f32, seed=SEED, device=dev).eval()     # the server's
+    rng = np.random.default_rng(SEED + 39)
+    lens = rng.integers(MESH_SERVE_LENS[0], MESH_SERVE_LENS[1],
+                        MESH_SERVE_PROMPTS)
+    lens[0] = MESH_SERVE_LENS[1]                 # pad_to = 544: 4 divides it
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in lens]
+    gaps = []                       # token t's top-2 gap: its logits'
+    saved = {n: getattr(tt, n) for n in ("prefill", "decode_step")}
+
+    def rec_gap(fn):
+        def call(*a, **kw):
+            logits, c = fn(*a, **kw)
+            top = torch.topk(logits.float(), 2, dim=-1).values
+            gaps.append((top[:, 0] - top[:, 1]).cpu())
+            return logits, c
+        return call
+    server = LMServer(model, f32, n_slots=MESH_SERVE_SLOTS,
+                      max_len=MESH_SERVE_LENS[1] + MESH_SERVE_NEW)
+    for n, fn in saved.items():
+        setattr(tt, n, rec_gap(fn))
+    try:
+        served = server.generate(prompts, max_new_tokens=MESH_SERVE_NEW)
+    finally:
+        for n, fn in saved.items():
+            setattr(tt, n, fn)
+    out["serve"] = {"prompts": prompts, "tokens": [r.tokens for r in served],
+                    "gaps": gaps}
+    del model, server
+    free(torch)
+    return out
+
+
+def mesh_moe_oracle(torch, arch: str, dev, B: int, L: int) -> dict:
+    """39c's oracle: deepseek-v3 at MOE_LAYERS on one card, MESH_STEPS
+    decode steps on the seeded cache at the drop-free capacity (as 37b:
+    which token an expert's capacity drops follows bits a merge order
+    moves), bf16 and its float32 twin; the MoE layer in float32 on step
+    0's input at the config's capacity (``moe_apply``, the bf16 experts
+    cast an expert at a time), its C and drops."""
+    from repro_torch.nn import moe
+
+    cfg, model, _info = moe_model(torch, arch, dev, card_line())
+    layer = [blk for g in model.groups() for blk in g][-1]
+    out = oracle_decode(torch, drop_free(cfg), model, B, L, L - MESH_STEPS,
+                        MESH_STEPS, dev)
+    x = out["moe"][0][-1]["x"].to(dev)
+    with torch.no_grad(), cast_experts(torch, layer.moe.shared):
+        stats = {}
+        y, aux = moe.moe_apply(layer.moe, cfg.moe, x.float(), stats=stats)
+    f32 = {"x": x.cpu(), "y": y.cpu(), "C": stats["C"], "aux": float(aux),
+           "dropped": int(moe.dropped(stats["load"], stats["C"]))}
+    del x, y, out
+    free(torch)
+    out = twin_decode(torch, drop_free(cfg), model, {"ds": (B, L)},
+                      dev)["ds"]
+    out["moe_f32"] = f32
+    del model, layer
+    free(torch)
+    return out
+
+
+def scout_run(torch, cfg, model, prompt, steps, dev) -> dict:
+    """A prefill of ``prompt`` into a cache of SCOUT_S + SCOUT_STEPS rows,
+    then the decode steps: the logits, the cache after each (on the host)
+    and each MoE call's x and ``top_i``."""
+    from repro_torch.models import transformer as tt
+
+    cache = tt.init_cache(cfg, SCOUT_B, SCOUT_S + SCOUT_STEPS, dev)
+    out = {"logits": [], "caches": [], "moe": []}
+    with torch.no_grad():
+        for t in range(SCOUT_STEPS + 1):
+            calls = []
+            with moe_calls(torch, calls, keep=True):
+                if t == 0:
+                    logits, _ = tt.prefill(model, cfg, prompt, cache=cache)
+                else:
+                    logits, _ = tt.decode_step(model, cfg, steps[t - 1],
+                                               cache, SCOUT_S + t - 1)
+            out["logits"].append(logits.cpu())
+            out["caches"].append({g: {k: v.to("cpu", copy=True)
+                                      for k, v in c.items()}
+                                  for g, c in cache.items()})
+            out["moe"].append([{"top_i": c["top_i"].cpu(), "x": c["x"]}
+                               for c in calls])
+    del cache
+    return out
+
+
+def scout_noise(torch, cfg, bf: dict, tw: dict) -> dict:
+    """Scout's one-card bf16 run against its float32 twin, step by step:
+    the entries (layer, sequence, position) whose token's routes agree
+    before their layer (``held32`` [n_layers, B, L], cumulative), the last
+    tokens whose routes agree at every layer (``ok32``), and over those the
+    largest |err| of the caches (layers past 0, dequantized) and logits."""
+    L = SCOUT_S + SCOUT_STEPS
+    held = torch.zeros((cfg.n_layers, SCOUT_B, L), dtype=torch.bool)
+    out = {"held32": [], "ok32": [], "logit_err": [], "cache_err": []}
+    for t in range(SCOUT_STEPS + 1):
+        ok = route_ok(torch, cfg, [c["top_i"] for c in bf["moe"][t]],
+                      [c["top_i"] for c in tw["moe"][t]], SCOUT_B)
+        at = slice(0, SCOUT_S) if t == 0 else slice(SCOUT_S + t - 1,
+                                                    SCOUT_S + t)
+        held[:, :, at] = ok[:cfg.n_layers]
+        rows = ok[-1, :, -1]
+        le = float((bf["logits"][t].float() - tw["logits"][t].float())[
+            rows].abs().max()) if bool(rows.any()) else 0.0
+        ce = 0.0
+        for gi, c in bf["caches"][t].items():
+            for name in [n for n in c if not n.endswith("_scale")]:
+                d = (deq(c[name], c[f"{name}_scale"])
+                     - deq(tw["caches"][t][gi][name],
+                           tw["caches"][t][gi][f"{name}_scale"]))
+                for li in range(1, d.shape[0]):           # scout: one group
+                    m = held[li]
+                    if bool(m.any()):
+                        ce = max(ce, float(d[li][m].abs().max()))
+        out["held32"].append(held.clone())
+        out["ok32"].append(rows)
+        out["logit_err"].append(le)
+        out["cache_err"].append(ce)
+    return out
+
+
+def mesh_scout_oracle(torch, dev) -> dict:
+    """39d's oracle: scout at MOE_LAYERS, drop-free, on one card, bf16 and
+    its float32 twin: a prefill of SCOUT_B x SCOUT_S seeded tokens into a
+    cache of SCOUT_S + SCOUT_STEPS rows, then SCOUT_STEPS decode steps; the
+    first MoE layer in float32 on the prefill's input."""
+    from repro_torch.nn import moe
+
+    cfg, model, _info = moe_model(torch, SCOUT_ARCH, dev, card_line())
+    cfg = drop_free(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 392)
+    prompt = torch.randint(0, cfg.vocab_size, (SCOUT_B, SCOUT_S),
+                           generator=gen, device=dev, dtype=torch.int32)
+    steps = torch.randint(0, cfg.vocab_size, (SCOUT_STEPS, SCOUT_B),
+                          generator=gen, device=dev, dtype=torch.int32)
+    bf = scout_run(torch, cfg, model, prompt, steps, dev)
+    x = bf["moe"][0][0]["x"]
+    p = model.layers_0[0].moe
+    with torch.no_grad(), cast_experts(torch, p.shared):
+        stats = {}
+        y, aux = moe.moe_apply(p, cfg.moe, x.float(), stats=stats)
+    f32 = {"x": x.cpu(), "y": y.cpu(), "C": stats["C"], "aux": float(aux),
+           "dropped": int(moe.dropped(stats["load"], stats["C"]))}
+    del x, y
+    free(torch)
+    with cast_experts(torch):
+        tw = scout_run(torch, float32_twin(torch, cfg, model), model, prompt,
+                       steps, dev)
+    out = {"prompt": prompt.cpu(), "tokens": steps.cpu(), "moe_f32": f32,
+           "logits": bf["logits"], "caches": bf["caches"],
+           "moe": [[{"top_i": c["top_i"]} for c in calls]
+                   for calls in bf["moe"]],
+           "logits32": tw["logits"], "caches32": tw["caches"],
+           **scout_noise(torch, cfg, bf, tw)}
+    del model, bf, tw
+    free(torch)
+    return out
+
+
+def mesh_lma_oracle(torch, dev, kernels) -> dict:
+    """39e's oracle: 35f's token table (tinyllama's vocabulary, d 2,048)
+    on one card, row 2's lookup of a 2,048-token prefill batch and of
+    MESH_LMA_STEPS decode steps' tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs._recsys_common import embedding_of_kind
+    from repro_torch.device import make_generator
+    from repro_torch.embed import EmbeddingTable, make_buffers
+
+    cfg = get_config(LM_ARCH).make_model()
+    e = embedding_of_kind("lma", (cfg.vocab_size,), cfg.d_model,
+                          expansion=16.0, max_set=32)
+    params = EmbeddingTable(e).init(make_generator(SEED, dev), dev)
+    bufs = make_buffers(e, planted_store(torch, e, dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 393)
+    toks = torch.randint(0, cfg.vocab_size, (MESH_LMA_B,
+                                             MESH_LMA_S + MESH_LMA_STEPS),
+                         generator=gen, device=dev, dtype=torch.int32)
+    table = EmbeddingTable(e)
+    with torch.no_grad():
+        zero(kernels)
+        pre = table.embed(params, bufs, 0, toks[:, :MESH_LMA_S]).cpu()
+        dec = [table.embed(params, bufs, 0, toks[:, MESH_LMA_S + t]).cpu()
+               for t in range(MESH_LMA_STEPS)]
+        if counts(kernels) != {k: v * (1 + MESH_LMA_STEPS)
+                               for k, v in MESH_LMA_ONE.items()}:
+            raise AssertionError(f"39e oracle launched {counts(kernels)}")
+    del params, bufs
+    free(torch)
+    return {"tokens": toks.cpu(), "prefill": pre, "decode": dec}
+
+
+def mesh_oracles(torch, dev, kernels, card, path: str) -> dict:
+    """Phase 39's one-card oracles, computed before the spawn and saved to
+    ``path``; 39c's batch chosen by the reckoning."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    free(torch)
+    o = {"tiny": mesh_long(torch, dev, card)}
+    ds = dataclasses.replace(get_config(MOE_ARCH).make_model(),
+                             n_layers=MOE_LAYERS)
+    reck = {B: mesh_reckoning(torch, ds, B, MESH_L, (1, MESH_RANKS))
+            for B in MESH_MOE_BS}
+    fits = [B for B in MESH_MOE_BS if reck[B]["total_gb"] <= MESH_BUDGET_GB]
+    if not fits:
+        raise AssertionError(f"39c: no batch of {MESH_MOE_BS} fits "
+                             f"{MESH_BUDGET_GB} GB: {reck}")
+    o["moe_B"] = fits[0]
+    o["ds"] = mesh_moe_oracle(torch, MOE_ARCH, dev, fits[0], MESH_L)
+    o["scout"] = mesh_scout_oracle(torch, dev)
+    o["lma"] = mesh_lma_oracle(torch, dev, kernels)
+    o["reckon"] = {
+        "39a": mesh_reckoning(torch, get_config(LM_ARCH).make_model(), 1,
+                              LONG_L, (1, MESH_RANKS)),
+        "39b": mesh_reckoning(torch, get_config(LM_ARCH).make_model(),
+                              MESH_B, MESH_L, (MESH_DATA, 2)),
+        "39c": reck[fits[0]],
+        "39d": mesh_reckoning(torch, drop_free(dataclasses.replace(
+            get_config(SCOUT_ARCH).make_model(), n_layers=MOE_LAYERS)),
+            SCOUT_B, SCOUT_S + SCOUT_STEPS, (MESH_DATA, 2))}
+    for B, r in reck.items():
+        log(reckon_line(f"39c deepseek-v3 decode_32k B={B} at (1, 4)", r))
+    torch.save(o, path)
+    log(f"39 one-card oracles in {time.perf_counter() - t0:.1f} s, saved "
+        f"({Path(path).stat().st_size / 2**20:.0f} MiB on the host); 39c "
+        f"takes B={fits[0]}; card {card}")
+    free(torch)
+    return o
+
+
+def rank_peak(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def mesh_tiny(torch, mesh, wmesh, o: dict, dev, kernels) -> dict:
+    """39a (1, 4) long_500k and 39b (2, 2) decode_32k and the LMServer."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.models import transformer as tt
+    from repro_torch.serve import LMServer
+
+    cfg = get_config(LM_ARCH).make_model()
+    res = {}
+    free(torch)
+    model = tt.init(cfg, seed=SEED, device=dev, mesh=wmesh).eval()
+    zero(kernels)
+    res["long"] = rank_decode(torch, wmesh, cfg, model, 1, LONG_L,
+                              o["long"], LONG_L - MESH_STEPS, dev,
+                              "39a long_500k (1, 4)")
+    res["long"].pop("x")
+    free(torch)
+    res["decode"] = rank_decode(torch, mesh, cfg, model, MESH_B, MESH_L,
+                                o["decode"], MESH_L - MESH_STEPS, dev,
+                                "39b decode_32k (2, 2)")
+    res["decode"].pop("x")
+    if counts(kernels):
+        raise AssertionError(f"39a/b launched {counts(kernels)}")
+    del model
+    free(torch)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    model = tt.init(f32, seed=SEED, device=dev, mesh=mesh).eval()
+    srv = o["serve"]
+    server = LMServer(model, f32, n_slots=MESH_SERVE_SLOTS,
+                      max_len=MESH_SERVE_LENS[1] + MESH_SERVE_NEW)
+    calls = {}
+    before = dict(mesh.staged_s)
+    with use_mesh(mesh), lm_timed(torch, calls):
+        t0 = time.perf_counter()
+        served = server.generate(srv["prompts"],
+                                 max_new_tokens=MESH_SERVE_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ties = []
+    for b, (got, want) in enumerate(zip([r.tokens for r in served],
+                                        srv["tokens"])):
+        if got == want:
+            continue
+        t = next(i for i, (a, c) in enumerate(zip(got, want)) if a != c)
+        gap = float(srv["gaps"][t][b])
+        if not gap < TIE:
+            raise AssertionError(f"39b LMServer: sequence {b} parts from the "
+                                 f"one-card server's at token {t}, top-2 gap "
+                                 f"{gap:.3g}")
+        ties.append((b, t, gap))
+    steps = server.stats["decode_steps"]
+    res["serve"] = {"stats": dict(server.stats), "ties": ties,
+                    "generated_tokens_per_s": server.stats["generated"]
+                    / wall, "wall_s": wall,
+                    "decode_step_ms_median": float(np.median(
+                        calls["decode_step"])),
+                    "prefill_ms": calls["prefill"],
+                    "staged_s": staged_per_step(mesh, before, max(steps, 1)),
+                    "peak_gb": rank_peak(torch)}
+    del model, server
+    free(torch)
+    return res
+
+
+def moe_f32_held(torch, mesh, layer, cfg, f32: dict, lead: int, dev,
+                 what: str) -> dict:
+    """The MoE layer's ``moe_apply_sharded`` on the oracle's input in
+    float32 (the bf16 experts cast one at a time) against the one-card
+    ``moe_apply``'s, normwise within F32_TOL."""
+    from repro_torch.dist.context import dp_axes
+    from repro_torch.nn import moe
+
+    stats = {}
+    x = f32["x"].to(dev).float()
+    with torch.no_grad(), cast_experts(torch, layer.moe.shared):
+        (y, aux), ms = events_ms(torch, lambda: moe.moe_apply_sharded(
+            layer.moe, cfg.moe, x, mesh, dp_axes(mesh),
+            full_token_sharding=True, lead=lead, stats=stats))
+    want = f32["y"].to(dev)
+    rel = float(torch.linalg.vector_norm(y - want)
+                / torch.linalg.vector_norm(want))
+    if rel > F32_TOL:
+        raise AssertionError(f"{what}: the MoE layer in float32 {rel:.3g} "
+                             "from one card's, normwise")
+    dropped = int(moe.dropped(stats["load"][stats["ids"]], stats["C"]))
+    return {"rel": rel, "C": stats["C"], "T_loc": stats["T_loc"],
+            "dropped": dropped, "ms": ms, "C_one": f32["C"],
+            "dropped_one": f32["dropped"], "aux": float(aux),
+            "aux_one": f32["aux"]}
+
+
+def mesh_ds(torch, wmesh, o: dict, dev, kernels) -> dict:
+    """39c: deepseek-v3 (1, 4), 64 experts a rank, MLA over the mesh; the
+    decode drop-free, the MoE layer's float32 check at the config's
+    capacity."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import collectives as col
+    from repro_torch.models import transformer as tt
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH).make_model(),
+                              n_layers=MOE_LAYERS)
+    free(torch)
+    t0 = time.perf_counter()
+    model = tt.init(cfg, seed=SEED, device=dev, mesh=wmesh).eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    B = o["moe_B"]
+    zero(kernels)
+    r = rank_decode(torch, wmesh, drop_free(cfg), model, B, MESH_L, o["ds"],
+                    MESH_L - MESH_STEPS, dev, f"39c deepseek-v3 B={B} (1, 4)")
+    layer = [blk for g in model.groups() for blk in g][-1]
+    r["moe_f32"] = moe_f32_held(torch, wmesh, layer, cfg, o["ds"]["moe_f32"],
+                                B, dev, "39c")
+    r["dropped_all"] = int(col.psum(torch.tensor(
+        [r["moe_f32"]["dropped"]], device=dev), wmesh)[0])
+    if counts(kernels):
+        raise AssertionError(f"39c launched {counts(kernels)}")
+    r.update(build_s=build_s, experts=tuple(layer.moe.w_gate.shape),
+             peak_gb=rank_peak(torch))
+    r.pop("x")
+    del model, layer
+    free(torch)
+    return r
+
+
+def mesh_scout(torch, mesh, o: dict, dev, kernels) -> dict:
+    """39d: scout (2, 2), E over (data, model), a prefill on the full-mesh
+    token ladder, then SCOUT_STEPS decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.models import transformer as tt
+    from repro_torch.nn import moe
+
+    cfg = drop_free(dataclasses.replace(get_config(SCOUT_ARCH).make_model(),
+                                        n_layers=MOE_LAYERS))
+    free(torch)
+    model = tt.init(cfg, seed=SEED, device=dev, mesh=mesh).eval()
+    L = SCOUT_S + SCOUT_STEPS
+    so = o["scout"]
+    zero(kernels)
+    ms, agree, errs = [], [], []
+    # per layer, the (sequence, position) entries whose token's routes
+    # agreed with the one-card run's at every earlier MoE layer
+    held = torch.zeros((cfg.n_layers, SCOUT_B, L), dtype=torch.bool)
+    before = dict(mesh.staged_s)
+    with torch.no_grad(), use_mesh(mesh):
+        cache = tt.init_cache(cfg, SCOUT_B, L, dev)
+        (b0, b1), (lo, hi) = slab = tt.cache_slab(SCOUT_B, L)
+        for t in range(SCOUT_STEPS + 1):
+            xs = []
+            sharded = moe.moe_apply_sharded
+
+            def keep(p, c, x, *a, **kw):
+                xs.append((p, x))
+                return sharded(p, c, x, *a, **kw)
+            moe.moe_apply_sharded = keep
+            try:
+                if t == 0:
+                    (logits, _), t_ms = events_ms(torch, lambda: tt.prefill(
+                        model, cfg, so["prompt"].to(dev), cache=cache,
+                        length=L))
+                else:
+                    (logits, _), t_ms = events_ms(
+                        torch, lambda: tt.decode_step(
+                            model, cfg, so["tokens"][t - 1].to(dev), cache,
+                            SCOUT_S + t - 1, length=L))
+            finally:
+                moe.moe_apply_sharded = sharded
+            ms.append(t_ms)
+            what = f"39d scout (2, 2) {'prefill' if t == 0 else f'step {t}'}"
+            ok = route_ok(torch, cfg, calls_top_i(torch, cfg, xs),
+                          [c["top_i"] for c in so["moe"][t]], SCOUT_B)
+            at = slice(0, SCOUT_S) if t == 0 else slice(SCOUT_S + t - 1,
+                                                        SCOUT_S + t)
+            held[:, :, at] = ok[:cfg.n_layers]
+            mask_all = (held & so["held32"][t])[:, b0:b1, lo:hi].to(dev)
+            want, twin = so["caches"][t], so["caches32"][t]
+            cerr = 0.0
+            for gi, c in cache.items():
+                for name in [n for n in c if not n.endswith("_scale")]:
+                    g, gs = c[name], c[f"{name}_scale"]
+                    w = want[gi][name][:, b0:b1, lo:hi].to(dev)
+                    ws = want[gi][f"{name}_scale"][:, b0:b1, lo:hi].to(dev)
+                    if not (torch.equal(g[0], w[0])
+                            and bits_equal(torch, gs[0], ws[0])):
+                        raise AssertionError(f"{what}: layer 0's {name} "
+                                             "slab differs from the oracle's")
+                    tw = deq(twin[gi][name][:, b0:b1, lo:hi].to(dev),
+                             twin[gi][f"{name}_scale"][:, b0:b1, lo:hi])
+                    mine = deq(g, gs)
+                    for li in range(1, g.shape[0]):     # scout: one group
+                        m = mask_all[li]
+                        cerr = max(cerr, held_close(
+                            torch, mine[li][m], tw[li][m],
+                            f"{what}: layer {li}'s {name} slab "
+                            "(dequantized)", so["cache_err"][t]))
+            last = ok[-1, :, -1]
+            agree.append(int(last.sum()))
+            rows = (last & so["ok32"][t]).nonzero()[:, 0].to(dev)
+            errs.append((logits_held(torch, logits, so["logits32"][t],
+                                     f"{what} logits", rows,
+                                     so["logit_err"][t]), cerr))
+    staged = staged_per_step(mesh, before, SCOUT_STEPS + 1)
+    if sum(agree) * 4 < 3 * SCOUT_B * (SCOUT_STEPS + 1):
+        raise AssertionError(f"39d: MoE routes agree for {agree} of "
+                             f"{SCOUT_B} sequences a step")
+    layer = model.layers_0[0]
+    f32 = moe_f32_held(torch, mesh, layer, cfg, so["moe_f32"], SCOUT_B, dev,
+                       "39d")
+    gather_s = stack_gather_s(torch, mesh, layer.moe.w_gate)
+    if counts(kernels):
+        raise AssertionError(f"39d launched {counts(kernels)}")
+    out = {"ms": ms, "agree": agree, "errs": errs, "staged_s": staged,
+           "moe_f32": f32, "gather_s": gather_s,
+           "gather_gb": layer.moe.w_gate.numel() * 2 / 1e9,
+           "slab": slab, "experts": tuple(layer.moe.w_gate.shape),
+           "peak_gb": rank_peak(torch)}
+    del model, cache, layer
+    free(torch)
+    return out
+
+
+def stack_gather_s(torch, mesh, w) -> dict:
+    """One expert stack gathered over 'data' as ``moe_apply_sharded``
+    gathers it, through CUDA IPC (ranks on one card) and staged through
+    the host by gloo: host-clock s of each, the card synchronised."""
+    from repro_torch.dist import collectives as col
+    from repro_torch.nn import moe
+
+    out, one = {}, mesh.one_card
+    try:
+        for label, ipc in (("ipc", one), ("staged", False)):
+            mesh.one_card = ipc
+            torch.cuda.synchronize()
+            col.barrier(mesh)
+            t0 = time.perf_counter()
+            moe._gather(w.detach(), mesh, "data", 0)
+            torch.cuda.synchronize()
+            out[label] = time.perf_counter() - t0
+    finally:
+        mesh.one_card = one
+    return out
+
+
+# 39f: all_gather over the world's 4 ranks through each transport, at
+# sizes on both sides of collectives.IPC_MIN_BYTES
+GATHER_SWEEP = (8 << 10, 64 << 10, 256 << 10, 1 << 20, 4 << 20, 16 << 20)
+GATHER_ITERS = 10
+
+
+def gather_sweep(torch, wmesh) -> dict:
+    """39f: ``all_gather`` over the world's ranks of a float32 tensor of
+    each GATHER_SWEEP size (bytes a rank), through CUDA IPC and staged by
+    gloo, whichever IPC_MIN_BYTES would pick: the median host-clock ms of
+    GATHER_ITERS calls, each between a barrier and a synchronised card,
+    by size and transport; and the bytes equal both ways."""
+    from repro_torch.dist import collectives as col
+
+    out, one = {}, wmesh.one_card
+    try:
+        for nbytes in GATHER_SWEEP:
+            x = torch.arange(nbytes // 4, device=wmesh.device,
+                             dtype=torch.float32) + wmesh.world_rank
+            got, ms = {}, {}
+            for label in ("ipc", "staged"):
+                wmesh.one_card = label == "ipc"
+                times = []
+                for _ in range(GATHER_ITERS):
+                    torch.cuda.synchronize()
+                    col.barrier(wmesh)
+                    t0 = time.perf_counter()
+                    got[label] = col._ipc_all_gather(
+                        x, wmesh, "model", wmesh.group) \
+                        if label == "ipc" else col.all_gather(x, wmesh)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                ms[label] = float(np.median(times))
+            if not torch.equal(got["ipc"], got["staged"]):
+                raise AssertionError(f"39f: the {nbytes} B gathers differ")
+            out[nbytes] = ms
+    finally:
+        wmesh.one_card = one
+    return out
+
+
+def mesh_lma(torch, wmesh, o: dict, dev, kernels) -> dict:
+    """39e: the LMA token table under (1, 4): embed_tokens of the prefill
+    batch and of each decode step's tokens under psum, ring and all_to_all
+    bit-equal to the one-card row 2 lookup, launches exact; rank 0 times
+    rows 2 (slab mode), 4, 10 and 11 at the 2,048-token shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs._recsys_common import embedding_of_kind
+    from repro_torch.device import make_generator
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist import exchange as exl
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.embed import EmbeddingTable, make_buffers
+    from repro_torch.kernels.fused_embed import kernel as fk
+    from repro_torch.kernels.fused_embed import ops as fe
+    from repro_torch.kernels.fused_embed import ref as fref
+
+    cfg = get_config(LM_ARCH).make_model()
+    e = embedding_of_kind("lma", (cfg.vocab_size,), cfg.d_model,
+                          expansion=16.0, max_set=32)
+    free(torch)
+    table = EmbeddingTable(e)
+    params = table.init(make_generator(SEED, dev), dev, mesh=wmesh)
+    bufs = make_buffers(e, planted_store(torch, e, dev), mesh=wmesh)
+    lo_ = o["lma"]
+    toks = lo_["tokens"].to(dev)
+    launches = {"prefill": {}, "decode": {}}
+    by_strategy = {}
+    with torch.no_grad(), use_mesh(wmesh):
+        for s in STRATEGIES:
+            exl.FORCED = s
+            try:
+                zero(kernels)
+                got = table.embed(params, bufs, 0, toks[:, :MESH_LMA_S])
+                pre = counts(kernels)
+                if not torch.equal(got.cpu(), lo_["prefill"]):
+                    raise AssertionError(f"39e {s}: the prefill lookup "
+                                         "differs from one card's row 2")
+                zero(kernels)
+                for t in range(MESH_LMA_STEPS):
+                    got = table.embed(params, bufs, 0,
+                                      toks[:, MESH_LMA_S + t])
+                    if not torch.equal(got.cpu(), lo_["decode"][t]):
+                        raise AssertionError(f"39e {s}: decode step {t}'s "
+                                             "lookup differs from one card's")
+                dec = counts(kernels)
+            finally:
+                exl.FORCED = None
+            want_dec = {k: v * MESH_LMA_STEPS
+                        for k, v in MESH_LMA_LAUNCHES[s].items()}
+            if pre != MESH_LMA_LAUNCHES[s] or dec != want_dec:
+                raise AssertionError(f"39e {s}: launched {pre} (prefill), "
+                                     f"{dec} (decode)")
+            by_strategy[s] = {"prefill": pre, "decode": dec}
+            for k, v in pre.items():
+                launches["prefill"][k] = launches["prefill"].get(k, 0) + v
+            for k, v in dec.items():
+                launches["decode"][k] = launches["decode"].get(k, 0) + v
+    timing = {}
+    p = e.lma
+    spec = fe.lma_spec(p)
+    slab = params["memory"]
+    base, m_local = slab_of(wmesh, p.m)
+    d = p.d
+
+    class _Cfg:
+        embedding = e
+    with torch.no_grad():
+        # every rank: the chunk's D' rows (all_to_all), the whole batch's
+        # rows and locations (all_gather), as the exchanges build them
+        gids = toks[:, :MESH_LMA_S].reshape(-1).contiguous()
+        chunk, rows, support = chunk_inputs(torch, wmesh, _Cfg, bufs, gids)
+        part, loc = fk.fused_chunk_lookup_cuda(spec, slab, chunk, rows,
+                                               support, base)
+        rows_all = col.all_gather(rows, wmesh).reshape(-1, rows.shape[1])
+        sup_all = col.all_gather(support, wmesh).reshape(-1)
+        full = col.all_gather(loc, wmesh).reshape(-1, d)
+    if wmesh.world_rank == 0:
+        N = gids.numel()
+        with torch.no_grad():
+            checks = (
+                ("fused_embed", lambda: fk.fused_lookup_cuda(
+                    spec, slab, gids, rows_all, sup_all, base=base),
+                 lambda: fref.fused_lookup_ref(spec, slab, gids, rows_all,
+                                               sup_all, base=base)),
+                ("fused_locations", lambda: fk.fused_locations_cuda(
+                    spec, chunk, rows, support),
+                 lambda: fref.locations_ref(spec, chunk, rows, support)),
+                ("fused_chunk_lookup", lambda: fk.fused_chunk_lookup_cuda(
+                    spec, slab, chunk, rows, support, base),
+                 lambda: fref.chunk_lookup_ref(spec, slab, chunk, rows,
+                                               support, base=base)),
+                ("fused_chunk_gather", lambda: fk.fused_chunk_gather_cuda(
+                    slab, full, base),
+                 lambda: fref.chunk_gather_ref(slab, full, base)))
+            nb_all, ops_all = lma_work(torch, p, rows_all, sup_all,
+                                       fallback=True)
+            nb_c, ops_c = lma_work(torch, p, rows, support, fallback=True)
+            in_all = int(((full >= base) & (full < base + m_local)).sum())
+            in_c = int(((loc >= base) & (loc < base + m_local)).sum())
+            c = chunk.numel()
+            work = {"fused_embed": (N, nb_all - (N * d - in_all) * 4,
+                                    ops_all),
+                    "fused_locations": (c, nb_c - c * d * 4, ops_c),
+                    "fused_chunk_lookup": (c, nb_c + c * d * 4
+                                           - (c * d - in_c) * 4, ops_c),
+                    "fused_chunk_gather": (N, N * d * 8 + in_all * 4, 0)}
+            for name, fn, plain in checks:
+                got = fn()
+                want, plain_ms = events_ms(torch, plain)
+                if not (torch.equal(got[0], want[0]) and torch.equal(
+                        got[1], want[1]) if isinstance(got, tuple)
+                        else torch.equal(got, want)):
+                    raise AssertionError(f"39e: {name} at the LM shape "
+                                         "differs from its plain version")
+                rows_n, nb, ops = work[name]
+                r = timing[name] = {"tokens": rows_n, "plain_ms": plain_ms,
+                                    "library_ms": None}
+                r["ms"] = graph_ms(torch, fn, 20)
+                r["bound_ms"], r["bound_by"] = bound(nb, ops, INT32_OP_PER_S)
+                del got, want
+    del params, bufs
+    free(torch)
+    return {"launches": launches, "by_strategy": by_strategy,
+            "timing": timing}
+
+
+def mesh_rank(mesh, oracle_path: str) -> dict:
+    """One rank of phase 39 (``run_ranks`` with data=MESH_DATA): each part
+    on the card alone, freed before the next."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 39: a rank found no GPU")
+    dev = mesh.device
+    t_wait = time.perf_counter()
+    wait_for(oracle_path)
+    o = torch.load(oracle_path, mmap=True, weights_only=False)
+    kernels = shard_kernels()
+    wmesh = world_mesh(mesh)
+    t = {"waited for the oracles": time.perf_counter() - t_wait}
+    out = {"rank": mesh.world_rank}
+    for part, key, fn in (
+            ("39a-b", "tiny", lambda: mesh_tiny(torch, mesh, wmesh, o["tiny"],
+                                                dev, kernels)),
+            ("39c", "ds", lambda: mesh_ds(torch, wmesh, o, dev, kernels)),
+            ("39d", "scout", lambda: mesh_scout(torch, mesh, o, dev,
+                                                kernels)),
+            ("39e", "lma", lambda: mesh_lma(torch, wmesh, o, dev,
+                                            kernels))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        t[part] = time.perf_counter() - t0
+    out["staged"] = {"mesh": dict(mesh.staged_s), "world":
+                     dict(wmesh.staged_s)}
+    t0 = time.perf_counter()
+    out["sweep"] = gather_sweep(torch, wmesh)
+    t["39f"] = time.perf_counter() - t0
+    out["seconds"] = t
+    from repro_torch.dist import collectives as col
+    col.barrier(mesh)
+    return out
+
+
+def wait_for(path: str, timeout_s: float = 900.0) -> None:
+    """Block until the parent marks ``path`` ready (``.ready``) or failed
+    (``.failed``, which raises)."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path + ".ready"):
+        if os.path.exists(path + ".failed"):
+            raise RuntimeError("phase 39: the one-card oracles failed")
+        if time.perf_counter() - t0 > timeout_s:
+            raise TimeoutError(f"phase 39: no oracle after {timeout_s} s")
+        time.sleep(0.1)
+
+
+def run_mesh_lm(torch, dev, kernels, card) -> dict:
+    """Phase 39: the LMs served under a (data, model) mesh: MESH_RANKS gloo
+    ranks on this card (``mesh_rank``), spawned first so that they start
+    while the parent computes the one-card oracles, which they wait for."""
+    import tempfile
+    import threading
+
+    from repro_torch.dist.collectives import run_ranks
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mesh-lm-",
+                                     dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "oracle.pt")
+        log(f"39: spawning {MESH_RANKS} ranks as a (data={MESH_DATA}, model="
+            f"{MESH_RANKS // MESH_DATA}) mesh and its (1, {MESH_RANKS}) world "
+            "mesh on the card (gloo: all_gathers of 1 MiB or more through "
+            "CUDA IPC, every other collective staged through host memory); "
+            "they wait for the one-card oracles")
+        spawned = {}
+
+        def spawn():
+            t0 = time.perf_counter()
+            try:
+                spawned["ranks"] = run_ranks(
+                    mesh_rank, MESH_RANKS, path, data=MESH_DATA,
+                    backend="gloo", device=MESH_DEVICE)
+            except BaseException as e:          # re-raised below
+                spawned["error"] = e
+            spawned["s"] = time.perf_counter() - t0
+        thread = threading.Thread(target=spawn)
+        thread.start()
+        try:
+            o = mesh_oracles(torch, dev, kernels, card, path)
+        except BaseException:
+            Path(path + ".failed").touch()
+            thread.join()
+            raise
+        Path(path + ".ready").touch()
+        oracle_s = time.perf_counter() - t_phase
+        for part, r in o["reckon"].items():
+            log(reckon_line(f"{part} before its run", r))
+        thread.join()
+        if "error" in spawned:
+            raise spawned["error"]
+        ranks, ranks_s = spawned["ranks"], spawned["s"]
+    r0 = ranks[0]
+    tiny, ds, sc, lma = (r0[k] for k in ("tiny", "ds", "scout", "lma"))
+    peaks = {part: [r[k]["peak_gb"] if k != "tiny" else None
+                    for r in ranks] for part, k in (("39c", "ds"),
+                                                    ("39d", "scout"))}
+    for part, key in (("39a", "long"), ("39b", "decode")):
+        peaks[part] = [r["tiny"][key]["peak_gb"] for r in ranks]
+    for part, ps in sorted(peaks.items()):
+        rk = o["reckon"][part]
+        log(f"{part}: measured peaks {', '.join(f'{p:.2f}' for p in ps)} GB "
+            f"a rank ({sum(ps):.2f} in all) beside the reckoned "
+            f"{rk['rank_gb']:.2f} ({rk['total_gb']:.2f}); card {card}")
+    def held_line(errs, noise) -> str:
+        return (f"logits {', '.join(f'{e[0]:.3g}' for e in errs)} and "
+                f"written entries {', '.join(f'{e[1]:.3g}' for e in errs)} "
+                "from the float32 twin's (one card's bf16: "
+                f"{', '.join(f'{x:.3g}' for x in noise['logit_err'])} and "
+                f"{', '.join(f'{x:.3g}' for x in noise['write_err'])}; "
+                f"35b's bound or {MESH_NOISE} x one card's)")
+
+    for part, key, label in (("39a", "long", f"long_500k B=1, cache_len "
+                              f"{LONG_L - MESH_STEPS}..{LONG_L - 1}, (1, 4)"),
+                             ("39b", "decode", f"decode_32k B={MESH_B} "
+                              "(published 128), (2, 2)")):
+        r = tiny[key]
+        log(f"{part} tinyllama-1.1b 22 layers {label}: steps "
+            f"{', '.join(f'{x:.1f}' for x in r['ms'])} ms (median "
+            f"{r['median_ms']:.1f}; one card's "
+            f"{np.median(o['tiny'][key]['ms']):.1f}); slab {r['slab']} "
+            f"filled in {r['fill_s']:.1f} s; "
+            + held_line(r["errs"], o["tiny"][key])
+            + "; the last layer's float32 attention within "
+            f"{', '.join(f'{e[2]:.3g}' for e in r['errs'])} of max |o| "
+            f"(float64); every slab bit-equal to the seeded cache with this "
+            f"run's writes, layer 0's writes bit-equal to the oracle's; "
+            f"host-staged s a step "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+                r["staged_s"].items())) + f"; card {card}")
+    s = tiny["serve"]
+    log(f"39b LMServer (2, 2), {MESH_SERVE_PROMPTS} prompts of "
+        f"{MESH_SERVE_LENS[0]}-{MESH_SERVE_LENS[1]} tokens, float32 weights, "
+        f"{MESH_SERVE_NEW} new: tokens equal to one card's server"
+        + (f" but for ties {s['ties']}" if s["ties"] else "")
+        + f"; {s['generated_tokens_per_s']:.1f} generated tokens/s, median "
+        f"decode step {s['decode_step_ms_median']:.1f} ms, host-staged s a "
+        "step " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            s["staged_s"].items())) + f"; card {card}")
+    f = ds["moe_f32"]
+    log(f"39c deepseek-v3 {MOE_LAYERS} layers (1, 4), {ds['experts'][0]} "
+        f"experts a rank, decode_32k B={o['moe_B']}: steps "
+        f"{', '.join(f'{x:.1f}' for x in ds['ms'])} ms (one card's "
+        f"{', '.join(f'{x:.1f}' for x in o['ds']['ms'])}); MoE layer "
+        f"{', '.join(f'{x:.2f}' for x in ds['moe_ms'])} ms a step (one "
+        f"card's {', '.join(f'{c[-1]['ms']:.2f}' for c in o['ds']['moe'])});"
+        f" routes agree for {ds['agree']} of {o['moe_B']}; "
+        + held_line(ds["errs"], o["ds"]) + "; last layer's "
+        f"float32 attention within "
+        f"{', '.join(f'{e[2]:.3g}' for e in ds['errs'])}; the MoE layer in "
+        f"float32 within {f['rel']:.3g} normwise of one card's, C {f['C']} "
+        f"(one card {f['C_one']}), dropped {ds['dropped_all']} (one card "
+        f"{f['dropped_one']}); card {card}")
+    f = sc["moe_f32"]
+    log(f"39d scout {MOE_LAYERS} layers (2, 2), {sc['experts'][0]} experts "
+        f"a rank a layer, prefill B={SCOUT_B} S={SCOUT_S} then "
+        f"{SCOUT_STEPS} steps: {', '.join(f'{x:.1f}' for x in sc['ms'])} "
+        f"ms; routes agree {sc['agree']}; logits "
+        f"{', '.join(f'{e[0]:.3g}' for e in sc['errs'])} and cache slabs "
+        f"{', '.join(f'{e[1]:.3g}' for e in sc['errs'])} from the float32 "
+        "twin's (one card's bf16: "
+        f"{', '.join(f'{x:.3g}' for x in o['scout']['logit_err'])} and "
+        f"{', '.join(f'{x:.3g}' for x in o['scout']['cache_err'])}); layer "
+        "0's slabs bit-equal to the oracle's; the first MoE layer in float32 "
+        "on the "
+        f"prefill's {SCOUT_B * SCOUT_S} tokens (full-mesh ladder, "
+        f"psum_scatter) within {f['rel']:.3g} normwise of one card's, C "
+        f"{f['C']} over {f['T_loc']} tokens (one card {f['C_one']}), "
+        f"dropped {f['dropped']} ({f['dropped_one']}); aux per shard "
+        f"{f['aux']:.4f}, one card's {f['aux_one']:.4f} (per shard by "
+        f"design, not gated); one layer's w_gate stack "
+        f"({sc['gather_gb']:.3f} GB) gathered over 'data' in "
+        f"{sc['gather_s']['ipc']:.4f} s through CUDA IPC, "
+        f"{sc['gather_s']['staged']:.4f} s staged by gloo; host-staged s a "
+        "step " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            sc["staged_s"].items())) + f"; card {card}")
+    log(f"39e LMA token table (1, 4): embed_tokens bit-equal to one card's "
+        f"row 2 under {', '.join(STRATEGIES)}; launches {lma['by_strategy']}"
+        + "".join(f"; {n} at {t['tokens']} rows {t['ms']:.4f} ms (plain "
+                  f"{t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} ms, "
+                  f"{t['bound_by']})" for n, t in lma["timing"].items())
+        + f"; card {card}")
+    from repro_torch.dist.collectives import IPC_MIN_BYTES
+    log(f"39f all_gather over the world's {MESH_RANKS} ranks, median ms a "
+        f"call (CUDA IPC / staged by gloo; IPC_MIN_BYTES {IPC_MIN_BYTES:,})"
+        ": " + ", ".join(f"{n:,} B {m['ipc']:.3f} / {m['staged']:.3f}"
+                         for n, m in r0["sweep"].items())
+        + f"; the same bytes both ways; card {card}")
+    log(f"39: oracles {oracle_s:.1f} s, ranks {ranks_s:.1f} s (rank 0: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in r0["seconds"].items())
+        + f"); phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {"lm mesh lma prefill": lma["launches"]["prefill"],
+                         "lm mesh lma decode": lma["launches"]["decode"]},
+            "timing": lma["timing"],
+            "summary": {"long_500k": {k: tiny["long"][k] for k in (
+                "ms", "median_ms", "errs", "staged_s", "peak_gb")},
+                "decode_32k": {k: tiny["decode"][k] for k in (
+                    "ms", "median_ms", "errs", "staged_s", "peak_gb")},
+                "serve": s, "deepseek": {k: ds[k] for k in (
+                    "ms", "moe_ms", "agree", "errs", "moe_f32",
+                    "dropped_all", "peak_gb")},
+                "scout": {k: sc[k] for k in ("ms", "agree", "errs",
+                                             "moe_f32", "gather_s",
+                                             "peak_gb")},
+                "gather_sweep_ms": r0["sweep"],
+                "reckon": o["reckon"], "oracle_s": oracle_s,
+                "ranks_s": ranks_s, "card": card}}
+
+
 SOURCES = {
     "lma_locations": ("src/repro_torch/csrc/lma_locations.cu",
                       "src/repro/kernels/lma_locations/kernel.py:108"),
@@ -7579,6 +9208,10 @@ CHUNK_KERNELS = ("fused_chunk_lookup", "fused_chunk_gather",
                  "fused_chunk_scatter")
 
 
+# the parts run aside (``Aside``), by job name
+ASIDE_JOBS = {"durability": durability_aside, "tiering": tiering_aside}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7593,11 +9226,31 @@ def main() -> int:
     t_start = time.perf_counter()
     # the host batches of phases 9, 33c and 38, drawn in a spawned process
     # while the card runs the phases before them
+    if sys.argv[1:] == ["--phase", "39"]:
+        return phase_39_alone(torch, dev, card)
     draws = HostDraws(host_jobs())
     try:
         return run_phases(torch, dev, card, t_start, draws)
     finally:
         draws.close()
+
+
+def phase_39_alone(torch, dev, card: str) -> int:
+    """``python3 chip_smoke.py --phase 39``: the build, then phase 39
+    only (the LMs served under a mesh), its summary and the result line."""
+    from repro_torch.kernels import KERNELS, build
+
+    t0 = time.perf_counter()
+    build.build_all(list(KERNELS))
+    log(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    out = run_mesh_lm(torch, dev, shard_kernels(), card)
+    log(json.dumps({"lm_mesh": out["summary"], "launches": out["launches"],
+                    "timing": out["timing"], "card": card}))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def host_jobs() -> list:
@@ -7693,36 +9346,54 @@ def run_phases(torch, dev, card: str, t_start: float, draws) -> int:
                                 for c in paths.values())
     counts["embedding_bag"] = paths["embedding_bag op"]["embedding_bag"]
     mark("phases 10-11, 18-22")
-    durable = run_durability(
-        torch, cfg, model, bufs, gen, B_train, dev, kernels,
-        launcher["lma-dlrm-criteo"]["lma"]["auc"], card)
-    paths.update(durable["paths"])
-    mark("phase 32")
-    tiering = run_tiering(torch, cfg, model, bufs, gen, dev, kernels, card,
-                          draws.take("din"))
-    paths.update(tiering["paths"])
-    mark("phase 33")
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-        "GiB (dlrm-rm2 phases)")
+    # 32's chaos soak and pool scan and 33's tiered chaos run, whose time
+    # is host work, each in a process of its own beside phases 32-31
+    aside = {job: Aside(job) for job in ASIDE_JOBS}
+    try:
+        durable = run_durability(
+            torch, cfg, model, bufs, gen, B_train, dev, kernels,
+            launcher["lma-dlrm-criteo"]["lma"]["auc"], card)
+        paths.update(durable["paths"])
+        mark("phase 32 (its chaos soak aside)")
+        tiering = run_tiering(torch, cfg, model, bufs, gen, dev, kernels,
+                              card, draws.take("din"))
+        paths.update(tiering["paths"])
+        mark("phase 33 (its chaos run aside)")
+        log(f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (dlrm-rm2 "
+            "phases)")
 
-    # free dlrm-rm2's pool, training state and SparseGrad; its D' store
-    # serves DCN-v2 (the same vocabularies), then goes too
-    del cfg, model, sg, train_batch
-    free(torch)
-    dcn = run_dcn(torch, dev, kernels, bufs, gen)
-    del bufs
-    free(torch)
-    schemes = run_schemes(torch, dev, kernels, gen)
-    del gen
-    din = run_din(torch, dev, kernels)
-    for name in ("fused_locations", "fused_scatter_add"):
-        err[name] = max(err[name], dcn["check"][name], din["check"][name])
-    for run in (dcn, schemes, din):
-        paths.update(run["paths"])
-    free(torch)
-    log(f"after freeing dlrm-rm2, DCN-v2 and DIN: "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    mark("phases 29-31")
+        # free dlrm-rm2's pool, training state and SparseGrad; its D'
+        # store serves DCN-v2 (the same vocabularies), then goes too
+        del cfg, model, sg, train_batch
+        free(torch)
+        dcn = run_dcn(torch, dev, kernels, bufs, gen)
+        del bufs
+        free(torch)
+        schemes = run_schemes(torch, dev, kernels, gen)
+        del gen
+        din = run_din(torch, dev, kernels)
+        for name in ("fused_locations", "fused_scatter_add"):
+            err[name] = max(err[name], dcn["check"][name],
+                            din["check"][name])
+        for run in (dcn, schemes, din):
+            paths.update(run["paths"])
+        free(torch)
+        log(f"after freeing dlrm-rm2, DCN-v2 and DIN: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        mark("phases 29-31")
+        took = {job: a.take() for job, a in aside.items()}
+    finally:
+        for a in aside.values():
+            a.close()
+    soak = took["durability"]
+    durable["summary"].update(soak=soak["soak"], integrity=soak["integrity"])
+    paths["dlrm-rm2 durability soak"] = soak["launches"]
+    tiering["summary"]["durability"] = took["tiering"]
+    log("aside, beside phases 32-31: "
+        + "; ".join(f"{job} {t['seconds']:.1f} s from its spawn, waited "
+                    f"for {t['waited']:.1f} s" for job, t in took.items()))
+    mark("32c-d and 33b (aside)")
     xcounts, err["cin"], xres, xserving, xtrain = run_xdeepfm(torch, dev,
                                                               kernels)
     res["cin"] = xres
@@ -7769,6 +9440,11 @@ def run_phases(torch, dev, card: str, t_start: float, draws) -> int:
     lm_train = run_lm_train(torch, dev, kernels, card, draws.take("lm"))
     paths.update(lm_train["lma"]["launches"])
     mark("phase 38")
+    # the LMs served under a (data, model) mesh of gloo ranks (phase 39)
+    free(torch)
+    mesh_lm = run_mesh_lm(torch, dev, kernels, card)
+    paths.update(mesh_lm["launches"])
+    mark("phase 39")
     for name, e in shard["err"].items():
         err[name] = max(err.get(name, 0.0), e)
     res.update(shard["res"])
@@ -7809,6 +9485,10 @@ def run_phases(torch, dev, card: str, t_start: float, draws) -> int:
                       + (f"K={t['K']}" if "K" in t
                          else f"{t['tokens']} tokens") + f": {t['ms']:.4f} "
                       f"ms, bound {t['bound_ms']:.4f} ms)")
+        if name in mesh_lm["timing"]:   # 39e: rank 0's shapes at (1, 4)
+            t = extra["at_lm_mesh"] = mesh_lm["timing"][name]
+            where += (f" (LM (1, 4), {t['tokens']} rows: {t['ms']:.4f} ms, "
+                      f"bound {t['bound_ms']:.4f} ms)")
         if name == "fused_embed":       # LMA token tables, d = 2,048, 7,168
             extra["at_lm"] = lm["lma"]["row2"]
             extra["at_moe_lm"] = moe_lm["lma"]["row2"]
@@ -7858,6 +9538,7 @@ def run_phases(torch, dev, card: str, t_start: float, draws) -> int:
                                if k != "card"}, "card": card}))
     log(json.dumps({"lm_train": {k: v for k, v in lm_train.items()
                                  if k != "card"}, "card": card}))
+    log(json.dumps({"lm_mesh": mesh_lm["summary"], "card": card}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

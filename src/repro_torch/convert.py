@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.checkpoint.manager import _flatten, _host, _unflatten
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import row_slab, shard_buffers
+from repro_torch.dist.sharding import (block, lm_rules, rank_share,
+                                       row_slab, shard_buffers)
 from repro_torch.models.recsys import RecsysConfig
 
 
@@ -63,7 +64,8 @@ def params_from_jax(np_params: dict, cfg: RecsysConfig, device=None,
     return state
 
 
-def lm_params_from_jax(np_params: dict, cfg, device=None) -> dict:
+def lm_params_from_jax(np_params: dict, cfg, device=None,
+                       mesh=None) -> dict:
     """Reference transformer parameter pytree (numpy leaves) -> the port's
     ``Transformer`` state dict, on the card unless ``device`` says
     otherwise.  Each ``layers_{gi}`` leaf's leading (layer) axis is
@@ -73,9 +75,17 @@ def lm_params_from_jax(np_params: dict, cfg, device=None) -> dict:
     ``w_up`` [E, d, f] and ``w_down`` [E, f, d], the norms' ``scale``,
     ``embed`` (``table_0``, or the embedding scheme's parameters: an LMA
     pool's ``memory``), ``lm_head`` and ``final_norm`` carry over by
-    name."""
+    name.  With a mesh, this rank's share, as ``transformer.init(...,
+    mesh=)`` holds it: each expert stack's storage block
+    (``nn.moe._moe_w_specs``) and the LMA pool's 'model' slab
+    (``lm_rules``' ``/embed/memory$``); every other leaf whole."""
+    from repro_torch.nn.moe import _moe_w_specs
     dev = resolve_device(device)
     state = {}
+    specs = {}
+    if mesh is not None and cfg.moe is not None:
+        sg, sd = _moe_w_specs(cfg.moe, mesh)
+        specs = {"moe/w_gate": sg, "moe/w_up": sg, "moe/w_down": sd}
 
     def put(name: str, a) -> None:
         a = np.asarray(a)
@@ -85,12 +95,17 @@ def lm_params_from_jax(np_params: dict, cfg, device=None) -> dict:
 
     for top in ("embed", "lm_head", "final_norm"):
         for k, v in _flatten(np_params.get(top, {})).items():
+            if top == "embed":
+                v = rank_share(f"/embed/{k}", np.asarray(v), mesh,
+                               [r for r in lm_rules() if "memory" in r[0]])
             put(f"{top}.{k.replace('/', '.')}", v)
     for gi, (_kind, count) in enumerate(cfg.layer_groups()):
         for k, v in _flatten(np_params[f"layers_{gi}"]).items():
             for i in range(count):
-                put(f"layers_{gi}.{i}.{k.replace('/', '.')}",
-                    np.asarray(v)[i])
+                a = np.asarray(v)[i]
+                if k in specs:
+                    a = block(a, mesh, specs[k])
+                put(f"layers_{gi}.{i}.{k.replace('/', '.')}", a)
     return state
 
 

@@ -15,14 +15,31 @@ the default, 'data' or 'world'):
 ``ppermute(x, mesh)``    the 'model' ring shift: send to rank+1, receive
                          from rank-1
 ``world_max(x, mesh)``   the elementwise max over every rank of the mesh
+``psum_scatter(x, mesh)`` the 'model' sum of ``x`` [P * c, ...], rank j
+                         keeping rows ``[j * c, (j + 1) * c)``
 ``gather_rows(x, mesh)`` the 'model' slabs concatenated on world rank 0
+
+``axis`` may also be a tuple of mesh axes, as the reference's collectives
+take them: ``("model",)``, ``("data",)``, or ``("data", "model")``, which
+is the 'world' group.
 
 Gloo runs on host memory.  When the group's backend is gloo and a tensor
 lies on the card, the tensor is copied to the host, the collective runs
-there and the result is copied back.  That staging is explicit and counted
-on the mesh by collective and by axis (``Mesh.staged``, ``staged_bytes``,
-``staged_s``, ``axis_bytes``, ``axis_s``): its times are not NVLink's.  The
-data movement is exact, so results are bit-identical to an unstaged run.
+there and the result is copied back.  Where every rank lies on one card
+(``Mesh.one_card``, gloo ranks sharing a GPU), ``all_gather`` of a CUDA
+tensor of IPC_MIN_BYTES or more moves no bytes through the host: each rank
+names its staging buffer (a CUDA IPC handle) in the process group's store
+and copies the others' device to device (``_ipc_all_gather``; counted in
+``Mesh.ipc_calls``).  Smaller tensors take gloo, whose one collective
+costs less than the IPC path's handshake and two barriers
+(``chip_smoke.py``'s phase 39 times both transports on each side of the
+cutoff).  Reductions stay on gloo: through IPC each would hold a staging
+buffer of its size on the card beside the rank's state, which four ranks
+of the sharded recsys model can not spare.  The host staging is explicit
+and counted on the mesh by collective and by axis (``Mesh.staged``,
+``staged_bytes``, ``staged_s``, ``axis_bytes``, ``axis_s``): its times
+are not NVLink's.  The data movement is exact, so results are
+bit-identical to an unstaged run.
 
 ``run_ranks(fn, world, *args, data=D)`` starts ``world`` rank processes
 with the ``spawn`` start method (a parent that has initialised CUDA cannot
@@ -44,8 +61,21 @@ import torch.distributed as dist
 from repro_torch.dist.context import Mesh
 
 
-def _axis(mesh: Mesh, axis: str) -> tuple[int, int, object]:
+def axis_name(axis) -> str:
+    """A mesh axis or a tuple of mesh axes -> the name of its group."""
+    if isinstance(axis, str):
+        return axis
+    axes = tuple(axis)
+    if axes in (("model",), ("data",)):
+        return axes[0]
+    if axes == ("data", "model"):
+        return "world"
+    raise ValueError(f"no process group for the mesh axes {axes}")
+
+
+def _axis(mesh: Mesh, axis) -> tuple[int, int, object]:
     """(size, this rank's index, process group) of a mesh axis."""
+    axis = axis_name(axis)
     if axis == "model":
         return mesh.model, mesh.rank, mesh.group
     if axis == "data":
@@ -90,8 +120,16 @@ def _count(mesh: Mesh, name: str, axis: str, nbytes: int, t0: float):
     mesh.axis_s[axis] += dt
 
 
-def psum(x: torch.Tensor, mesh: Mesh, axis: str = "model") -> torch.Tensor:
-    """Sum of ``x`` over the axis's ranks (a new tensor)."""
+IPC_MIN_BYTES = 1 << 20
+
+
+def _ipc(x: torch.Tensor, mesh: Mesh) -> bool:
+    """Does this all_gather go through CUDA IPC (``Mesh.one_card``)?"""
+    return (x.is_cuda and mesh.one_card
+            and x.numel() * x.element_size() >= IPC_MIN_BYTES)
+
+
+def _reduce(x: torch.Tensor, mesh: Mesh, axis, op, name: str):
     n, _, group = _axis(mesh, axis)
     if n == 1:
         return x.clone()
@@ -99,25 +137,125 @@ def psum(x: torch.Tensor, mesh: Mesh, axis: str = "model") -> torch.Tensor:
     buf, staged = _to_host(x, group)
     if not staged:
         buf = buf.clone()               # all_reduce works in place
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-    return _back(buf, x, mesh, "psum", staged, t0, axis)
+    dist.all_reduce(buf, op=op, group=group)
+    return _back(buf, x, mesh, name, staged, t0, axis_name(axis))
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh,
-               axis: str = "model") -> torch.Tensor:
+def psum(x: torch.Tensor, mesh: Mesh, axis="model") -> torch.Tensor:
+    """Sum of ``x`` over the axis's ranks (a new tensor)."""
+    return _reduce(x, mesh, axis, dist.ReduceOp.SUM, "psum")
+
+
+def psum_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The 'model' sum of ``x`` [P * c, ...], tiled on dim 0: this rank
+    keeps rows ``[rank * c, (rank + 1) * c)`` of it.  Gloo has no
+    reduce-scatter: it runs as an all-reduce whose other rows are dropped
+    (the same sums; counted as one ``psum_scatter``)."""
+    P = mesh.model
+    if x.shape[0] % P:
+        raise ValueError(f"psum_scatter: {x.shape[0]} rows over a 'model' "
+                         f"axis of {P}")
+    c = x.shape[0] // P
+    out = _reduce(x, mesh, "model", dist.ReduceOp.SUM, "psum_scatter")
+    return out[mesh.rank * c:(mesh.rank + 1) * c].clone()
+
+
+def _group_ranks(mesh: Mesh, axis: str) -> tuple[int, list[int]]:
+    """(an id of this rank's group on ``axis``, its members' world ranks
+    in group order)."""
+    P = mesh.model
+    if axis == "model":
+        return mesh.data_rank, [mesh.data_rank * P + m for m in range(P)]
+    if axis == "data":
+        return mesh.rank, [d * P + mesh.rank for d in range(mesh.data)]
+    return 0, list(range(mesh.world))
+
+
+class _IpcBuffers:
+    """This process's exported staging buffer on the card and the peers'
+    buffers it has mapped, by world rank: each is exported or mapped once
+    (a new one only when a gather outgrows it), so no IPC handle is opened
+    or released a call."""
+
+    def __init__(self):
+        self.buf, self.version, self.args = None, 0, None
+        self.peers = {}                 # world rank -> (version, buffer)
+
+    def export(self, nbytes: int, device) -> torch.Tensor:
+        from torch.multiprocessing.reductions import reduce_tensor
+        if self.buf is None or self.buf.numel() < nbytes:
+            self.buf = None
+            self.buf = torch.empty(max(nbytes, 1 << 20), dtype=torch.uint8,
+                                   device=device)
+            self.version += 1
+            self.args = reduce_tensor(self.buf)[1]
+        return self.buf
+
+    def peer(self, rank: int, version: int, args) -> torch.Tensor:
+        from torch.multiprocessing.reductions import rebuild_cuda_tensor
+        held = self.peers.get(rank)
+        if held is None or held[0] != version:
+            self.peers.pop(rank, None)
+            self.peers[rank] = (version, rebuild_cuda_tensor(*args))
+        return self.peers[rank][1]
+
+
+_IPC = _IpcBuffers()
+
+
+def _ipc_all_gather(x: torch.Tensor, mesh: Mesh, axis: str,
+                    group) -> torch.Tensor:
+    """``all_gather`` between ranks that share one card: every rank copies
+    its tensor into its exported buffer and names the buffer (its CUDA IPC
+    handle, once a buffer) in the store; the group meets, each copies the
+    others' bytes device to device, and the group meets again before any
+    rank writes its buffer anew.  The same bytes as the staged path."""
+    import pickle
+
+    store = dist.distributed_c10d._get_default_store()
+    gid, ranks = _group_ranks(mesh, axis)
+    me = mesh.world_rank
+    mesh.ipc_calls[axis] += 1
+    tag = f"ipc/{mesh.data}x{mesh.model}/{axis}/{gid}/{mesh.ipc_calls[axis]}"
+    x = x.detach().contiguous()
+    flat = x.view(-1).view(torch.uint8)
+    nb = flat.numel()
+    buf = _IPC.export(nb, x.device)
+    buf[:nb].copy_(flat)
+    torch.cuda.synchronize(x.device)
+    store.set(f"{tag}/{me}", pickle.dumps((_IPC.version, _IPC.args)))
+    dist.barrier(group=group)
+    out = torch.empty((len(ranks),) + tuple(x.shape), dtype=x.dtype,
+                      device=x.device)
+    rows = out.view(len(ranks), -1).view(torch.uint8)
+    for j, r in enumerate(ranks):
+        if r == me:
+            rows[j].copy_(flat)
+            continue
+        version, args = pickle.loads(store.get(f"{tag}/{r}"))
+        rows[j].copy_(_IPC.peer(r, version, args)[:nb])
+    torch.cuda.synchronize(x.device)
+    dist.barrier(group=group)
+    store.delete_key(f"{tag}/{me}")
+    return out
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axis="model") -> torch.Tensor:
     """-> ``[n, *x.shape]``, the axis's rank j's ``x`` at index j."""
     n, _, group = _axis(mesh, axis)
     if n == 1:
         return x[None].clone()
+    if _ipc(x, mesh):
+        return _ipc_all_gather(x, mesh, axis_name(axis), group)
     t0 = time.perf_counter()
     buf, staged = _to_host(x, group)
     out = torch.empty(n * buf.numel(), dtype=x.dtype, device=buf.device)
     dist.all_gather_into_tensor(out, buf.reshape(-1), group=group)
     out = out.reshape((n,) + tuple(x.shape))
-    return _back(out, x, mesh, "all_gather", staged, t0, axis)
+    return _back(out, x, mesh, "all_gather", staged, t0, axis_name(axis))
 
 
-def fold_sum(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
+def fold_sum(x: torch.Tensor, mesh: Mesh, axis="data") -> torch.Tensor:
     """The sum of ``x`` over the axis's ranks, added in rank order
     (``((x_0 + x_1) + x_2) + ...``) on every rank from one all-gather, so
     that every rank holds the same bits whatever the backend's reduction
@@ -131,14 +269,7 @@ def fold_sum(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
 
 def world_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Elementwise max of ``x`` over every rank of the mesh."""
-    if mesh.world == 1:
-        return x.clone()
-    t0 = time.perf_counter()
-    buf, staged = _to_host(x, None)
-    if not staged:
-        buf = buf.clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.MAX)
-    return _back(buf, x, mesh, "max", staged, t0, "world")
+    return _reduce(x, mesh, "world", dist.ReduceOp.MAX, "max")
 
 
 def barrier(mesh: Mesh) -> None:
@@ -266,7 +397,9 @@ def _rank_main(rank: int, fn, world: int, data: int, backend: str,
             model_group, data_group = _mesh_groups(world, data, rank)
         P = world // data
         mesh = Mesh(model=P, rank=rank % P, device=dev, group=model_group,
-                    data=data, data_rank=rank // P, data_group=data_group)
+                    data=data, data_rank=rank // P, data_group=data_group,
+                    one_card=(dev.type == "cuda" and backend == "gloo"
+                              and torch.device(device).index is not None))
         out = fn(mesh, *args)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:

@@ -32,7 +32,10 @@ class Mesh:
     'model' collective by its name, another axis's as ``name/axis``.
     ``staged_bytes`` is their payload and ``staged_s`` their host-clock
     seconds, the copies included; ``axis_bytes`` and ``axis_s`` split the
-    same by axis ('model', 'data', 'world')."""
+    same by axis ('model', 'data', 'world').  ``one_card``: every rank
+    of the mesh lies on this rank's card (gloo ranks sharing one GPU), so
+    a large ``all_gather`` reads the others' tensors through CUDA IPC
+    (``ipc_calls``, by axis) instead of staging them."""
 
     model: int                       # P, the 'model' axis size
     rank: int = 0                    # this rank's index on 'model'
@@ -41,6 +44,7 @@ class Mesh:
     data: int = 1                    # D, the 'data' axis size
     data_rank: int = 0               # this rank's index on 'data'
     data_group: object = None        # the 'data' process group
+    one_card: bool = False           # every rank on this rank's card
     staged: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
     staged_bytes: int = 0
@@ -49,6 +53,8 @@ class Mesh:
     axis_bytes: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
     axis_s: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    ipc_calls: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
 
     def __post_init__(self):

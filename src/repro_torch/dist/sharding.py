@@ -1,5 +1,6 @@
-"""Row-split rules for the arrays sharded over 'model' (the part of
-``repro.dist.sharding`` the port needs).
+"""Row-split rules for the arrays sharded over 'model', and the
+reference's axis-set templates and rule tables (port of
+``repro.dist.sharding``).
 
 The pool, its optimizer states and the D' store are row-sharded: rank r of
 P holds rows ``[r * n / P, (r + 1) * n / P)``, the same on every data
@@ -8,12 +9,20 @@ every mesh axis divides it (``repro/launch/steps.py:store_rows``); the pad
 rows have length 0 and are never looked up.  Of the buffers only the D'
 store shards (the reference's ``buffer_rules``); a CSR store is re-based
 per rank (``sharded_memory.shard_csr_buffers``).  A checkpoint holds whole
-arrays; ``slab_shardings`` cuts a rank's slabs out of them on restore.  The
-reference's PartitionSpec rule tables (``recsys_rules``, ``buffer_rules``)
-have no counterpart: nothing in the port consumes them before its
-``launch/steps.py`` (``ROADMAP.md``).
+arrays; ``slab_shardings`` cuts a rank's slabs out of them on restore.
+
+Templates (``ALL``, ``DP``, ``EP``; ``resolve_template``, ``spec_for_path``)
+resolve as the reference's, against the port's ``Mesh`` (axes 'data' and
+'model'; 'pod' is in no mesh and ``_expand`` filters it).  PyTorch has no
+``PartitionSpec``: a spec is a tuple with one entry per resolved dim,
+``None``, an axis name or a tuple of axis names, which is
+``tuple(PartitionSpec(...))`` of the reference.  ``lm_rules`` and
+``LM_CACHE_RULES`` are the LM's tables; ``rank_share`` cuts this rank's
+block of an array by its rule.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -85,3 +94,168 @@ def slab_shardings(mesh):
                              f"a 'model' axis of {mesh.model}")
         return a[mesh.rank * c:(mesh.rank + 1) * c]
     return cut
+
+
+# ------------------------------------------------------------ templates
+
+class _AxisSet:
+    """Named axis-set placeholder, expanded against a concrete mesh."""
+
+    def __init__(self, name: str, members: tuple[str, ...]):
+        self.name = name
+        self.members = members
+
+    def __repr__(self) -> str:
+        return self.name
+
+
+# ALL: every mesh axis (mesh order).  DP: the data-parallel set.  EP: the
+# expert/row-parallel set, ('data', 'model').
+ALL = _AxisSet("ALL", ())
+DP = _AxisSet("DP", ("pod", "data"))
+EP = _AxisSet("EP", ("data", "model"))
+
+
+def _expand(cand, mesh) -> tuple[str, ...] | None:
+    """Candidate -> ordered axis tuple (None means explicit replicate)."""
+    if cand is None:
+        return None
+    if cand is ALL:
+        return tuple(mesh.axis_names)
+    if isinstance(cand, _AxisSet):
+        return tuple(a for a in cand.members if a in mesh.axis_names)
+    if isinstance(cand, str):
+        return (cand,)
+    return tuple(cand)
+
+
+def resolve_dim(entry, dim: int, mesh, used: set[str]):
+    """One template entry -> spec entry (claims axes into ``used``): the
+    first candidate whose unclaimed mesh axes have a product above 1 that
+    divides ``dim``."""
+    if entry is None:
+        return None
+    sizes = dict(mesh.shape)
+    for cand in entry:
+        axes = _expand(cand, mesh)
+        if axes is None:
+            return None
+        axes = tuple(a for a in axes if a in sizes and a not in used)
+        if not axes:
+            continue
+        prod = int(np.prod([sizes[a] for a in axes]))
+        if prod > 1 and dim % prod == 0:
+            used.update(axes)
+            return axes if len(axes) > 1 else axes[0]
+    return None
+
+
+def resolve_template(template, shape, mesh) -> tuple:
+    """Template + concrete shape + mesh -> spec (never fails: dims whose
+    candidates don't fit replicate)."""
+    used: set[str] = set()
+    return tuple(resolve_dim(e, int(d), mesh, used)
+                 for d, e in zip(shape, template))
+
+
+def spec_for_path(path: str, shape, rules, mesh) -> tuple:
+    """The first rule whose regex matches ``path``, resolved; ``()``
+    (replicated) when none does."""
+    for pat, template in rules:
+        if re.search(pat, path):
+            return resolve_template(template, shape, mesh)
+    return ()
+
+
+def spec_axes(spec: tuple, i: int) -> tuple[str, ...]:
+    """Mesh axes of spec dim i (specs may omit trailing unsharded dims)."""
+    entry = spec[i] if i < len(spec) else None
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def axis_index(mesh, axes: tuple[str, ...]) -> int:
+    """This rank's block index over ``axes`` (the first axis major, as a
+    dim sharded over an axis tuple is laid out)."""
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + (mesh.data_rank if a == "data"
+                                     else mesh.rank)
+    return idx
+
+
+def axes_size(mesh, axes) -> int:
+    return int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+
+
+def block_bounds(mesh, axes, n: int) -> tuple[int, int]:
+    """[lo, hi) of this rank's block of ``n`` rows sharded over ``axes``."""
+    c = n // axes_size(mesh, axes)
+    lo = axis_index(mesh, axes) * c
+    return lo, lo + c
+
+
+def block(x, mesh, spec: tuple):
+    """This rank's block of ``x`` (a tensor or numpy array) under
+    ``spec``: a view (slices), ``x`` itself when nothing shards."""
+    idx = []
+    for i in range(len(spec)):
+        axes = spec_axes(spec, i)
+        n = axes_size(mesh, axes)
+        if n == 1:
+            idx.append(slice(None))
+            continue
+        c = x.shape[i] // n
+        j = axis_index(mesh, axes)
+        idx.append(slice(j * c, (j + 1) * c))
+    return x[tuple(idx)] if idx else x
+
+
+def rank_share(path: str, x, mesh, rules):
+    """This rank's block of the leaf at ``path`` by the first matching
+    rule of ``rules`` (the whole leaf with no mesh or no match)."""
+    if mesh is None:
+        return x
+    return block(x, mesh, spec_for_path(path, tuple(x.shape), rules, mesh))
+
+
+# ------------------------------------------------------------ rule tables
+
+def lm_rules():
+    """Transformer parameters (the reference's table, leading entry the
+    stacked layer axis): Megatron tensor parallelism over 'model' for the
+    per-layer matmuls, ZeRO-3 storage over the dp axes for the other big
+    dim, experts and vocab rows over EP.  The port stores by this table
+    only the expert stacks (``nn.moe``'s storage blocks) and the LMA
+    pool's 'model' slab; its dense leaves are whole on every rank."""
+    return [
+        (r"/moe/w_(gate|up)$", [None, [EP, "model", "data"],
+                                [DP, "pod", "data"], None]),
+        (r"/moe/w_down$", [None, [EP, "model", "data"], None,
+                           [DP, "pod", "data"]]),
+        (r"/moe/router/", [None, None, None]),
+        (r"/attn/w(q|k|v)/kernel$", [None, [DP, "pod", "data"], ["model"]]),
+        (r"/attn/w(q|k|v)/bias$", [None, ["model"]]),
+        (r"/attn/wo/kernel$", [None, ["model"], [DP, "pod", "data"]]),
+        (r"/attn/w(q_a|kv_a)/kernel$", [None, [DP, "pod", "data"], None]),
+        (r"/attn/w(q_b|kv_b)/kernel$", [None, None, ["model"]]),
+        (r"/(ffn|shared)/(gate|up)/kernel$",
+         [None, [DP, "pod", "data"], ["model"]]),
+        (r"/(ffn|shared)/down/kernel$",
+         [None, ["model"], [DP, "pod", "data"]]),
+        (r"/embed/table_0$", [["model"], [DP, "pod", "data"]]),
+        (r"/embed/memory$", [["model"]]),
+        (r"/lm_head/kernel$", [[DP, "pod", "data"], ["model"]]),
+    ]
+
+
+# The decode cache [count, B, L, (KV, hd | r + rd)]: the batch over the dp
+# axes, the LENGTH over 'model' plus every dp axis the batch leaves idle
+# (the reference's ``repro/launch/steps.py:81``; ``dist.flash_decode``).
+LM_CACHE_RULES = [
+    (r"/(k|v)$", [None, [DP, "data", None], [ALL, EP, "model"], None, None]),
+    (r"/ckv$", [None, [DP, "data", None], [ALL, EP, "model"], None]),
+    (r"/(k|v)_scale$", [None, [DP, "data", None], [ALL, EP, "model"], None]),
+    (r"/ckv_scale$", [None, [DP, "data", None], [ALL, EP, "model"]]),
+]

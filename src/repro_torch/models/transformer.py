@@ -31,6 +31,17 @@ it.  The recomputed regions hold no side effect: the token table's lookup
 (and a sparse-gradient capture's record of it) and the output table run
 once, outside them, and a MoE layer's routing is deterministic.  ``prefill``
 and ``decode_step`` run under ``no_grad``, where nothing is checkpointed.
+
+Serving under an installed ``Mesh`` (the reference's meshed ``prefill`` /
+``decode_step``): ``init(..., mesh=)`` builds a rank's share (each expert
+stack's storage block, the LMA pool's 'model' slab; every dense leaf
+whole), ``init_cache`` allocates the rank's slab of the cache (the batch
+over ``flash_decode.plan``'s batch axes, the length over its seq axes),
+``prefill`` writes only that slab, and ``decode_step`` attends through
+``dist.flash_decode``.  ``prefill`` and ``decode_step`` take the cache's
+whole ``length`` under a mesh (a slab does not tell it).  Tokens, hidden
+states and logits are the whole batch's on every rank; the MoE layers run
+``moe_apply_sharded`` (``inference``, ``lead`` = B).
 """
 from __future__ import annotations
 
@@ -116,7 +127,8 @@ class Block(nn.Module):
     """One layer: ``norm_attn``, ``attn`` (GQA or MLA), ``norm_ffn``, and
     ``ffn`` (kind "dense") or ``moe`` (kind "moe")."""
 
-    def __init__(self, cfg: TransformerConfig, kind: str, generator, device):
+    def __init__(self, cfg: TransformerConfig, kind: str, generator, device,
+                 mesh=None):
         super().__init__()
         dt = cfg.torch_dtype
         self.kind = kind
@@ -127,7 +139,7 @@ class Block(nn.Module):
             self.attn = gqa_init(_attn_cfg(cfg), generator, device, dt)
         self.norm_ffn = _norm(cfg, device)
         if kind == "moe":
-            self.moe = moe_init(cfg.moe, generator, device, dt)
+            self.moe = moe_init(cfg.moe, generator, device, dt, mesh)
         else:
             self.ffn = GluFFN(cfg.d_model, cfg.d_ff, generator, device,
                               dtype=dt)
@@ -136,10 +148,11 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     """Parameters named as the reference's tree: ``embed`` (``table_0``, or
     the embedding scheme's parameters), ``lm_head`` (untied), ``final_norm``
-    and ``layers_{gi}.{i}``."""
+    and ``layers_{gi}.{i}``.  With a mesh, a rank's share: the expert
+    stacks' storage blocks and the LMA pool's 'model' slab."""
 
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
-                 device):
+                 device, mesh=None):
         super().__init__()
         self.cfg = cfg
         dt = cfg.torch_dtype
@@ -150,33 +163,38 @@ class Transformer(nn.Module):
             self.embed = nn.ParameterDict({"table_0": table.to(dt)})
         else:
             self.embed = nn.ParameterDict(
-                EmbeddingTable(cfg.embedding).init(generator, device))
+                EmbeddingTable(cfg.embedding).init(generator, device, mesh))
         if not cfg.tied_embeddings:
             self.lm_head = dense(cfg.d_model, cfg.vocab_size, generator,
                                  device, bias=False, dtype=dt)
         self.final_norm = _norm(cfg, device)
         for gi, (kind, count) in enumerate(cfg.layer_groups()):
             self.add_module(f"layers_{gi}", nn.ModuleList(
-                Block(cfg, kind, generator, device) for _ in range(count)))
+                Block(cfg, kind, generator, device, mesh)
+                for _ in range(count)))
 
     def groups(self):
         return [getattr(self, f"layers_{gi}")
                 for gi in range(len(self.cfg.layer_groups()))]
 
 
-def init(cfg: TransformerConfig, seed: int = 0, device=None) -> Transformer:
+def init(cfg: TransformerConfig, seed: int = 0, device=None,
+         mesh=None) -> Transformer:
     """Random parameters from ``seed``, on the card unless ``device`` says
-    otherwise."""
+    otherwise; with a mesh, this rank's share of the same parameters."""
     dev = resolve_device(device)
-    return Transformer(cfg, make_generator(seed, dev), dev)
+    return Transformer(cfg, make_generator(seed, dev), dev, mesh)
 
 
-def _ffn(cfg: TransformerConfig, layer: Block, h: torch.Tensor):
+def _ffn(cfg: TransformerConfig, layer: Block, h: torch.Tensor,
+         inference: bool = False):
     """The layer's FFN on h [B, S, d] -> (f [B, S, d], aux); a MoE takes
-    the B * S tokens as one [T, d] batch."""
+    the B * S tokens as one [T, d] batch (serving: ``inference``, with the
+    batch as its ``lead``)."""
     if layer.kind == "moe":
         B, S, d = h.shape
-        f, aux = moe_dispatch(layer.moe, cfg.moe, h.reshape(B * S, d))
+        kw = {"inference": True, "lead": B} if inference else {}
+        f, aux = moe_dispatch(layer.moe, cfg.moe, h.reshape(B * S, d), **kw)
         return f.reshape(B, S, d), aux
     return layer.ffn(h), torch.zeros((), dtype=torch.float32,
                                      device=h.device)
@@ -184,7 +202,8 @@ def _ffn(cfg: TransformerConfig, layer: Block, h: torch.Tensor):
 
 def _block(cfg: TransformerConfig, layer: Block, x: torch.Tensor,
            return_kv: bool = False):
-    """One layer on x [B, S, d] -> (y, aux), or (y, aux, kv)."""
+    """One layer on x [B, S, d] -> (y, aux), or with ``return_kv`` (the
+    prefill) (y, aux, kv)."""
     h = layer.norm_attn(x)
     if cfg.attention == "mla":
         a = mla_train(layer.attn, cfg.mla, h, block=cfg.attn_block,
@@ -195,7 +214,7 @@ def _block(cfg: TransformerConfig, layer: Block, x: torch.Tensor,
     if return_kv:
         a, kv = a
     x = x + a
-    f, aux = _ffn(cfg, layer, layer.norm_ffn(x))
+    f, aux = _ffn(cfg, layer, layer.norm_ffn(x), inference=return_kv)
     return (x + f, aux, kv) if return_kv else (x + f, aux)
 
 
@@ -293,20 +312,47 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
     """Zeroed stacked caches, ``layers_{gi}`` -> ``k``, ``v`` [count,
     batch, max_len, KV, hd], or MLA's ``ckv`` [count, batch, max_len, r +
     rope_dim]; int8 with a float32 ``{name}_scale`` (the shape without its
-    last axis), else the model's dtype."""
+    last axis), else the model's dtype.  Under an installed mesh, this
+    rank's slab: the rows and positions ``cache_slab`` gives."""
     dev = resolve_device(device)
     dt = torch.int8 if cfg.kv_quantized else cfg.torch_dtype
+    (b0, b1), (lo, hi) = cache_slab(batch, max_len)
     cache = {}
     for gi, (_kind, count) in enumerate(cfg.layer_groups()):
         g = {}
         for name, per in _cache_leaves(cfg).items():
-            shape = (count, batch, max_len, *per)
+            shape = (count, b1 - b0, hi - lo, *per)
             g[name] = torch.zeros(shape, dtype=dt, device=dev)
             if cfg.kv_quantized:
                 g[f"{name}_scale"] = torch.zeros(
                     shape[:-1], dtype=torch.float32, device=dev)
         cache[f"layers_{gi}"] = g
     return cache
+
+
+def cache_slab(batch: int, max_len: int) -> tuple:
+    """((b0, b1), (lo, hi)): the batch rows and positions of a [batch,
+    max_len] cache this rank holds under the installed mesh
+    (``flash_decode.plan``; the whole cache with no mesh, or where the
+    mesh's 'model' axis does not divide the length, as decode's rule)."""
+    from repro_torch.dist.context import current_mesh, dp_axes
+    from repro_torch.dist.flash_decode import cache_split
+    mesh = current_mesh()
+    if mesh is None or max_len % mesh.model:
+        return (0, batch), (0, max_len)
+    return cache_split(mesh, dp_axes(mesh), batch, max_len)
+
+
+def _length(cache: dict, length) -> int:
+    """The whole cache's length: ``length``, or with no mesh the cache's
+    own; a slab does not tell it, so a mesh needs ``length``."""
+    from repro_torch.dist.context import current_mesh
+    if length is not None:
+        return int(length)
+    if current_mesh() is not None:
+        raise ValueError("under a mesh the cache is a slab: pass its whole "
+                         "length")
+    return int(next(iter(cache["layers_0"].values())).shape[2])
 
 
 def cache_bytes_per_token(cfg: TransformerConfig) -> int:
@@ -324,33 +370,40 @@ def cache_bytes_per_token(cfg: TransformerConfig) -> int:
 
 @torch.no_grad()
 def prefill(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor,
-            buffers: dict | None = None, cache: dict | None = None):
+            buffers: dict | None = None, cache: dict | None = None,
+            length: int | None = None):
     """tokens [B, S] -> (last-position logits [B, V], KV cache).
 
     Each layer's (rope'd) keys and values (quantized for an int8 cache) are
     written into rows [0, S) of ``cache``, in place; without one, a cache
     of length S is made (the reference's).  A longer cache lets a server
     decode on from the prefill without a copy: rows past S stay as given
-    (zeros from ``init_cache``)."""
+    (zeros from ``init_cache``).  Under a mesh, only this rank's slab of a
+    cache of ``length`` rows (default S without a cache) is written."""
     B, S = tokens.shape
     x = embed_tokens(model, cfg, tokens, buffers).to(cfg.torch_dtype)
     if cache is None:
         cache = init_cache(cfg, B, S, x.device)
+        length = S
+    L = _length(cache, length)
+    (b0, b1), (lo, hi) = cache_slab(B, L)
+    n = max(0, min(hi, S) - lo)             # this slab's prefilled rows
     for gi, group in enumerate(model.groups()):
         c = cache[f"layers_{gi}"]
         rows = next(iter(c.values())).shape[1:3]
-        if rows[1] < S or rows[0] != B:
+        if L < S or tuple(rows) != (b1 - b0, hi - lo):
             raise ValueError(f"a cache of {tuple(rows)} cannot take a "
                              f"prefill of {(B, S)}")
         for li, layer in enumerate(group):
             x, _aux, kv = _block(cfg, layer, x, return_kv=True)
             for name, new in kv.items():
+                new = new[b0:b1, lo:lo + n]
                 if cfg.kv_quantized:
                     q, s = quantize_kv(new)
-                    c[name][li, :, :S] = q
-                    c[f"{name}_scale"][li, :, :S] = s
+                    c[name][li, :, :n] = q
+                    c[f"{name}_scale"][li, :, :n] = s
                 else:
-                    c[name][li, :, :S] = new.to(c[name].dtype)
+                    c[name][li, :, :n] = new.to(c[name].dtype)
     x = model.final_norm(x)
     return logits_fn(model, cfg, x[:, -1, :], buffers), cache
 
@@ -358,10 +411,12 @@ def prefill(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor,
 @torch.no_grad()
 def decode_step(model: Transformer, cfg: TransformerConfig,
                 tokens: torch.Tensor, cache: dict, cache_len: int,
-                buffers: dict | None = None):
+                buffers: dict | None = None, length: int | None = None):
     """One decode step: tokens [B] -> (logits [B, V], cache).  The new
     token is written at ``cache_len`` (the current valid length) in place;
-    the returned cache is the one given."""
+    the returned cache is the one given.  Under a mesh the cache is this
+    rank's slab of a cache of ``length`` rows."""
+    L = _length(cache, length)
     x = embed_tokens(model, cfg, tokens[:, None], buffers).to(cfg.torch_dtype)
     for gi, group in enumerate(model.groups()):
         c_full = cache[f"layers_{gi}"]
@@ -370,12 +425,12 @@ def decode_step(model: Transformer, cfg: TransformerConfig,
             h = layer.norm_attn(x)
             if cfg.attention == "mla":
                 a, _ = mla_decode(layer.attn, cfg.mla, h, c_layer, cache_len,
-                                  block=cfg.attn_block)
+                                  block=cfg.attn_block, length=L)
             else:
                 a, _ = gqa_decode(layer.attn, _attn_cfg(cfg), h, c_layer,
-                                  cache_len, block=cfg.attn_block)
+                                  cache_len, block=cfg.attn_block, length=L)
             x = x + a
-            f, _ = _ffn(cfg, layer, layer.norm_ffn(x))
+            f, _ = _ffn(cfg, layer, layer.norm_ffn(x), inference=True)
             x = x + f
     x = model.final_norm(x)
     return logits_fn(model, cfg, x[:, 0, :], buffers), cache

@@ -1,5 +1,5 @@
 """Attention: RoPE, int8 KV quantization, the blocked online softmax and
-GQA (grouped KV heads); port of ``repro.nn.attention`` without a mesh.
+GQA (grouped KV heads); port of ``repro.nn.attention``.
 
 ``blocked_attention`` is the reference's flash dataflow written with
 ``torch.matmul`` on blocks: a Python loop over query chunks, an online
@@ -23,9 +23,14 @@ decodes by the absorbed products against the fused latent cache ``ckv``
 [B, L, r + rope_dim]: one KV head of width r + rope_dim, the query heads
 grouped over it.
 
-Not ported yet (ROADMAP.md, Queue 1, "The LM under a mesh"): the decode
-under a mesh (``repro.dist.flash_decode``); ``gqa_decode`` and
-``mla_decode`` raise ``NotImplementedError`` under an installed ``Mesh``.
+A write position at or past the cache's end clamps to its last row (the
+reference's ``dynamic_update_slice``); the query attends every row below
+``cache_len + 1``.
+
+Under an installed ``Mesh`` whose 'model' axis divides the cache length,
+decode takes ``repro_torch.dist.flash_decode``: the cache given is this
+rank's slab of a cache of ``length`` rows, the query and output the whole
+batch's (the reference's mesh branch).
 """
 from __future__ import annotations
 
@@ -40,8 +45,6 @@ from repro_torch.nn.modules import RMSNorm, dense
 
 _NEG_INF = -1e30
 _PAD_POS = 2 ** 30                 # position of a padded KV entry
-LATER = ("not ported yet: ROADMAP.md, Queue 1, 'The LM under a mesh' "
-         "(dist/flash_decode.py, moe_apply_sharded)")
 
 
 def rope_table(positions: torch.Tensor, dim: int, theta: float = 10000.0):
@@ -239,23 +242,43 @@ def gqa_train(p: GQA, cfg: GQAConfig, x: torch.Tensor, block: int = 512,
     return out
 
 
+def _mesh_for(L: int):
+    """The installed mesh when decode shards a cache of L rows (its
+    'model' axis divides L, the reference's rule), else None."""
+    from repro_torch.dist.context import current_mesh
+    mesh = current_mesh()
+    return mesh if mesh is not None and L % mesh.model == 0 else None
+
+
 def gqa_decode(p: GQA, cfg: GQAConfig, x: torch.Tensor, cache: dict,
-               cache_len: int, block: int = 1024):
+               cache_len: int, block: int = 1024, length: int | None = None):
     """One-token decode.  x [B, 1, d]; cache {"k", "v"} [B, L, KV, hd]
     (int8 with "k_scale" / "v_scale" [B, L, KV]).  The new token's K/V are
-    written at ``cache_len`` in place; returns (out [B, 1, d], cache)."""
-    from repro_torch.dist.context import current_mesh
-    if current_mesh() is not None:
-        raise NotImplementedError(f"gqa_decode under a mesh is {LATER}")
+    written at ``cache_len`` (clamped to L - 1) in place; returns (out [B,
+    1, d], cache).  Under a mesh the cache is this rank's slab of a cache
+    of ``length`` rows (default: the slab's own)."""
+    from repro_torch.dist.context import dp_axes
+    from repro_torch.dist.flash_decode import sharded_flash_decode
     B = x.shape[0]
-    L = cache["k"].shape[1]
+    L = int(length) if length is not None else cache["k"].shape[1]
     cache_len = int(cache_len)
-    if not 0 <= cache_len < L:
-        raise ValueError(f"cache_len {cache_len} outside a cache of {L}")
     pos = torch.full((1,), cache_len, dtype=torch.int32, device=x.device)
     q, k_new, v_new = gqa_qkv(p, cfg, x, pos)
-    at = slice(cache_len, cache_len + 1)
-    if cache["k"].dtype == torch.int8:
+    quant = cache["k"].dtype == torch.int8
+    mesh = _mesh_for(L)
+    if mesh is not None:
+        kw = {}
+        if quant:
+            (k_new, kw["k_scale_new"]), (v_new, kw["v_scale_new"]) = (
+                quantize_kv(k_new), quantize_kv(v_new))
+            kw.update(k_scale=cache["k_scale"], v_scale=cache["v_scale"])
+        o = sharded_flash_decode(
+            q, cache["k"], cache["v"], k_new, v_new, cache_len,
+            sm_scale=1.0 / np.sqrt(cfg.hd), mesh=mesh, dp_axes=dp_axes(mesh),
+            length=L, block=block, **kw)
+        return p.wo(o.reshape(B, 1, cfg.n_heads * cfg.hd)), cache
+    at = slice(min(cache_len, L - 1), min(cache_len, L - 1) + 1)
+    if quant:
         for name, new in (("k", k_new), ("v", v_new)):
             qn, sn = quantize_kv(new)
             cache[name][:, at] = qn
@@ -374,24 +397,24 @@ def mla_train(p: MLA, cfg: MLAConfig, x: torch.Tensor, block: int = 512,
 
 
 def mla_decode(p: MLA, cfg: MLAConfig, x: torch.Tensor, cache: dict,
-               cache_len: int, block: int = 2048):
+               cache_len: int, block: int = 2048, length: int | None = None):
     """Absorbed-matmul decode against the fused latent cache.  x [B, 1, d];
     cache {"ckv": [B, L, r + rd]} (int8 with "ckv_scale" [B, L]: one scale
     a token over the fused width).  The new token's latent is written at
-    ``cache_len`` in place; attention runs in latent space,
-    ``(q_nope W_uk | q_rope) . (c_kv | k_rope)``, one KV head of width r +
-    rd that all H query heads share, values the latents' first r columns,
-    then ``W_uv`` and ``wo``.  -> (out [B, 1, d], cache)."""
-    from repro_torch.dist.context import current_mesh
-    if current_mesh() is not None:
-        raise NotImplementedError(f"mla_decode under a mesh is {LATER}")
+    ``cache_len`` (clamped to L - 1) in place; attention runs in latent
+    space, ``(q_nope W_uk | q_rope) . (c_kv | k_rope)``, one KV head of
+    width r + rd that all H query heads share, values the latents' first r
+    columns, then ``W_uv`` and ``wo``.  Under a mesh the cache is this
+    rank's slab of a cache of ``length`` rows, the latent passed as K and
+    its first r columns as V, with one scale for both (the reference's).
+    -> (out [B, 1, d], cache)."""
+    from repro_torch.dist.context import dp_axes
+    from repro_torch.dist.flash_decode import sharded_flash_decode
     B = x.shape[0]
     H, r = cfg.n_heads, cfg.kv_lora_rank
     nope, vd = cfg.qk_nope_dim, cfg.v_head_dim
-    L = cache["ckv"].shape[1]
+    L = int(length) if length is not None else cache["ckv"].shape[1]
     cache_len = int(cache_len)
-    if not 0 <= cache_len < L:
-        raise ValueError(f"cache_len {cache_len} outside a cache of {L}")
     pos = torch.full((1,), cache_len, dtype=torch.int32, device=x.device)
     q_nope, q_rope = _mla_q(p, cfg, x, pos)                  # [B, 1, H, *]
     c_new, kr_new = _mla_ckv(p, cfg, x, pos)
@@ -401,20 +424,38 @@ def mla_decode(p: MLA, cfg: MLAConfig, x: torch.Tensor, cache: dict,
     q_c = torch.einsum("bshn,hnr->bshr", q_nope, w_uk)
     q_cat = torch.cat([q_c, q_rope], dim=-1)                 # [B, 1, H, r+rd]
     kn_cat = torch.cat([c_new, kr_new], dim=-1)              # [B, 1, r+rd]
-    at = slice(cache_len, cache_len + 1)
-    if cache["ckv"].dtype == torch.int8:
-        kn_q, kn_s = quantize_kv(kn_cat)
-        cache["ckv"][:, at] = kn_q
-        cache["ckv_scale"][:, at] = kn_s
-        ck_f = dequantize_kv(cache["ckv"], cache["ckv_scale"], x.dtype)
+    quant = cache["ckv"].dtype == torch.int8
+    scale = 1.0 / np.sqrt(cfg.qk_dim)
+    mesh = _mesh_for(L)
+    if mesh is not None:
+        k_cat = cache["ckv"][:, :, None, :]                  # [B, L, 1, r+rd]
+        kn = kn_cat[:, :, None, :]
+        kw = {}
+        if quant:
+            kn, kn_s = quantize_kv(kn)
+            sc = cache["ckv_scale"][:, :, None]
+            kw = dict(k_scale=sc, v_scale=sc, k_scale_new=kn_s,
+                      v_scale_new=kn_s)
+        o_lat = sharded_flash_decode(
+            q_cat, k_cat, k_cat[..., :r], kn, kn[..., :r], cache_len,
+            sm_scale=scale, mesh=mesh, dp_axes=dp_axes(mesh), length=L,
+            block=block, **kw)
     else:
-        cache["ckv"][:, at] = kn_cat.to(cache["ckv"].dtype)
-        ck_f = cache["ckv"]
-    kv_pos = torch.arange(L, dtype=torch.int32, device=x.device)
-    o_lat = blocked_attention(q_cat, ck_f[:, :, None, :],
-                              ck_f[:, :, None, :r], causal=False,
-                              q_positions=pos, kv_positions=kv_pos,
-                              kv_valid_len=cache_len + 1, block=block,
-                              sm_scale=1.0 / np.sqrt(cfg.qk_dim))
+        w_at = min(cache_len, L - 1)
+        at = slice(w_at, w_at + 1)
+        if quant:
+            kn_q, kn_s = quantize_kv(kn_cat)
+            cache["ckv"][:, at] = kn_q
+            cache["ckv_scale"][:, at] = kn_s
+            ck_f = dequantize_kv(cache["ckv"], cache["ckv_scale"], x.dtype)
+        else:
+            cache["ckv"][:, at] = kn_cat.to(cache["ckv"].dtype)
+            ck_f = cache["ckv"]
+        kv_pos = torch.arange(L, dtype=torch.int32, device=x.device)
+        o_lat = blocked_attention(q_cat, ck_f[:, :, None, :],
+                                  ck_f[:, :, None, :r], causal=False,
+                                  q_positions=pos, kv_positions=kv_pos,
+                                  kv_valid_len=cache_len + 1, block=block,
+                                  sm_scale=scale)
     o = torch.einsum("bshr,hvr->bshv", o_lat, w_uv)
     return p.wo(o.reshape(B, 1, H * vd)), cache

@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN with gather-based capacity dispatch (port of
-``repro.nn.moe`` without a mesh).
+``repro.nn.moe``).
 
 Dispatch keeps the reference's dense shapes: the router's [T, E] weights R,
 each expert's top-C tokens by routing weight (over Rᵀ), the gathered
@@ -16,8 +16,21 @@ over-capacity expert's kept tokens are decided by the tie order alone.
 
 DeepSeek-V3 (sigmoid router, shared + fine-grained routed experts, top-8)
 and Llama4-Scout (softmax router, top-1 of 16 + shared) share one config.
-The expert-parallel path under a mesh (``moe_apply_sharded``) is not
-ported yet: ``moe_dispatch`` raises under an installed ``Mesh``.
+
+Each expert's weights are drawn from a generator of its own, seeded from
+the layer's stream, so a rank of a mesh draws only the experts of its
+storage block (``_moe_w_specs``: E over ('data', 'model')) and holds the
+same values as one card.  Under an installed ``Mesh``, ``moe_dispatch``
+takes the expert-parallel path, ``moe_apply_sharded``: each 'model' rank
+computes its E / M experts (gathered over 'data' from their storage
+blocks) on its share of the tokens, and the partials combine by ``psum``
+(``psum_scatter`` under full-mesh token sharding).  A rank holds the whole
+batch's activations: it cuts its token share out and gathers the outputs
+back, so the result is the whole [T, d] on every rank.  Capacity and the
+aux loss are per token share, as the reference's.  The sharded path
+serves only: its collectives carry no gradient, so it raises where
+autograd would record it (training under a mesh is ROADMAP.md's next
+item).
 """
 from __future__ import annotations
 
@@ -28,7 +41,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.nn.attention import LATER
+from repro_torch.dist import collectives as col
+from repro_torch.dist.sharding import (DP, EP, axes_size, axis_index, block,
+                                       block_bounds, resolve_template,
+                                       spec_axes)
 from repro_torch.nn.modules import GluFFN, dense
 
 
@@ -44,39 +60,55 @@ class MoEConfig:
     router_dtype: str = "float32"
 
 
-def _normal(shape, scale: float, generator, device, dtype) -> nn.Parameter:
-    """N(0, scale^2) drawn in place in ``dtype``: no float32 copy of a
-    stacked expert weight (one of DeepSeek-V3's is 7.5 GB in bf16)."""
-    w = torch.empty(shape, device=device, dtype=dtype)
-    w.normal_(generator=generator).mul_(scale)
-    return nn.Parameter(w)
-
-
 class MoE(nn.Module):
     """``router`` (a bias-free dense in float32, whatever the model's
     dtype), the stacked experts ``w_gate`` / ``w_up`` [E, d, f] and
     ``w_down`` [E, f, d], and ``shared`` (a gated FFN of width n_shared *
-    d_ff) when ``n_shared_experts`` > 0; named as the reference's leaves."""
+    d_ff) when ``n_shared_experts`` > 0; named as the reference's leaves.
+    With a mesh, the stacks are this rank's storage blocks."""
 
     def __init__(self, cfg: MoEConfig, generator: torch.Generator, device,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
         self.router = dense(d, E, generator, device, bias=False,
                             dtype=torch.float32)
-        s = 1.0 / np.sqrt(d)
-        self.w_gate = _normal((E, d, f), s, generator, device, dtype)
-        self.w_up = _normal((E, d, f), s, generator, device, dtype)
-        self.w_down = _normal((E, f, d), 1.0 / np.sqrt(f), generator, device,
-                              dtype)
+        base = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=generator.device))
+        spec_g, spec_d = _moe_w_specs(cfg, mesh)
+        stacks = {"w_gate": ((d, f), 1.0 / np.sqrt(d), spec_g),
+                  "w_up": ((d, f), 1.0 / np.sqrt(d), spec_g),
+                  "w_down": ((f, d), 1.0 / np.sqrt(f), spec_d)}
+        ids = range(E)
+        if mesh is not None:
+            ids = range(*block_bounds(mesh, spec_axes(spec_g, 0), E))
+        # each stack filled an expert at a time: no whole stack, and no
+        # second copy of this rank's block
+        for name, (shape, _scale, spec) in stacks.items():
+            rows = block(torch.empty(shape, device="meta"), mesh,
+                         spec[1:]).shape if mesh is not None else shape
+            setattr(self, name, nn.Parameter(torch.empty(
+                (len(ids), *rows), device=device, dtype=dtype)))
+        if torch.device(device).type == "meta":      # shapes only
+            ids = ()
+        with torch.no_grad():
+            for i, e in enumerate(ids):
+                g = torch.Generator(device=device).manual_seed(
+                    (base + 0x9E3779B97F4A7C15 * (e + 1)) % 2 ** 63)
+                for name, (shape, scale, spec) in stacks.items():
+                    w = torch.empty(shape, device=device, dtype=dtype)
+                    w.normal_(generator=g).mul_(scale)
+                    if mesh is not None:      # the stored rows of d or f
+                        w = block(w, mesh, spec[1:])
+                    getattr(self, name)[i].copy_(w)
         if cfg.n_shared_experts > 0:
             self.shared = GluFFN(d, cfg.n_shared_experts * f, generator,
                                  device, dtype=dtype)
 
 
 def moe_init(cfg: MoEConfig, generator: torch.Generator, device,
-             dtype: torch.dtype = torch.float32) -> MoE:
-    return MoE(cfg, generator, device, dtype)
+             dtype: torch.dtype = torch.float32, mesh=None) -> MoE:
+    return MoE(cfg, generator, device, dtype, mesh)
 
 
 def moe_capacity(cfg: MoEConfig, n_tokens: int) -> int:
@@ -154,11 +186,164 @@ def moe_apply(p: MoE, cfg: MoEConfig, x: torch.Tensor,
     return out.to(x.dtype), aux
 
 
-def moe_dispatch(p: MoE, cfg: MoEConfig, x: torch.Tensor):
-    """``moe_apply``; under an installed port ``Mesh`` the reference takes
-    its expert-parallel path (``inference`` and ``lead`` steer only its
-    token sharding), which is not ported yet: raises."""
-    from repro_torch.dist.context import current_mesh
-    if current_mesh() is not None:
-        raise NotImplementedError(f"the MoE under a mesh is {LATER}")
+def _moe_w_specs(cfg: MoEConfig, mesh):
+    """Storage specs of the stacked expert weights (w_gate / w_up [E, d,
+    f], w_down [E, f, d]), the ``lm_rules`` templates' (``()`` for each
+    with no mesh)."""
+    if mesh is None:
+        return (), ()
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    sg = resolve_template([[EP, "model", "data"], [DP, "pod", "data"], None],
+                          (E, d, f), mesh)
+    sd = resolve_template([[EP, "model", "data"], None, [DP, "pod", "data"]],
+                          (E, f, d), mesh)
+    return sg, sd
+
+
+def _stored(w: torch.Tensor, full: tuple, mesh, spec: tuple):
+    """This rank's storage block of a stack whose whole shape is ``full``:
+    ``w`` itself when the module holds only its block, the block's view
+    when it holds the whole stack (a model built without the mesh)."""
+    if tuple(w.shape) == tuple(full):
+        return block(w, mesh, spec)
+    want = tuple(block(torch.empty(full, device="meta"), mesh, spec).shape)
+    if tuple(w.shape) != want:
+        raise ValueError(f"an expert stack of {tuple(w.shape)} is neither "
+                         f"the whole {tuple(full)} nor this rank's {want}")
+    return w
+
+
+def _gather(w: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """All-gather ``w`` over ``axis``, tiled along ``dim`` (``w`` itself
+    over an axis of 1: no copy of a stack)."""
+    if mesh.shape[axis] == 1:
+        return w
+    parts = col.all_gather(w, mesh, axis)
+    if dim == 0:
+        return parts.reshape(-1, *w.shape[1:])
+    return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
+def moe_apply_sharded(p: MoE, cfg: MoEConfig, x: torch.Tensor, mesh,
+                      dp_axes: tuple[str, ...],
+                      full_token_sharding: bool = False,
+                      lead: int | None = None, stats: dict | None = None):
+    """The expert-parallel MoE on this rank.  x [T, d], the whole batch's
+    -> (out [T, d] in x's dtype, the same on every rank; aux scalar: the
+    mean over the token shares of each share's Switch loss).
+
+    Token ladder (the reference's): full mesh when ``full_token_sharding``
+    and T divides into dp x M shares and ``lead`` (the caller's batch dim)
+    is None or dp_size; then dp-only; then replicated.  Under full-mesh
+    sharding a rank's share is gathered over 'model' first and the
+    combine is a ``psum_scatter``; else a ``psum`` over 'model'.  Expert
+    stacks enter as storage blocks and are gathered over 'data' (and over
+    the dp axis their d is stored over) down to "E / M experts, d and f
+    whole": 'model' rank m computes experts ``my_expert_ids(m)``.
+    ``stats``, where given, receives this rank's C and expert ids.
+    Raises where autograd would record the call: the collectives carry
+    no gradient."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(w.requires_grad for w in p.parameters())):
+        raise NotImplementedError(
+            "moe_apply_sharded serves only: its collectives carry no "
+            "gradient (training under a mesh is ROADMAP.md's next item); "
+            "call it under torch.no_grad()")
+    T, d = x.shape
+    E = cfg.n_experts
+    dp_size = axes_size(mesh, dp_axes)
+    M = mesh.model
+    tokens_full = (full_token_sharding and T % (dp_size * M) == 0
+                   and T >= dp_size * M
+                   and (lead is None or lead == dp_size))
+    tokens_sharded = T % dp_size == 0 and T >= dp_size
+    spec_g, spec_d = _moe_w_specs(cfg, mesh)
+    e_axes = spec_axes(spec_g, 0)
+    gd_axes = spec_axes(spec_g, 1)
+    dd_axes = spec_axes(spec_d, 2)
+    e_extra = tuple(a for a in e_axes if a != "model")
+    if e_extra not in ((), ("data",)):
+        raise ValueError(f"expert storage over {e_axes}")
+    mj = mesh.rank
+    # the stacks down to this 'model' rank's experts, d and f whole
+    ws = []
+    f = cfg.d_ff
+    for w, spec, d_axes, dd in ((p.w_gate, spec_g, gd_axes, 1),
+                                (p.w_up, spec_g, gd_axes, 1),
+                                (p.w_down, spec_d, dd_axes, 2)):
+        full = (E, f, d) if dd == 2 else (E, d, f)
+        w = _stored(w, full, mesh, spec)
+        for a in d_axes:
+            w = _gather(w, mesh, a, dd)
+        for a in e_extra:
+            w = _gather(w, mesh, a, 0)
+        if not e_axes:            # replicated storage: compute my slice
+            sl = E // M
+            w = w[mj * sl:(mj + 1) * sl]
+        ws.append(w)
+    if e_extra:                   # storage E over (data, model): strided
+        D = mesh.data
+        bs = E // (D * M)
+        ids = ((torch.arange(D)[:, None] * M + mj) * bs
+               + torch.arange(bs)[None, :]).reshape(-1)
+    else:
+        bs = E // M
+        ids = mj * bs + torch.arange(bs)
+    ids = ids.to(x.device)
+
+    if tokens_full:
+        c = T // (dp_size * M)
+        w_rank = axis_index(mesh, (*dp_axes, "model"))
+        x_loc = x[w_rank * c:(w_rank + 1) * c]
+        x_loc = col.all_gather(x_loc, mesh, "model").reshape(-1, d)
+    elif tokens_sharded:
+        c = T // dp_size
+        r = axis_index(mesh, dp_axes)
+        x_loc = x[r * c:(r + 1) * c]
+    else:
+        x_loc = x
+    T_loc = x_loc.shape[0]
+    logits, top_w, top_i = route(p, cfg, x_loc)
+    R = torch.zeros((T_loc, E), dtype=torch.float32, device=x.device)
+    R.scatter_(1, top_i, top_w)
+    C = min(moe_capacity(cfg, T_loc), T_loc)
+    pr, tok_idx = top_k(R.T[ids], C)                      # [e_local, C]
+    keep = (pr > 0.0).to(pr.dtype)
+    xe = x_loc[tok_idx]
+    ye = _expert_ffn(*ws, xe)
+    ye = ye * (pr * keep)[..., None].to(ye.dtype)
+    out = torch.zeros((T_loc, d), dtype=ye.dtype, device=x.device)
+    out.index_add_(0, tok_idx.reshape(-1), ye.reshape(-1, d))
+    load = torch.bincount(top_i.reshape(-1), minlength=E)
+    frac_tokens = load.to(torch.float32) / T_loc
+    mean_prob = torch.mean(torch.softmax(logits, dim=-1), dim=0)
+    aux = E * torch.sum(frac_tokens * mean_prob)
+    if M > 1:
+        out = col.psum_scatter(out, mesh) if tokens_full \
+            else col.psum(out, mesh, "model")
+        aux = col.psum(aux, mesh, "model") / M
+    if tokens_sharded or tokens_full:
+        aux = col.psum(aux, mesh, dp_axes) / dp_size
+    # back to the whole batch on every rank
+    if tokens_full:
+        out = col.all_gather(out, mesh, (*dp_axes, "model")).reshape(T, d)
+    elif tokens_sharded and dp_size > 1:
+        out = col.all_gather(out, mesh, dp_axes).reshape(T, d)
+    if stats is not None:
+        stats.update(C=C, ids=ids, load=load, T_loc=T_loc)
+    if cfg.n_shared_experts > 0:
+        out = out + p.shared(x)
+    return out.to(x.dtype), aux
+
+
+def moe_dispatch(p: MoE, cfg: MoEConfig, x: torch.Tensor,
+                 inference: bool = False, lead: int | None = None):
+    """``moe_apply_sharded`` under an installed ``Mesh`` (``inference``
+    allows the full-mesh token sharding, ``lead`` is the caller's batch
+    dim), else ``moe_apply``."""
+    from repro_torch.dist.context import current_mesh, dp_axes
+    mesh = current_mesh()
+    if mesh is not None:
+        return moe_apply_sharded(p, cfg, x, mesh, dp_axes(mesh),
+                                 full_token_sharding=inference, lead=lead)
     return moe_apply(p, cfg, x)

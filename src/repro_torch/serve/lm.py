@@ -11,6 +11,12 @@ at its decode capacity ``pad_to`` and the prefill writes its first ``plen``
 rows in place, where the reference prefills a cache of ``plen`` rows and
 pads it to ``pad_to`` (a copy of the whole cache, which at decode_32k would
 not fit beside it).  The rows past ``plen`` are zeros either way.
+
+Under an installed ``Mesh`` every rank runs the same server on the same
+prompts: a wave's cache is this rank's slab of the ``pad_to``-row cache
+(``transformer.init_cache``), and prefill and decode take the meshed
+paths (``length`` = ``pad_to``); logits, and so tokens, are the whole
+wave's on every rank.
 """
 from __future__ import annotations
 
@@ -65,7 +71,7 @@ class LMServer:
         cache = transformer.init_cache(self.cfg, n, pad_to, self.device)
         logits, cache = transformer.prefill(
             self.model, self.cfg, torch.from_numpy(toks).to(self.device),
-            cache=cache)
+            cache=cache, length=pad_to)
         out_tokens = [[] for _ in range(n)]
         done = np.zeros(n, bool)
         cur = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -76,7 +82,8 @@ class LMServer:
             if done.all() or plen + step >= pad_to:
                 break
             logits, cache = transformer.decode_step(
-                self.model, self.cfg, cur, cache, plen + step - 1)
+                self.model, self.cfg, cur, cache, plen + step - 1,
+                length=pad_to)
             self.stats["decode_steps"] += 1
             cur = torch.argmax(logits, dim=-1).to(torch.int32)
             cur_np = cur.cpu().numpy()

@@ -1323,3 +1323,17 @@ def test_moe_apply_on_the_card_equals_the_cpu(cuda):
         moe.moe_capacity(cfg, 512)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(aux.cpu(), waux, rtol=1e-6, atol=1e-6)
+
+
+def test_ipc_all_gather_equals_the_staged_one(cuda):
+    """Ranks sharing one card gather through CUDA IPC: on a (2, 2) mesh of
+    4 gloo ranks on cuda:0, every axis's ``all_gather`` bit-equal to the
+    host-staged gather, for float32, bf16 and int32 of 28 B (gloo) and of
+    6 and 12 MB (IPC: one call a dtype and axis)."""
+    from lm_mesh_ranks import gather_paths_rank
+    from repro_torch.dist.collectives import run_ranks
+
+    for r in run_ranks(gather_paths_rank, 4, data=2, device="cuda:0"):
+        calls = r.pop("ipc_calls")
+        assert all(r.values()), r
+        assert calls == {"model": 3, "data": 3, "world": 3}

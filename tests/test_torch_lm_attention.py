@@ -217,31 +217,64 @@ def test_glu_ffn_and_count_params():
     assert tm.count_params(mod) == jm.count_params(jp)
 
 
-def test_mla_and_mesh_decode_raise():
-    """Under a mesh the reference's decode takes ``dist.flash_decode`` and
-    its MoE ``moe_apply_sharded``, neither ported yet: GQA's and MLA's
-    decode and the MoE dispatch raise, naming ROADMAP's item."""
-    from repro_torch.dist.context import Mesh, use_mesh
-    from repro_torch.nn import moe as tmoe
+def test_mla_and_mesh_decode_run():
+    """Under a mesh the decode takes ``dist.flash_decode`` and the MoE
+    ``moe_apply_sharded``: GQA's and MLA's decode (the length over a
+    'model' axis of 2, on 2 gloo ranks) and the MoE dispatch run, and
+    match the one-card path: outputs within 1e-5, each rank's cache slab
+    equal to the one-card cache's rows."""
+    import lm_mesh_ranks as lr
+    from repro_torch.dist.collectives import run_ranks
+    one = lr.decode_pieces(None)
+    ranks = run_ranks(lr.decode_pieces, 2, device="cpu")
+    assert [r["pos"] for r in ranks] == [(0, 2), (2, 4)]
+    for r in ranks:
+        for name in ("gqa", "mla", "moe"):
+            np.testing.assert_allclose(r[name], one[name], rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(r["aux"], one["aux"], rtol=1e-6)
+        lo, hi = r["pos"]
+        np.testing.assert_array_equal(r["k"], one["k"][:, lo:hi])
+        np.testing.assert_array_equal(r["ckv"], one["ckv"][:, lo:hi])
+    # without a mesh each runs
     rng = np.random.default_rng(0)
     cfg = ja.GQAConfig(64, 8, 2, None, False, 1e4)
     _jp, mod, tcfg = _gqa_pair(rng, cfg)
     cache = {"k": torch.zeros(1, 4, 2, 8), "v": torch.zeros(1, 4, 2, 8)}
-    gen = torch.Generator().manual_seed(0)
-    mcfg = ta.MLAConfig(64, 4, 32, 16, 16, 8, 16)
-    mla = ta.mla_init(mcfg, gen, "cpu")
-    ckv = {"ckv": torch.zeros(1, 4, 24)}
-    ecfg = tmoe.MoEConfig(64, 32, 4, 1, 1)
-    experts = tmoe.moe_init(ecfg, gen, "cpu")
-    x = torch.zeros(1, 1, 64)
-    with use_mesh(Mesh(model=2, rank=0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ta.gqa_decode(mod, tcfg, x, cache, 0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ta.mla_decode(mla, mcfg, x, ckv, 0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmoe.moe_dispatch(experts, ecfg, x[0])
-    # without a mesh each runs
-    ta.gqa_decode(mod, tcfg, x, cache, 0)
-    ta.mla_decode(mla, mcfg, x, ckv, 0)
-    tmoe.moe_dispatch(experts, ecfg, x[0])
+    ta.gqa_decode(mod, tcfg, torch.zeros(1, 1, 64), cache, 0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_gqa_decode_clamps_a_full_cache(quant):
+    """At ``cache_len = L`` the write clamps to row L - 1 and the query
+    attends every row, as the reference's ``dynamic_update_slice``."""
+    rng = np.random.default_rng(7)
+    cfg = ja.GQAConfig(64, 8, 2, None, False, 1e4)
+    jp, mod, tcfg = _gqa_pair(rng, cfg)
+    B, L = 2, 6
+    x = rng.normal(size=(B, 1, 64)).astype(np.float32)
+    k = rng.normal(size=(B, L, 2, 8)).astype(np.float32)
+    v = rng.normal(size=(B, L, 2, 8)).astype(np.float32)
+    if quant:
+        (kq, ks), (vq, vs) = ja.quantize_kv(jnp.asarray(k)), \
+            ja.quantize_kv(jnp.asarray(v))
+        jc = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        jc = {"k": jnp.asarray(k), "v": jnp.asarray(v)}
+    tc = {n: _t(np.array(a)) for n, a in jc.items()}
+    want, wc = ja.gqa_decode(jp, cfg, jnp.asarray(x), jc,
+                             jnp.asarray(L, jnp.int32), block=4)
+    with torch.no_grad():
+        got, gc = ta.gqa_decode(mod, tcfg, _t(x), tc, L, block=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    for n, w in wc.items():
+        w, g = np.asarray(w), gc[n].numpy()
+        np.testing.assert_array_equal(g[:, :L - 1], w[:, :L - 1])
+        if quant and n in ("k", "v"):
+            assert np.abs(g[:, L - 1].astype(np.int32)
+                          - w[:, L - 1].astype(np.int32)).max() <= 1
+        else:
+            np.testing.assert_allclose(g[:, L - 1], w[:, L - 1], rtol=1e-5,
+                                       atol=1e-5)
+        assert not np.array_equal(g[:, L - 1], np.array(jc[n])[:, L - 1])

@@ -142,7 +142,23 @@ def test_absorbed_decode_equals_the_expanded_attention():
 
 
 def test_mla_decode_rejects_a_full_cache():
-    _jc, tc, _jp, mod = _pair("q_lora")
-    cache = {"ckv": torch.zeros(1, 4, tc.kv_lora_rank + tc.qk_rope_dim)}
-    with pytest.raises(ValueError, match="outside a cache"):
-        ta.mla_decode(mod, tc, torch.zeros(1, 1, tc.d_model), cache, 4)
+    """A full cache is not rejected: at ``cache_len = L`` the latent is
+    written to row L - 1 and every row is attended, as the reference's
+    ``dynamic_update_slice`` clamps (and its sharded decode after it)."""
+    jc, tc, jp, mod = _pair("q_lora")
+    B, L = 2, 4
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(B, 1, jc.d_model)).astype(np.float32)
+    lat = rng.normal(size=(B, L, tc.kv_lora_rank + tc.qk_rope_dim)).astype(
+        np.float32)
+    want, wc = _decode(jp, jc, jnp.asarray(x), {"ckv": jnp.asarray(lat)},
+                       jnp.asarray(L, jnp.int32), block=16)
+    cache = {"ckv": torch.from_numpy(lat.copy())}
+    with torch.no_grad():
+        got, gc = ta.mla_decode(mod, tc, torch.from_numpy(x), cache, L,
+                                block=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    g, w = gc["ckv"].numpy(), np.asarray(wc["ckv"])
+    np.testing.assert_array_equal(g[:, :L - 1], lat[:, :L - 1])
+    np.testing.assert_allclose(g[:, L - 1], w[:, L - 1], **TOL)
+    assert not np.array_equal(g[:, L - 1], lat[:, L - 1])

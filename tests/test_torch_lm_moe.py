@@ -170,13 +170,43 @@ def test_bf16_experts_keep_the_reference_casts():
     np.testing.assert_allclose(float(aux), float(waux), rtol=1e-5, atol=1e-5)
 
 
-def test_moe_dispatch_raises_under_a_mesh():
-    from repro_torch.dist.context import Mesh, use_mesh
+def test_moe_dispatch_under_a_mesh():
+    """Under a (1, 2) mesh of gloo ranks ``moe_dispatch`` takes
+    ``moe_apply_sharded`` (each rank half the experts, a psum) and
+    matches ``moe_apply`` (the same tokens and capacity: no share cuts
+    them); without a mesh it is ``moe_apply``."""
+    import lm_mesh_ranks as lr
+    from repro_torch.dist.collectives import run_ranks
     jc, tc = _cfgs("llama4-scout-17b-a16e")
     _jp, mod = _pair(jc, tc)
-    x = torch.zeros(4, tc.d_model)
-    with use_mesh(Mesh(model=2, rank=0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmoe.moe_dispatch(mod, tc, x)
-    out, _ = tmoe.moe_dispatch(mod, tc, x)
-    assert torch.equal(out, tmoe.moe_apply(mod, tc, x)[0])
+    x = np.random.default_rng(2).normal(size=(4, tc.d_model)).astype(
+        np.float32)
+    state = {k: v.detach().numpy() for k, v in mod.state_dict().items()}
+    with torch.no_grad():
+        want, waux = tmoe.moe_apply(mod, tc, torch.from_numpy(x))
+    for out, aux in run_ranks(lr.moe_dispatch_rank, 2, tc, state, x,
+                              device="cpu"):
+        np.testing.assert_allclose(out, want.numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(aux, float(waux), rtol=1e-6)
+    zero = torch.zeros(4, tc.d_model)
+    out, _ = tmoe.moe_dispatch(mod, tc, zero)
+    assert torch.equal(out, tmoe.moe_apply(mod, tc, zero)[0])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_apply_sharded_refuses_autograd(arch):
+    """The sharded MoE serves only: its collectives carry no gradient, so
+    a call that autograd would record raises instead of training on wrong
+    gradients; under ``no_grad`` the same call runs (a one-rank mesh: no
+    collective)."""
+    from repro_torch.dist.context import Mesh
+    _jc, tc = _cfgs(arch)
+    mod = tmoe.moe_init(tc, torch.Generator().manual_seed(0), "cpu")
+    mesh = Mesh(model=1)
+    x = torch.randn(8, tc.d_model, generator=torch.Generator().manual_seed(1))
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        tmoe.moe_apply_sharded(mod, tc, x, mesh, ("data",))
+    with torch.no_grad():
+        out, _ = tmoe.moe_apply_sharded(mod, tc, x, mesh, ("data",))
+        want, _ = tmoe.moe_apply(mod, tc, x)
+    torch.testing.assert_close(out, want, **TOL)
