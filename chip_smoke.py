@@ -286,7 +286,10 @@ Phases (any failure raises and ends the run with a non-zero code):
      and decode shapes, a prefill and 16 decode steps launching row 2
      once each; row 2 at 1, 4, 8, 16 and 128 tokens (``row2_sweep``),
      each bit-equal to the plain split path and timed beside its bound,
-     the launch floor and the one-tile grid;
+     the launch floor and the one-tile grid; rows 4 and 10 at those
+     sizes, 512 and 1,056 rows (``chunk_sweep``; row 10 on a slab from
+     base m / 4), each bit-equal to its plain version and timed likewise,
+     beside row 2's time and with the blocks an SM holds;
  36. (the GAT, ``run_gat``, last; its two large graphs built by
      ``GraphBuilder``, a spawned process, while phases 23-35 run) gat-cora
      at full width (2 layers, 8 heads of 8, Adam at lr 5e-3 through the
@@ -340,7 +343,7 @@ Phases (any failure raises and ends the run with a non-zero code):
      token table (129,280 x 7,168 at alpha 16, a planted D' store): row 2
      bit-equal to the plain split path over 4,096 tokens, timed at the
      prefill and decode shapes beside its bound, a prefill and 16 decode
-     steps launching row 2 once each, and 35f's sweep at d = 7,168; (h)
+     steps launching row 2 once each, and 35f's sweeps at d = 7,168; (h)
      the port's launcher (``launch.train.main``) for every registered LM
      arch, its smoke config for 3 steps on the card: every loss finite,
      deepseek-v3's optimizer Adafactor, steps/s;
@@ -386,7 +389,8 @@ Phases (any failure raises and ends the run with a non-zero code):
      model), a prefill at B = 2, S = 1,024 (the full-mesh token ladder)
      and 4 steps, drop-free; (e) the LMA token table at (1, 4) under
      psum, ring and all_to_all, bit-equal to one card's row 2, launches
-     exact, rows 2, 4, 10 and 11 timed at its shapes.  Each step: layer
+     exact, rows 2, 4, 10 and 11 timed at its shapes (rows 4 and 10 at
+     their default tile, 32 columns for a 512-row chunk).  Each step: layer
      0's writes bit-equal to one card's, every write and the logits held
      to the float32 twin (35b's bound, or 1.25 x one card's distance) over
      the sequences whose MoE routes agree, the last layer's float32
@@ -5608,7 +5612,12 @@ LMA_CHUNK = 512                 # tokens a plain location call takes
 # 35f and 37g: row 2 at few tokens, the decode batches of 35b / 37g, the
 # LMServer's waves of 16 and decode_32k's B = 128
 SWEEP_TOKENS = (1, 4, 8, 16, 128)
+# rows 4 and 10 at those sizes, at a rank's 512-row chunk (39e) and at
+# 1,056 rows, the first whose one-tile grid fills the 132 SMs (where
+# lookup_tile turns to one tile a row)
+CHUNK_SWEEP_ROWS = SWEEP_TOKENS + (512, 1056)
 SWEEP_ITERS = 100               # launches a CUDA graph replays
+GRID_ITERS = 20                 # likewise, for chunk_sweep's other grids
 BF16_FLOP_PER_S = 989e12        # dense, on the tensor cores
 
 
@@ -5936,6 +5945,111 @@ def row2_sweep(torch, p, spec, mem, gids, rows, support, dev) -> dict:
     return out
 
 
+def chunk_work(torch, p, rows, support, loc, base: int, m_local: int):
+    """(bytes, int32 ops) of rows 4 and 10 over these rows, by name: the
+    slot function's (``lma_work`` with the fallback, less its gathered
+    floats), d int32 slots out; row 10 also gathers its in-slab locations
+    (``loc``) and writes d floats."""
+    nb, ops = lma_work(torch, p, rows, support, fallback=True)
+    N, d = loc.shape
+    in_slab = int(((loc >= base) & (loc < base + m_local)).sum())
+    return {"fused_locations": (nb - N * d * 4, ops),
+            "fused_chunk_lookup": (nb + N * d * 4 - (N * d - in_slab) * 4,
+                                   ops)}
+
+
+def chunk_sweep(torch, p, spec, mem, gids, rows, support, row2) -> dict:
+    """Rows 4 and 10 over the first n rows, n in CHUNK_SWEEP_ROWS, row 10
+    from the middle half of the pool as its slab (base m / 4 > 0, so that
+    locations fall on both sides of the mask).  Each grid timed is
+    bit-equal to the plain version (``locations_ref``;
+    ``chunk_lookup_ref``'s two steps, the locations, then their slab
+    gather).  A row's outputs depend on that
+    row alone, so the plain version runs over the largest n in
+    LMA_CHUNK-row calls and each n is held to its first n rows.  Each is
+    timed by CUDA-graph replay beside its bound, the launch floor and row
+    2's time at the same rows (``row2``, row 2's sweep in this run), the
+    same source's one-tile grid (tile = d) and, where the default tile is
+    d (n past lookup_tile's threshold), its 32-column grid; with the
+    blocks of 8 warps an SM holds for each kernel and tile (the occupancy
+    API)."""
+    from repro_torch.kernels.fused_embed import kernel as fk
+    from repro_torch.kernels.fused_embed import ref as fref
+
+    top = max(CHUNK_SWEEP_ROWS)
+    floor = {k: row2[SWEEP_TOKENS[0]][k]
+             for k in ("launch_floor_ms", "launch_floor_warm_ms")}
+    base, m_local = p.m // 4, p.m // 2
+    slab = mem[base:base + m_local]
+    plain = {"fused_locations": 0.0, "fused_chunk_lookup": 0.0}
+    want_loc, want_part = [], []
+    for lo in range(0, top, LMA_CHUNK):
+        a = (gids[lo:lo + LMA_CHUNK], rows[lo:lo + LMA_CHUNK],
+             support[lo:lo + LMA_CHUNK])
+        # chunk_lookup_ref's two steps: the locations, then their gather
+        loc, t = events_ms(torch, lambda: fref.locations_ref(spec, *a))
+        part, t_gather = events_ms(torch, lambda: fref.chunk_gather_ref(
+            slab, loc, base))
+        plain["fused_locations"] += t
+        plain["fused_chunk_lookup"] += t + t_gather
+        want_loc.append(loc)
+        want_part.append(part)
+    want_loc, want_part = torch.cat(want_loc), torch.cat(want_part)
+    S = rows.shape[1]
+    blocks = {name: {t: fk.blocks_per_sm(kind, S, t)
+                     for t in (min(32, p.d), p.d)}
+              for name, kind in (("fused_locations", "locations"),
+                                 ("fused_chunk_lookup", "chunk_lookup"))}
+    out = {"fused_locations": {}, "fused_chunk_lookup": {}}
+    for n in CHUNK_SWEEP_ROWS:
+        a = (gids[:n], rows[:n], support[:n])
+        loc = want_loc[:n]
+        inb = (loc >= base) & (loc < base + m_local)
+        if not (bool(inb.any()) and bool((~inb).any())):
+            raise AssertionError(f"row 10's sweep at {n} rows: the slab "
+                                 "mask has one side only")
+        work = chunk_work(torch, p, a[1], a[2], loc, base, m_local)
+        tile = fk.lookup_tile(n, p.d, fk.sm_count(mem.device.index))
+        # each timed grid (default tile None, one tile a row, 32 columns)
+        grids = {"ms": None, "one_tile_ms": p.d}
+        if tile == p.d != min(32, p.d):
+            grids["tiled_ms"] = 32
+        calls = {
+            "fused_locations": (4, (loc,), lambda t: (
+                fk.fused_locations_cuda(spec, *a, tile=t),)),
+            "fused_chunk_lookup": (10, (want_part[:n], loc),
+                                   lambda t: fk.fused_chunk_lookup_cuda(
+                                       spec, slab, *a, base=base, tile=t))}
+        for name, (row, want, call) in calls.items():
+            r = out[name][n] = {"tokens": n, "tile": tile, **floor,
+                                "blocks_per_sm": blocks[name][tile],
+                                "one_tile_blocks_per_sm": blocks[name][p.d]}
+            for key, t in grids.items():
+                if not all(map(torch.equal, call(t), want)):
+                    raise AssertionError(
+                        f"row {row} at {n} rows, d={p.d}, tile "
+                        f"{t or tile}, differs from its plain version")
+                r[key] = graph_ms(torch, lambda: call(t),
+                                  SWEEP_ITERS if t is None else GRID_ITERS)
+            r["bound_ms"], r["bound_by"] = bound(*work[name], INT32_OP_PER_S)
+            if n == top:
+                r["plain_ms"] = plain[name]
+            if n in row2:
+                r["row2_ms"] = row2[n]["ms"]
+            log(f"  row {row} at {n} rows, d={p.d} (tile {tile}: "
+                f"{n * -(-p.d // tile)} warps, {r['blocks_per_sm']} blocks "
+                f"an SM): {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.0%}); one "
+                f"tile a row {r['one_tile_ms']:.4f} ms "
+                f"({r['one_tile_blocks_per_sm']} blocks an SM)"
+                + (f"; {r['ms'] / r['row2_ms']:.2f}x row 2's "
+                   f"{r['row2_ms']:.4f} ms" if n in row2 else "")
+                + (f"; 32-column tiles {r['tiled_ms']:.4f} ms"
+                   if "tiled_ms" in r else "")
+                + "; each grid bit-equal to its plain version")
+    return out
+
+
 def lm_lma(torch, cfg, tokens, dev, kernels) -> dict:
     """35f: tinyllama-1.1b with an LMA token table over a planted 32,000 x
     32 D' store: row 2's lookup (``embed_tokens``) bit-equal to the plain
@@ -5990,6 +6104,8 @@ def lm_lma(torch, cfg, tokens, dev, kernels) -> dict:
         timing["prefill"]["plain_ms"] = plain_ms
         timing["sweep"] = row2_sweep(torch, p, spec, mem, gids, rows,
                                      support, dev)
+        rows_4_10 = chunk_sweep(torch, p, spec, mem, gids, rows, support,
+                                timing["sweep"])
         zero(kernels)
         cache = tt.init_cache(lcfg, B, S + LMA_DECODE_STEPS, dev)
         logits, cache = tt.prefill(model, lcfg, tokens, bufs, cache=cache)
@@ -6008,7 +6124,7 @@ def lm_lma(torch, cfg, tokens, dev, kernels) -> dict:
     if launches != want:
         raise AssertionError(f"LMA LM launches {launches}, want {want}")
     out = {"pool_slots": p.m, "stripe": p.stripe, "fallback_tokens": n_fb,
-           "row2": timing, "launches": launches}
+           "row2": timing, "rows_4_10": rows_4_10, "launches": launches}
     log(f"35f: LMA token table m={p.m} (stripe {p.stripe}, d={p.d}, n_h="
         f"{p.n_h}, max_set {p.max_set}): embed_tokens over {gids.numel()} "
         f"tokens ({n_fb} fallback) bit-equal to the plain split path "
@@ -7071,6 +7187,8 @@ def moe_lma(torch, dev, kernels, card: str) -> dict:
         timing["prefill"]["plain_ms"] = plain_ms
         timing["sweep"] = row2_sweep(torch, p, spec, mem, gids, rows,
                                      support, dev)
+        rows_4_10 = chunk_sweep(torch, p, spec, mem, gids, rows, support,
+                                timing["sweep"])
         zero(kernels)
         cache = tt.init_cache(cfg, B, S + MOE_LMA_DECODE_STEPS, dev)
         logits, cache = tt.prefill(model, cfg, tokens, bufs, cache=cache)
@@ -7089,7 +7207,8 @@ def moe_lma(torch, dev, kernels, card: str) -> dict:
     if launches != want:
         raise AssertionError(f"LMA MoE LM launches {launches}, want {want}")
     out = {"pool_slots": p.m, "stripe": p.stripe, "fallback_tokens": n_fb,
-           "row2": timing, "launches": launches, "build": info}
+           "row2": timing, "rows_4_10": rows_4_10, "launches": launches,
+           "build": info}
     log(f"37g: {MOE_ARCH} with an LMA token table m={p.m} (stripe "
         f"{p.stripe}, d={p.d}, n_h={p.n_h}, max_set {p.max_set}): "
         f"embed_tokens over {gids.numel()} tokens ({n_fb} fallback) "
@@ -8922,16 +9041,14 @@ def mesh_lma(torch, wmesh, o: dict, dev, kernels) -> dict:
                  lambda: fref.chunk_gather_ref(slab, full, base)))
             nb_all, ops_all = lma_work(torch, p, rows_all, sup_all,
                                        fallback=True)
-            nb_c, ops_c = lma_work(torch, p, rows, support, fallback=True)
             in_all = int(((full >= base) & (full < base + m_local)).sum())
-            in_c = int(((loc >= base) & (loc < base + m_local)).sum())
             c = chunk.numel()
             work = {"fused_embed": (N, nb_all - (N * d - in_all) * 4,
                                     ops_all),
-                    "fused_locations": (c, nb_c - c * d * 4, ops_c),
-                    "fused_chunk_lookup": (c, nb_c + c * d * 4
-                                           - (c * d - in_c) * 4, ops_c),
                     "fused_chunk_gather": (N, N * d * 8 + in_all * 4, 0)}
+            for name, w in chunk_work(torch, p, rows, support, loc, base,
+                                      m_local).items():
+                work[name] = (c, *w)
             for name, fn, plain in checks:
                 got = fn()
                 want, plain_ms = events_ms(torch, plain)
@@ -8943,6 +9060,9 @@ def mesh_lma(torch, wmesh, o: dict, dev, kernels) -> dict:
                 rows_n, nb, ops = work[name]
                 r = timing[name] = {"tokens": rows_n, "plain_ms": plain_ms,
                                     "library_ms": None}
+                if name in ("fused_locations", "fused_chunk_lookup"):
+                    r["tile"] = fk.lookup_tile(rows_n, d, fk.sm_count(
+                        slab.device.index))
                 r["ms"] = graph_ms(torch, fn, 20)
                 r["bound_ms"], r["bound_by"] = bound(nb, ops, INT32_OP_PER_S)
                 del got, want
@@ -9496,6 +9616,14 @@ def run_phases(torch, dev, card: str, t_start: float, draws) -> int:
                          (7168, moe_lm["lma"]["row2"])):
                 for t in [r["prefill"], *r["sweep"].values()]:
                     where += (f" (LM d={d}, {t['tokens']} tokens: "
+                              f"{t['ms']:.4f} ms, bound "
+                              f"{t['bound_ms']:.4f} ms)")
+        if name in lm["lma"]["rows_4_10"]:      # few rows, d = 2,048, 7,168
+            extra["at_lm"] = lm["lma"]["rows_4_10"][name]
+            extra["at_moe_lm"] = moe_lm["lma"]["rows_4_10"][name]
+            for d, r in ((2048, extra["at_lm"]), (7168, extra["at_moe_lm"])):
+                for t in r.values():
+                    where += (f" (LM d={d}, {t['tokens']} rows: "
                               f"{t['ms']:.4f} ms, bound "
                               f"{t['bound_ms']:.4f} ms)")
         rows.append({

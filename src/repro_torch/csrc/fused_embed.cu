@@ -40,15 +40,17 @@
 // lane owns its columns, so a warp's gathers, stores and atomics cover
 // adjacent slots of a stripe row-wise.  hashed_* schemes are gather-bound
 // and take the same path with no minhash.  A lookup of few rows (an LM's
-// decode, 1-128 tokens) splits each row's columns into tiles, one warp per
-// (row, tile): one warp a row would leave most of the 132 SMs idle while
-// each lane walks d / 32 columns in series.  Rows enough to fill the card
-// keep one tile a row.  The chunk gather and scatter (given locations, no
-// hashing) are bound by bytes: one thread per element, neighbouring
-// threads on neighbouring locations and outputs.
+// decode, 1-128 tokens; a rank's chunk of an exchange, 1-512 rows) splits
+// each row's columns into tiles, one warp per (row, tile): one warp a row
+// would leave most of the 132 SMs idle while each lane walks d / 32 columns
+// in series.  Rows enough to fill the card keep one tile a row.  The flat
+// lookup, the locations and the chunk lookup share that walk (`tile_walk`,
+// `value_columns`); the bag lookup takes it too, its tile's sums in shared
+// memory.  The chunk gather and scatter (given locations, no hashing) are
+// bound by bytes: one thread per element, neighbouring threads on
+// neighbouring locations and outputs.
 //
-// Backward, in the same one-warp-per-value shape:
-//   - locations: the slot function written to [N, d] int32 (no gather);
+// Backward, one warp per value (the whole row):
 //   - scatter-add: dM[loc] += g (bag: g * w, product first) with atomicAdd
 //     into a [m] buffer the wrapper zeroed.  The sum order over colliding
 //     values follows the atomics, so it is not deterministic; hot slots
@@ -57,6 +59,8 @@
 //     l), products summed per lane, then across the warp by shuffles;
 //   - chunk scatter: dM[loc - base] += g by given locations, atomicAdd into
 //     the zeroed [m_local] slab, one thread per element.
+// The locations (the slot function written to [N, d] int32, no gather) are
+// the SparseGrad's indices and take the lookup's tiled walk.
 #include <cuda_runtime.h>
 
 #include "hash_core.cuh"
@@ -121,17 +125,49 @@ __device__ __forceinline__ Value load_value(const FusedArgs& f,
   return x;
 }
 
+// The (row, column tile) walk of the lookup, the locations and the chunk
+// lookup.  Warp u of the grid owns row u / n_tiles and the columns [c0, c1)
+// of tile u % n_tiles: `tile` adjacent columns (the binding's lookup_tile:
+// d, one tile a row, when the rows alone fill the card; else 32, so that a
+// few rows still give every SM several warps; d or any multiple of 32 is
+// taken).  A row's tiles go to adjacent warps.  `unit(row, c0, c1)` runs on
+// all 32 lanes of the warp.
+template <typename Unit>
+__device__ __forceinline__ void tile_walk(int rows, int d, int tile,
+                                          Unit unit) {
+  const int n_tiles = (d + tile - 1) / tile;
+  const int units = rows * n_tiles;
+  const int stride = gridDim.x * WARPS_PER_BLOCK;
+  for (int u = blockIdx.x * WARPS_PER_BLOCK + threadIdx.x / lma::WARP;
+       u < units; u += stride) {
+    const int row = u / n_tiles;
+    const int c0 = (u - row * n_tiles) * tile;
+    unit(row, c0, min(d, c0 + tile));
+  }
+}
+
+// Value v's slots over the columns [c0, c1).  The warp stages the value's
+// set itself (one coalesced load of at most S words, from L2 after the
+// row's first tile), then lane l calls emit(c, slot) for c = c0 + l,
+// c0 + l + 32, ...: adjacent lanes on adjacent columns, so the writes
+// coalesce.  An output element depends only on its value and column, so
+// every tiling writes the same bits.
+template <typename Emit>
+__device__ __forceinline__ void value_columns(
+    const FusedArgs& f, const uint32_t* sets, const int32_t* gids,
+    const int32_t* support, size_t v, int S, uint32_t* set, int c0, int c1,
+    Emit emit) {
+  const int lane = threadIdx.x % lma::WARP;
+  const Value x = load_value(f, sets, gids, support, v, S, set, lane);
+  for (int c = c0 + lane; c < c1; c += lma::WARP)
+    emit(c, slot(f, x.fallback, set, x.n, x.gid, c));
+  __syncwarp();  // the set buffer is restaged for the next value
+}
+
 // rows: B output rows of L values each (L = 1 and weights == nullptr for
-// the flat lookup).  sets [B*L, S] (lma only), gids/support [B*L].
-//
-// A warp owns one (row, column tile): `tile` adjacent columns (the binding's
-// lookup_tile: d, one tile a row, when the rows alone fill the card; else
-// 32, so that a few rows still give every SM several warps; any multiple of
-// 32 is taken).
-// The row's tiles go to adjacent warps, each of which stages the row's set
-// itself (one coalesced load of at most S words, from L2 after the first).
-// An output element depends only on its value and column (a bag: also its
-// own column's sum in l order), so every tiling writes the same bits.
+// the flat lookup).  sets [B*L, S] (lma only), gids/support [B*L].  A bag
+// sums its tile's columns in l order (its own column's sum only, so the
+// tiling keeps the bits).
 __global__ void fused_lookup_kernel(const uint32_t* __restrict__ sets,
                                     const int32_t* __restrict__ gids,
                                     const int32_t* __restrict__ support,
@@ -142,56 +178,51 @@ __global__ void fused_lookup_kernel(const uint32_t* __restrict__ sets,
                                     float* __restrict__ out) {
   extern __shared__ uint32_t smem[];
   const int d = f.a.d;
-  const int n_tiles = (d + tile - 1) / tile;
   const int warp = threadIdx.x / lma::WARP, lane = threadIdx.x % lma::WARP;
   // a warp's set, then (bag only) its tile's sums: lookup_smem's layout
   uint32_t* set = smem + warp * (weights ? S + tile : S);
   float* acc = reinterpret_cast<float*>(set + S);  // bag sums, own columns
-  const int units = B * n_tiles;
-  const int stride = gridDim.x * WARPS_PER_BLOCK;
-  for (int u = blockIdx.x * WARPS_PER_BLOCK + warp; u < units; u += stride) {
-    const int b = u / n_tiles;
-    const int c0 = (u - b * n_tiles) * tile, c1 = min(d, c0 + tile);
+  tile_walk(B, d, tile, [&](int b, int c0, int c1) {
     if (weights)
       for (int c = c0 + lane; c < c1; c += lma::WARP) acc[c - c0] = 0.0f;
     for (int l = 0; l < L; ++l) {
       const size_t v = static_cast<size_t>(b) * L + l;
-      const Value x = load_value(f, sets, gids, support, v, S, set, lane);
       const float w = weights ? weights[v] : 0.0f;
-      for (int c = c0 + lane; c < c1; c += lma::WARP) {
-        const float e = slab_read(
-            mem, slot(f, x.fallback, set, x.n, x.gid, c), base, m_local);
+      value_columns(f, sets, gids, support, v, S, set, c0, c1,
+                    [&](int c, int32_t s) {
+        const float e = slab_read(mem, s, base, m_local);
         if (weights)  // product, then sum: no fused multiply-add
           acc[c - c0] = __fadd_rn(acc[c - c0], __fmul_rn(w, e));
         else
           out[v * d + c] = e;
-      }
-      __syncwarp();  // the set buffer is restaged for the next value
+      });
     }
     if (weights)
       for (int c = c0 + lane; c < c1; c += lma::WARP)
         out[static_cast<size_t>(b) * d + c] = acc[c - c0];
-  }
+  });
 }
 
 // out [N, d] int32: the slot of every (value, column).
-__global__ void fused_locations_kernel(const uint32_t* __restrict__ sets,
-                                       const int32_t* __restrict__ gids,
-                                       const int32_t* __restrict__ support,
-                                       int N, int S, FusedArgs f,
-                                       int32_t* __restrict__ out) {
+// The bounds (256 threads, 6 blocks an SM) are a hint to ptxas, measured:
+// without them it fit this kernel and the chunk lookup in 32 registers by
+// computing the minhash's four unrolled hashes one after another (a lane's
+// 64 columns of d = 2,048 in series took 1.6-2.2x as long); with them it
+// interleaves the four, in the same 32 registers (8 blocks an SM).
+__global__ void __launch_bounds__(WARPS_PER_BLOCK * lma::WARP, 6)
+fused_locations_kernel(const uint32_t* __restrict__ sets,
+                       const int32_t* __restrict__ gids,
+                       const int32_t* __restrict__ support, int N, int S,
+                       int tile, FusedArgs f, int32_t* __restrict__ out) {
   extern __shared__ uint32_t smem[];
   const int d = f.a.d;
-  const int warp = threadIdx.x / lma::WARP, lane = threadIdx.x % lma::WARP;
-  uint32_t* set = smem + warp * S;
-  const int stride = gridDim.x * WARPS_PER_BLOCK;
-  for (int v = blockIdx.x * WARPS_PER_BLOCK + warp; v < N; v += stride) {
-    const Value x = load_value(f, sets, gids, support, v, S, set, lane);
-    for (int c = lane; c < d; c += lma::WARP)
-      out[static_cast<size_t>(v) * d + c] = slot(f, x.fallback, set, x.n,
-                                                 x.gid, c);
-    __syncwarp();
-  }
+  uint32_t* set = smem + threadIdx.x / lma::WARP * S;
+  tile_walk(N, d, tile, [&](int v, int c0, int c1) {
+    value_columns(f, sets, gids, support, v, S, set, c0, c1,
+                  [&](int c, int32_t s) {
+      out[static_cast<size_t>(v) * d + c] = s;
+    });
+  });
 }
 
 // dmem[slot(b*L + l, c) - base] += g[b, c] (* weights[b, l]) for in-slab
@@ -258,30 +289,27 @@ __global__ void fused_weight_grad_kernel(const uint32_t* __restrict__ sets,
 }
 
 // The chunked exchange's step 0: the chunk's locations written to loc
-// [N, d] int32 and their slab-masked gather to part [N, d].
-__global__ void fused_chunk_lookup_kernel(const uint32_t* __restrict__ sets,
-                                          const int32_t* __restrict__ gids,
-                                          const int32_t* __restrict__ support,
-                                          const float* __restrict__ mem,
-                                          int N, int S, int base, int m_local,
-                                          FusedArgs f,
-                                          float* __restrict__ part,
-                                          int32_t* __restrict__ loc) {
+// [N, d] int32 and their slab-masked gather to part [N, d].  Bounds as
+// the locations kernel's.
+__global__ void __launch_bounds__(WARPS_PER_BLOCK * lma::WARP, 6)
+fused_chunk_lookup_kernel(const uint32_t* __restrict__ sets,
+                          const int32_t* __restrict__ gids,
+                          const int32_t* __restrict__ support,
+                          const float* __restrict__ mem, int N, int S,
+                          int base, int m_local, int tile, FusedArgs f,
+                          float* __restrict__ part,
+                          int32_t* __restrict__ loc) {
   extern __shared__ uint32_t smem[];
   const int d = f.a.d;
-  const int warp = threadIdx.x / lma::WARP, lane = threadIdx.x % lma::WARP;
-  uint32_t* set = smem + warp * S;
-  const int stride = gridDim.x * WARPS_PER_BLOCK;
-  for (int v = blockIdx.x * WARPS_PER_BLOCK + warp; v < N; v += stride) {
-    const Value x = load_value(f, sets, gids, support, v, S, set, lane);
-    for (int c = lane; c < d; c += lma::WARP) {
+  uint32_t* set = smem + threadIdx.x / lma::WARP * S;
+  tile_walk(N, d, tile, [&](int v, int c0, int c1) {
+    value_columns(f, sets, gids, support, v, S, set, c0, c1,
+                  [&](int c, int32_t s) {
       const size_t o = static_cast<size_t>(v) * d + c;
-      const int32_t s = slot(f, x.fallback, set, x.n, x.gid, c);
       loc[o] = s;
       part[o] = slab_read(mem, s, base, m_local);
-    }
-    __syncwarp();
-  }
+    });
+  });
 }
 
 // out[i] = mem[loc[i] - base] in the slab, else 0; i over all n elements.
@@ -332,11 +360,17 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// The lookup's shared memory: each warp's staged set, and for a bag its
-// tile's sums; a flat lookup writes its gathers straight out and keeps none.
+// The tiled walk's shared memory: each warp's staged set, and for a bag
+// its tile's sums; the flat lookup, the locations and the chunk lookup
+// write straight out and keep none.
 size_t lookup_smem(int S, int tile, bool bag) {
   return WARPS_PER_BLOCK * static_cast<size_t>(S + (bag ? tile : 0)) *
          sizeof(uint32_t);
+}
+
+// The tiled walk's grid: a warp per (row, tile), 8 warps a block.
+int tiled_blocks(int rows, int d, int tile) {
+  return blocks_for(rows * ((d + tile - 1) / tile));
 }
 
 }  // namespace
@@ -360,9 +394,8 @@ extern "C" int fused_lookup_launch(const void* sets, const void* gids,
   const size_t shm = lookup_smem(S, tile, weights != nullptr);
   const cudaError_t attr = allow_smem(fused_lookup_kernel, shm);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int units = B * ((d + tile - 1) / tile);
-  fused_lookup_kernel<<<blocks_for(units), WARPS_PER_BLOCK * lma::WARP, shm,
-                        stream>>>(
+  fused_lookup_kernel<<<tiled_blocks(B, d, tile),
+                        WARPS_PER_BLOCK * lma::WARP, shm, stream>>>(
       static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
       static_cast<const int32_t*>(support),
       static_cast<const float*>(weights), static_cast<const float*>(mem), B,
@@ -370,23 +403,43 @@ extern "C" int fused_lookup_launch(const void* sets, const void* gids,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Locations: out [N, d] int32.
+// Locations: out [N, d] int32; `tile` as the lookup's.
 extern "C" int fused_locations_launch(const void* sets, const void* gids,
                                       const void* support, int N, int S,
-                                      int scheme, int d, int n_h,
+                                      int tile, int scheme, int d, int n_h,
                                       int independent, uint32_t seed,
                                       uint32_t m, uint32_t stripe,
                                       int min_support, void* out,
                                       cudaStream_t stream) {
   if (N == 0) return 0;
   FusedArgs f{scheme, min_support, {d, n_h, independent, seed, m, stripe}};
-  const size_t shm = WARPS_PER_BLOCK * S * sizeof(uint32_t);
-  fused_locations_kernel<<<blocks_for(N), WARPS_PER_BLOCK * lma::WARP, shm,
-                           stream>>>(
+  fused_locations_kernel<<<tiled_blocks(N, d, tile),
+                           WARPS_PER_BLOCK * lma::WARP,
+                           lookup_smem(S, tile, false), stream>>>(
       static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
-      static_cast<const int32_t*>(support), N, S, f,
+      static_cast<const int32_t*>(support), N, S, tile, f,
       static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks an SM holds at a launch's registers and shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into *blocks: kernel 0
+// the lookup (bag != 0: with its tile's sums), 1 the locations, 2 the chunk
+// lookup.
+extern "C" int fused_blocks_per_sm(int kernel, int S, int tile, int bag,
+                                   int* blocks) {
+  const int threads = WARPS_PER_BLOCK * lma::WARP;
+  const size_t shm = lookup_smem(S, tile, kernel == 0 && bag);
+  if (kernel == 1)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, fused_locations_kernel, threads, shm));
+  if (kernel == 2)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, fused_chunk_lookup_kernel, threads, shm));
+  const cudaError_t attr = allow_smem(fused_lookup_kernel, shm);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fused_lookup_kernel, threads, shm));
 }
 
 // Scatter-add: g [B, d] (flat: weights == nullptr, L == 1) into the
@@ -434,23 +487,23 @@ extern "C" int fused_weight_grad_launch(const void* sets, const void* gids,
 }
 
 // Chunk lookup: loc [N, d] int32 and part [N, d] f32 out, mem the [m_local]
-// slab from global slot base.
+// slab from global slot base; `tile` as the lookup's.
 extern "C" int fused_chunk_lookup_launch(const void* sets, const void* gids,
                                          const void* support, const void* mem,
                                          int N, int S, int base, int m_local,
-                                         void* loc, int scheme, int d,
-                                         int n_h, int independent,
+                                         int tile, void* loc, int scheme,
+                                         int d, int n_h, int independent,
                                          uint32_t seed, uint32_t m,
                                          uint32_t stripe, int min_support,
                                          void* part, cudaStream_t stream) {
   if (N == 0) return 0;
   FusedArgs f{scheme, min_support, {d, n_h, independent, seed, m, stripe}};
-  const size_t shm = WARPS_PER_BLOCK * S * sizeof(uint32_t);
-  fused_chunk_lookup_kernel<<<blocks_for(N), WARPS_PER_BLOCK * lma::WARP, shm,
-                              stream>>>(
+  fused_chunk_lookup_kernel<<<tiled_blocks(N, d, tile),
+                              WARPS_PER_BLOCK * lma::WARP,
+                              lookup_smem(S, tile, false), stream>>>(
       static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
       static_cast<const int32_t*>(support), static_cast<const float*>(mem), N,
-      S, base, m_local, f, static_cast<float*>(part),
+      S, base, m_local, tile, f, static_cast<float*>(part),
       static_cast<int32_t*>(loc));
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,9 @@
 // repro/core/hashing.py (fmix32, seed_stream, hash_u32, hash_pair,
 // combine_chain) and to repro/core/allocation.py's location math.
 //
-// Work split: one warp per value.  The warp stages the value's D' set in
-// shared memory, compacted to its non-PAD elements (a ballot + popc, so the
+// Work split: one warp per value (fused_embed.cu, for few rows: one per
+// value and column tile).  The warp stages the value's D' set in shared
+// memory, compacted to its non-PAD elements (a ballot + popc, so the
 // masked min needs no select and PAD slots cost nothing), and each lane then
 // owns whole location columns c = lane, lane + 32, ...: the n_h minhashes of
 // the column, the power-n_h chain and the final fmix32 stay lane-local, and

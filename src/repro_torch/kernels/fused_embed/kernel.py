@@ -6,7 +6,9 @@ bag-pooled lookup), ``_locations_kernel``, ``_scatter_kernel``,
 ``_gather_loc_kernel`` and ``_scatter_loc_kernel``; the source states the
 design and what bounds it.  These are the raw launches (no autograd);
 ``ops.py`` builds the gradients from them.  Each wrapper counts its launches
-in ``<fn>.launches``.
+in ``<fn>.launches``.  The lookup, the locations and the chunk lookup share
+one walk of (row, column tile) units; ``tile`` is the columns a warp covers
+(``lookup_tile`` by default), and every tile gives the same bits.
 
 Slab mode: the lookup, the scatter-add and the chunk kernels take the pool
 (or its gradient) as one rank's ``[m_local]`` slab starting at global slot
@@ -78,11 +80,24 @@ WARPS_PER_BLOCK = 8               # csrc/fused_embed.cu
 
 
 def lookup_tile(B: int, d: int, sms: int) -> int:
-    """Columns one warp of the lookup covers, a tile of a row: ``d``, one
-    tile a row, when ceil(B / 8) blocks of 8 warps fill the card's ``sms``
-    SMs (every recsys and prefill launch); else 32 (or ``d`` when
-    narrower), so that an LM's few decode tokens spread over the card."""
+    """Columns one warp covers, a tile of a row, in the lookup, the
+    locations and the chunk lookup (``B`` rows): ``d``, one tile a row,
+    when ceil(B / 8) blocks of 8 warps fill the card's ``sms`` SMs (every
+    recsys, train_4k and prefill launch); else 32 (or ``d`` when narrower),
+    so that an LM's few decode tokens or a rank's few-row chunk spread over
+    the card."""
     return d if -(-B // WARPS_PER_BLOCK) >= sms else min(32, d)
+
+
+def _tile(spec, rows: int, tile: int | None, device) -> int:
+    """``tile``, or by default ``lookup_tile``'s for ``rows`` on ``device``;
+    raises unless it is d or a positive multiple of 32."""
+    if tile is None:
+        return lookup_tile(rows, spec.d, sm_count(device.index))
+    if not (tile == spec.d or (tile > 0 and tile % 32 == 0)):
+        raise ValueError(f"tile {tile}: neither d = {spec.d} nor a positive "
+                         f"multiple of 32")
+    return tile
 
 
 @functools.cache
@@ -112,11 +127,7 @@ def fused_lookup_cuda(spec, memory: torch.Tensor, gids: torch.Tensor,
         build.require(weights, "weights", torch.float32, 2)
         if weights.shape != gids.shape:
             raise ValueError("weights do not match gids")
-    if tile is None:
-        tile = lookup_tile(B, spec.d, sm_count(memory.device.index))
-    if not (tile == spec.d or (tile > 0 and tile % 32 == 0)):
-        raise ValueError(f"tile {tile}: neither d = {spec.d} nor a positive "
-                         f"multiple of 32")
+    tile = _tile(spec, B, tile, memory.device)
     out = torch.empty((B, spec.d), dtype=torch.float32, device=memory.device)
     with torch.cuda.device(memory.device):
         code = _entry("fused_lookup_launch", (_P,) * 5 + (_I,) * 6)(
@@ -131,14 +142,19 @@ def fused_lookup_cuda(spec, memory: torch.Tensor, gids: torch.Tensor,
 
 def fused_locations_cuda(spec, gids: torch.Tensor,
                          sets: torch.Tensor | None = None,
-                         support: torch.Tensor | None = None) -> torch.Tensor:
-    """gids [N] (+ sets [N, S], support [N]) -> [N, d] int32 locations."""
+                         support: torch.Tensor | None = None,
+                         tile: int | None = None) -> torch.Tensor:
+    """gids [N] (+ sets [N, S], support [N]) -> [N, d] int32 locations.
+    ``tile``: the columns a warp covers, as ``fused_lookup_cuda``'s (by
+    default ``lookup_tile``'s: 32 for a few-row chunk, d when the rows fill
+    the card); any tile gives the same bits."""
     sets, support, S = _value_inputs(spec, gids, sets, support, 1)
     N = gids.shape[0]
+    tile = _tile(spec, N, tile, gids.device)
     out = torch.empty((N, spec.d), dtype=torch.int32, device=gids.device)
     with torch.cuda.device(gids.device):
-        code = _entry("fused_locations_launch", (_P,) * 3 + (_I,) * 2)(
-            build.ptr(sets), build.ptr(gids), build.ptr(support), N, S,
+        code = _entry("fused_locations_launch", (_P,) * 3 + (_I,) * 3)(
+            build.ptr(sets), build.ptr(gids), build.ptr(support), N, S, tile,
             *_spec_args(spec), build.ptr(out), build.stream(gids.device))
     build.check(code, "fused_locations")
     fused_locations_cuda.launches += 1
@@ -208,24 +224,41 @@ def fused_weight_grad_cuda(spec, memory: torch.Tensor, g: torch.Tensor,
 def fused_chunk_lookup_cuda(spec, memory: torch.Tensor, gids: torch.Tensor,
                             sets: torch.Tensor | None = None,
                             support: torch.Tensor | None = None,
-                            base: int = 0):
+                            base: int = 0, tile: int | None = None):
     """One exchange chunk: gids [c] (+ sets [c, S], support [c]) -> (the
     slab-masked partial [c, d] float32, the locations [c, d] int32), memory
-    the [m_local] slab from ``base``."""
+    the [m_local] slab from ``base``.  ``tile`` as ``fused_locations_cuda``'s;
+    any tile gives the same bits."""
     _check_pool(spec, memory, base)
     sets, support, S = _value_inputs(spec, gids, sets, support, 1)
     N = gids.shape[0]
+    tile = _tile(spec, N, tile, gids.device)
     part = torch.empty((N, spec.d), dtype=torch.float32, device=gids.device)
     loc = torch.empty((N, spec.d), dtype=torch.int32, device=gids.device)
     with torch.cuda.device(gids.device):
         code = _entry("fused_chunk_lookup_launch",
-                      (_P,) * 4 + (_I,) * 4 + (_P,))(
+                      (_P,) * 4 + (_I,) * 5 + (_P,))(
             build.ptr(sets), build.ptr(gids), build.ptr(support),
-            build.ptr(memory), N, S, base, memory.shape[0], build.ptr(loc),
-            *_spec_args(spec), build.ptr(part), build.stream(gids.device))
+            build.ptr(memory), N, S, base, memory.shape[0], tile,
+            build.ptr(loc), *_spec_args(spec), build.ptr(part),
+            build.stream(gids.device))
     build.check(code, "fused_chunk_lookup")
     fused_chunk_lookup_cuda.launches += 1
     return part, loc
+
+
+def blocks_per_sm(kernel: str, S: int, tile: int, bag: bool = False) -> int:
+    """Blocks of 8 warps an SM holds for ``kernel`` ("lookup", "locations"
+    or "chunk_lookup") at its registers and its shared memory for sets of
+    ``S`` words (a bag: and tiles of ``tile`` sums), from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current card."""
+    blocks = ctypes.c_int(0)
+    code = build.entry("fused_embed", "fused_blocks_per_sm",
+                       [_I, _I, _I, _I, ctypes.c_void_p])(
+        ("lookup", "locations", "chunk_lookup").index(kernel), S, tile,
+        int(bag), ctypes.byref(blocks))
+    build.check(code, f"fused_blocks_per_sm({kernel})")
+    return blocks.value
 
 
 def fused_chunk_gather_cuda(memory: torch.Tensor, loc: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Plain-PyTorch emulations of two CUDA kernels' schedules, for the tests.
+"""Plain-PyTorch emulations of CUDA kernels' schedules, for the tests.
 
 Nothing in ``repro_torch`` imports this module, and it imports no JAX, so
 the CPU tests and the card-only tests (``test_torch_kernels_cuda.py``) both
@@ -8,6 +8,10 @@ use it:
   samples walked by a persistent grid, its register tiles
   (``kernel.dot_tiles``) and the contiguous output span of each group, each
   written place counted;
+- ``tile_walk``: ``csrc/fused_embed.cu``'s (row, column tile) walk
+  (``tile_walk`` and ``value_columns``), shared by the flat and bag lookup,
+  the locations and the chunk lookup: which (row, column) each lane of each
+  warp of the grid emits, counted;
 - ``weight_grad_lanes``: ``fused_weight_grad_kernel``'s order of sums (each
   lane's columns c = lane, lane + 32, ..., product then sum, then the
   xor-shuffle tree 16, 8, 4, 2, 1), every operation rounded to float32 alone
@@ -28,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.dot_interaction.kernel import TI, TJ
+from repro_torch.kernels.fused_embed.kernel import WARPS_PER_BLOCK
 from repro_torch.kernels.sparse_update import ref as sref
 
 WARP = 32
@@ -84,6 +89,34 @@ def dot_interaction_schedule(x: torch.Tensor, G: int, grid: int,
     if not torch.equal(stored, torch.ones_like(stored)):
         raise AssertionError("an output place written twice or never")
     return out.view(B, P)
+
+
+def tile_walk(rows: int, d: int, tile: int) -> torch.Tensor:
+    """-> [rows, d] int64: how often the walk emits each (row, column).
+    The grid is ceil(rows * n_tiles / 8) blocks of 8 warps (n_tiles =
+    ceil(d / tile)); warp w of the grid takes the units w, w + stride, ...
+    below rows * n_tiles (stride: the grid's warps); unit u is row
+    u // n_tiles and the columns [c0, c1) of tile u % n_tiles (c0 = that
+    tile times ``tile``, c1 = min(d, c0 + tile)); lane l of the warp emits
+    the columns c0 + l, c0 + l + 32, ... below c1."""
+    n_tiles = -(-d // tile)
+    units = rows * n_tiles
+    stride = -(-units // WARPS_PER_BLOCK) * WARPS_PER_BLOCK
+    hits = torch.zeros(rows * d, dtype=torch.int64)
+    warp = torch.arange(stride)
+    lane = torch.arange(WARP)[:, None]
+    step = WARP * torch.arange(-(-tile // WARP))[None, :]
+    for first in range(0, units, stride):
+        u = warp + first
+        u = u[u < units]
+        row = u // n_tiles
+        c0 = (u - row * n_tiles) * tile
+        c1 = torch.clamp(c0 + tile, max=d)
+        col = c0[:, None, None] + lane + step             # [warps, 32, k]
+        live = col < c1[:, None, None]
+        flat = (row[:, None, None] * d + col)[live]
+        hits.index_add_(0, flat, torch.ones_like(flat))
+    return hits.view(rows, d)
 
 
 def weight_grad_lanes(e: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

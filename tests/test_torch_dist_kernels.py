@@ -92,6 +92,45 @@ def test_chunk_lookup_bit_identical(scheme, rank):
     assert inb.any() and (~inb).any()          # both sides of the mask
 
 
+# A rank's few-row chunk: which of _case's values (value 0 is a fallback
+# one under lma)
+FEW_ROWS = {"fallback": [0], "minhash": [1], "three": [0, 1, 2]}
+
+
+@pytest.mark.parametrize("rows", sorted(FEW_ROWS))
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_few_row_chunk_lookup_bit_identical(scheme, rows):
+    """Row 10 at a rank's few-row chunk (1 and 3 rows, the lma fallback row
+    alone, a minhash row alone, and both together) on each of the four
+    slabs: partials and locations bit-identical to the reference's kernel
+    in interpret mode, which pads the chunk to its block of rows; over the
+    four slabs both sides of the mask occur (base > 0 on three)."""
+    tspec, jspec, _, gids, sets, support, _ = _case(scheme, 0, 4, B=8)
+    pick = np.asarray(FEW_ROWS[rows])
+    gids = gids[pick]
+    if sets is not None:
+        sets, support = sets[pick], support[pick]
+        fb = support < tspec.min_support
+        assert list(fb) == [r == 0 for r in FEW_ROWS[rows]]
+    mem = np.random.default_rng(5).normal(0, 0.1, M).astype(np.float32)
+    sides = set()
+    for rank in range(P):
+        base = rank * M_LOCAL
+        slab = mem[base:base + M_LOCAL]
+        part, loc = fref.chunk_lookup_ref(tspec, _t(slab), _t(gids),
+                                          *_extra(sets, support), base=base)
+        jpart, jloc = jk.fused_chunk_fwd_pallas(
+            jspec.scheme, jnp.asarray(slab),
+            _jax_loc_inputs(jspec, gids, sets, support),
+            jnp.asarray([base], jnp.int32), block_m=BLOCK_M, **_kw(jspec))
+        np.testing.assert_array_equal(loc.numpy(), np.asarray(jloc))
+        np.testing.assert_array_equal(part.numpy(), np.asarray(jpart))
+        inb = ((loc >= base) & (loc < base + M_LOCAL)).numpy()
+        sides.update(inb.ravel().tolist())
+        assert (part.numpy()[~inb] == 0).all()
+    assert sides == {True, False}
+
+
 @pytest.mark.parametrize("rank", [1, 3])
 @pytest.mark.parametrize("scheme", SCHEMES)
 def test_chunk_gather_and_scatter_match(scheme, rank):

@@ -116,23 +116,31 @@ def test_lookup_tile_keeps_one_tile_where_rows_fill_the_card(B, d):
 
 
 @pytest.mark.parametrize("d", [2048, 7168, 64, 18, 10])
-@pytest.mark.parametrize("B", [1, 3, 4, 8, 16, 128, 1000])
+@pytest.mark.parametrize("B", [1, 3, 4, 8, 16, 128, 512, 1000])
 def test_lookup_tile_covers_every_column_once(B, d):
-    """At the decode shapes (and below a card's worth of rows) the kernel's
-    walk, emulated: warp u takes row u // n_tiles and columns [c0, c1) of
-    tile u % n_tiles, lane l the columns c0 + l, c0 + l + 32, ...; every
-    (row, column) is written exactly once, and a tile is d or 32."""
+    """At the decode shapes and a rank's 512-row chunk (and below a card's
+    worth of rows) the tile is d or 32, and the walk that the lookup, the
+    locations and the chunk lookup share, emulated (``tile_walk``: warp u
+    takes row u // n_tiles and columns [c0, c1) of tile u % n_tiles, lane l
+    the columns c0 + l, c0 + l + 32, ...), emits every (row, column)
+    exactly once at that tile and at every tile a caller may force (32,
+    64, 96, d)."""
+    from kernel_schedules import tile_walk
     from repro_torch.kernels.fused_embed.kernel import lookup_tile
     tile = lookup_tile(B, d, H100_SMS)
     assert tile == min(32, d)
-    n_tiles = -(-d // tile)
-    u = np.arange(B * n_tiles)[:, None, None]
-    b = u // n_tiles
-    c0 = (u - b * n_tiles) * tile
-    c1 = np.minimum(d, c0 + tile)
-    col = c0 + np.arange(32)[None, :, None] \
-        + 32 * np.arange(-(-tile // 32))[None, None, :]
-    live = col < c1
-    hits = np.zeros((B, d), np.int64)
-    np.add.at(hits, (np.broadcast_to(b, col.shape)[live], col[live]), 1)
-    assert (hits == 1).all()
+    for t in (tile, 32, 64, 96, d):
+        assert (tile_walk(B, d, t) == 1).all(), t
+
+
+@pytest.mark.parametrize("tile", [0, -32, 48, 100])
+def test_forced_tile_must_be_d_or_a_multiple_of_32(tile):
+    """The bindings' tile check (rows 2, 4 and 10 share it): a forced tile
+    other than d or a positive multiple of 32 is refused before any launch;
+    d itself, and any positive multiple of 32, is taken as given."""
+    from repro_torch.kernels.fused_embed.kernel import _tile
+    spec = fe.hashed_spec("hashed_elem", 80, 64 * 80, 1)
+    with pytest.raises(ValueError, match="tile"):
+        _tile(spec, 4, tile, None)
+    for ok in (80, 32, 64, 96):
+        assert _tile(spec, 4, ok, None) == ok

@@ -73,6 +73,35 @@ def test_locations_bit_identical(scheme, striped):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# A rank's few-row chunk: which values (index into _inputs' draw, whose
+# value 0 is a fallback one under lma)
+FEW_ROWS = {"fallback": [0], "minhash": [1], "three": [0, 1, 2]}
+
+
+@pytest.mark.parametrize("rows", sorted(FEW_ROWS))
+@pytest.mark.parametrize("scheme,striped", [("lma", False), ("lma", True),
+                                            ("hashed_elem", False),
+                                            ("hashed_row", False)])
+def test_few_row_locations_bit_identical(scheme, striped, rows):
+    """Row 4 at a rank's few-row chunk (1 and 3 rows, the lma fallback row
+    alone, a minhash row alone, and both kinds together): the plain
+    version bit-identical to the reference's kernel in interpret mode,
+    which pads such a chunk to its block of rows."""
+    tspec, jspec = _specs(scheme, striped)
+    _, _, gids, extra, _ = _inputs(4, (8,), scheme)
+    pick = np.asarray(FEW_ROWS[rows])
+    gids, extra = gids[pick], tuple(a[pick] for a in extra)
+    if scheme == "lma":
+        fb = extra[1] < tspec.min_support
+        assert list(fb) == [r == 0 for r in FEW_ROWS[rows]]
+    got = fref.locations_ref(tspec, _t(gids), *[_t(a) for a in extra])
+    want = jfe.fused_locations(jspec, jnp.asarray(gids),
+                               *[jnp.asarray(a) for a in extra],
+                               interpret=True)
+    assert got.shape == (len(pick), D) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("scheme", ["lma", "hashed_elem", "hashed_row"])
 def test_scatter_add_matches_lookup_gradient(scheme):
     tspec, jspec = _specs(scheme)

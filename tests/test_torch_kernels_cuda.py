@@ -1275,6 +1275,62 @@ def test_lookup_rejects_a_ragged_tile(cuda):
             fk.fused_lookup_cuda(spec, mem, gids, tile=tile)
 
 
+# ------------------------- rows 4 and 10 at a rank's few-row chunk
+
+CHUNK_ROWS = (1, 4, 16, 512)
+
+
+@pytest.mark.parametrize("d", [2048, 7168, 64, 18, 10])
+@pytest.mark.parametrize("n", CHUNK_ROWS)
+@pytest.mark.parametrize("scheme", ["lma", "hashed_elem", "hashed_row"])
+def test_few_row_locations_and_chunk_lookup_bit_equal(cuda, scheme, n, d):
+    """Rows 4 and 10 at a rank's few-row chunk, where the launch splits each
+    row's columns into tiles (``lookup_tile``: 32, or d when narrower): the
+    locations bit-equal to ``locations_ref``, and the chunk lookup's
+    partial and locations to ``chunk_lookup_ref`` on each quarter of the
+    pool as the slab (base > 0 on three; each location lies in one
+    quarter, so both sides of the mask occur), at the default tile and at
+    every forced tile (32, 64, 96, d)."""
+    spec, mem, gids, extra = _few_rows_case(cuda, scheme, n, d)
+    assert fk.lookup_tile(n, d, fk.sm_count(mem.device.index)) == min(32, d)
+    want = fref.locations_ref(spec, gids, *extra)
+    for forced in (None, 32, 64, 96, d):
+        assert torch.equal(fk.fused_locations_cuda(spec, gids, *extra,
+                                                   tile=forced), want), forced
+    m_local = spec.m // 4
+    in_slab = 0
+    for base in range(0, spec.m, m_local):
+        slab = mem[base:base + m_local]
+        part = fref.chunk_lookup_ref(spec, slab, gids, *extra, base=base)[0]
+        in_slab += int(((want >= base) & (want < base + m_local)).sum())
+        for forced in (None, 32, 64, 96, d):
+            got_part, got_loc = fk.fused_chunk_lookup_cuda(
+                spec, slab, gids, *extra, base=base, tile=forced)
+            assert torch.equal(got_loc, want), (base, forced)
+            assert torch.equal(got_part, part), (base, forced)
+    assert in_slab == n * d
+
+
+def test_locations_and_chunk_lookup_reject_a_ragged_tile(cuda):
+    spec = fe.hashed_spec("hashed_elem", 2048, 64 * 2048, 1)
+    gids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    mem = torch.zeros(spec.m, device=cuda)
+    for tile in (0, 48, -32):
+        with pytest.raises(ValueError, match="tile"):
+            fk.fused_locations_cuda(spec, gids, tile=tile)
+        with pytest.raises(ValueError, match="tile"):
+            fk.fused_chunk_lookup_cuda(spec, mem, gids, tile=tile)
+
+
+def test_blocks_per_sm_of_the_tiled_kernels(cuda):
+    """The occupancy API's blocks of 8 warps an SM for the three tiled
+    kernels at S = 32: at least one, at most the 8 that 64 warps allow."""
+    for kernel in ("lookup", "locations", "chunk_lookup"):
+        for tile in (32, 2048):
+            assert 1 <= fk.blocks_per_sm(kernel, 32, tile) <= 8, kernel
+    assert 1 <= fk.blocks_per_sm("lookup", 32, 2048, bag=True) <= 8
+
+
 @pytest.mark.parametrize("E,T,k", [(4, 512, 160), (16, 32768, 2560),
                                    (256, 1024, 40)])
 def test_stable_top_c_on_the_card_equals_the_cpu(cuda, E, T, k):
