@@ -632,6 +632,38 @@ def sum_tol(run, abs_sum, pairwise: bool = True):
     return (gamma(run - 1) + gamma(second)) * abs_sum + 2 * run * FLT_MIN
 
 
+# each built kernel's ptxas figures by name (``ptxas_table``), filled by
+# the build in ``run_phases``; row 5's timings report its registers
+PTXAS: dict = {}
+
+
+def scatter_launch(torch, S: int) -> dict:
+    """Row 5's cooperative grid on the current card for sets of ``S``
+    words: the blocks an SM holds (the wrapper's own occupancy query), the
+    grid, and the kernel's registers from the build's ptxas report."""
+    from repro_torch.kernels.fused_embed import kernel as fk
+    index = torch.cuda.current_device()
+    return {"grid": fk.scatter_grid(index, S),
+            "blocks_per_sm": fk.blocks_per_sm("scatter", S, 0),
+            "registers": PTXAS.get("fused_scatter_kernel",
+                                   {}).get("registers")}
+
+
+def fill_ms(torch, m: int, dev, iters: int) -> float:
+    """The pool's zero fill alone, as the parent's wrapper ran it before
+    row 5: ``torch.empty(m).zero_()``, by CUDA-graph replay."""
+    return graph_ms(torch, lambda: torch.empty(m, device=dev).zero_(), iters)
+
+
+def kernel_fill_ms(torch, spec, g, gids, rows, support, iters: int) -> float:
+    """Row 5 with no rows: the kernel's own fill of its [spec.m] buffer
+    (the bulk copies that its FILL_BYTES_PER_NS stands for), by CUDA-graph
+    replay."""
+    from repro_torch.kernels.fused_embed.kernel import fused_scatter_add_cuda
+    return graph_ms(torch, lambda: fused_scatter_add_cuda(
+        spec, g[:0], gids[:0], rows[:0], support[:0]), iters)
+
+
 def ptxas_table(report: str) -> dict:
     """Registers, stack frame and spill stores of each kernel in one
     source's ``ptxas -v`` report, by the kernel's name."""
@@ -2080,6 +2112,10 @@ def measure_training(torch, cfg, model, bufs, gen, train_batch, plain_full,
                 in_bytes + N * p.d * 4 + N * p.d * 8 + p.m * 4, ops,
                 INT32_OP_PER_S)
             r["library_ms"] = None
+            r["fill_ms"] = fill_ms(torch, p.m, dev, iters)
+            r["kernel_fill_ms"] = kernel_fill_ms(torch, spec, g, gids, rows,
+                                                 support, iters)
+            r.update(scatter_launch(torch, rows.shape[-1]))
             if small:
                 F = cfg.n_fields
                 bag = (gids.reshape(B, F), rows.reshape(B, F, -1),
@@ -2122,7 +2158,12 @@ def measure_training(torch, cfg, model, bufs, gen, train_batch, plain_full,
                    if B == 65536 else "")
                 + ("; profiler " + ", ".join(
                     f"{k} {v:.4f} ms" for k, v in r["profile_ms"].items())
-                   if "profile_ms" in r else ""))
+                   if "profile_ms" in r else "")
+                + (f"; the fill alone (torch.empty(m).zero_(), m = {p.m}) "
+                   f"{r['fill_ms']:.4f} ms, the kernel's own with no rows "
+                   f"{r['kernel_fill_ms']:.4f} ms; cooperative grid "
+                   f"{r['grid']} blocks ({r['blocks_per_sm']} an SM), "
+                   f"{r['registers']} registers" if "fill_ms" in r else ""))
     r = res["sparse_adagrad"]
     log(f"  sparse_adagrad K={K} ({heads} slots): {r['ms']:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms (bytes), {r['bound_ms'] / r['ms']:.1%} of "
@@ -7587,6 +7628,11 @@ def lm_train_kernels(torch, arch, p, spec, mem, tokens, bufs, e, sg,
             r["plain_ms"] = plain[name]
             r["bound_ms"], r["bound_by"] = bound(nbytes, work, INT32_OP_PER_S)
             r["library_ms"] = None
+        r = res["fused_scatter_add"]
+        r["fill_ms"] = fill_ms(torch, p.m, dev, 5)
+        r["kernel_fill_ms"] = kernel_fill_ms(torch, spec, g, gids, rows,
+                                             support, 5)
+        r.update(scatter_launch(torch, rows.shape[-1]))
         del g
         shape = tuple(sg.dense_shape)
         mu, nu = (torch.zeros(shape, device=dev) for _ in range(2))
@@ -7618,7 +7664,11 @@ def lm_train_kernels(torch, arch, p, spec, mem, tokens, bufs, e, sg,
             f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of bound, "
             f"plain {r['plain_ms']:.3f} ms"
             + (f", torch.optim.SparseAdam {r['library_ms']:.3f} ms of device "
-               "time" if r["library_ms"] is not None else ""))
+               "time" if r["library_ms"] is not None else "")
+            + (f"; the fill alone (m = {p.m}) {r['fill_ms']:.4f} ms, the "
+               f"kernel's own {r['kernel_fill_ms']:.4f} ms, grid "
+               f"{r['grid']} ({r['blocks_per_sm']} an SM), {r['registers']} "
+               "registers" if "fill_ms" in r else ""))
     return res
 
 
@@ -9403,6 +9453,7 @@ def run_phases(torch, dev, card: str, t_start: float, draws) -> int:
     log(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         for fn, st in ptxas_table(rep).items():
+            PTXAS[fn] = st
             log(f"  {name}: {fn}: {st['registers']} registers, "
                 f"{st['stack']} B stack, {st['spill']} B spill stores")
     kernels = shard_kernels()
@@ -9593,7 +9644,9 @@ def run_phases(torch, dev, card: str, t_start: float, draws) -> int:
             main_r, extra = r[at], {"batch": at}
             extra.update({k: main_r[k] for k in (
                 "bound_fp32_ms", "bound_3xtf32_ms", "launch_floor_ms",
-                "launch_floor_warm_ms") if k in main_r})
+                "launch_floor_warm_ms", "fill_ms", "kernel_fill_ms", "grid",
+                "blocks_per_sm",
+                "registers") if k in main_r})
             where = f"B={at}"
             for other in sorted(set(r) - {at}):
                 extra[f"at_batch_{other}"] = r[other]

@@ -50,10 +50,24 @@
 // bound by bytes: one thread per element, neighbouring threads on
 // neighbouring locations and outputs.
 //
-// Backward, one warp per value (the whole row):
+// Backward:
 //   - scatter-add: dM[loc] += g (bag: g * w, product first) with atomicAdd
-//     into a [m] buffer the wrapper zeroed.  The sum order over colliding
-//     values follows the atomics, so it is not deterministic; hot slots
+//     into the [m_local] buffer, which the kernel zeroes itself (the TPU
+//     kernel's _init; the wrapper allocates it with torch.empty).  At
+//     dlrm-rm2's m that fill is 540 MB, ~0.17 ms of HBM writes that a
+//     separate fill serialised before the hashing.  So the kernel is one
+//     persistent cooperative grid (every block an SM holds, on every SM,
+//     whatever the row count) around one grid barrier: before it, warp 0
+//     of each block has the copy engine write the block's share of zeros
+//     (bulk copies from shared memory) while warps 1-7 hash their first
+//     values and stage the slots in shared memory; after it, the rest is
+//     hashed and added, then the staged slots are added.  Its work items
+//     are the lookup's (row, column tile) units, each value apart: each
+//     block owns a share of the first half, which its warps take from a
+//     shared-memory counter, and the second half goes in chunks to
+//     whichever warps are free, so the SMs end together.  The sum order
+//     over colliding values
+//     follows the atomics, so it is not deterministic; hot slots
 //     (small-vocabulary fields, LMA's shared slots) contend in L2;
 //   - weight grad: dw[b, l] = <g[b], M[loc[b, l]]>, a warp per value (b,
 //     l), products summed per lane, then across the warp by shuffles;
@@ -61,13 +75,33 @@
 //     the zeroed [m_local] slab, one thread per element.
 // The locations (the slot function written to [N, d] int32, no gather) are
 // the SparseGrad's indices and take the lookup's tiled walk.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "hash_core.cuh"
 
 namespace {
 
 constexpr int WARPS_PER_BLOCK = 8;
+// The scatter-add's staging: slots a warp holds across the grid barrier
+// (1.25 KB a warp), STAGE_ROUNDS a lane.
+constexpr int STAGE_SLOTS = 320;
+constexpr int STAGE_ROUNDS = STAGE_SLOTS / lma::WARP;
+// ... and its block's zeros, the source of its bulk copies into dM
+constexpr int ZERO_BYTES = 4096;
+constexpr int ZERO_F4 = ZERO_BYTES / 16;
+// ... and the rate of this kernel's own fill on an H100 (its bulk copies
+// of 540 MB with no rows to hash: ~0.21 ms, which chip_smoke.py logs
+// beside row 5), which sets how long warps 1-7 stage: a constant of that
+// card, not a setting; on another card only the time moves
+constexpr double FILL_BYTES_PER_NS = 2.5;
+// ... and its balance: the grid's last 1/TAIL_SHARE of the items go to
+// whichever warps are free, in chunks of up to 8 (one chunk a warp per
+// TAIL_CHUNK_ITEMS of a warp's items)
+constexpr int TAIL_SHARE = 2;
+constexpr int TAIL_CHUNK_ITEMS = 4;
 enum Scheme { LMA = 0, HASHED_ELEM = 1, HASHED_ROW = 2 };
 
 struct FusedArgs {
@@ -225,33 +259,205 @@ fused_locations_kernel(const uint32_t* __restrict__ sets,
   });
 }
 
+// One bulk copy (the copy engine, async proxy) of `bytes` from shared
+// memory to global; completion is awaited with bulk_wait.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(static_cast<uint32_t>(__cvta_generic_to_shared(src))), "r"(bytes)
+      : "memory");
+}
+
+// Wait for this thread's bulk copies to complete, then order their writes
+// before the thread's later generic accesses (and, through a barrier, the
+// grid's).
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile(
+      "cp.async.bulk.commit_group;\n"
+      "cp.async.bulk.wait_group 0;\n"
+      "fence.proxy.async.global;\n" ::: "memory");
+}
+
+// The card's global nanosecond timer.
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The next work item of the block's queue, for the whole warp: lane 0
+// takes it from the shared counter, the lanes share it.
+__device__ __forceinline__ int take(int* queue, int lane) {
+  int q = 0;
+  if (lane == 0) q = atomicAdd(queue, 1);
+  return __shfl_sync(0xFFFFFFFFu, q, 0);
+}
+
 // dmem[slot(b*L + l, c) - base] += g[b, c] (* weights[b, l]) for in-slab
-// slots; dmem zeroed by the caller.  Flat: L == 1, weights == nullptr.
-__global__ void fused_scatter_kernel(const uint32_t* __restrict__ sets,
-                                     const int32_t* __restrict__ gids,
-                                     const int32_t* __restrict__ support,
-                                     const float* __restrict__ weights,
-                                     const float* __restrict__ g, int B,
-                                     int L, int S, int base, int m_local,
-                                     FusedArgs f, float* __restrict__ dmem) {
-  extern __shared__ uint32_t smem[];
+// slots, dmem [m_local] zeroed here.  Flat: L == 1, weights == nullptr.
+// Launched cooperatively on a grid that the card holds at once.  Work
+// items are the lookup's units, each value apart: item q is value
+// l = q % L of unit u = q / L (row u / n_tiles, column tile u % n_tiles);
+// an item of k columns is ceil(k / 32) slots a lane ("rounds").  Block b
+// owns the items [n_own * b / grid, n_own * (b + 1) / grid) of the first
+// n_own = n - n / TAIL_SHARE, which its warps take from a counter in
+// shared memory, so a warp whose values hash fast takes more of them; the
+// rest, the grid's tail, go to the warps whose blocks run out first, from
+// a counter in global memory (`tail`), so that the SMs end together.
+//   1. Warp 0 hands the block's 1/grid share of dmem to the copy engine,
+//      as bulk copies of ZERO_BYTES of zeroed shared memory, and waits
+//      for them (issuing them alone stalls it while the engine drains).
+//   2. Meanwhile warps 1-7 take items and stage their slots (round r of
+//      lane j at staged[r * 32 + j]) while they have room for a whole
+//      tile's and the fill runs: until the block's copies have landed and
+//      the grid's should have (m_local floats at FILL_BYTES_PER_NS), so
+//      that no warp idles long at the barrier.
+//   3. The grid barrier: every block's zeros are in dmem.
+//   4. Each warp hashes and adds the block's other items, then the
+//      tail's, both a chunk at a time, then adds its staged ones (g and w
+//      re-read): last, since their atomics read dM's lines back from
+//      memory and, all run at once after the barrier, stalled every warp
+//      together.
+__global__ void __launch_bounds__(WARPS_PER_BLOCK * lma::WARP, 6)
+fused_scatter_kernel(const uint32_t* __restrict__ sets,
+                     const int32_t* __restrict__ gids,
+                     const int32_t* __restrict__ support,
+                     const float* __restrict__ weights,
+                     const float* __restrict__ g, int B, int L, int S,
+                     int base, int m_local, int tile, FusedArgs f,
+                     float* __restrict__ dmem, int* __restrict__ tail) {
+  extern __shared__ float4 zeros[];     // ZERO_BYTES, then the warps' own
+  __shared__ int queue;
+  __shared__ volatile int filled;       // warp 0's copies have landed
   const int d = f.a.d;
   const int warp = threadIdx.x / lma::WARP, lane = threadIdx.x % lma::WARP;
-  uint32_t* set = smem + warp * S;
-  const int stride = gridDim.x * WARPS_PER_BLOCK;
-  for (int b = blockIdx.x * WARPS_PER_BLOCK + warp; b < B; b += stride) {
-    for (int l = 0; l < L; ++l) {
-      const size_t v = static_cast<size_t>(b) * L + l;
-      const Value x = load_value(f, sets, gids, support, v, S, set, lane);
-      const float w = weights ? weights[v] : 1.0f;
-      for (int c = lane; c < d; c += lma::WARP) {
-        float gv = g[static_cast<size_t>(b) * d + c];
-        if (weights) gv = __fmul_rn(gv, w);
-        slab_add(dmem, slot(f, x.fallback, set, x.n, x.gid, c), base,
-                 m_local, gv);
-      }
-      __syncwarp();
+  uint32_t* set = reinterpret_cast<uint32_t*>(zeros + ZERO_F4) + warp * S;
+  int32_t* staged = reinterpret_cast<int32_t*>(
+                        reinterpret_cast<uint32_t*>(zeros + ZERO_F4) +
+                        WARPS_PER_BLOCK * S) +
+                    warp * (STAGE_SLOTS + STAGE_ROUNDS);
+  int32_t* items = staged + STAGE_SLOTS;     // the staged items, in order
+
+  const int n_tiles = (d + tile - 1) / tile;
+  const int n_items = B * n_tiles * L;     // < 2^30: the launch checks
+  const int64_t n_own = n_items - n_items / TAIL_SHARE;
+  const int lo = static_cast<int>(n_own * blockIdx.x / gridDim.x);
+  const int hi = static_cast<int>(n_own * (blockIdx.x + 1) / gridDim.x);
+  const int chunk =
+      max(1, min(8, n_items / (static_cast<int>(gridDim.x) *
+                               WARPS_PER_BLOCK * TAIL_CHUNK_ITEMS)));
+  for (int i = threadIdx.x; i < ZERO_F4; i += blockDim.x)
+    zeros[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (threadIdx.x == 0) {
+    queue = lo;
+    filled = 0;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  // item q: its value, row and columns [c0, c1) (no divisions for the
+  // flat one-tile walk: value, row and item are one)
+  const bool whole = L == 1 && n_tiles == 1;
+  auto item = [&](int q, size_t& v, int& b, int& c0, int& c1) {
+    if (whole) {
+      b = q;
+      c0 = 0;
+      c1 = d;
+      v = q;
+      return;
     }
+    const int u = q / L;
+    b = u / n_tiles;
+    c0 = (u - b * n_tiles) * tile;
+    c1 = min(d, c0 + tile);
+    v = static_cast<size_t>(b) * L + (q - u * L);
+  };
+  int n_staged = 0, used = 0;
+  if (warp == 0) {
+    // the fill: this block's share of dmem's float4s by the copy engine;
+    // the floats past them (at most 3) are block 0's
+    const int64_t n4 = m_local / 4;
+    if (lane == 0) {
+      float4* d4 = reinterpret_cast<float4*>(dmem);
+      const int64_t z1 = n4 * (blockIdx.x + 1) / gridDim.x;
+      for (int64_t z = n4 * blockIdx.x / gridDim.x; z < z1; z += ZERO_F4)
+        bulk_store(d4 + z, zeros,
+                   static_cast<uint32_t>(z1 - z < ZERO_F4 ? z1 - z
+                                                          : ZERO_F4) *
+                       16u);
+      bulk_wait();
+      filled = 1;
+    }
+    if (blockIdx.x == 0 && lane < m_local - 4 * n4)
+      dmem[4 * n4 + lane] = 0.0f;
+  } else {
+    // the other warps stage while the fill runs and they have room
+    const int k_max = (min(tile, d) + lma::WARP - 1) / lma::WARP;
+    const uint64_t until =
+        now_ns() + static_cast<uint64_t>(m_local * sizeof(float) /
+                                         FILL_BYTES_PER_NS);
+    while (used + k_max <= STAGE_ROUNDS &&
+           __shfl_sync(0xFFFFFFFFu,
+                       lane == 0 && (!filled || now_ns() < until), 0)) {
+      const int q = take(&queue, lane);
+      if (q >= hi) break;
+      size_t v;
+      int b, c0, c1;
+      item(q, v, b, c0, c1);
+      value_columns(f, sets, gids, support, v, S, set, c0, c1,
+                    [&](int c, int32_t s) {
+        staged[(used + (c - c0) / lma::WARP) * lma::WARP + lane] = s;
+      });
+      if (lane == 0) items[n_staged] = q;
+      used += (c1 - c0 + lma::WARP - 1) / lma::WARP;
+      ++n_staged;
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *tail = static_cast<int>(n_own);
+  cooperative_groups::this_grid().sync();
+
+  // [q, end): the warp's items in hand; the block's own first, then
+  // chunks of the grid's tail
+  for (int q = 0, end = 0;; ++q) {
+    if (q >= end) {
+      int t = 0, e = 0;
+      if (lane == 0) {
+        t = atomicAdd(&queue, chunk);
+        e = min(t + chunk, hi);
+        if (t >= hi) {
+          t = atomicAdd(tail, chunk);
+          e = min(t + chunk, n_items);
+        }
+      }
+      q = __shfl_sync(0xFFFFFFFFu, t, 0);
+      end = __shfl_sync(0xFFFFFFFFu, e, 0);
+      if (q >= end) break;
+    }
+    size_t v;
+    int b, c0, c1;
+    item(q, v, b, c0, c1);
+    const float w = weights ? weights[v] : 1.0f;
+    const float* gb = g + static_cast<size_t>(b) * d;
+    value_columns(f, sets, gids, support, v, S, set, c0, c1,
+                  [&](int c, int32_t s) {
+      slab_add(dmem, s, base, m_local,
+               weights ? __fmul_rn(gb[c], w) : gb[c]);
+    });
+  }
+  used = 0;
+  for (int i = 0; i < n_staged; ++i) {
+    size_t v;
+    int b, c0, c1;
+    item(items[i], v, b, c0, c1);
+    const float w = weights ? weights[v] : 1.0f;
+    const float* gb = g + static_cast<size_t>(b) * d;
+    for (int c = c0 + lane; c < c1; c += lma::WARP) {
+      const float gv = weights ? __fmul_rn(gb[c], w) : gb[c];
+      slab_add(dmem, staged[(used + (c - c0) / lma::WARP) * lma::WARP + lane],
+               base, m_local, gv);
+    }
+    used += (c1 - c0 + lma::WARP - 1) / lma::WARP;
   }
 }
 
@@ -368,6 +574,14 @@ size_t lookup_smem(int S, int tile, bool bag) {
          sizeof(uint32_t);
 }
 
+// The scatter-add's: the block's zeros, then each warp's set, its
+// STAGE_SLOTS staged slots and their items (15.3 KB a block at S = 32).
+size_t scatter_smem(int S) {
+  return ZERO_BYTES +
+         WARPS_PER_BLOCK * static_cast<size_t>(S + STAGE_SLOTS + STAGE_ROUNDS) *
+             sizeof(uint32_t);
+}
+
 // The tiled walk's grid: a warp per (row, tile), 8 warps a block.
 int tiled_blocks(int rows, int d, int tile) {
   return blocks_for(rows * ((d + tile - 1) / tile));
@@ -425,7 +639,7 @@ extern "C" int fused_locations_launch(const void* sets, const void* gids,
 // Blocks an SM holds at a launch's registers and shared memory
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into *blocks: kernel 0
 // the lookup (bag != 0: with its tile's sums), 1 the locations, 2 the chunk
-// lookup.
+// lookup, 3 the scatter-add (whose grid is that times the SM count).
 extern "C" int fused_blocks_per_sm(int kernel, int S, int tile, int bag,
                                    int* blocks) {
   const int threads = WARPS_PER_BLOCK * lma::WARP;
@@ -436,6 +650,13 @@ extern "C" int fused_blocks_per_sm(int kernel, int S, int tile, int bag,
   if (kernel == 2)
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, fused_chunk_lookup_kernel, threads, shm));
+  if (kernel == 3) {
+    const cudaError_t attr = allow_smem(fused_scatter_kernel,
+                                        scatter_smem(S));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, fused_scatter_kernel, threads, scatter_smem(S)));
+  }
   const cudaError_t attr = allow_smem(fused_lookup_kernel, shm);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -443,26 +664,49 @@ extern "C" int fused_blocks_per_sm(int kernel, int S, int tile, int bag,
 }
 
 // Scatter-add: g [B, d] (flat: weights == nullptr, L == 1) into the
-// [m_local] slab dmem from global slot base, which the caller zeroed.
+// [m_local] slab dmem from global slot base, which the kernel zeroes
+// (16-byte aligned; B == 0 still zeroes it).  A cooperative launch of
+// `grid` blocks, which the card must hold at once (the binding's
+// blocks_per_sm("scatter") times the SM count); `tile` as the lookup's.
+// A refused launch (too large a grid, no cooperative launch) returns its
+// error; nothing falls back.  `tail` is one int of scratch the kernel
+// sets before its barrier (the grid's tail counter).
 extern "C" int fused_scatter_add_launch(const void* sets, const void* gids,
                                         const void* support,
                                         const void* weights, const void* g,
-                                        int B, int L, int S, int base,
-                                        int m_local, int scheme,
-                                        int d, int n_h, int independent,
-                                        uint32_t seed, uint32_t m,
-                                        uint32_t stripe, int min_support,
-                                        void* dmem, cudaStream_t stream) {
-  if (B == 0) return 0;
+                                        void* tail, int B, int L, int S,
+                                        int base, int m_local, int tile,
+                                        int grid, int scheme, int d, int n_h,
+                                        int independent, uint32_t seed,
+                                        uint32_t m, uint32_t stripe,
+                                        int min_support, void* dmem,
+                                        cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(dmem) % sizeof(float4) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (static_cast<int64_t>(B) * ((d + tile - 1) / tile) * L > INT32_MAX / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   FusedArgs f{scheme, min_support, {d, n_h, independent, seed, m, stripe}};
-  const size_t shm = WARPS_PER_BLOCK * S * sizeof(uint32_t);
-  fused_scatter_kernel<<<blocks_for(B), WARPS_PER_BLOCK * lma::WARP, shm,
-                         stream>>>(
-      static_cast<const uint32_t*>(sets), static_cast<const int32_t*>(gids),
-      static_cast<const int32_t*>(support),
+  const size_t shm = scatter_smem(S);
+  cudaError_t err = allow_smem(fused_scatter_kernel, shm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute coop[1];
+  coop[0].id = cudaLaunchAttributeCooperative;
+  coop[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(WARPS_PER_BLOCK * lma::WARP);
+  cfg.dynamicSmemBytes = shm;
+  cfg.stream = stream;
+  cfg.attrs = coop;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, fused_scatter_kernel, static_cast<const uint32_t*>(sets),
+      static_cast<const int32_t*>(gids), static_cast<const int32_t*>(support),
       static_cast<const float*>(weights), static_cast<const float*>(g), B, L,
-      S, base, m_local, f, static_cast<float*>(dmem));
-  return static_cast<int>(cudaGetLastError());
+      S, base, m_local, tile, f, static_cast<float*>(dmem),
+      static_cast<int*>(tail));
+  const cudaError_t last = cudaGetLastError();   // clears a refused launch's
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // Bag weight gradient: g [B, d], mem [m] -> dw [B, L].

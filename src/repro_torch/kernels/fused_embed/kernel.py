@@ -6,9 +6,10 @@ bag-pooled lookup), ``_locations_kernel``, ``_scatter_kernel``,
 ``_gather_loc_kernel`` and ``_scatter_loc_kernel``; the source states the
 design and what bounds it.  These are the raw launches (no autograd);
 ``ops.py`` builds the gradients from them.  Each wrapper counts its launches
-in ``<fn>.launches``.  The lookup, the locations and the chunk lookup share
-one walk of (row, column tile) units; ``tile`` is the columns a warp covers
-(``lookup_tile`` by default), and every tile gives the same bits.
+in ``<fn>.launches``.  The lookup, the locations, the chunk lookup and the
+scatter-add share one walk of (row, column tile) units; ``tile`` is the
+columns a warp covers (``lookup_tile``; the first three take ``tile=`` to
+force one), and every tile gives the same bits.
 
 Slab mode: the lookup, the scatter-add and the chunk kernels take the pool
 (or its gradient) as one rank's ``[m_local]`` slab starting at global slot
@@ -171,7 +172,10 @@ def fused_scatter_add_cuda(spec, g: torch.Tensor, gids: torch.Tensor,
     gids [N] (+ sets, support), or bag g [B, d] with gids [B, L] and
     weights [B, L] -> dM [spec.m] float32 (``dM[loc] += g``, bag
     ``+= g * w``); in slab mode dM [m_local] from ``base``, in-slab
-    locations only."""
+    locations only.  dM comes from ``torch.empty``: the kernel zeroes it
+    under its hashing, on a cooperative grid of ``scatter_grid`` blocks
+    over the lookup's (row, ``lookup_tile``) units; a refused launch
+    raises."""
     if m_local is None:
         m_local = spec.m
     _check_slab(spec.m, m_local, base)
@@ -186,11 +190,15 @@ def fused_scatter_add_cuda(spec, g: torch.Tensor, gids: torch.Tensor,
         build.require(weights, "weights", torch.float32, 2)
         if weights.shape != gids.shape:
             raise ValueError("weights do not match gids")
-    dmem = torch.zeros(m_local, dtype=torch.float32, device=g.device)
+    tile = _tile(spec, B, None, g.device)
+    dmem = torch.empty(m_local, dtype=torch.float32, device=g.device)
+    # the grid's tail counter, which the kernel sets before its barrier
+    tail = torch.empty(1, dtype=torch.int32, device=g.device)
     with torch.cuda.device(g.device):
-        code = _entry("fused_scatter_add_launch", (_P,) * 5 + (_I,) * 5)(
+        code = _entry("fused_scatter_add_launch", (_P,) * 6 + (_I,) * 7)(
             build.ptr(sets), build.ptr(gids), build.ptr(support),
-            build.ptr(weights), build.ptr(g), B, L, S, base, m_local,
+            build.ptr(weights), build.ptr(g), build.ptr(tail), B, L, S, base,
+            m_local, tile, scatter_grid(g.device.index, S),
             *_spec_args(spec), build.ptr(dmem), build.stream(g.device))
     build.check(code, "fused_scatter_add")
     fused_scatter_add_cuda.launches += 1
@@ -248,17 +256,29 @@ def fused_chunk_lookup_cuda(spec, memory: torch.Tensor, gids: torch.Tensor,
 
 
 def blocks_per_sm(kernel: str, S: int, tile: int, bag: bool = False) -> int:
-    """Blocks of 8 warps an SM holds for ``kernel`` ("lookup", "locations"
-    or "chunk_lookup") at its registers and its shared memory for sets of
-    ``S`` words (a bag: and tiles of ``tile`` sums), from
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current card."""
+    """Blocks of 8 warps an SM holds for ``kernel`` ("lookup",
+    "locations", "chunk_lookup" or "scatter") at its registers and its
+    shared memory for sets of ``S`` words (a bag: and tiles of ``tile``
+    sums; the scatter: and its staged slots), from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
+    card."""
     blocks = ctypes.c_int(0)
     code = build.entry("fused_embed", "fused_blocks_per_sm",
                        [_I, _I, _I, _I, ctypes.c_void_p])(
-        ("lookup", "locations", "chunk_lookup").index(kernel), S, tile,
-        int(bag), ctypes.byref(blocks))
+        ("lookup", "locations", "chunk_lookup", "scatter").index(kernel), S,
+        tile, int(bag), ctypes.byref(blocks))
     build.check(code, f"fused_blocks_per_sm({kernel})")
     return blocks.value
+
+
+@functools.cache
+def scatter_grid(index: int, S: int) -> int:
+    """The scatter-add's cooperative grid on card ``index`` for sets of
+    ``S`` words: every block the card holds at once (``blocks_per_sm``
+    times the SM count), whatever the row count, so that the pool's fill
+    spreads over every SM."""
+    with torch.cuda.device(index):
+        return blocks_per_sm("scatter", S, 0) * sm_count(index)
 
 
 def fused_chunk_gather_cuda(memory: torch.Tensor, loc: torch.Tensor,

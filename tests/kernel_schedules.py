@@ -12,6 +12,12 @@ use it:
   (``tile_walk`` and ``value_columns``), shared by the flat and bag lookup,
   the locations and the chunk lookup: which (row, column) each lane of each
   warp of the grid emits, counted;
+- ``scatter_schedule``: ``fused_scatter_kernel``'s persistent grid: each
+  block's bulk copies of the pool's zero fill (its warp 0's), and its
+  warps' turns at the block's work queue and the grid's tail in a random
+  order, the fill's length random too: which (value, column tile) items
+  are staged before the grid barrier and which hashed after, the staging
+  rounds each warp uses and the takes that end each warp;
 - ``weight_grad_lanes``: ``fused_weight_grad_kernel``'s order of sums (each
   lane's columns c = lane, lane + 32, ..., product then sum, then the
   xor-shuffle tree 16, 8, 4, 2, 1), every operation rounded to float32 alone
@@ -28,6 +34,8 @@ use it:
   an ``fmaf`` chain in l order, ids outside [0, V) skipped).
 """
 from __future__ import annotations
+
+import random
 
 import torch
 
@@ -117,6 +125,119 @@ def tile_walk(rows: int, d: int, tile: int) -> torch.Tensor:
         flat = (row[:, None, None] * d + col)[live]
         hits.index_add_(0, flat, torch.ones_like(flat))
     return hits.view(rows, d)
+
+
+STAGE_ROUNDS = 10    # csrc/fused_embed.cu: staged slots a lane (320 a warp)
+ZERO_F4 = 256        # float4s of zeros a bulk copy of the fill moves
+TAIL_SHARE = 2       # the grid's tail: the last 1/TAIL_SHARE of the items
+TAIL_CHUNK_ITEMS = 4  # a warp's items for each chunk it takes
+
+
+def scatter_schedule(rows: int, L: int, d: int, tile: int, m_local: int,
+                     grid: int, seed: int = 0) -> dict:
+    """``fused_scatter_kernel`` on ``grid`` blocks of 8 warps, for ``rows``
+    output rows of ``L`` values at width ``d``, the [m_local] buffer; the
+    warps' turns at their queues, and how long each block's fill runs,
+    drawn at random from ``seed`` (the card may take any of them).
+
+    Items: q is value l = q % L of unit u = q // L (row u // n_tiles,
+    column tile u % n_tiles); an item of k columns takes ceil(k / 32)
+    rounds, lane j emitting c0 + j + 32 r in round r.  Block b owns the
+    items [n_own * b // grid, n_own * (b + 1) // grid) of the first
+    n_own = n - n // TAIL_SHARE; the rest, the grid's tail, goes to any
+    warp.  Warp 0 fills: block b's float4s [n4 * b // grid,
+    n4 * (b + 1) // grid) (n4 = m_local // 4) in bulk copies of ZERO_F4,
+    the last m_local % 4 floats block 0's.  Before the grid barrier warps
+    1-7 take items one at a time from their block's counter while they
+    have room for k_max rounds (a whole tile's) and the fill runs, and
+    stage each; a take past the block's items ends the warp's staging.
+    After it, each warp takes chunks of ``chunk`` items, from its block's
+    counter while that has items, then from the tail's, hashes and adds
+    them, and at an empty chunk adds its staged items and ends.
+
+    -> ``staged`` bool and ``hits`` int64 [rows * L, n_tiles] (value v =
+    row * L + l), ``columns`` int64 [d] (how often the units of a row's
+    tiles together emit each column), ``rounds`` int64 [W] (the rounds each
+    warp staged), ``n_own``, ``empty`` (the takes that gave an empty chunk)
+    and ``fill`` int64 [n, 2], every bulk copy and the tail as a span
+    [start, end) of floats."""
+    n_tiles = -(-d // tile)
+    n_items = rows * n_tiles * L
+    W = grid * WARPS_PER_BLOCK
+    c0 = torch.arange(n_tiles) * tile
+    width = torch.clamp(c0 + tile, max=d) - c0
+    k_of = (-(-width // WARP)).tolist()                      # per tile
+    lane = torch.arange(WARP)[:, None]
+    r = torch.arange(max(k_of))[None, :]
+    columns = torch.zeros(d, dtype=torch.int64)
+    for t in range(n_tiles):
+        col = (c0[t] + lane + WARP * r)[(lane + WARP * r) < width[t]]
+        columns.index_add_(0, col, torch.ones_like(col))
+    k_max = -(-min(tile, d) // WARP)
+    n_own = n_items - n_items // TAIL_SHARE
+    chunk = max(1, min(8, n_items // (W * TAIL_CHUNK_ITEMS)))
+    hi = [n_own * (b + 1) // grid for b in range(grid)]
+    rng = random.Random(seed)
+    queue = [n_own * b // grid for b in range(grid)]
+    tail = n_own
+    # the stage takes each block makes before its fill (and the grid's)
+    # has landed: any count up to what its warps 1-7 hold
+    filling = [rng.randrange(7 * (STAGE_ROUNDS // k_max) + 2)
+               if k_max <= STAGE_ROUNDS else 0 for _ in range(grid)]
+    hits = torch.zeros(n_items, dtype=torch.int64)
+    staged = torch.zeros(n_items, dtype=torch.bool)
+    used = [0] * W
+    items = [[] for _ in range(W)]
+
+    active = [w for w in range(W) if w % WARPS_PER_BLOCK]
+    while active:            # before the barrier: one take a turn
+        i = rng.randrange(len(active))
+        w = active[i]
+        b = w // WARPS_PER_BLOCK
+        q = None
+        if used[w] + k_max <= STAGE_ROUNDS and filling[b]:
+            q, queue[b] = queue[b], queue[b] + 1
+        if q is None or q >= hi[b]:
+            active[i] = active[-1]
+            active.pop()
+            continue
+        filling[b] -= 1
+        staged[q] = True
+        items[w].append(q)
+        used[w] += k_of[(q // L) % n_tiles]
+    span = [(0, 0)] * W      # after it: [q, end), the chunk in hand
+    empty = 0
+    active = list(range(W))
+    while active:
+        i = rng.randrange(len(active))
+        w = active[i]
+        b = w // WARPS_PER_BLOCK
+        q, end = span[w]
+        if q >= end:
+            q, queue[b] = queue[b], queue[b] + chunk
+            end = min(q + chunk, hi[b])
+            if q >= hi[b]:
+                q, tail = tail, tail + chunk
+                end = min(q + chunk, n_items)
+            if q >= end:
+                empty += 1
+                for s in items[w]:        # then the staged items
+                    hits[s] += 1
+                active[i] = active[-1]
+                active.pop()
+                continue
+        hits[q] += 1
+        span[w] = (q + 1, end)
+    n4 = m_local // 4
+    spans = []
+    for b in range(grid):
+        z, z1 = n4 * b // grid, n4 * (b + 1) // grid
+        spans += [(4 * a, 4 * min(a + ZERO_F4, z1))
+                  for a in range(z, z1, ZERO_F4)]
+    spans.append((4 * n4, m_local))
+    return {"staged": staged.view(-1, n_tiles), "hits": hits.view(-1, n_tiles),
+            "columns": columns, "rounds": torch.tensor(used), "n_own": n_own,
+            "empty": empty, "fill": torch.tensor(spans, dtype=torch.int64)}
 
 
 def weight_grad_lanes(e: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,10 @@ JAX fused engine (Pallas in interpret mode): locations bit-identical to
 ``fused_locations``; the scatter-add and the bag weight gradient within
 1e-6 of ``jax.grad`` through ``fused_lookup`` / ``fused_embed_bag`` (float32
 sums in another order).  Also the autograd of the port's CPU lookup and bag
-against the same gradients; and the CUDA weight-gradient kernel's order of
-sums, emulated, against the plain version."""
+against the same gradients; the CUDA weight-gradient kernel's order of
+sums, emulated, against the plain version; and the scatter-add kernel's
+persistent grid, emulated: its zero fill and its staged and hashed units
+each cover their buffer or their (value, column) pairs exactly once."""
 from __future__ import annotations
 
 import numpy as np
@@ -171,3 +173,59 @@ def test_weight_grad_lane_order_matches_plain(d, L):
     e = mem[loc.long()].reshape(B, L, d)
     want = fref.weight_grad_ref(spec, mem, g, _t(gids), _t(sets), _t(sup))
     torch.testing.assert_close(weight_grad_lanes(e, g), want, **TOL)
+
+
+# ------------------------------ row 5's persistent grid (scatter_schedule)
+
+H100_SMS = 132
+# rows, values a row (L), d, the buffer's slots: dlrm-rm2's B = 4,096
+# training batch (26 fields) flat, train_4k's 32,768 tokens at d = 2,048 on
+# its LMA token table, the bag of 26 fields, an LM decode's 1 and 4 tokens
+# on 35f's token table, and a quarter of dlrm-rm2's pool as a rank's slab
+SCATTER_SHAPES = {
+    "flat_106496x64": (106_496, 1, 64, 135_053_312),
+    "train_4k_32768x2048": (32_768, 1, 2_048, 4_096_000),
+    "bag_4096x26x64": (4_096, 26, 64, 135_053_312),
+    "rows_1x2048": (1, 1, 2_048, 4_096_000),
+    "rows_4x2048": (4, 1, 2_048, 4_096_000),
+    "slab_quarter_106496x64": (106_496, 1, 64, 135_053_312 // 4),
+}
+
+
+@pytest.mark.parametrize("blocks_per_sm", [6, 8])
+@pytest.mark.parametrize("shape", sorted(SCATTER_SHAPES))
+def test_scatter_schedule_zeroes_and_emits_once(shape, blocks_per_sm):
+    """``fused_scatter_kernel``'s persistent grid, emulated
+    (``scatter_schedule``) on every block an H100 holds at 6 or 8 blocks an
+    SM, at the tile the wrapper takes (``lookup_tile``), its warps' turns
+    at their block's work queue and the grid's tail and its fill's length
+    at random: the blocks' bulk copies tile the buffer exactly once, in
+    float4s but for the tail; every (value, column) is emitted exactly
+    once, staged before the barrier or hashed after; warp 0 (the fill's)
+    stages nothing and no warp stages past its 320 slots; only a block's
+    own items are staged, and nothing where a value's tile takes more
+    than 10 rounds a lane; and each warp ends on exactly one empty
+    take."""
+    from kernel_schedules import STAGE_ROUNDS, scatter_schedule
+    from repro_torch.kernels.fused_embed.kernel import (WARPS_PER_BLOCK,
+                                                        lookup_tile)
+    rows, L, d, m_local = SCATTER_SHAPES[shape]
+    tile = lookup_tile(rows, d, H100_SMS)
+    grid = blocks_per_sm * H100_SMS
+    s = scatter_schedule(rows, L, d, tile, m_local, grid, seed=blocks_per_sm)
+    fill = s["fill"][s["fill"][:, 1] > s["fill"][:, 0]]
+    fill = fill[fill[:, 0].argsort()]
+    assert int(fill[0, 0]) == 0 and int(fill[-1, 1]) == m_local
+    assert torch.equal(fill[1:, 0], fill[:-1, 1])
+    body = fill[fill[:, 0] < m_local // 4 * 4]
+    assert bool((body % 4 == 0).all())
+    assert bool((s["hits"] == 1).all()) and bool((s["columns"] == 1).all())
+    rounds = s["rounds"].view(grid, WARPS_PER_BLOCK)
+    assert int(rounds.max()) <= STAGE_ROUNDS and int(rounds[:, 0].max()) == 0
+    n_staged = int(s["staged"].sum())
+    if -(-tile // 32) > STAGE_ROUNDS:
+        assert n_staged == 0
+    else:
+        assert 0 < n_staged < rows * L * -(-d // tile) or rows < grid
+    assert not bool(s["staged"].view(-1)[s["n_own"]:].any())
+    assert s["empty"] == grid * WARPS_PER_BLOCK

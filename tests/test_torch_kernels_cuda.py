@@ -7,8 +7,10 @@ at embedding widths below a warp (d = 10 and d = 1, xDeepFM's; d = 18,
 DIN's; d = 16 striped, DCN-v2's), the dot
 interaction's edge shapes, the weight gradient's order of sums, the CIN
 layer at ragged shapes, the chunk kernels and the slab mode of the lookup
-and scatter-add on every scheme, and that each autograd path launches its
-kernels.  On the card, with no JAX
+and scatter-add on every scheme, the scatter-add's cooperative grid (its
+own zero fill of a reused NaN buffer, more values than it stages, few
+rows, CUDA-graph capture, a refused launch), and that each autograd path
+launches its kernels.  On the card, with no JAX
 installed, run them as
 ``python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py``.
 """
@@ -1393,3 +1395,187 @@ def test_ipc_all_gather_equals_the_staged_one(cuda):
         calls = r.pop("ipc_calls")
         assert all(r.values()), r
         assert calls == {"model": 3, "data": 3, "world": 3}
+
+
+# ------------------- row 5: one cooperative grid, the fill under the hashing
+
+ROW5_SCHEMES = ["lma", "lma_striped", "lma_fallback", "hashed_elem",
+                "hashed_row"]
+
+
+def _row5_case(cuda, scheme, n, d=64, seed=0):
+    """(spec, gids [n], extra) on a pool of d * 4,099 slots (+ 3 where not
+    striped, so that m % 4 != 0 leaves a tail past the float4 fill):
+    lma with S = 32 (a tenth of the values under min_support, nine tenths
+    for lma_fallback) or a hashed scheme; half the values repeat 64 hot
+    ids, whose slots collect long runs of atomics."""
+    rng = np.random.default_rng(seed + 31 * n + d)
+    striped = scheme == "lma_striped"
+    m = d * 4099 + (0 if striped else 3)
+    ids = rng.integers(0, 2**31 - 1, n).astype(np.int32)
+    hot = min(64, n)
+    ids[: n // 2] = np.resize(ids[:hot], n // 2)
+    gids = torch.from_numpy(ids).to(cuda)
+    if scheme.startswith("hashed"):
+        return fe.hashed_spec(scheme, d, m, 0x5CA7_0005), gids, ()
+    p = LMAParams(d=d, m=m, n_h=4, max_set=32, seed=0x5CA7_0005,
+                  striped=striped, min_support=2)
+    sets = _sets(rng, n, 32, empty_rows=min(n, 3))
+    sets[: n // 2] = sets[:hot].repeat(-(-(n // 2) // hot), 1)[: n // 2]
+    support = rng.integers(2, 6, n).astype(np.int32)
+    support[rng.random(n) < (0.9 if scheme == "lma_fallback" else 0.1)] = 0
+    support[: n // 2] = np.resize(support[:hot], n // 2)
+    return fe.lma_spec(p), gids, (sets.to(cuda),
+                                  torch.from_numpy(support).to(cuda))
+
+
+def _row5_held(spec, g, gids, extra, weights=None, base=0, m_local=None,
+               **kw):
+    """Row 5 against ``scatter_add_ref``, each slot within 1e-6 of its sum
+    |g| (bag: |g * w|); -> the kernel's dM."""
+    m_local = spec.m if m_local is None else m_local
+    got = fk.fused_scatter_add_cuda(spec, g, gids, *extra, weights=weights,
+                                    base=base, m_local=m_local, **kw)
+    want = fref.scatter_add_ref(spec, g, gids, *extra, weights=weights,
+                                base=base, m_local=m_local)
+    flat = tuple(x.reshape((gids.numel(),) + x.shape[gids.dim():])
+                 for x in extra)
+    loc = fref.locations_ref(spec, gids.reshape(-1), *flat)
+    contrib = g if weights is None else \
+        (g[:, None, :] * weights[:, :, None]).reshape(-1, spec.d)
+    assert got.shape == (m_local,) and not bool(got.isnan().any())
+    _held_to_sum_abs(got, want, loc, contrib, base, m_local)
+    return got
+
+
+def _as_bag(gids, extra, L):
+    B = gids.numel() // L
+    return gids.reshape(B, L), tuple(x.reshape((B, L) + x.shape[1:])
+                                     for x in extra)
+
+
+@pytest.mark.parametrize("scheme", ROW5_SCHEMES)
+def test_row5_flat_and_bag_match_plain(cuda, scheme):
+    """Flat (3,042 values) and as a bag of 26 (117 rows) at d = 64, every
+    scheme, the A_h fallback rare and dominant, hot slots contended."""
+    spec, gids, extra = _row5_case(cuda, scheme, 3042)
+    g = torch.randn((3042, 64), device=cuda)
+    _row5_held(spec, g, gids, extra)
+    bg, bx = _as_bag(gids, extra, 26)
+    w = torch.rand(bg.shape, device=cuda)
+    _row5_held(spec, g[:117].contiguous(), bg, bx, weights=w)
+
+
+@pytest.mark.parametrize("rank", [0, 1, 2, 3])
+@pytest.mark.parametrize("scheme", ROW5_SCHEMES)
+def test_row5_slab_at_every_rank(cuda, scheme, rank):
+    """Slab mode at each quarter of the pool (phase 34's (1, 4) split),
+    flat and bag: in-slab slots summed, the rest of the pool untouched."""
+    spec, gids, extra = _row5_case(cuda, scheme, 1300, seed=rank)
+    m_local = spec.m // 4
+    base = rank * m_local
+    g = torch.randn((1300, 64), device=cuda)
+    _row5_held(spec, g, gids, extra, base=base, m_local=m_local)
+    bg, bx = _as_bag(gids, extra, 26)
+    w = torch.rand(bg.shape, device=cuda)
+    _row5_held(spec, g[:50].contiguous(), bg, bx, weights=w, base=base,
+               m_local=m_local)
+
+
+@pytest.mark.parametrize("n", [0, 5000])
+@pytest.mark.parametrize("slab", [False, True])
+def test_row5_zeroes_a_reused_nan_buffer(cuda, slab, n):
+    """The kernel owns the fill: a same-size NaN-filled tensor is freed
+    right before the call, so the wrapper's ``torch.empty`` takes its
+    memory back (the same address), and a slot the fill missed would stay
+    NaN.  With no rows at all the buffer comes back all zeros."""
+    spec, gids, extra = _row5_case(cuda, "lma", max(n, 1))
+    gids, extra = gids[:n], tuple(x[:n] for x in extra)
+    base, m_local = (spec.m // 4, spec.m // 2) if slab else (0, spec.m)
+    g = torch.randn((n, 64), device=cuda)
+    junk = torch.full((m_local,), float("nan"), device=cuda)
+    where = junk.data_ptr()
+    del junk
+    got = _row5_held(spec, g, gids, extra, base=base, m_local=m_local)
+    assert got.data_ptr() == where
+    if n == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("bag", [False, True])
+def test_row5_more_values_than_the_staging_holds(cuda, bag):
+    """More values than the grid can stage before its barrier (warps 1-7
+    of every block, 5 values of d = 64 each, at the card's own grid,
+    ``scatter_grid``), so that values are staged and others hashed after
+    the barrier; both kinds summed.  The bag's first values of a row go to
+    one warp's staging and its later ones to others."""
+    from kernel_schedules import STAGE_ROUNDS
+    n, L = (156_000, 26) if bag else (150_000, 1)
+    spec, gids, extra = _row5_case(cuda, "lma_striped", n)
+    S = extra[0].shape[-1]
+    grid = fk.scatter_grid(cuda.index or 0, S)
+    bps = fk.blocks_per_sm("scatter", S, 0)
+    assert bps >= 1 and grid == bps * fk.sm_count(cuda.index or 0)
+    assert n > grid * 7 * (STAGE_ROUNDS // 2)
+    rows = n // L
+    g = torch.randn((rows, 64), device=cuda)
+    if bag:
+        bg, bx = _as_bag(gids, extra, L)
+        _row5_held(spec, g, bg, bx, weights=torch.rand(bg.shape,
+                                                       device=cuda))
+    else:
+        _row5_held(spec, g, gids, extra)
+
+
+@pytest.mark.parametrize("d", [64, 2048])
+@pytest.mark.parametrize("n", [1, 4, 16])
+@pytest.mark.parametrize("scheme", ["lma", "hashed_elem", "hashed_row"])
+def test_row5_at_few_rows(cuda, scheme, n, d):
+    """1-16 rows, where most of the persistent grid's blocks only fill:
+    flat and as a bag of 3, at the wrapper's tile (d = 2,048: 32 columns;
+    d = 64: the whole row)."""
+    spec, _, gids, extra = _few_rows_case(cuda, scheme, n, d)
+    g = torch.randn((n, d), device=cuda)
+    _row5_held(spec, g, gids, extra)
+    L = 3
+    bg = torch.cat([gids, gids.flip(0), gids.roll(1)]).reshape(L, n).T
+    bx = tuple(torch.cat([x, x.flip(0), x.roll(1, 0)]).reshape(
+        (L, n) + x.shape[1:]).transpose(0, 1).contiguous() for x in extra)
+    w = torch.rand((n, L), device=cuda)
+    _row5_held(spec, g, bg.contiguous(), bx, weights=w)
+
+
+def test_row5_under_cuda_graph_capture(cuda):
+    """The cooperative launch captured in a CUDA graph (as ``graph_ms``
+    times it): each replay refills the graph's own buffer, NaN-poisoned
+    between replays, and sums as the plain version does; the capture
+    counts one launch."""
+    spec, gids, extra = _row5_case(cuda, "lma_striped", 4000)
+    g = torch.randn((4000, 64), device=cuda)
+    want = fref.scatter_add_ref(spec, g, gids, *extra)
+    loc = fref.locations_ref(spec, gids, *extra)
+    fk.fused_scatter_add_cuda(spec, g, gids, *extra)      # warm, off graph
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = fk.fused_scatter_add_cuda.launches
+    with torch.cuda.graph(graph):
+        out = fk.fused_scatter_add_cuda(spec, g, gids, *extra)
+    assert fk.fused_scatter_add_cuda.launches == before + 1
+    for _ in range(2):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert not bool(out.isnan().any())
+        _held_to_sum_abs(out, want, loc, g, 0, spec.m)
+
+
+def test_row5_refused_cooperative_launch_raises(cuda, monkeypatch):
+    """A grid the card cannot hold at once is refused by the cooperative
+    launch: the wrapper raises (no fallback), and the next call runs."""
+    spec, gids, extra = _row5_case(cuda, "hashed_elem", 100)
+    g = torch.randn((100, 64), device=cuda)
+    monkeypatch.setattr(fk, "scatter_grid", lambda index, S: 1 << 20)
+    with pytest.raises(RuntimeError, match="fused_scatter_add"):
+        fk.fused_scatter_add_cuda(spec, g, gids)
+    monkeypatch.undo()
+    _row5_held(spec, g, gids, extra)
