@@ -7376,10 +7376,11 @@ FIT_SHARE = 0.97                # of the card's memory a reckoned peak may take
 GB = 1e9
 
 
-def train_reckoning(torch, cfg, batches, optimizer: str) -> dict:
-    """What a train_4k step of ``cfg`` holds on the card at each batch B of
-    ``batches``, reckoned from the code before it runs (parameter shapes
-    from a model on the meta device); -> {B: reckoning}:
+def train_reckoning(torch, cfg, batches, optimizer: str, S: int = TRAIN_S,
+                    mesh_shape: tuple | None = None) -> dict:
+    """What a train step of ``cfg`` at sequence ``S`` holds on the card at
+    each batch B of ``batches``, reckoned from the code before it runs
+    (parameter shapes from a model on the meta device); -> {B: reckoning}:
     - ``state``: each parameter in its dtype, its gradient (the same),
       Adam's two float32 moments (12 B a bf16 parameter) or Adafactor's
       factored float32 moments, and the updates, which the Trainer holds in
@@ -7396,14 +7397,24 @@ def train_reckoning(torch, cfg, batches, optimizer: str) -> dict:
       (the float32 gradient, its square, the scaled first moment, nu's
       quotient and its float64 copy and root); Adafactor's five float32
       temporaries of the largest leaf.
-    The peak is the state plus the larger of the two."""
+    The peak is the state plus the larger of the two.  With ``mesh_shape``
+    = (D, M), a rank's under that mesh (rank 0's ``lm_rules`` blocks): its
+    B / D sequences, H / M heads, d_ff / M and the output table's V / M
+    rows and logits; beside the peak the largest leaf the step gathers over
+    'data' (D > 1) and its gradient before the reduce-scatter
+    (``gathered``), and a context: ``rank_gb``, the card's ``total_gb``."""
+    from repro_torch.dist.context import Mesh
+    from repro_torch.dist.sharding import spec_axes, stored_spec
     from repro_torch.models import transformer as tt
     from repro_torch.nn.moe import moe_capacity
     from repro_torch.optim.optimizers import adafactor
     from repro_torch.optim.sparse import ADAM_SLICE
 
+    D, M = mesh_shape or (1, 1)
+    mesh = Mesh(model=M, data=D) if mesh_shape else None
     with torch.device("meta"):
-        model = tt.Transformer(cfg, torch.Generator(), torch.device("meta"))
+        model = tt.Transformer(cfg, torch.Generator(), torch.device("meta"),
+                               mesh=mesh, train=mesh is not None)
     params = dict(model.named_parameters())
     n = sum(p.numel() for p in params.values())
     own = sum(p.numel() * p.element_size() for p in params.values())
@@ -7416,28 +7427,40 @@ def train_reckoning(torch, cfg, batches, optimizer: str) -> dict:
     else:
         moments, update = 8 * n, 32 * min(largest, ADAM_SLICE)
     state = 3 * own + moments
-    S, d, H, V = TRAIN_S, cfg.d_model, cfg.n_heads, cfg.vocab_size
+
+    def gathered(p) -> int:
+        spec = stored_spec(p)
+        over = D > 1 and spec is not None and any(
+            "data" in spec_axes(spec, i) for i in range(len(spec)))
+        return 2 * p.numel() * p.element_size() * D if over else 0
+    big = max(gathered(p) for p in params.values())
+    d, H, V = cfg.d_model, cfg.n_heads, cfg.vocab_size
     qb, blk = min(512, S), cfg.attn_block
     tiles = sum(-(-min(lo + qb, S) // blk) for lo in range(0, S, qb))
     act = 2 if cfg.dtype == "bfloat16" else 4
     chunk = cfg.loss_chunk if 0 < cfg.loss_chunk < S else S
     out = {}
     for B in batches:
-        layer = 3 * tiles * B * H * qb * blk * 4
+        Bl = B // D
+        layer = 3 * tiles * Bl * (H // M) * qb * blk * 4
         if cfg.moe is None:
-            layer += 4 * B * S * cfg.d_ff * act
+            layer += 4 * Bl * S * (cfg.d_ff // M) * act
         else:
             m = cfg.moe
-            C = min(moe_capacity(m, B * S), B * S)
-            layer += 4 * act * (B * S * m.d_ff * m.n_shared_experts
-                                + m.n_experts * C * (m.d_ff + d))
-        backward = (cfg.n_layers * B * S * d * act + layer + 2 * V * d * 4
-                    + 3 * B * chunk * V * 4)
-        out[B] = {"B": B, "S": S, "layers": cfg.n_layers, "params": n,
-                  "state_gb": state / GB, "backward_gb": backward / GB,
-                  "update_gb": update / GB,
-                  "peak_gb": (state + max(backward, update)) / GB,
-                  "optimizer": optimizer}
+            C = min(moe_capacity(m, Bl * S), Bl * S)
+            layer += 4 * act * (Bl * S * m.d_ff * m.n_shared_experts // M
+                                + m.n_experts // M * C * (m.d_ff + d))
+        backward = (cfg.n_layers * Bl * S * d * act + layer
+                    + 2 * V // M * d * 4 + 3 * Bl * chunk * V // M * 4)
+        r = out[B] = {"B": B, "S": S, "layers": cfg.n_layers, "params": n,
+                      "state_gb": state / GB, "backward_gb": backward / GB,
+                      "update_gb": update / GB,
+                      "peak_gb": (state + max(backward, update)) / GB,
+                      "optimizer": optimizer}
+        if mesh is not None:
+            r.update(mesh=mesh_shape, gathered_gb=big / GB,
+                     rank_gb=r["peak_gb"] + big / GB + CONTEXT_GB)
+            r["total_gb"] = r["rank_gb"] * D * M
     return out
 
 
@@ -9165,9 +9188,9 @@ def wait_for(path: str, timeout_s: float = 900.0) -> None:
     t0 = time.perf_counter()
     while not os.path.exists(path + ".ready"):
         if os.path.exists(path + ".failed"):
-            raise RuntimeError("phase 39: the one-card oracles failed")
+            raise RuntimeError(f"{path}: the parent failed")
         if time.perf_counter() - t0 > timeout_s:
-            raise TimeoutError(f"phase 39: no oracle after {timeout_s} s")
+            raise TimeoutError(f"{path}: not ready after {timeout_s} s")
         time.sleep(0.1)
 
 
@@ -9333,6 +9356,739 @@ def run_mesh_lm(torch, dev, kernels, card) -> dict:
                 "ranks_s": ranks_s, "card": card}}
 
 
+# ------------------------------------- the LMs trained under a mesh (phase 40)
+
+# One spawn of MESH_RANKS gloo ranks on the card: the (2, 2) mesh and its
+# (1, 4) world mesh.  The parent computes the one-card oracles of (a), (c)
+# and (d) meanwhile (saved under build/; the ranks hold their blocks to
+# them), then runs (b)'s one-card steps and frees the card for the ranks'
+# (b) and (d)'s scout.
+TRAIN_F32_LAYERS = 2            # (a), (c): 2 of tinyllama's 22 layers
+TRAIN_F32_S = 1024              # (a), (c): train_4k's S cut for float32
+TRAIN_MESH_B = 4                # (a)-(d): the global batch (scout's 1)
+TRAIN_MESH_STEPS = 3            # (b): steps at (2, 2)
+TRAIN_LMA_STEPS = 2             # (c): sparse steps a mesh
+MOE_SMOKE_S = 32                # (d): the smoke configs' sequence
+SCOUT_MESH_STEPS = 2            # (d): scout at full width, 1 layer, (1, 4)
+SCOUT_MESH_CARD_GB = 80.0       # (d): scout runs if its reckoned total fits
+GRAD_TOL = 1e-5                 # (a), (c), (d): every leaf, normwise
+# (c): the pool slabs after the steps, normwise.  The mesh's gradient is
+# within ~7e-6 of one card's (sums in another order), ~1e-9 absolute at a
+# slot; a slot whose gradient lies within a few eps of zero moves by up to
+# lr / eps (4e4) times that under Adam's g / (|g| + eps), and the touched
+# slots under 10 eps (printed) move the pool by ~1e-5 a step (measured
+# on the H100).  Each step's slab is held bit for bit to the plain lazy
+# Adam of its own SparseGrad
+POOL_TOL = 1e-4
+BF16_LOSS_TOL = 1e-2            # (b): each step's loss, relative
+# (a), (c), (d): the elements whose step-1 gradient does not settle the
+# update (``sure_masks``, from one card's gradient) are at most this share
+# of each leaf, and each moves from one card's by at most a sign flip of
+# every update, 2 lr a step.  The largest share is lm_head's at full width:
+# a row no gold token names has the gradient sum_t p_v h_t / N, p_v about
+# 1 / 32,000, which puts 1.1% of it under 10 eps (measured on the H100)
+UNSETTLED_SHARE = 0.02
+TRAIN_MESHES = {"2x2": "psum", "1x4": "all_to_all"}   # (c)'s strategies
+# (c)'s launches a step on each rank: the sparse steps' lookup (psum: the
+# slab's row 2; all_to_all: the chunk's locations, row 4, and one gather,
+# row 11), psum's locations of its reconstructed rows (row 4) and the lazy
+# Adam (row 9); the dense steps' scatter (psum: row 5's slab mode;
+# all_to_all: the chunk scatter, row 12)
+TRAIN_LMA_LAUNCHES = {
+    "psum": {"sparse": {"fused_embed": 1, "fused_locations": 1,
+                        "sparse_adam": 1},
+             "dense": {"fused_embed": 1, "fused_scatter_add": 1}},
+    "all_to_all": {"sparse": {"fused_locations": 1, "fused_chunk_gather": 1,
+                              "sparse_adam": 1},
+                   "dense": {"fused_locations": 1, "fused_chunk_gather": 1,
+                             "fused_chunk_scatter": 1}},
+}
+
+
+def f32_train_cfg(lma: bool = False):
+    """(a) and (c)'s model: tinyllama-1.1b at full width, TRAIN_F32_LAYERS
+    layers, float32, remat and its loss chunk kept; with ``lma`` 35f's
+    token table."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs._recsys_common import embedding_of_kind
+    cfg = dataclasses.replace(get_config(LM_ARCH).make_model(),
+                              n_layers=TRAIN_F32_LAYERS, dtype="float32")
+    if lma:
+        cfg = dataclasses.replace(cfg, embedding=embedding_of_kind(
+            "lma", (cfg.vocab_size,), cfg.d_model, expansion=16.0,
+            max_set=32))
+    return cfg
+
+
+def moe_smoke_cfg(arch: str):
+    """(d)'s smoke config of ``arch``: float32, remat on, the drop-free
+    capacity factor."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).make_smoke()
+    return dataclasses.replace(cfg, remat=True, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k * 1.05))
+
+
+def scout_mesh_cfg():
+    """(d)'s scout: full width, 1 of its 48 layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(SCOUT_ARCH).make_model(),
+                               n_layers=1, first_k_dense=0)
+
+
+def mesh_batches(vocab: int, B: int, S: int, steps: int, seed: int) -> dict:
+    """``steps`` global batches of uniform tokens and labels, by step."""
+    rng = np.random.default_rng(SEED + seed)
+    return {s: {k: rng.integers(0, vocab, (B, S)).astype(np.int32)
+                for k in ("tokens", "labels")} for s in range(steps)}
+
+
+def host(torch, tree: dict) -> dict:
+    """Float32 host copies of a dict of tensors (a SparseGrad densified)."""
+    from repro_torch.optim import sparse as sp
+    return {k: (v.densify() if sp.is_sparse(v) else v).detach().to(
+        torch.float32).cpu().clone() for k, v in tree.items()}
+
+
+class FirstGrads(Recorder):
+    """An optimizer that keeps its first update's gradients on the host
+    and calls ``on_update(grads, state, params)`` before each update."""
+
+    def __init__(self, torch, opt, on_update=None):
+        super().__init__(opt)
+        self.torch, self.first, self.on_update = torch, None, on_update
+
+    def update(self, grads, state, params):
+        if self.first is None:
+            self.first = host(self.torch, grads)
+            for k, g in self.first.items():       # a pool's whole stream
+                if g.numel() != params[k].numel():
+                    from repro_torch.dist.sharding import (block, stored_mesh,
+                                                           stored_spec)
+                    self.first[k] = block(
+                        g.reshape(-1), stored_mesh(params[k]),
+                        stored_spec(params[k])).reshape(
+                            params[k].shape).clone()
+        if self.on_update is not None:
+            self.on_update(grads, state, params)
+        return self.opt.update(grads, state, params)
+
+
+def train_steps(torch, mesh, arch_id, cfg, batches, dev, steps: int,
+                bufs=None, sparse=None, shares: int = 1, on_update=None,
+                after=None, timer=None, keep: bool = True) -> dict:
+    """``steps`` Trainer steps of ``cfg`` from the seed's parameters with
+    the arch's optimizer as the launcher builds it: on one card (``mesh``
+    None), or on this rank's ``lm_rules`` blocks under ``mesh``.  With
+    ``shares`` > 1 (one card's oracle of a MoE at (2, 2)) the loss is the
+    mean over the batch's 'data' shares of each share's ``loss_fn`` (the
+    share's MoE capacity and aux).  ``after(trainer)`` runs after each
+    step.  -> the losses, step seconds (host clock), the peak, and with
+    ``keep`` the first step's gradients, the parameters after and their
+    specs, on the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.dist.sharding import stored_spec
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models import transformer as tt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    def loss(m, b):
+        if shares == 1:
+            return tt.loss_fn(m, cfg, b["tokens"], b["labels"], bufs)
+        c = b["tokens"].shape[0] // shares
+        return sum(tt.loss_fn(m, cfg, b["tokens"][i * c:(i + 1) * c],
+                              b["labels"][i * c:(i + 1) * c], bufs)[0]
+                   for i in range(shares)) / shares, {}
+    opt = make_optimizer(get_config(arch_id))
+    if keep:
+        opt = FirstGrads(torch, opt, on_update)
+    free(torch)
+    ctx = use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    with ctx:
+        model = tt.init(cfg, seed=SEED, device=dev, mesh=mesh,
+                        train=mesh is not None)
+        tr = Trainer(TrainerConfig(total_steps=0, log_every=0), loss, model,
+                     opt, lambda step: batches[step], sparse_grads=sparse,
+                     on_phase=timer.mark if timer else None, device=dev)
+        losses, secs = [], []
+        for _ in range(steps):
+            tr.cfg.total_steps = tr.step + 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = tr.fit(log=lambda _: None)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if res["skipped_steps"] or not np.isfinite(res["loss"]):
+                raise AssertionError(f"phase 40, {cfg.name}: {res}")
+            losses.append(res["loss"])
+            if after is not None:
+                after(tr)
+        out = {"losses": losses, "secs": secs,
+               "peak_gb": torch.cuda.max_memory_allocated() / GB}
+        if keep:
+            out.update(grads=opt.first, params=host(torch, tr.params),
+                       specs={k: stored_spec(p)
+                              for k, p in tr.params.items()})
+    del model, tr, opt
+    free(torch)
+    return out
+
+
+def sure_masks(torch, grads: dict) -> dict:
+    """The elements whose first update the gradient settles: g = 0 (a row
+    no token reads), or |g| at least GRAD_TOL of the leaf's rms (below it
+    the sign of g is not resolved at the gradients' tolerance, and Adam's
+    g / (|g| + eps) or Adafactor's g / sqrt(g^2) may take either sign) and
+    at least 10 of Adam's eps (below it g / (|g| + eps) multiplies the
+    gradient's own error by up to eps / |g|)."""
+    return {k: (g == 0) | ((g.abs() >= GRAD_TOL * torch.sqrt(torch.mean(
+        g.to(torch.float64) ** 2)).to(g.dtype)) & (g.abs() >= 10 * ADAM_EPS))
+        for k, g in grads.items()}
+
+
+def held_blocks(torch, mesh_shape, world_rank, got: dict, want: dict,
+                specs: dict, sure: dict | None = None, dev=None) -> dict:
+    """This rank's share of each leaf's normwise error: the squared norms
+    of its block's difference from the oracle's block and of the oracle's
+    block, counted on the one rank of each block's replicas (with ``sure``
+    only over the elements it keeps; the largest |difference| of the
+    others and their count beside, and the block's size), summed on
+    ``dev`` (the card: not host work)."""
+    from repro_torch.dist.sharding import block, mesh_at, spec_axes
+    m = mesh_at(mesh_shape, world_rank)
+    out = {}
+    for k, g in got.items():
+        spec = specs[k]
+        used = {a for i in range(len(spec)) for a in spec_axes(spec, i)}
+        if not (("data" in used or m.data_rank == 0)
+                and ("model" in used or m.rank == 0)):
+            continue
+        w = block(want[k], m, spec).to(dev, torch.float64)
+        d = g.reshape(w.shape).to(dev, torch.float64) - w
+        rest, n_rest = 0.0, 0
+        if sure is not None:
+            keep = block(sure[k], m, spec).to(dev)
+            n_rest = int((~keep).sum())
+            rest = float(d[~keep].abs().max()) if n_rest else 0.0
+            d = d[keep]
+        out[k] = (float(torch.sum(d * d)), float(torch.sum(w * w)), rest,
+                  n_rest, w.numel())
+    return out
+
+
+def summed(parts: list) -> dict:
+    """The ranks' ``held_blocks`` shares -> {leaf: (relative error, the
+    largest |difference| of the unsettled elements, their share of the
+    leaf)}."""
+    tot: dict = {}
+    for p in parts:
+        for k, (dd, ww, rest, n, size) in p.items():
+            a = tot.setdefault(k, [0.0, 0.0, 0.0, 0, 0])
+            a[0] += dd
+            a[1] += ww
+            a[2] = max(a[2], rest)
+            a[3] += n
+            a[4] += size
+    return {k: (float(np.sqrt(a[0]) / max(np.sqrt(a[1]), 1e-30)), a[2],
+                a[3] / a[4]) for k, a in tot.items()}
+
+
+def train_reckon_line(what: str, r: dict) -> str:
+    return (f"{what}: reckoned {r['rank_gb']:.2f} GB a rank (blocks, "
+            f"gradients, updates and {r['optimizer']} state "
+            f"{r['state_gb']:.2f}, the largest leaf gathered over 'data' and "
+            f"its gradient {r['gathered_gb']:.2f}, max(backward "
+            f"{r['backward_gb']:.2f}, update {r['update_gb']:.2f}), context "
+            f"{CONTEXT_GB}), {r['total_gb']:.2f} GB over {MESH_RANKS} ranks")
+
+
+def pool_row9_check(torch, arch, held: list):
+    """``on_update`` of (c)'s sparse steps: the pool's update replayed on
+    the host by the same lazy row-wise Adam, whose plain version a CPU
+    tensor takes (``after`` holds the card's slab to it, bit for bit)."""
+    from repro_torch.optim import sparse as sp
+    from repro_torch.optim.optimizers import apply_updates
+
+    def on_update(grads, state, params):
+        k = "embed.memory"
+        g, st = grads[k], state[k]
+        gh = dataclasses.replace(g, indices=g.indices.cpu().clone(),
+                                 values=g.values.cpu().clone())
+        sh = type(st)(st.step, st.mu.cpu().clone(), st.nu.cpu().clone())
+        p = params[k].detach().cpu().clone()
+        upd, _ = sp.sparse_rowwise_adam(arch.learning_rate).update(gh, sh, p)
+        apply_updates({k: p}, {k: upd})
+        held.append(p)
+    return on_update
+
+
+def mesh_train_parts(torch, mesh, dev, kernels) -> dict:
+    """A rank's (a), (c) and (d)'s smoke runs, on both meshes, their
+    results kept on the host until the oracles come."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import exchange as exl
+    from repro_torch.embed import make_buffers
+
+    meshes = {"2x2": mesh, "1x4": world_mesh(mesh)}
+    out = {"a": {}, "c": {}, "d": {}, "seconds": {}}
+    t0 = time.perf_counter()
+    cfg = f32_train_cfg()
+    ba = mesh_batches(cfg.vocab_size, TRAIN_MESH_B, TRAIN_F32_S, 1, 40)
+    for tag, m in meshes.items():
+        if mesh.world_rank == 0:
+            log(f"40a at {tag}")
+        out["a"][tag] = train_steps(torch, m, LM_ARCH, cfg, ba, dev, 1)
+    out["seconds"]["40a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = f32_train_cfg(lma=True)
+    arch = get_config(LM_ARCH)
+    bc = mesh_batches(cfg.vocab_size, TRAIN_MESH_B, TRAIN_F32_S,
+                      TRAIN_LMA_STEPS, 41)
+    for tag, m in meshes.items():
+        bufs = make_buffers(cfg.embedding, planted_store(
+            torch, cfg.embedding, dev), mesh=m)
+        exl.FORCED = TRAIN_MESHES[tag]
+        try:
+            for mode, steps in (("sparse", TRAIN_LMA_STEPS), ("dense", 1)):
+                if mesh.world_rank == 0:
+                    log(f"40c at {tag}, {mode}")
+                held, bits = [], []
+
+                def after(tr):
+                    if held:
+                        bits.append(bool(torch.equal(
+                            tr.params["embed.memory"].detach().cpu(),
+                            held.pop())))
+                zero(kernels)
+                r = train_steps(
+                    torch, m, LM_ARCH, cfg, bc, dev, steps, bufs=bufs,
+                    sparse=mode == "sparse", after=after,
+                    on_update=(pool_row9_check(torch, arch, held)
+                               if mode == "sparse" else None))
+                r["launches"] = counts(kernels)
+                r["row9_bit_equal"] = bits
+                out["c"][tag, mode] = r
+        finally:
+            exl.FORCED = None
+        del bufs
+    out["seconds"]["40c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for a in (MOE_ARCH, SCOUT_ARCH):
+        cfg = moe_smoke_cfg(a)
+        bd = mesh_batches(cfg.vocab_size, TRAIN_MESH_B, MOE_SMOKE_S, 1, 42)
+        for tag, m in meshes.items():
+            if mesh.world_rank == 0:
+                log(f"40d {a} at {tag}")
+            out["d"][a, tag] = train_steps(torch, m, a, cfg, bd, dev, 1)
+    out["seconds"]["40d smoke"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_train_held(torch, mesh, parts: dict, o: dict) -> dict:
+    """A rank's shares of (a), (c) and (d)'s errors against the oracles."""
+    shapes = {"2x2": (mesh.data, mesh.model), "1x4": (1, mesh.world)}
+    r, dev = mesh.world_rank, mesh.device
+
+    def held(tag, got, one, sure=True):
+        return {"losses": got["losses"], "peak_gb": got["peak_gb"],
+                "grads": held_blocks(torch, shapes[tag], r, got["grads"],
+                                     one["grads"], got["specs"], dev=dev),
+                "params": held_blocks(torch, shapes[tag], r, got["params"],
+                                      one["params"], got["specs"],
+                                      one["sure"] if sure else None, dev)}
+    out = {"a": {tag: held(tag, g, o["a"]) for tag, g in parts["a"].items()},
+           "c": {}, "d": {}}
+    for (tag, mode), g in parts["c"].items():
+        one = o["c"][mode]
+        h = held(tag, g, one)
+        h["pool"] = held_blocks(
+            torch, shapes[tag], r, {"embed.memory": g["params"][
+                "embed.memory"]}, {"embed.memory": one["params"][
+                    "embed.memory"]}, g["specs"], dev=dev)
+        h.update(launches=g["launches"], row9=g["row9_bit_equal"])
+        out["c"][tag, mode] = h
+    for (a, tag), g in parts["d"].items():
+        out["d"][a, tag] = held(tag, g, o["d"][a, tag])
+    return out
+
+
+def mesh_timed(torch, mesh, arch_id: str, cfg, batches, dev,
+               steps: int) -> dict:
+    """(b) and (d)'s scout on this rank: ``steps`` steps of ``cfg`` on its
+    blocks, timed -> losses, step seconds, the Trainer's phases (CUDA
+    events, median after the first step), host-staged s a step by
+    collective and by axis, the IPC gathers a step, the peak."""
+    timer = PhaseTimer(torch)
+    s0, a0 = dict(mesh.staged_s), dict(mesh.axis_s)
+    c0, i0 = dict(mesh.staged), dict(mesh.ipc_calls)
+    r = train_steps(torch, mesh, arch_id, cfg, batches, dev, steps,
+                    timer=timer, keep=False)
+    return {"losses": r["losses"], "secs": r["secs"],
+            "phase_ms": timer.split_ms(),
+            "staged_s": staged_per_step(mesh, s0, steps),
+            "staged_calls": {k: (mesh.staged[k] - c0.get(k, 0)) / steps
+                             for k in mesh.staged
+                             if mesh.staged[k] != c0.get(k, 0)},
+            "axis_s": {k: (mesh.axis_s[k] - a0.get(k, 0.0)) / steps
+                       for k in mesh.axis_s},
+            "ipc_calls": {k: (mesh.ipc_calls[k] - i0.get(k, 0)) / steps
+                          for k in mesh.ipc_calls},
+            "peak_gb": r["peak_gb"]}
+
+
+def mesh_train_oracles(torch, dev, kernels) -> dict:
+    """One card's (a), (c) and (d) from the seed's parameters and the
+    ranks' batches: the losses, first gradients, parameters after, and
+    which elements' gradients resolve their sign (``sure_masks``)."""
+    from repro_torch.embed import make_buffers
+    o = {"c": {}, "d": {}}
+    cfg = f32_train_cfg()
+    ba = mesh_batches(cfg.vocab_size, TRAIN_MESH_B, TRAIN_F32_S, 1, 40)
+    o["a"] = train_steps(torch, None, LM_ARCH, cfg, ba, dev, 1)
+    cfg = f32_train_cfg(lma=True)
+    bc = mesh_batches(cfg.vocab_size, TRAIN_MESH_B, TRAIN_F32_S,
+                      TRAIN_LMA_STEPS, 41)
+    bufs = make_buffers(cfg.embedding, planted_store(torch, cfg.embedding,
+                                                     dev))
+    for mode, steps in (("sparse", TRAIN_LMA_STEPS), ("dense", 1)):
+        zero(kernels)
+        o["c"][mode] = train_steps(torch, None, LM_ARCH, cfg, bc, dev, steps,
+                                   bufs=bufs, sparse=mode == "sparse")
+    del bufs
+    for a in (MOE_ARCH, SCOUT_ARCH):
+        cfg = moe_smoke_cfg(a)
+        bd = mesh_batches(cfg.vocab_size, TRAIN_MESH_B, MOE_SMOKE_S, 1, 42)
+        for tag, shares in (("2x2", MESH_DATA), ("1x4", 1)):
+            o["d"][a, tag] = train_steps(torch, None, a, cfg, bd, dev, 1,
+                                         shares=shares)
+    for r in (o["a"], *o["c"].values(), *o["d"].values()):
+        r["sure"] = sure_masks(torch, r["grads"])
+    return o
+
+
+def mesh_train_rank(mesh, path: str, scout: bool) -> dict:
+    """One rank of phase 40 (``run_ranks`` with data=MESH_DATA): (a), (c)
+    and (d)'s smoke runs while the parent computes their oracles, held to
+    them once they come (``path``); then, once the parent has freed the
+    card (``path`` + ".card"), (b) and, where it fits, (d)'s scout."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import collectives as col
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 40: a rank found no GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    kernels = shard_kernels()
+    parts = mesh_train_parts(torch, mesh, dev, kernels)
+    t0 = time.perf_counter()
+    wait_for(path)
+    o = torch.load(path, mmap=True, weights_only=False)
+    waited = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = mesh_train_held(torch, mesh, parts, o)
+    out["seconds"] = dict(parts["seconds"], waited_for_oracles=waited,
+                          held=time.perf_counter() - t0)
+    del o, parts
+    free(torch)
+    t0 = time.perf_counter()
+    wait_for(path + ".card")
+    out["seconds"]["waited_for_card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH).make_model()
+    out["b"] = mesh_timed(torch, mesh, LM_ARCH, cfg, mesh_batches(
+        cfg.vocab_size, TRAIN_MESH_B, TRAIN_S, TRAIN_MESH_STEPS, 43), dev,
+        TRAIN_MESH_STEPS)
+    out["seconds"]["40b"] = time.perf_counter() - t0
+    if scout:
+        t0 = time.perf_counter()
+        cfg = scout_mesh_cfg()
+        out["scout"] = mesh_timed(torch, world_mesh(mesh), SCOUT_ARCH, cfg,
+                                  mesh_batches(cfg.vocab_size, 1, TRAIN_S,
+                                               SCOUT_MESH_STEPS, 44), dev,
+                                  SCOUT_MESH_STEPS)
+        out["seconds"]["40d scout"] = time.perf_counter() - t0
+    col.barrier(mesh)
+    return out
+
+
+def run_mesh_train(torch, dev, kernels, card) -> dict:
+    """Phase 40: the LMs trained under a (data, model) mesh of MESH_RANKS
+    gloo ranks on this card (``mesh_train_rank``), spawned first; the
+    parent reckons, computes the one-card oracles, runs (b)'s one-card
+    steps, frees the card, then holds the ranks' results to the gates."""
+    import tempfile
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.collectives import run_ranks
+
+    t_phase = time.perf_counter()
+    cfg_b, cfg_s = get_config(LM_ARCH).make_model(), scout_mesh_cfg()
+    rk = {"b": train_reckoning(torch, cfg_b, (TRAIN_MESH_B,), "adam",
+                               mesh_shape=(MESH_DATA,
+                                           MESH_RANKS // MESH_DATA))[
+                                               TRAIN_MESH_B],
+          "scout": train_reckoning(torch, cfg_s, (1,), "adam",
+                                   mesh_shape=(1, MESH_RANKS))[1]}
+    for tag in TRAIN_MESHES:
+        shape = (MESH_DATA, MESH_RANKS // MESH_DATA) if tag == "2x2" \
+            else (1, MESH_RANKS)
+        for part, lma in (("a", False), ("c", True)):
+            rk[f"{part} {tag}"] = train_reckoning(
+                torch, f32_train_cfg(lma), (TRAIN_MESH_B,), "adam",
+                TRAIN_F32_S, shape)[TRAIN_MESH_B]
+    scout = rk["scout"]["total_gb"] <= SCOUT_MESH_CARD_GB
+    log(train_reckon_line(f"40b {LM_ARCH} 22 layers bf16 B={TRAIN_MESH_B} "
+                          f"S={TRAIN_S} at (2, 2)", rk["b"]))
+    log(train_reckon_line(f"40d {SCOUT_ARCH} full width, 1 of 48 layers, "
+                          f"B=1 S={TRAIN_S} at (1, 4)", rk["scout"])
+        + (f": within {SCOUT_MESH_CARD_GB} GB, it runs" if scout else
+           f": past {SCOUT_MESH_CARD_GB} GB, not run: scout and deepseek-v3 "
+           "train under a mesh only on four cards"))
+    with tempfile.TemporaryDirectory(prefix="mesh-train-",
+                                     dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "oracle.pt")
+        spawned = {}
+
+        def spawn():
+            t0 = time.perf_counter()
+            try:
+                spawned["ranks"] = run_ranks(
+                    mesh_train_rank, MESH_RANKS, path, scout, data=MESH_DATA,
+                    backend="gloo", device=MESH_DEVICE)
+            except BaseException as e:          # re-raised below
+                spawned["error"] = e
+            spawned["s"] = time.perf_counter() - t0
+        thread = threading.Thread(target=spawn)
+        thread.start()
+        t0 = time.perf_counter()
+        try:
+            o = mesh_train_oracles(torch, dev, kernels)
+            torch.save(o, path)
+            Path(path + ".ready").touch()
+            oracle_s = time.perf_counter() - t0
+            g = o["c"]["sparse"]["grads"]["embed.memory"]
+            g = g[g != 0]                   # the slots the batch touched
+            losses = {"a": o["a"]["losses"],
+                      "c": {k: r["losses"] for k, r in o["c"].items()},
+                      "d": {k: r["losses"] for k, r in o["d"].items()},
+                      "pool_grad": (float(g.square().mean().sqrt()),
+                                    int((g.abs() < 10 * ADAM_EPS).sum()),
+                                    g.numel())}
+            del o
+            free(torch)
+            t0 = time.perf_counter()
+            one_b = train_steps(torch, None, LM_ARCH, cfg_b, mesh_batches(
+                cfg_b.vocab_size, TRAIN_MESH_B, TRAIN_S, TRAIN_MESH_STEPS,
+                43), dev, TRAIN_MESH_STEPS, keep=False)
+            one_b_s = time.perf_counter() - t0
+            free(torch)
+        except BaseException:
+            for end in (".failed", ".card.failed"):
+                Path(path + end).touch()
+            thread.join()
+            raise
+        Path(path + ".card.ready").touch()
+        thread.join()
+        if "error" in spawned:
+            raise spawned["error"]
+        ranks, ranks_s = spawned["ranks"], spawned["s"]
+    return mesh_train_report(rk, ranks, losses, one_b, card, {
+        "oracles": oracle_s, "one card's 40b": one_b_s, "ranks": ranks_s,
+        "phase": time.perf_counter() - t_phase})
+
+
+def mesh_train_report(rk: dict, ranks: list, losses: dict, one_b: dict,
+                      card: str, secs: dict) -> dict:
+    """Phase 40's gates over the ranks' results, and its lines."""
+    from repro_torch.configs import get_config
+
+    def loss_err(got, want) -> float:
+        return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+    failed = []
+
+    def gate(part: str, key, one: list, lr: float, steps: int,
+             pool: bool = False) -> dict:
+        rs = [r[part][key] for r in ranks]
+        le = max(loss_err(r["losses"], one) for r in rs)
+        g = summed([r["grads"] for r in rs])
+        p = summed([r["params"] for r in rs])
+        if pool:                        # held to POOL_TOL below
+            del p["embed.memory"]
+        worst_g = max(g.items(), key=lambda kv: kv[1][0])
+        worst_p = max(p.items(), key=lambda kv: kv[1][0])
+        rest = max(v[1] for v in p.values())
+        share = max(p.items(), key=lambda kv: kv[1][2])
+        if le > GRAD_TOL or worst_g[1][0] > GRAD_TOL \
+                or worst_p[1][0] > GRAD_TOL or rest > 2 * lr * steps \
+                or share[1][2] > UNSETTLED_SHARE:
+            failed.append(f"40{part} {key}: loss {le:.3g}, gradient "
+                          f"{worst_g}, after {worst_p}, the unsettled "
+                          f"elements' largest change {rest:.3g} (bound "
+                          f"{2 * lr * steps:.3g}), their largest share "
+                          f"{share}")
+        out = {"loss_rel": le, "grad_rel": worst_g[1][0],
+               "grad_worst": worst_g[0], "param_rel": worst_p[1][0],
+               "param_worst": worst_p[0], "unsettled_share": share[1][2],
+               "unsettled_worst": share[0], "unsettled_max": rest,
+               "peak_gb": [r["peak_gb"] for r in rs]}
+        if pool:
+            pr = summed([r["pool"] for r in rs])["embed.memory"][0]
+            if pr > POOL_TOL:
+                failed.append(f"40c {key}: the pool slabs {pr:.3g} from "
+                              "one card's")
+            out["pool_rel"] = pr
+        return out
+
+    def peaks(part: str, key) -> list:
+        return [r[part][key]["peak_gb"] for r in ranks]
+
+    def line(r: dict) -> str:
+        return (f"loss {r['loss_rel']:.3g} (relative), every leaf's "
+                f"gradient within {r['grad_rel']:.3g} normwise (worst "
+                f"{r['grad_worst']}), every leaf after the update within "
+                f"{r['param_rel']:.3g} (worst {r['param_worst']}) over the "
+                f"elements whose gradient settles the update (the others at "
+                f"most {r['unsettled_share']:.3g} of a leaf, "
+                f"{r['unsettled_worst']}, largest change "
+                f"{r['unsettled_max']:.3g}); peaks "
+                + ", ".join(f"{x:.2f}" for x in r["peak_gb"])
+                + " GB a rank" + (f" beside the reckoned {rk_:.2f}"
+                                  if (rk_ := r.get("reckoned_gb")) else ""))
+    lr = get_config(LM_ARCH).learning_rate
+    summary = {"a": {}, "c": {}, "d": {}}
+    for tag in TRAIN_MESHES:
+        r = summary["a"][tag] = gate("a", tag, losses["a"], lr, 1)
+        r["reckoned_gb"] = rk[f"a {tag}"]["rank_gb"]
+        log(f"40a {LM_ARCH} full width, {TRAIN_F32_LAYERS} layers, float32 "
+            f"(TF32 off), B={TRAIN_MESH_B} S={TRAIN_F32_S}, one Adam step "
+            f"at ({tag.replace('x', ', ')}) against one card's: " + line(r)
+            + f"; card {card}")
+    launches = {}
+    lma = f32_train_cfg(lma=True).embedding.lma
+    pool_m, pool_d = lma.m, lma.d
+    for tag, strategy in TRAIN_MESHES.items():
+        for mode, steps in (("sparse", TRAIN_LMA_STEPS), ("dense", 1)):
+            key = (tag, mode)
+            r = summary["c"][f"{tag} {mode}"] = gate(
+                "c", key, losses["c"][mode], lr, steps, pool=True)
+            r["reckoned_gb"] = rk[f"c {tag}"]["rank_gb"]
+            want = {k: v * steps for k, v in
+                    TRAIN_LMA_LAUNCHES[strategy][mode].items()}
+            for rank in ranks:
+                got = rank["c"][key]
+                if got["launches"] != want:
+                    failed.append(f"40c {key}: rank {rank['rank']} launched "
+                                  f"{got['launches']}, want {want}")
+                if mode == "sparse" and (len(got["row9"]) != steps
+                                         or not all(got["row9"])):
+                    failed.append(f"40c {key}: the pool after row 9 is not "
+                                  f"the plain lazy Adam's: {got['row9']}")
+            name = f"lm mesh train lma {strategy}" + (
+                " dense" if mode == "dense" else "")
+            launches[name] = ranks[0]["c"][key]["launches"]
+            log(f"40c LMA token table (m={pool_m:,}, d={pool_d:,}, alpha "
+                f"16) on 40a's model, {mode} pool gradients, {steps} step(s) "
+                f"under {strategy} at ({tag.replace('x', ', ')}): the pool "
+                f"slabs within {r['pool_rel']:.3g} of one card's (the "
+                f"touched slots' step-1 gradients: rms "
+                f"{losses['pool_grad'][0]:.3g}, {losses['pool_grad'][1]:,} "
+                f"of {losses['pool_grad'][2]:,} under 10 x Adam's eps)"
+                + (", each step's slab bit-equal to the plain lazy Adam of "
+                   "its SparseGrad" if mode == "sparse" else "")
+                + "; " + line(r) + f"; launches a rank {want}; card {card}")
+    for a in (MOE_ARCH, SCOUT_ARCH):
+        alr = get_config(a).learning_rate
+        for tag in TRAIN_MESHES:
+            r = summary["d"][f"{a} {tag}"] = gate("d", (a, tag),
+                                                 losses["d"][a, tag], alr, 1)
+            log(f"40d {a} smoke config, float32 on the card, B="
+                f"{TRAIN_MESH_B} S={MOE_SMOKE_S}, one "
+                f"{get_config(a).optimizer} step at "
+                f"({tag.replace('x', ', ')}) against one card's of the same "
+                "semantics" + (" (each 'data' share's MoE capacity and aux)"
+                               if tag == "2x2" else "") + ": "
+                + line(r) + f"; card {card}")
+    b = [r["b"] for r in ranks]
+    for r in b:
+        le = loss_err(r["losses"], one_b["losses"])
+        if le > BF16_LOSS_TOL:
+            failed.append(f"40b: losses {r['losses']} against one card's "
+                          f"{one_b['losses']}")
+    r0 = b[0]
+    step_s = float(np.median(r0["secs"]))
+    tokens = TRAIN_MESH_B * TRAIN_S
+    summary["b"] = {
+        "losses": r0["losses"], "one_card_losses": one_b["losses"],
+        "loss_rel": max(loss_err(r["losses"], one_b["losses"]) for r in b),
+        "step_s": r0["secs"], "steps_per_sec": 1.0 / step_s,
+        "tokens_per_sec": tokens / step_s,
+        "one_card_step_s": one_b["secs"], "phase_ms": r0["phase_ms"],
+        "staged_s": r0["staged_s"], "staged_calls": r0["staged_calls"],
+        "axis_s": r0["axis_s"], "ipc_calls": r0["ipc_calls"],
+        "peak_gb": [r["peak_gb"] for r in b], "reckoning": rk["b"]}
+    sb = summary["b"]
+    log(f"40b {LM_ARCH} 22 layers bf16 (remat, loss_chunk 512, Adam lr {lr}),"
+        f" B={TRAIN_MESH_B} S={TRAIN_S} at (2, 2): losses "
+        + " ".join(f"{x:.5f}" for x in sb["losses"]) + " (one card's "
+        + " ".join(f"{x:.5f}" for x in one_b["losses"])
+        + f", within {sb['loss_rel']:.3g}); steps "
+        + ", ".join(f"{x:.2f}" for x in r0["secs"])
+        + f" s (one card's " + ", ".join(f"{x:.2f}" for x in one_b["secs"])
+        + f"): {sb['steps_per_sec']:.4f} steps/s, "
+        f"{sb['tokens_per_sec']:,.0f} tokens/s (median step, host clock); "
+        "phases (rank 0, CUDA events, ms, median after the first) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sb["phase_ms"].items())
+        + "; host-staged s a step by collective "
+        + ", ".join(f"{k} {v:.3f} ({sb['staged_calls'][k]:.0f} calls)"
+                    for k, v in sorted(sb["staged_s"].items()))
+        + ", by axis " + ", ".join(f"{k} {v:.3f}"
+                                   for k, v in sorted(sb["axis_s"].items()))
+        + ", IPC gathers a step " + ", ".join(
+            f"{k} {v:.0f}" for k, v in sorted(sb["ipc_calls"].items()))
+        + "; peaks " + ", ".join(f"{p:.2f}" for p in sb["peak_gb"])
+        + f" GB a rank ({sum(sb['peak_gb']):.2f} on the card) beside the "
+        f"reckoned {rk['b']['rank_gb']:.2f} ({rk['b']['total_gb']:.2f}); "
+        f"card {card}")
+    if "scout" in ranks[0]:
+        sc = [r["scout"] for r in ranks]
+        summary["scout"] = {
+            "losses": sc[0]["losses"], "step_s": sc[0]["secs"],
+            "staged_s": sc[0]["staged_s"], "phase_ms": sc[0]["phase_ms"],
+            "peak_gb": [r["peak_gb"] for r in sc],
+            "reckoning": rk["scout"]}
+        log(f"40d {SCOUT_ARCH} full width, 1 of 48 layers, bf16, B=1 "
+            f"S={TRAIN_S} at (1, 4): losses "
+            + " ".join(f"{x:.5f}" for x in sc[0]["losses"]) + "; steps "
+            + ", ".join(f"{x:.2f}" for x in sc[0]["secs"]) + " s; peaks "
+            + ", ".join(f"{r['peak_gb']:.2f}" for r in sc)
+            + f" GB a rank ({sum(r['peak_gb'] for r in sc):.2f}) beside the "
+            f"reckoned {rk['scout']['rank_gb']:.2f} "
+            f"({rk['scout']['total_gb']:.2f}); host-staged s a step "
+            + ", ".join(f"{k} {v:.3f}"
+                        for k, v in sorted(sc[0]["staged_s"].items()))
+            + f"; card {card}")
+    else:
+        summary["scout"] = {"run": False, "reckoning": rk["scout"]}
+        log(f"40d {SCOUT_ARCH}: not run, its reckoned "
+            f"{rk['scout']['total_gb']:.2f} GB on the card past "
+            f"{SCOUT_MESH_CARD_GB}: scout and deepseek-v3 train under a mesh "
+            f"only on four cards; card {card}")
+    summary["seconds"] = secs
+    summary["rank_seconds"] = ranks[0]["seconds"]
+    log(f"40: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+        + " (rank 0: " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                   ranks[0]["seconds"].items()) + ")")
+    if failed:
+        raise AssertionError("phase 40: " + "; ".join(failed))
+    return {"launches": launches, "summary": summary}
+
+
 SOURCES = {
     "lma_locations": ("src/repro_torch/csrc/lma_locations.cu",
                       "src/repro/kernels/lma_locations/kernel.py:108"),
@@ -9396,8 +10152,8 @@ def main() -> int:
     t_start = time.perf_counter()
     # the host batches of phases 9, 33c and 38, drawn in a spawned process
     # while the card runs the phases before them
-    if sys.argv[1:] == ["--phase", "39"]:
-        return phase_39_alone(torch, dev, card)
+    if sys.argv[1:] in (["--phase", "39"], ["--phase", "40"]):
+        return phase_alone(torch, dev, card, sys.argv[2])
     draws = HostDraws(host_jobs())
     try:
         return run_phases(torch, dev, card, t_start, draws)
@@ -9405,17 +10161,24 @@ def main() -> int:
         draws.close()
 
 
-def phase_39_alone(torch, dev, card: str) -> int:
-    """``python3 chip_smoke.py --phase 39``: the build, then phase 39
-    only (the LMs served under a mesh), its summary and the result line."""
+def phase_alone(torch, dev, card: str, phase: str) -> int:
+    """``python3 chip_smoke.py --phase 39`` (the LMs served under a mesh)
+    or ``--phase 40`` (trained under it): the build, then that phase only,
+    its summary and the result line."""
     from repro_torch.kernels import KERNELS, build
 
     t0 = time.perf_counter()
     build.build_all(list(KERNELS))
     log(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f} s")
-    out = run_mesh_lm(torch, dev, shard_kernels(), card)
-    log(json.dumps({"lm_mesh": out["summary"], "launches": out["launches"],
-                    "timing": out["timing"], "card": card}))
+    if phase == "39":
+        out = run_mesh_lm(torch, dev, shard_kernels(), card)
+        log(json.dumps({"lm_mesh": out["summary"], "launches":
+                        out["launches"], "timing": out["timing"],
+                        "card": card}))
+    else:
+        out = run_mesh_train(torch, dev, shard_kernels(), card)
+        log(json.dumps({"lm_mesh_train": out["summary"], "launches":
+                        out["launches"], "card": card}, default=str))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -9616,6 +10379,11 @@ def run_phases(torch, dev, card: str, t_start: float, draws) -> int:
     mesh_lm = run_mesh_lm(torch, dev, kernels, card)
     paths.update(mesh_lm["launches"])
     mark("phase 39")
+    # the LMs trained under that mesh (phase 40)
+    free(torch)
+    mesh_train = run_mesh_train(torch, dev, kernels, card)
+    paths.update(mesh_train["launches"])
+    mark("phase 40")
     for name, e in shard["err"].items():
         err[name] = max(err.get(name, 0.0), e)
     res.update(shard["res"])
@@ -9720,6 +10488,8 @@ def run_phases(torch, dev, card: str, t_start: float, draws) -> int:
     log(json.dumps({"lm_train": {k: v for k, v in lm_train.items()
                                  if k != "card"}, "card": card}))
     log(json.dumps({"lm_mesh": mesh_lm["summary"], "card": card}))
+    log(json.dumps({"lm_mesh_train": mesh_train["summary"], "card": card},
+                   default=str))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@ architectures (dlrm-rm2, dcn-v2, xdeepfm, din, lma-dlrm-criteo,
 lma-dlrm-avazu), the dense LMs (tinyllama-1.1b, stablelm-3b,
 qwen1.5-32b), the MoE and MLA LMs (deepseek-v3-671b,
 llama4-scout-17b-a16e) and the GAT (gat-cora).  Every arch of the
-reference is here; the LMs under a mesh are not ported yet (ROADMAP.md,
-Queue 1, "The LM under a mesh")."""
+reference is here, and the LMs serve and train under a (data, model)
+mesh as on one card."""
 from __future__ import annotations
 
 import dataclasses

@@ -18,8 +18,8 @@ import torch
 
 from repro_torch.checkpoint.manager import _flatten, _host, _unflatten
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import (block, lm_rules, rank_share,
-                                       row_slab, shard_buffers)
+from repro_torch.dist.sharding import (block, lm_rules, lm_spec,
+                                       rank_share, row_slab, shard_buffers)
 from repro_torch.models.recsys import RecsysConfig
 
 
@@ -65,7 +65,7 @@ def params_from_jax(np_params: dict, cfg: RecsysConfig, device=None,
 
 
 def lm_params_from_jax(np_params: dict, cfg, device=None,
-                       mesh=None) -> dict:
+                       mesh=None, train: bool = False) -> dict:
     """Reference transformer parameter pytree (numpy leaves) -> the port's
     ``Transformer`` state dict, on the card unless ``device`` says
     otherwise.  Each ``layers_{gi}`` leaf's leading (layer) axis is
@@ -78,8 +78,15 @@ def lm_params_from_jax(np_params: dict, cfg, device=None,
     name.  With a mesh, this rank's share, as ``transformer.init(...,
     mesh=)`` holds it: each expert stack's storage block
     (``nn.moe._moe_w_specs``) and the LMA pool's 'model' slab
-    (``lm_rules``' ``/embed/memory$``); every other leaf whole."""
+    (``lm_rules``' ``/embed/memory$``); every other leaf whole.  With
+    ``train`` as well, every leaf's ``lm_rules`` block (``sharding.
+    lm_spec``), as ``transformer.init(..., mesh=, train=True)`` holds
+    it."""
     from repro_torch.nn.moe import _moe_w_specs
+    if train and mesh is not None:
+        whole = lm_params_from_jax(np_params, cfg, "cpu")
+        return {k: block(v, mesh, lm_spec(k, v.shape, mesh)).clone().to(
+            resolve_device(device)) for k, v in whole.items()}
     dev = resolve_device(device)
     state = {}
     specs = {}

@@ -15,13 +15,36 @@ the default, 'data' or 'world'):
 ``ppermute(x, mesh)``    the 'model' ring shift: send to rank+1, receive
                          from rank-1
 ``world_max(x, mesh)``   the elementwise max over every rank of the mesh
+``pmax(x, mesh)``        the elementwise max over the axis's ranks
 ``psum_scatter(x, mesh)`` the 'model' sum of ``x`` [P * c, ...], rank j
                          keeping rows ``[j * c, (j + 1) * c)``
 ``gather_rows(x, mesh)`` the 'model' slabs concatenated on world rank 0
+``gather_tiled(x, mesh, axis, dim, name)`` the all-gather's parts
+                         concatenated along ``dim``
 
 ``axis`` may also be a tuple of mesh axes, as the reference's collectives
 take them: ``("model",)``, ``("data",)``, or ``("data", "model")``, which
 is the 'world' group.
+
+Those carry no gradient.  The training step under a mesh differentiates
+through four that do, each the transpose of the other's direction (the
+pairs the reference's ``shard_map`` transposes emit):
+
+``gather_t(x, mesh, axis, dim)``   all-gather tiled along ``dim``; its
+                         backward sums the cotangent over the axis and
+                         keeps this rank's block (a reduce-scatter)
+``scatter_t(x, mesh, axis, dim)``  that reduce-scatter; its backward is the
+                         all-gather
+``enter_model(x, mesh)`` the identity, whose backward sums over 'model'
+                         (a replicated activation entering a column-parallel
+                         matmul: Megatron's f)
+``leave_model(x, mesh)`` the sum over 'model', whose backward is the
+                         identity (a row-parallel matmul's partial sums:
+                         Megatron's g)
+
+Their staged calls are counted under their own names: ``ag_fwd`` /
+``ag_bwd`` (the gather and its reduce-scatter), ``rs_fwd`` / ``rs_bwd``,
+``enter_bwd`` and ``leave_fwd``.
 
 Gloo runs on host memory.  When the group's backend is gloo and a tensor
 lies on the card, the tensor is copied to the host, the collective runs
@@ -240,7 +263,8 @@ def _ipc_all_gather(x: torch.Tensor, mesh: Mesh, axis: str,
     return out
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh, axis="model") -> torch.Tensor:
+def all_gather(x: torch.Tensor, mesh: Mesh, axis="model",
+               name: str = "all_gather") -> torch.Tensor:
     """-> ``[n, *x.shape]``, the axis's rank j's ``x`` at index j."""
     n, _, group = _axis(mesh, axis)
     if n == 1:
@@ -252,7 +276,103 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis="model") -> torch.Tensor:
     out = torch.empty(n * buf.numel(), dtype=x.dtype, device=buf.device)
     dist.all_gather_into_tensor(out, buf.reshape(-1), group=group)
     out = out.reshape((n,) + tuple(x.shape))
-    return _back(out, x, mesh, "all_gather", staged, t0, axis_name(axis))
+    return _back(out, x, mesh, name, staged, t0, axis_name(axis))
+
+
+# ------------------------------------------------------------ with gradients
+
+def gather_tiled(x, mesh, axis, dim: int, name: str) -> torch.Tensor:
+    """All-gather over ``axis``, the parts concatenated along ``dim`` in
+    the axis's rank order."""
+    parts = all_gather(x.contiguous(), mesh, axis, name)
+    if dim == 0:
+        return parts.reshape((-1,) + tuple(x.shape[1:]))
+    return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
+def _reduce_scatter(x, mesh, axis, dim: int, name: str) -> torch.Tensor:
+    """The sum of ``x`` over ``axis``, this rank's block along ``dim``
+    kept.  Gloo has no reduce-scatter: an all-reduce whose other blocks
+    are dropped (the same sums)."""
+    n, idx, group = _axis(mesh, axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"a reduce-scatter of {x.shape[dim]} over {n}")
+    c = x.shape[dim] // n
+    out = _reduce(x, mesh, axis, dist.ReduceOp.SUM, name)
+    return out.narrow(dim, idx * c, c).contiguous()
+
+
+class _GatherT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return gather_tiled(x, mesh, axis, dim, "ag_fwd")
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim, "ag_bwd"),
+                None, None, None)
+
+
+class _ScatterT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _reduce_scatter(x, mesh, axis, dim, "rs_fwd")
+
+    @staticmethod
+    def backward(ctx, g):
+        return (gather_tiled(g, ctx.mesh, ctx.axis, ctx.dim, "rs_bwd"),
+                None, None, None)
+
+
+class _EnterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.mesh, "model", dist.ReduceOp.SUM,
+                       "enter_bwd"), None
+
+
+class _LeaveModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _reduce(x, mesh, "model", dist.ReduceOp.SUM, "leave_fwd")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def gather_t(x: torch.Tensor, mesh: Mesh, axis, dim: int = 0):
+    """``x`` all-gathered over ``axis`` (a mesh axis or axis tuple),
+    tiled along ``dim``; the backward reduce-scatters (``x`` itself over
+    an axis of 1)."""
+    if _axis(mesh, axis)[0] == 1:
+        return x
+    return _GatherT.apply(x, mesh, axis, dim)
+
+
+def scatter_t(x: torch.Tensor, mesh: Mesh, axis, dim: int = 0):
+    """The sum of ``x`` over ``axis``, this rank's block along ``dim``;
+    the backward all-gathers."""
+    if _axis(mesh, axis)[0] == 1:
+        return x
+    return _ScatterT.apply(x, mesh, axis, dim)
+
+
+def enter_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The identity; the backward sums the cotangent over 'model'."""
+    return x if mesh.model == 1 else _EnterModel.apply(x, mesh)
+
+
+def leave_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over 'model'; the backward is the identity."""
+    return x if mesh.model == 1 else _LeaveModel.apply(x, mesh)
 
 
 def fold_sum(x: torch.Tensor, mesh: Mesh, axis="data") -> torch.Tensor:
@@ -265,6 +385,11 @@ def fold_sum(x: torch.Tensor, mesh: Mesh, axis="data") -> torch.Tensor:
     for p in parts[1:]:
         out += p
     return out
+
+
+def pmax(x: torch.Tensor, mesh: Mesh, axis="model") -> torch.Tensor:
+    """Elementwise max of ``x`` over the axis's ranks (no gradient)."""
+    return _reduce(x, mesh, axis, dist.ReduceOp.MAX, "pmax")
 
 
 def world_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

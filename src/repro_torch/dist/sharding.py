@@ -226,9 +226,13 @@ def lm_rules():
     """Transformer parameters (the reference's table, leading entry the
     stacked layer axis): Megatron tensor parallelism over 'model' for the
     per-layer matmuls, ZeRO-3 storage over the dp axes for the other big
-    dim, experts and vocab rows over EP.  The port stores by this table
-    only the expert stacks (``nn.moe``'s storage blocks) and the LMA
-    pool's 'model' slab; its dense leaves are whole on every rank."""
+    dim, experts and vocab rows over EP.  A model built for training under
+    a mesh (``transformer.init(..., mesh=, train=True)``) stores every
+    leaf by this table (``lm_spec``, ``store_blocks``); a model built to
+    serve under a mesh stores by it only the expert stacks (``nn.moe``'s
+    storage blocks) and the LMA pool's 'model' slab, its dense leaves
+    whole on every rank (a decode step that gathered its weights would
+    pay a staged gather a leaf)."""
     return [
         (r"/moe/w_(gate|up)$", [None, [EP, "model", "data"],
                                 [DP, "pod", "data"], None]),
@@ -259,3 +263,150 @@ LM_CACHE_RULES = [
     (r"/(k|v)_scale$", [None, [DP, "data", None], [ALL, EP, "model"], None]),
     (r"/ckv_scale$", [None, [DP, "data", None], [ALL, EP, "model"]]),
 ]
+
+
+# ------------------------------------------------------------ the LM's blocks
+#
+# A port parameter name is the reference's leaf path with '.' for '/', the
+# layer index of a stacked group spelled out (``layers_0.3.attn.wq``: the
+# reference's ``/layers_0/attn/wq`` at index 3 of its leading axis), and a
+# dense layer's ``weight [out, in]`` for its ``kernel [in, out]``.
+
+def lm_leaf(name: str) -> tuple[str, bool, bool]:
+    """A port parameter name -> (the reference's leaf path, whether it is
+    a layer of a stacked group, whether the port's leaf is the reference's
+    transposed)."""
+    parts = name.split(".")
+    layer = parts[0].startswith("layers_")
+    if layer:
+        parts = parts[:1] + parts[2:]
+    transposed = parts[-1] == "weight"
+    if transposed:
+        parts[-1] = "kernel"
+    return "/" + "/".join(parts), layer, transposed
+
+
+def lm_spec(name: str, shape, mesh) -> tuple:
+    """The spec, in the port's layout (one entry a dim), by which
+    ``lm_rules`` stores the whole port leaf ``name`` of ``shape``: the
+    reference's spec of its leaf (the stacked layer axis dropped), reversed
+    for a transposed ``weight``."""
+    path, layer, transposed = lm_leaf(name)
+    shape = tuple(int(s) for s in shape)
+    ref = shape[::-1] if transposed else shape
+    if layer:
+        spec = spec_for_path(path, (1,) + ref, lm_rules(), mesh)[1:]
+    else:
+        spec = spec_for_path(path, ref, lm_rules(), mesh)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return spec[::-1] if transposed else spec
+
+
+class StoredBlock(torch.nn.Parameter):
+    """A parameter of a model built for training under a mesh: this rank's
+    block of the whole leaf, stored by ``spec`` (``lm_spec``) over
+    ``mesh``.  The mesh is held here, not read from the installed one: a
+    recompute under ``torch.utils.checkpoint`` runs in the autograd
+    engine's device thread, where the thread-local installation is not
+    seen.  A deep copy keeps both (the same mesh: its process groups are
+    this rank's), and so does a conversion that replaces the parameter
+    (``Transformer._apply``: ``keep_blocks``)."""
+
+    def __new__(cls, data, spec, mesh, requires_grad: bool = True):
+        p = super().__new__(cls, data, requires_grad)
+        p.spec, p.mesh = tuple(spec), mesh
+        return p
+
+    def __deepcopy__(self, memo):
+        if id(self) not in memo:
+            memo[id(self)] = StoredBlock(
+                self.data.clone(memory_format=torch.preserve_format),
+                self.spec, self.mesh, self.requires_grad)
+        return memo[id(self)]
+
+
+def stored_spec(p) -> tuple | None:
+    """The spec a ``StoredBlock`` is stored by; None for a leaf held whole
+    or as ``nn.moe`` / the LMA pool store it for serving."""
+    return p.spec if isinstance(p, StoredBlock) else None
+
+
+def stored_mesh(p):
+    """The mesh a ``StoredBlock`` belongs to, else None."""
+    return p.mesh if isinstance(p, StoredBlock) else None
+
+
+def _put(model, name: str, p) -> None:
+    owner, _, leaf = name.rpartition(".")
+    setattr(model.get_submodule(owner) if owner else model, leaf, p)
+
+
+def store_blocks(model, cfg, mesh) -> None:
+    """Make every parameter of ``model`` a ``StoredBlock``: this rank's
+    block by ``lm_rules`` (a leaf built whole is cut and its copy kept; an
+    expert stack or LMA pool built as its block stays).  The whole shapes
+    come from ``cfg``'s model on the meta device."""
+    from repro_torch.models.transformer import Transformer
+    with torch.device("meta"):
+        whole = dict(Transformer(cfg, torch.Generator(),
+                                 torch.device("meta")).named_parameters())
+    for name, p in list(model.named_parameters()):
+        full = tuple(whole[name].shape)
+        spec = lm_spec(name, full, mesh)
+        data = p.data
+        if tuple(data.shape) == full:
+            data = block(data, mesh, spec).clone()
+        want = tuple(block(torch.empty(full, device="meta"), mesh,
+                           spec).shape)
+        if tuple(data.shape) != want:
+            raise ValueError(f"{name}: {tuple(p.shape)} is neither the whole "
+                             f"{full} nor this rank's block {want}")
+        _put(model, name, StoredBlock(data, spec, mesh, p.requires_grad))
+
+
+def keep_blocks(model, convert):
+    """``convert()`` (``Module._apply``), then every ``StoredBlock`` of
+    ``model`` that it replaced by a plain parameter (``torch.__future__``'s
+    overwrite or swap on conversion) made one again with its spec and
+    mesh; -> what ``convert`` returned."""
+    kept = {k: (p.spec, p.mesh) for k, p in model.named_parameters()
+            if isinstance(p, StoredBlock)}
+    out = convert()
+    for name, p in list(model.named_parameters()):
+        if name in kept and not isinstance(p, StoredBlock):
+            _put(model, name, StoredBlock(p.data, *kept[name],
+                                          p.requires_grad))
+    return out
+
+
+def whole_shape(shape, spec, sizes: dict) -> tuple:
+    """A block's whole leaf shape under ``spec`` over a mesh of axis
+    ``sizes``."""
+    return tuple(int(n) * int(np.prod([sizes[a] for a in spec_axes(spec, i)]))
+                 for i, n in enumerate(shape))
+
+
+def mesh_at(mesh_shape: tuple, world_rank: int):
+    """The ``Mesh`` of world rank ``world_rank`` of a ``(data, model)``
+    mesh (no process groups: for cutting and placing blocks)."""
+    from repro_torch.dist.context import Mesh
+    D, M = mesh_shape
+    return Mesh(model=M, rank=world_rank % M, data=D,
+                data_rank=world_rank // M)
+
+
+def assemble(blocks: list, spec: tuple, mesh_shape: tuple):
+    """The whole leaf from every world rank's block (by world rank,
+    data-major) under ``spec``: numpy arrays give an array, tensors a
+    tensor on the host; replicas write the same place (the last one's bits
+    stay)."""
+    D, M = mesh_shape
+    first = blocks[0]
+    shape = whole_shape(first.shape, spec, {"data": D, "model": M})
+    if isinstance(first, torch.Tensor):
+        out = torch.empty(shape, dtype=first.dtype)
+    else:
+        out = np.empty(shape, np.asarray(first).dtype)
+    for r, b in enumerate(blocks):
+        block(out, mesh_at(mesh_shape, r), spec)[...] = b
+    return out

@@ -10,8 +10,9 @@ over ``--tier-budget-mb`` trains through the tiered store
 run), updated densely, and evaluates through the full pool.  An ``lm``
 arch trains its smoke config on bigram tokens (``LMGenerator``, min(batch,
 16) sequences of 64) with the arch's optimizer (deepseek-v3-671b's is
-``adafactor``), as the reference's launcher does; a ``gnn`` arch is
-refused with the reference's words (the GAT trains through
+``adafactor``), as the reference's launcher does, and under an installed
+mesh trains its ``lm_rules`` blocks on the batch's 'data' share; a
+``gnn`` arch is refused with the reference's words (the GAT trains through
 ``repro_torch.models.gnn`` and the Trainer directly, as ``chip_smoke.py``
 drives it).
 
@@ -326,8 +327,11 @@ def main(argv=None) -> dict:
         label = f"{args.arch} ({cfg.embedding.kind})"
     elif arch.family == "lm":
         from repro_torch.models import transformer
+        from repro_torch.dist.context import current_mesh
         batch_fn, loss_fn = _lm_setup(cfg, args.batch)
-        model = transformer.init(cfg, device=dev)
+        # under an installed mesh, this rank's lm_rules blocks
+        model = transformer.init(cfg, device=dev, mesh=current_mesh(),
+                                 train=True)
         lps = min(args.batch, 16) * 64
         label = args.arch
     else:

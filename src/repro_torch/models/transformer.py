@@ -32,6 +32,19 @@ it.  The recomputed regions hold no side effect: the token table's lookup
 once, outside them, and a MoE layer's routing is deterministic.  ``prefill``
 and ``decode_step`` run under ``no_grad``, where nothing is checkpointed.
 
+Training under an installed ``Mesh`` (the reference's ``_lm_bundle``
+``train_step``): ``init(..., mesh=, train=True)`` stores every leaf as
+this rank's block by ``lm_rules`` (``sharding.store_blocks``), and the
+forward runs the reference's mesh layout (``dist.tensor_parallel``): a
+rank's tokens are its 'data' share, replicated over 'model'; attention
+and the FFNs are tensor-parallel over 'model' with their weights gathered
+over the dp axes; the token table is vocab-parallel (each rank looks up
+the ids in its row range and a ``psum`` over 'model' sums the rows), and
+so is the cross-entropy (in each loss chunk the row max over 'model' as a
+constant, the sum of exps by ``psum``, the gold logit from the rank that
+owns it).  A recomputed region repeats its collectives in the same order
+on every rank.  An LMA token table keeps its sharded backends.
+
 Serving under an installed ``Mesh`` (the reference's meshed ``prefill`` /
 ``decode_step``): ``init(..., mesh=)`` builds a rank's share (each expert
 stack's storage block, the LMA pool's 'model' slab; every dense leaf
@@ -54,6 +67,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import make_generator, resolve_device
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.embed import EmbeddingConfig, EmbeddingTable
 from repro_torch.nn.attention import (GQAConfig, MLAConfig, gqa_decode,
                                       gqa_init, gqa_train, mla_decode,
@@ -149,10 +163,11 @@ class Transformer(nn.Module):
     """Parameters named as the reference's tree: ``embed`` (``table_0``, or
     the embedding scheme's parameters), ``lm_head`` (untied), ``final_norm``
     and ``layers_{gi}.{i}``.  With a mesh, a rank's share: the expert
-    stacks' storage blocks and the LMA pool's 'model' slab."""
+    stacks' storage blocks and the LMA pool's 'model' slab, and with
+    ``train`` every leaf's ``lm_rules`` block."""
 
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
-                 device, mesh=None):
+                 device, mesh=None, train: bool = False):
         super().__init__()
         self.cfg = cfg
         dt = cfg.torch_dtype
@@ -172,6 +187,16 @@ class Transformer(nn.Module):
             self.add_module(f"layers_{gi}", nn.ModuleList(
                 Block(cfg, kind, generator, device, mesh)
                 for _ in range(count)))
+        if train and mesh is not None:
+            from repro_torch.dist.sharding import store_blocks
+            store_blocks(self, cfg, mesh)
+
+    def _apply(self, fn, recurse=True):
+        """``Module._apply`` (``.to()``, ``.float()``, ...), each
+        ``StoredBlock`` kept one where the conversion replaces it."""
+        from repro_torch.dist.sharding import keep_blocks
+        return keep_blocks(self, lambda: super(Transformer, self)._apply(
+            fn, recurse))
 
     def groups(self):
         return [getattr(self, f"layers_{gi}")
@@ -179,11 +204,12 @@ class Transformer(nn.Module):
 
 
 def init(cfg: TransformerConfig, seed: int = 0, device=None,
-         mesh=None) -> Transformer:
+         mesh=None, train: bool = False) -> Transformer:
     """Random parameters from ``seed``, on the card unless ``device`` says
-    otherwise; with a mesh, this rank's share of the same parameters."""
+    otherwise; with a mesh, this rank's share of the same parameters (to
+    serve, or with ``train`` every leaf's ``lm_rules`` block)."""
     dev = resolve_device(device)
-    return Transformer(cfg, make_generator(seed, dev), dev, mesh)
+    return Transformer(cfg, make_generator(seed, dev), dev, mesh, train)
 
 
 def _ffn(cfg: TransformerConfig, layer: Block, h: torch.Tensor,
@@ -223,7 +249,8 @@ def embed_tokens(model: Transformer, cfg: TransformerConfig,
     """tokens [...] -> [..., d]: the full table's rows, or the embedding
     table's lookup (on the card, the fused kernel: one launch a call)."""
     if cfg.embedding is None:
-        return model.embed["table_0"][tokens.long()]
+        table = model.embed["table_0"]
+        return tp.layout(table).rows(table, tokens)
     return EmbeddingTable(cfg.embedding).embed(dict(model.embed),
                                                buffers or {}, 0, tokens)
 
@@ -269,13 +296,20 @@ def loss_fn(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor,
     are never whole; under grad mode each chunk is checkpointed, so its
     logits are recomputed in the backward.  -> (loss, {"ce", "aux"})."""
     hidden, aux = forward(model, cfg, tokens, buffers)
-    table = _output_table(model, cfg, buffers).to(torch.float32)
+    table = _output_table(model, cfg, buffers)
+    lay = tp.layout(table)
+    table = lay.weight(table).to(torch.float32)
+    hidden = lay.enter(hidden)
 
     def xent(h, y):
+        # vocab-parallel under a split layout: lg is this rank's [V / M]
+        # logits, the row max over 'model' a constant, the sum of exps and
+        # the gold logit (from the rank that owns it) summed over 'model'
         lg = h.to(torch.float32) @ table.T
-        lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, y.long()[..., None])[..., 0]
-        return lse - gold
+        mx = lay.pmax(torch.amax(lg, dim=-1).detach())
+        se = torch.sum(torch.exp(lg - mx[..., None]), dim=-1)
+        se, gold = lay.leave(torch.stack([se, lay.pick(lg, y)]))
+        return torch.log(se) + mx - gold
 
     if torch.is_grad_enabled():
         plain = xent

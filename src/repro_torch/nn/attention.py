@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.nn.modules import RMSNorm, dense
 
 _NEG_INF = -1e30
@@ -218,28 +219,57 @@ def gqa_init(cfg: GQAConfig, generator: torch.Generator, device,
 
 
 def gqa_qkv(p: GQA, cfg: GQAConfig, x: torch.Tensor,
-            positions: torch.Tensor):
+            positions: torch.Tensor, lay: tp.Layout = tp.PLAIN):
+    """x [B, S, d] -> roped q [B, S, h, hd], roped k and v [B, S, kvh,
+    hd]: every head, or under a split training layout (``lay``) this
+    rank's query heads and the KV heads they read (``wk`` / ``wv``
+    column-parallel too where 'model' divides the KV heads, so the groups
+    stay aligned; else gathered whole and cut to the one KV head this
+    rank's query heads share, their gradient reduce-scattered back)."""
     B, S, _ = x.shape
-    hd = cfg.hd
-    q = p.wq(x).reshape(B, S, cfg.n_heads, hd)
-    k = p.wk(x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = p.wv(x).reshape(B, S, cfg.n_kv_heads, hd)
+    hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    h0, nh = lay.heads(H)
+    x = lay.enter(x)
+    q = lay.lin(x, p.wq).reshape(B, S, nh, hd)
+    kvh, rows = nh * KV // H, None
+    if lay.split and not (KV % lay.mesh.model == 0
+                          and tp.model_dim(p.wk.weight) == 0):
+        G = H // KV
+        if G % nh:
+            raise NotImplementedError(
+                f"{nh} query heads a rank straddle the groups of {G}")
+        kv0 = h0 // G
+        kvh, rows = 1, slice(kv0 * hd, (kv0 + 1) * hd)
+    k = lay.lin(x, p.wk, rows).reshape(B, S, kvh, hd)
+    v = lay.lin(x, p.wv, rows).reshape(B, S, kvh, hd)
     cos, sin = rope_table(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def gqa_train(p: GQA, cfg: GQAConfig, x: torch.Tensor, block: int = 512,
               return_kv: bool = False):
-    """Causal self-attention over a full sequence (training / prefill)."""
+    """Causal self-attention over a full sequence (training / prefill).
+    Stored for training under a mesh (``tp.layout``), the query heads
+    split over 'model', ``wo`` row-parallel and summed over 'model'; x is
+    the rank's share, replicated over 'model'."""
+    lay = tp.layout(p.wq.weight)
+    _no_kv(lay, return_kv)
     B, S, _ = x.shape
     pos = torch.arange(S, dtype=torch.int32, device=x.device)
-    q, k, v = gqa_qkv(p, cfg, x, pos)
+    q, k, v = gqa_qkv(p, cfg, x, pos, lay)
     o = blocked_attention(q, k, v, causal=True, q_positions=pos,
                           kv_positions=pos, block=block)
-    out = p.wo(o.reshape(B, S, cfg.n_heads * cfg.hd))
+    out = lay.out(o.reshape(B, S, -1), p.wo)
     if return_kv:
         return out, {"k": k, "v": v}
     return out
+
+
+def _no_kv(lay: tp.Layout, return_kv: bool) -> None:
+    if return_kv and lay is not tp.PLAIN:
+        raise NotImplementedError(
+            "a model stored for training under a mesh does not prefill: "
+            "serve from one built to serve (init(..., mesh=))")
 
 
 def _mesh_for(L: int):
@@ -348,24 +378,27 @@ def mla_init(cfg: MLAConfig, generator: torch.Generator, device,
 
 
 def _mla_q(p: MLA, cfg: MLAConfig, x: torch.Tensor,
-           positions: torch.Tensor):
-    """x [B, S, d] -> (q_nope [B, S, H, nope], q_rope [B, S, H, rd])."""
+           positions: torch.Tensor, lay: tp.Layout = tp.PLAIN):
+    """x [B, S, d] -> (q_nope [B, S, h, nope], q_rope [B, S, h, rd]):
+    every head, or this rank's under a split training layout (``wq_a``
+    whole, ``wq_b`` or a direct ``wq`` column-parallel)."""
     B, S, _ = x.shape
+    _, nh = lay.heads(cfg.n_heads)
     if cfg.q_lora_rank > 0:
-        q = p.wq_b(p.q_norm(p.wq_a(x)))
+        q = lay.lin(lay.enter(p.q_norm(lay.lin(x, p.wq_a))), p.wq_b)
     else:
-        q = p.wq(x)
-    q = q.reshape(B, S, cfg.n_heads, cfg.qk_dim)
+        q = lay.lin(lay.enter(x), p.wq)
+    q = q.reshape(B, S, nh, cfg.qk_dim)
     q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], -1)
     cos, sin = rope_table(positions, cfg.qk_rope_dim, cfg.rope_theta)
     return q_nope, apply_rope(q_rope, cos, sin)
 
 
 def _mla_ckv(p: MLA, cfg: MLAConfig, x: torch.Tensor,
-             positions: torch.Tensor):
+             positions: torch.Tensor, lay: tp.Layout = tp.PLAIN):
     """x [B, S, d] -> (c_kv [B, S, r] normed, k_rope [B, S, rd]: the one
-    rope key all heads share)."""
-    c_kv, k_rope = torch.split(p.wkv_a(x),
+    rope key all heads share), ``wkv_a`` whole."""
+    c_kv, k_rope = torch.split(lay.lin(x, p.wkv_a),
                                [cfg.kv_lora_rank, cfg.qk_rope_dim], -1)
     c_kv = p.kv_norm(c_kv)
     cos, sin = rope_table(positions, cfg.qk_rope_dim, cfg.rope_theta)
@@ -376,21 +409,29 @@ def mla_train(p: MLA, cfg: MLAConfig, x: torch.Tensor, block: int = 512,
               return_kv: bool = False):
     """Causal MLA over a full sequence (training / prefill), the latents
     expanded into per-head keys and values; ``return_kv`` also gives the
-    fused latent ``{"ckv": cat(c_kv, k_rope)}`` [B, S, r + rd]."""
+    fused latent ``{"ckv": cat(c_kv, k_rope)}`` [B, S, r + rd].  Stored
+    for training under a mesh (``tp.layout``): the down projections
+    ``wq_a`` / ``wkv_a`` gathered over the dp axes and run whole (their
+    latents and norms replicated over 'model'), the up projections
+    column-parallel by heads, ``wo`` row-parallel and summed over
+    'model'."""
+    lay = tp.layout(p.wkv_b.weight)
+    _no_kv(lay, return_kv)
     B, S, _ = x.shape
-    H = cfg.n_heads
+    _, nh = lay.heads(cfg.n_heads)
     pos = torch.arange(S, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _mla_q(p, cfg, x, pos)
-    c_kv, k_rope = _mla_ckv(p, cfg, x, pos)
-    kv = p.wkv_b(c_kv).reshape(B, S, H, cfg.qk_nope_dim + cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(p, cfg, x, pos, lay)
+    c_kv, k_rope = lay.enter(*_mla_ckv(p, cfg, x, pos, lay))
+    kv = lay.lin(c_kv, p.wkv_b).reshape(B, S, nh,
+                                        cfg.qk_nope_dim + cfg.v_head_dim)
     k_nope, v = torch.split(kv, [cfg.qk_nope_dim, cfg.v_head_dim], -1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        B, S, H, cfg.qk_rope_dim)], dim=-1)
+        B, S, nh, cfg.qk_rope_dim)], dim=-1)
     o = blocked_attention(q, k, v, causal=True, q_positions=pos,
                           kv_positions=pos, block=block,
                           sm_scale=1.0 / np.sqrt(cfg.qk_dim))
-    out = p.wo(o.reshape(B, S, H * cfg.v_head_dim))
+    out = lay.out(o.reshape(B, S, -1), p.wo)
     if return_kv:
         return out, {"ckv": torch.cat([c_kv, k_rope], dim=-1)}
     return out

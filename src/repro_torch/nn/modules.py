@@ -94,7 +94,10 @@ class LayerNorm(nn.Module):
 
 
 class GluFFN(nn.Module):
-    """SwiGLU gated FFN (LLaMA family): ``down(silu(gate(x)) * up(x))``."""
+    """SwiGLU gated FFN (LLaMA family): ``down(silu(gate(x)) * up(x))``.
+    Stored for training under a mesh (``dist.tensor_parallel``), ``gate``
+    and ``up`` run column-parallel over 'model' and ``down`` row-parallel,
+    each weight gathered over the dp axes it is stored over."""
 
     def __init__(self, d_model: int, d_ff: int, generator: torch.Generator,
                  device, bias: bool = False,
@@ -105,7 +108,11 @@ class GluFFN(nn.Module):
         self.down = dense(d_ff, d_model, generator, device, bias, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(torch.nn.functional.silu(self.gate(x)) * self.up(x))
+        from repro_torch.dist import tensor_parallel as tp
+        lay = tp.layout(self.gate.weight)
+        x = lay.enter(x)
+        return lay.out(torch.nn.functional.silu(lay.lin(x, self.gate))
+                       * lay.lin(x, self.up), self.down)
 
 
 def count_params(params) -> int:

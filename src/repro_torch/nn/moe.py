@@ -27,10 +27,13 @@ blocks) on its share of the tokens, and the partials combine by ``psum``
 (``psum_scatter`` under full-mesh token sharding).  A rank holds the whole
 batch's activations: it cuts its token share out and gathers the outputs
 back, so the result is the whole [T, d] on every rank.  Capacity and the
-aux loss are per token share, as the reference's.  The sharded path
-serves only: its collectives carry no gradient, so it raises where
-autograd would record it (training under a mesh is ROADMAP.md's next
-item).
+aux loss are per token share, as the reference's.  A model stored for
+training under a mesh (``dist.tensor_parallel``) takes the reference's
+training path instead (``full_token_sharding`` False): its tokens are the
+rank's dp share, replicated over 'model', and stay so; the storage
+gathers over 'data' carry a reduce-scatter backward, the tokens and the
+routing weights enter the experts through ``collectives.enter_model`` and
+the combine leaves through ``collectives.leave_model``.
 """
 from __future__ import annotations
 
@@ -214,14 +217,84 @@ def _stored(w: torch.Tensor, full: tuple, mesh, spec: tuple):
 
 
 def _gather(w: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    """All-gather ``w`` over ``axis``, tiled along ``dim`` (``w`` itself
-    over an axis of 1: no copy of a stack)."""
+    """All-gather ``w`` over ``axis``, tiled along ``dim``, with no
+    gradient (``w`` itself over an axis of 1: no copy of a stack)."""
     if mesh.shape[axis] == 1:
         return w
-    parts = col.all_gather(w, mesh, axis)
-    if dim == 0:
-        return parts.reshape(-1, *w.shape[1:])
-    return torch.cat(list(parts.unbind(0)), dim=dim)
+    return col.gather_tiled(w, mesh, axis, dim, "all_gather")
+
+
+def _my_experts(p: MoE, cfg: MoEConfig, mesh, gather):
+    """The expert stacks down to this 'model' rank's experts, d and f
+    whole, gathered from their storage blocks by ``gather(w, mesh, axis,
+    dim)``; -> ([w_gate, w_up, w_down], the experts' ids)."""
+    E, d, f, M = cfg.n_experts, cfg.d_model, cfg.d_ff, mesh.model
+    spec_g, spec_d = _moe_w_specs(cfg, mesh)
+    e_axes = spec_axes(spec_g, 0)
+    e_extra = tuple(a for a in e_axes if a != "model")
+    if e_extra not in ((), ("data",)):
+        raise ValueError(f"expert storage over {e_axes}")
+    mj = mesh.rank
+    ws = []
+    for w, spec, dd in ((p.w_gate, spec_g, 1), (p.w_up, spec_g, 1),
+                        (p.w_down, spec_d, 2)):
+        full = (E, f, d) if dd == 2 else (E, d, f)
+        w = _stored(w, full, mesh, spec)
+        for a in spec_axes(spec, dd):
+            w = gather(w, mesh, a, dd)
+        for a in e_extra:
+            w = gather(w, mesh, a, 0)
+        if not e_axes:            # replicated storage: compute my slice
+            sl = E // M
+            w = w[mj * sl:(mj + 1) * sl]
+        ws.append(w)
+    if e_extra:                   # storage E over (data, model): strided
+        D = mesh.data
+        bs = E // (D * M)
+        ids = ((torch.arange(D)[:, None] * M + mj) * bs
+               + torch.arange(bs)[None, :]).reshape(-1)
+    else:
+        bs = E // M
+        ids = mj * bs + torch.arange(bs)
+    return ws, ids
+
+
+def moe_train_sharded(p: MoE, cfg: MoEConfig, x: torch.Tensor, mesh,
+                      stats: dict | None = None):
+    """The expert-parallel MoE of a model stored for training under
+    ``mesh`` (the reference's ``moe_apply_sharded`` with
+    ``full_token_sharding`` False).  x [T, d] is this rank's dp share,
+    replicated over 'model' -> (out [T, d], that share's; aux: that
+    share's Switch loss, whose mean over 'data' the step takes).  Its
+    collectives carry gradients."""
+    T, d = x.shape
+    E = cfg.n_experts
+    ws, ids = _my_experts(p, cfg, mesh, col.gather_t)
+    ids = ids.to(x.device)
+    logits, top_w, top_i = route(p, cfg, x)
+    R = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+    R.scatter_(1, top_i, top_w)
+    # this rank's experts read a share of R and of the tokens: their
+    # gradients are partial sums over 'model'
+    R = col.enter_model(R, mesh)
+    xm = col.enter_model(x, mesh)
+    C = min(moe_capacity(cfg, T), T)
+    pr, tok_idx = top_k(R.T[ids], C)
+    keep = (pr > 0.0).to(pr.dtype)
+    ye = _expert_ffn(*ws, xm[tok_idx])
+    ye = ye * (pr * keep)[..., None].to(ye.dtype)
+    out = torch.zeros((T, d), dtype=ye.dtype, device=x.device)
+    out.index_add_(0, tok_idx.reshape(-1), ye.reshape(-1, d))
+    out = col.leave_model(out, mesh)
+    load = torch.bincount(top_i.reshape(-1), minlength=E)
+    frac_tokens = load.to(torch.float32) / T
+    mean_prob = torch.mean(torch.softmax(logits, dim=-1), dim=0)
+    aux = E * torch.sum(frac_tokens * mean_prob)
+    if stats is not None:
+        stats.update(C=C, ids=ids, load=load, T_loc=T)
+    if cfg.n_shared_experts > 0:
+        out = out + p.shared(x)
+    return out.to(x.dtype), aux
 
 
 def moe_apply_sharded(p: MoE, cfg: MoEConfig, x: torch.Tensor, mesh,
@@ -241,14 +314,14 @@ def moe_apply_sharded(p: MoE, cfg: MoEConfig, x: torch.Tensor, mesh,
     the dp axis their d is stored over) down to "E / M experts, d and f
     whole": 'model' rank m computes experts ``my_expert_ids(m)``.
     ``stats``, where given, receives this rank's C and expert ids.
-    Raises where autograd would record the call: the collectives carry
-    no gradient."""
+    Serves only: its collectives carry no gradient, so it raises where
+    autograd would record the call (``moe_train_sharded`` trains)."""
     if torch.is_grad_enabled() and (
             x.requires_grad or any(w.requires_grad for w in p.parameters())):
         raise NotImplementedError(
-            "moe_apply_sharded serves only: its collectives carry no "
-            "gradient (training under a mesh is ROADMAP.md's next item); "
-            "call it under torch.no_grad()")
+            "moe_apply_sharded's collectives carry no gradient: train a "
+            "model stored for training under the mesh (moe_train_sharded), "
+            "or call it under torch.no_grad()")
     T, d = x.shape
     E = cfg.n_experts
     dp_size = axes_size(mesh, dp_axes)
@@ -257,38 +330,7 @@ def moe_apply_sharded(p: MoE, cfg: MoEConfig, x: torch.Tensor, mesh,
                    and T >= dp_size * M
                    and (lead is None or lead == dp_size))
     tokens_sharded = T % dp_size == 0 and T >= dp_size
-    spec_g, spec_d = _moe_w_specs(cfg, mesh)
-    e_axes = spec_axes(spec_g, 0)
-    gd_axes = spec_axes(spec_g, 1)
-    dd_axes = spec_axes(spec_d, 2)
-    e_extra = tuple(a for a in e_axes if a != "model")
-    if e_extra not in ((), ("data",)):
-        raise ValueError(f"expert storage over {e_axes}")
-    mj = mesh.rank
-    # the stacks down to this 'model' rank's experts, d and f whole
-    ws = []
-    f = cfg.d_ff
-    for w, spec, d_axes, dd in ((p.w_gate, spec_g, gd_axes, 1),
-                                (p.w_up, spec_g, gd_axes, 1),
-                                (p.w_down, spec_d, dd_axes, 2)):
-        full = (E, f, d) if dd == 2 else (E, d, f)
-        w = _stored(w, full, mesh, spec)
-        for a in d_axes:
-            w = _gather(w, mesh, a, dd)
-        for a in e_extra:
-            w = _gather(w, mesh, a, 0)
-        if not e_axes:            # replicated storage: compute my slice
-            sl = E // M
-            w = w[mj * sl:(mj + 1) * sl]
-        ws.append(w)
-    if e_extra:                   # storage E over (data, model): strided
-        D = mesh.data
-        bs = E // (D * M)
-        ids = ((torch.arange(D)[:, None] * M + mj) * bs
-               + torch.arange(bs)[None, :]).reshape(-1)
-    else:
-        bs = E // M
-        ids = mj * bs + torch.arange(bs)
+    ws, ids = _my_experts(p, cfg, mesh, _gather)
     ids = ids.to(x.device)
 
     if tokens_full:
@@ -338,10 +380,14 @@ def moe_apply_sharded(p: MoE, cfg: MoEConfig, x: torch.Tensor, mesh,
 
 def moe_dispatch(p: MoE, cfg: MoEConfig, x: torch.Tensor,
                  inference: bool = False, lead: int | None = None):
-    """``moe_apply_sharded`` under an installed ``Mesh`` (``inference``
+    """``moe_train_sharded`` for a model stored for training under a mesh;
+    else ``moe_apply_sharded`` under an installed ``Mesh`` (``inference``
     allows the full-mesh token sharding, ``lead`` is the caller's batch
-    dim), else ``moe_apply``."""
+    dim); else ``moe_apply``."""
     from repro_torch.dist.context import current_mesh, dp_axes
+    from repro_torch.dist.sharding import stored_mesh, stored_spec
+    if stored_spec(p.router.weight) is not None:      # the training layout
+        return moe_train_sharded(p, cfg, x, stored_mesh(p.router.weight))
     mesh = current_mesh()
     if mesh is not None:
         return moe_apply_sharded(p, cfg, x, mesh, dp_axes(mesh),

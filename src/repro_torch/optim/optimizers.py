@@ -123,7 +123,10 @@ def clip_by_global_norm(max_norm: float) -> Optimizer:
     its slab's sum of squares summed over 'model' in rank order; every
     other leaf is whole on every rank (a SparseGrad holds the global
     batch's stream, and dense gradients are reduced over 'data' before the
-    optimizer runs)."""
+    optimizer runs).  The leaves of a model stored for training under the
+    mesh are blocks (``sharding.stored_spec``): each distinct block counts
+    once (its replicas over the axes its spec leaves out count nothing),
+    and the sum runs over the world."""
     from repro_torch.kernels.sparse_update.ref import ieee_sqrt
 
     def square_sum(name, x):
@@ -141,7 +144,15 @@ def clip_by_global_norm(max_norm: float) -> Optimizer:
     def update(g, s, p=None):
         named = [(k, g[k]) for k in sorted(g)] if isinstance(g, dict) \
             else [(None, g)]
-        gn = ieee_sqrt(sum(square_sum(k, x) for k, x in named))
+        specs = _block_specs(p)
+        if specs:
+            from repro_torch.dist import collectives as col
+            mesh = _block_mesh(p)
+            sq = sum(torch.sum(torch.square(x.to(torch.float32)))
+                     * _counts_once(mesh, specs[k]) for k, x in named)
+            gn = ieee_sqrt(col.fold_sum(sq.reshape(1), mesh, "world")[0])
+        else:
+            gn = ieee_sqrt(sum(square_sum(k, x) for k, x in named))
         factor = torch.clamp(torch.full_like(gn, max_norm)
                              / torch.clamp(gn, min=1e-9), max=1.0)
         return _map(lambda x: _scaled(x, factor), g), s
@@ -239,6 +250,64 @@ def adamw(lr: float, weight_decay: float = 0.01, **kw) -> Optimizer:
     return adam(lr, weight_decay=weight_decay, **kw)
 
 
+def _block_specs(params) -> dict:
+    """{name: spec} of the parameters stored as ``lm_rules`` blocks
+    (``sharding.stored_spec``), {} when there are none."""
+    if not isinstance(params, dict):
+        return {}
+    from repro_torch.dist.sharding import stored_spec
+    specs = {k: stored_spec(p) for k, p in params.items()}
+    if all(v is None for v in specs.values()):
+        return {}
+    return {k: v if v is not None else () for k, v in specs.items()}
+
+
+def _block_mesh(params: dict):
+    """The mesh of the parameters' ``lm_rules`` blocks."""
+    from repro_torch.dist.sharding import stored_mesh
+    return next(m for m in map(stored_mesh, params.values())
+                if m is not None)
+
+
+def _spec_axes(spec) -> tuple[str, ...]:
+    """Every mesh axis ``spec`` splits a dim over, in mesh order."""
+    from repro_torch.dist.sharding import spec_axes
+    used = {a for i in range(len(spec)) for a in spec_axes(spec, i)}
+    return tuple(a for a in ("data", "model") if a in used)
+
+
+def _counts_once(mesh, spec) -> float:
+    """1 on the one rank of each block's replicas that counts it (index 0
+    on every axis ``spec`` leaves out), else 0."""
+    used = _spec_axes(spec)
+    return float(("data" in used or mesh.data_rank == 0)
+                 and ("model" in used or mesh.rank == 0))
+
+
+def _drop(spec: tuple, dim: int) -> tuple:
+    """``spec`` without the entry of ``dim``."""
+    dim = dim % len(spec)
+    return spec[:dim] + spec[dim + 1:]
+
+
+def _block_mean(x: torch.Tensor, dim: int, spec: tuple, mesh,
+                n: int) -> torch.Tensor:
+    """The mean over ``dim`` of the whole leaf whose block is ``x``, whole
+    on every rank: the block's sums placed in the whole statistic and
+    summed over the axes ``spec`` splits (each block counted once)."""
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.sharding import block, whole_shape
+    rest = _drop(spec, dim)
+    part = torch.sum(x, dim=dim)
+    full = torch.zeros(whole_shape(part.shape, rest, mesh.shape),
+                       dtype=part.dtype, device=part.device)
+    block(full, mesh, rest)[...] = part
+    axes = _spec_axes(spec)
+    if axes:
+        full = col.psum(full, mesh, axes)
+    return full / n
+
+
 class AdafactorState(NamedTuple):
     step: int                      # the global step, 0 before the first
     vs: object                     # by name: {"v_row", "v_col"} or {"v"}
@@ -305,14 +374,29 @@ def adafactor(lr: float, decay_exp: float = 0.8, eps: float = 1e-30,
     its leading axis (3-D and over ``MAP_LEADING_BYTES``).
     The whole named tree is one update (as the launcher builds it); a lone
     tensor is its own leaf.  A SparseGrad is densified (the factored moment
-    is global), in the parameter's layout."""
+    is global), in the parameter's layout.
+
+    Over the blocks of a model stored for training under a mesh
+    (``sharding.stored_spec``): ``v`` is the parameter's block (the update
+    is elementwise there), ``v_row`` and ``v_col`` are whole on every rank
+    (as the reference's rules leave them), their means summed over the
+    axes that split the other dim, and the RMS clip's sum of squares runs
+    over the world, each block counted once."""
 
     def factored(shape) -> bool:
         return (len(shape) >= 2 and shape[-1] >= min_factor_dim
                 and shape[-2] >= min_factor_dim)
 
+    def whole(specs, k, x, mesh) -> tuple:
+        if k not in specs:
+            return tuple(x.shape)
+        from repro_torch.dist.sharding import whole_shape
+        return whole_shape(x.shape, specs[k], mesh.shape)
+
     def init(params):
         named = params if isinstance(params, dict) else {None: params}
+        specs = _block_specs(params)
+        mesh = _block_mesh(params) if specs else None
         counts: dict = {}
         for k in named:
             m = _LAYER.match(k) if k is not None else None
@@ -320,7 +404,7 @@ def adafactor(lr: float, decay_exp: float = 0.8, eps: float = 1e-30,
                 counts[m.groups()] = counts.get(m.groups(), 0) + 1
 
         def one(k, x):
-            shape = tuple(x.shape)
+            shape = whole(specs, k, x, mesh)
             if _transposed(k, shape):
                 shape = shape[::-1]
             m = _LAYER.match(k) if k is not None else None
@@ -341,15 +425,26 @@ def adafactor(lr: float, decay_exp: float = 0.8, eps: float = 1e-30,
         vs = {k: one(k, x) for k, x in named.items()}
         return AdafactorState(0, vs if isinstance(params, dict) else vs[None])
 
-    def second_moment(k, g2, v, b2, ob2):
-        """vhat in the parameter's layout; the moments updated in place."""
+    def second_moment(k, g2, v, b2, ob2, spec=None, mesh=None):
+        """vhat in the parameter's layout (its block under ``spec`` over
+        ``mesh``); the moments updated in place."""
         if "v" in v:
             return v["v"].mul_(b2).add_(g2.mul_(ob2))
         tr = _transposed(k, g2.shape)
         row, col = v["v_row"], v["v_col"]
-        row.mul_(b2).add_(torch.mean(g2, dim=-2 if tr else -1).mul_(ob2))
-        col.mul_(b2).add_(torch.mean(g2, dim=-1 if tr else -2).mul_(ob2))
+        dr, dc = (-2, -1) if tr else (-1, -2)
+        if spec is None:
+            mr, mc = torch.mean(g2, dim=dr), torch.mean(g2, dim=dc)
+        else:
+            from repro_torch.dist.sharding import block
+            mr = _block_mean(g2, dr, spec, mesh, col.shape[-1])
+            mc = _block_mean(g2, dc, spec, mesh, row.shape[-1])
+        row.mul_(b2).add_(mr.mul_(ob2))
+        col.mul_(b2).add_(mc.mul_(ob2))
         r = row / torch.clamp(torch.mean(row, dim=-1, keepdim=True), min=eps)
+        if spec is not None:
+            r = block(r, mesh, _drop(spec, dr))
+            col = block(col, mesh, _drop(spec, dc))
         if tr:
             return col[:, None] * r[None, :]
         return r[..., :, None] * col[..., None, :]
@@ -372,23 +467,34 @@ def adafactor(lr: float, decay_exp: float = 0.8, eps: float = 1e-30,
                 if ref is not None and g.shape != ref.shape:
                     g = g.reshape(ref.shape)
             dense[k] = g
-        updates = {}
-        for names in _clip_units({k: g.shape for k, g in dense.items()}):
-            us = []
+        specs = {} if one else _block_specs(params)
+        mesh = _block_mesh(params) if specs else None
+        shapes = {k: whole(specs, k, g, mesh) for k, g in dense.items()}
+        units = _clip_units(shapes)
+        us, ssq = {}, []
+        for names in units:
             for k in names:
                 gf = dense[k].to(torch.float32)
                 vhat = second_moment(k, torch.square(gf).add_(eps), vs[k],
-                                     b2, ob2)
-                us.append(gf * torch.rsqrt(vhat + eps))
+                                     b2, ob2, specs.get(k), mesh)
+                us[k] = gf * torch.rsqrt(vhat + eps)
             # mean(u^2) over the leaf, summed in float64 (XLA's float32 sum
             # of a large stacked leaf strays past 1e-6 relative)
-            ssq = sum(torch.sum(torch.square(u), dtype=torch.float64)
-                      for u in us)
-            mean = (ssq / sum(u.numel() for u in us)).to(torch.float32)
+            ssq.append(sum(torch.sum(torch.square(us[k]),
+                                     dtype=torch.float64)
+                           * (_counts_once(mesh, specs[k]) if specs else 1)
+                           for k in names))
+        if specs:
+            from repro_torch.dist import collectives as col
+            ssq = list(col.fold_sum(torch.stack(ssq), mesh, "world"))
+        updates = {}
+        for names, sq in zip(units, ssq):
+            mean = (sq / sum(math.prod(shapes[k]) for k in names)).to(
+                torch.float32)
             factor = torch.clamp(div(ieee_sqrt(mean + eps), clip_threshold),
                                  min=1.0)
-            for k, u in zip(names, us):
-                updates[k] = _scaled(u / factor, -lr).to(dense[k].dtype)
+            for k in names:
+                updates[k] = _scaled(us[k] / factor, -lr).to(dense[k].dtype)
         return (updates[None] if one else updates), AdafactorState(
             step, state.vs)
 

@@ -30,7 +30,9 @@ D), the dense gradients and the loss are summed over 'data' in rank order
 (one all-gather, ``collectives.fold_sum``: every replica applies the same
 bits), and each pool's SparseGrad is built from the whole global batch's
 records, gathered over 'data' in batch order (data index d holds rows
-``[d * B / D, (d + 1) * B / D)``), which is the reference's stream.  Under
+``[d * B / D, (d + 1) * B / D)``), which is the reference's stream.  The
+blocks of a model stored for training under the mesh that are split over
+'data' (ZeRO-3) are not folded: their gathers' backward summed them.  Under
 any mesh of more than one rank the guard's verdict is agreed over the world
 (a bad leaf on any rank skips the step on all), as the reference's one
 ``lax.cond``.
@@ -117,15 +119,28 @@ def scale_grads(grads: dict, scale: float) -> dict:
     return {k: one(v) for k, v in grads.items()}
 
 
-def _data_reduce(grads: dict, loss: torch.Tensor, mesh) -> tuple:
+def _data_reduce(grads: dict, loss: torch.Tensor, mesh,
+                 params: dict | None = None) -> tuple:
     """The dense gradients and the loss summed over 'data' in rank order,
     one collective per dtype (every leaf of a dtype and, for float32, the
-    loss ride in one buffer); -> (grads, the loss's mean over 'data')."""
+    loss ride in one buffer); -> (grads, the loss's mean over 'data').
+    A block stored over 'data' (``sharding.stored_spec``: a ZeRO-3 leaf of
+    a model stored for training under the mesh) is left as it is: its
+    gather's backward already summed it over 'data'."""
     from repro_torch.dist import collectives as col
-    names = [k for k, g in grads.items() if isinstance(g, torch.Tensor)]
+    from repro_torch.dist.sharding import spec_axes, stored_spec
+
+    def over_data(k) -> bool:
+        spec = stored_spec(params[k]) if params is not None else None
+        return spec is not None and any(
+            "data" in spec_axes(spec, i) for i in range(len(spec)))
+    names = [k for k, g in grads.items()
+             if isinstance(g, torch.Tensor) and not over_data(k)]
     leaves = [grads[k] for k in names] + [loss.reshape(1)]
     out = dict(grads)
-    for dtype in {x.dtype for x in leaves}:
+    # in the leaves' order: a set of dtypes iterates in another order in
+    # each process, and every rank must issue the same collectives
+    for dtype in dict.fromkeys(x.dtype for x in leaves):
         idx = [i for i, x in enumerate(leaves) if x.dtype == dtype]
         buf = col.fold_sum(torch.cat([leaves[i].reshape(-1) for i in idx]),
                            mesh, "data")
@@ -172,8 +187,14 @@ def make_step(loss_fn: Callable, optimizer: Optimizer, *,
     def step(model, params: dict, opt_state, batch, fault_scale=1.0,
              split: bool = False):
         from repro_torch.dist.context import current_mesh
+        from repro_torch.dist.sharding import stored_spec
         mesh = current_mesh()
         D = mesh.data if split else 1
+        if mesh is not None and mesh.data > 1 and not split and any(
+                stored_spec(p) is not None for p in params.values()):
+            raise ValueError(
+                "a model stored for training under a mesh takes its 'data' "
+                "share of the batch: the 'data' axis must divide it")
         mark("start")
         for p in params.values():
             p.grad = None
@@ -187,7 +208,7 @@ def make_step(loss_fn: Callable, optimizer: Optimizer, *,
         grads = {k: p.grad for k, p in params.items() if p.grad is not None}
         loss = loss.detach()
         if D > 1:
-            grads, loss = _data_reduce(grads, loss, mesh)
+            grads, loss = _data_reduce(grads, loss, mesh, params)
         if cap is not None:
             grads.update(cap.grads(
                 params, gather=_data_gather(mesh) if D > 1 else None))

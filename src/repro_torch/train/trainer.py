@@ -65,7 +65,11 @@ Checkpoints keep the reference's format: a save gathers each pool slab
 (``gather_rows``) into whole arrays that world rank 0 writes while the
 others wait on a barrier, and a restore cuts this rank's slabs out of the
 whole arrays (``sharding.slab_shardings``), so a checkpoint resumes on any
-mesh or on one process.  Only world rank 0 logs.
+mesh or on one process.  An LM stored for training under the mesh
+(``transformer.init(..., train=True)``) trains through the same step: its
+blocks and their optimizer states are assembled whole for a save
+(``sharding.assemble``) and cut by their ``lm_rules`` spec on a restore.
+Only world rank 0 logs.
 
 Throughput: steps/s from the median step time (host clock around work that
 ends in a device sync), lookups/s scaled by ``lookups_per_step``; host batch
@@ -89,7 +93,8 @@ from repro_torch.checkpoint.manager import (CheckpointManager, _flatten,
 from repro_torch.device import resolve_device
 from repro_torch.dist import collectives as col
 from repro_torch.dist.context import current_mesh
-from repro_torch.dist.sharding import is_pool_path, slab_shardings
+from repro_torch.dist.sharding import (assemble, block, is_pool_path,
+                                       slab_shardings, stored_spec)
 from repro_torch.optim import sparse as sparse_lib
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.resilience import faults as faults_lib
@@ -342,14 +347,45 @@ class Trainer:
         if blocking:
             self._ckpt_wait()
 
+    def _block_paths(self, flat: dict) -> dict:
+        """{checkpoint path: spec} of the durable state's ``lm_rules``
+        blocks (a model stored for training under a mesh): each parameter,
+        and each optimizer-state tensor under a parameter's path with that
+        parameter's block shape (Adam's moments, Adafactor's ``v``; its
+        whole ``v_row`` / ``v_col`` are left out)."""
+        specs = {k.replace(".", "/"): (stored_spec(p), tuple(p.shape))
+                 for k, p in self.params.items()
+                 if stored_spec(p) is not None}
+        out = {}
+        if not specs:
+            return out
+        for path, v in flat.items():
+            if not isinstance(v, torch.Tensor):
+                continue
+            for name, (spec, shape) in specs.items():
+                if (path == f"params/{name}" or (
+                        path.startswith("opt_state/")
+                        and f"/{name}/" in f"{path}/")) \
+                        and tuple(v.shape) == shape:
+                    out[path] = spec
+                    break
+        return out
+
     def _gathered_state(self, mesh) -> dict | None:
-        """The durable state with every pool slab gathered over 'model': on
-        world rank 0 the tree of whole arrays a one-process Trainer's
-        ``_state`` holds, None elsewhere."""
+        """The durable state with every pool slab gathered over 'model' and
+        every ``lm_rules`` block assembled whole: on world rank 0 the tree
+        of whole arrays a one-process Trainer's ``_state`` holds, None
+        elsewhere."""
         flat = _flatten(self._state())
+        blocks = self._block_paths(flat)
         out = {}
         for path, v in flat.items():
-            if (isinstance(v, torch.Tensor) and v.dim() >= 1
+            if path in blocks:
+                parts = col.all_gather(v.detach(), mesh, "world")
+                v = (assemble(list(parts.cpu()), blocks[path],
+                              (mesh.data, mesh.model))
+                     if mesh.world_rank == 0 else None)
+            elif (isinstance(v, torch.Tensor) and v.dim() >= 1
                     and is_pool_path(path)):
                 v = col.gather_rows(v, mesh)
             out[path] = v
@@ -370,7 +406,15 @@ class Trainer:
         self._ckpt_wait()
         if self.mgr.latest_step() is None:
             return False
-        _, state = self.mgr.restore(shardings=slab_shardings(current_mesh()))
+        mesh = current_mesh()
+        slabs = slab_shardings(mesh)
+        blocks = self._block_paths(_flatten(self._state()))
+
+        def cut(path, a):
+            if path in blocks:
+                return block(a, mesh, blocks[path])
+            return slabs(path, a)
+        _, state = self.mgr.restore(shardings=cut)
         flat = _flatten(state)
         params = _restored(self.params, flat, "params")
         opt_state = _restored(self.opt_state, flat, "opt_state")

@@ -402,3 +402,263 @@ def collectives_rank(mesh) -> dict:
     return {"psum": {a: col.psum(x, mesh, a).numpy()
                      for a in (("model",), "data", ("data", "model"))},
             "scatter": col.psum_scatter(x, mesh).numpy()}
+
+
+# ------------------------------------------------------------ training
+
+TRAIN_LMA = "tinyllama-1.1b+lma"
+TRAIN_CASES = ("tinyllama-1.1b", "deepseek-v3-671b", "llama4-scout-17b-a16e",
+               TRAIN_LMA, TRAIN_LMA + ":dense")
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 16, 3
+TRAIN_MESHES = ((1, 4), (2, 2))
+
+
+def train_config(name: str):
+    """The port's smoke config of case ``name`` (an arch, with ``+lma`` an
+    LMA token table; ``:dense`` the dense pool gradient) at the drop-free
+    capacity factor, remat on and the loss in two chunks."""
+    import dataclasses
+
+    from repro_torch.configs._recsys_common import embedding_of_kind
+    arch = name.split("+")[0]
+    emb = None
+    if "+lma" in name:
+        from repro_torch.configs import get_config
+        c = get_config(arch).make_smoke()
+        emb = embedding_of_kind("lma", (c.vocab_size,), c.d_model,
+                                expansion=16.0, max_set=32)
+    cfg = lm_config(arch, False, emb)
+    return dataclasses.replace(cfg, remat=True, loss_chunk=TRAIN_S // 2)
+
+
+def train_batches(vocab: int, seed: int) -> dict:
+    """TRAIN_STEPS global batches of [TRAIN_B, TRAIN_S] tokens and labels."""
+    rng = np.random.default_rng(seed)
+    shape = (TRAIN_STEPS, TRAIN_B, TRAIN_S)
+    return {"tokens": rng.integers(0, vocab, shape).astype(np.int32),
+            "labels": rng.integers(0, vocab, shape).astype(np.int32)}
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().to(torch.float32).cpu().numpy().copy()
+
+
+def _recording(opt, store: dict):
+    """``opt`` whose first update records the gradients it is given (the
+    step's, after the fold over 'data'), as numpy: a SparseGrad densified
+    (its stream is the global batch's, over the whole pool) and cut to
+    the parameter's block."""
+    from repro_torch.dist.sharding import block, stored_mesh, stored_spec
+    from repro_torch.optim import sparse as sp
+    from repro_torch.optim.optimizers import Optimizer
+
+    def dense(k, v, p):
+        if not sp.is_sparse(v):
+            return _host(v)
+        d = v.densify().reshape(-1)
+        if d.numel() != p.numel():
+            d = block(d, stored_mesh(p), stored_spec(p))
+        return _host(d.reshape(p.shape))
+
+    def update(g, s, p=None):
+        if not store:
+            store.update({k: dense(k, v, p[k]) for k, v in g.items()})
+        return opt.update(g, s, p)
+    return Optimizer(opt.init, update)
+
+
+def _state_blocks(state) -> dict:
+    """An optimizer state's tensors by their path ('/'-joined), numpy."""
+    from repro_torch.checkpoint.manager import _flatten
+    return {k: _host(v) for k, v in _flatten(state).items()
+            if isinstance(v, torch.Tensor)}
+
+
+def train_run(name: str, np_params: dict, batches: dict, mesh=None,
+              np_store: dict | None = None) -> dict:
+    """TRAIN_STEPS steps of case ``name`` through the port's Trainer and
+    the launcher's optimizer from ``np_params`` (the reference's tree,
+    numpy), on this rank's ``lm_rules`` blocks under ``mesh`` (installed
+    here) -> {"losses", "grads" (step 1), "params" (after), "opt" (the
+    optimizer state's tensors), "specs"}: blocks as numpy."""
+    import contextlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import buffers_from_numpy, lm_params_from_jax
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.dist.sharding import stored_spec
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models import transformer as tt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = train_config(name)
+    arch = get_config(name.split("+")[0])
+    ctx = use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    grads: dict = {}
+    with ctx:
+        model = tt.init(cfg, seed=1, device="cpu", mesh=mesh, train=True)
+        model.load_state_dict(lm_params_from_jax(np_params, cfg, "cpu", mesh,
+                                                 train=True))
+        bufs = (buffers_from_numpy(np_store, "cpu", mesh)
+                if np_store is not None else None)
+
+        def loss(m, b):
+            return tt.loss_fn(m, cfg, b["tokens"], b["labels"], bufs)
+        tr = Trainer(TrainerConfig(total_steps=0, log_every=0), loss, model,
+                     _recording(make_optimizer(arch), grads),
+                     lambda step: {k: v[step] for k, v in batches.items()},
+                     sparse_grads=("+lma" in name
+                                   and not name.endswith(":dense")),
+                     device="cpu")
+        losses = []
+        for s in range(1, TRAIN_STEPS + 1):
+            tr.cfg.total_steps = s
+            losses.append(tr.fit(log=lambda _: None)["loss"])
+        params = {k: _host(p) for k, p in tr.params.items()}
+        specs = {k: stored_spec(p) for k, p in tr.params.items()}
+        return {"losses": losses, "grads": grads, "params": params,
+                "opt": _state_blocks(tr.opt_state), "specs": specs,
+                "sparse": tr.sparse_grads}
+
+
+def collective_pieces(mesh) -> dict:
+    """Each gradient-carrying collective on float64 x [4, 8] (this rank's,
+    from a seed and its world rank) over each axis and dim: the forward,
+    and the backward of a seeded cotangent beside the forward of its
+    transpose on that cotangent."""
+    from repro_torch.dist import collectives as col
+
+    out = {}
+    for axis in ("model", "data", ("data", "model")):
+        n = col._axis(mesh, axis)[0]
+        for dim in (0, 1):
+            rng = np.random.default_rng(1000 + 7 * dim + mesh.world_rank)
+            x = torch.from_numpy(rng.normal(size=(4, 8)))
+            big = (4 * n, 8) if dim == 0 else (4, 8 * n)
+            small = (4 // n, 8) if dim == 0 else (4, 8 // n)
+            ct_g = torch.from_numpy(rng.normal(size=big))
+            ct_s = torch.from_numpy(rng.normal(size=small))
+            xg = x.clone().requires_grad_(True)
+            y = col.gather_t(xg, mesh, axis, dim)
+            y.backward(ct_g)
+            xs = x.clone().requires_grad_(True)
+            sc = col.scatter_t(xs, mesh, axis, dim)
+            sc.backward(ct_s)
+            out[(str(axis), dim)] = {
+                "x": x.numpy(), "gather": y.detach().numpy(),
+                "gather_ct": ct_g.numpy(), "gather_bwd": xg.grad.numpy(),
+                "scatter_of_ct": col.scatter_t(ct_g, mesh, axis,
+                                               dim).numpy(),
+                "scatter": sc.detach().numpy(), "scatter_ct": ct_s.numpy(),
+                "scatter_bwd": xs.grad.numpy(),
+                "gather_of_ct": col.gather_t(ct_s, mesh, axis,
+                                             dim).numpy()}
+    rng = np.random.default_rng(2000 + mesh.world_rank)
+    x = torch.from_numpy(rng.normal(size=(3, 5)))
+    ct = torch.from_numpy(rng.normal(size=(3, 5)))
+    xe = x.clone().requires_grad_(True)
+    col.enter_model(xe, mesh).backward(ct)
+    xl = x.clone().requires_grad_(True)
+    y = col.leave_model(xl, mesh)
+    y.backward(ct)
+    out["model"] = {"x": x.numpy(), "ct": ct.numpy(),
+                    "enter_bwd": xe.grad.numpy(),
+                    "leave": y.detach().numpy(),
+                    "leave_of_ct": col.leave_model(ct, mesh).numpy(),
+                    "leave_bwd": xl.grad.numpy()}
+    return out
+
+
+ADAFACTOR_LEAVES = {"layers_0.0.ffn.gate.weight": (256, 128),
+                    "layers_0.1.ffn.gate.weight": (256, 128),
+                    "layers_0.0.ffn.down.weight": (128, 256),
+                    "layers_0.0.moe.w_gate": (4, 128, 192),
+                    "layers_0.0.attn.wq.weight": (64, 64),
+                    "layers_0.0.norm_attn.scale": (128,),
+                    "embed.table_0": (256, 128)}
+
+
+def adafactor_leaves(seed: int) -> tuple:
+    """Whole float32 parameters and two steps' gradients of
+    ``ADAFACTOR_LEAVES`` (factored and not, transposed, a stacked expert
+    leaf, a clip unit of two layers) from ``seed``."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    params = {k: rng.normal(size=s).astype(f32)
+              for k, s in ADAFACTOR_LEAVES.items()}
+    grads = [{k: (rng.normal(size=s) * 10 ** rng.uniform(-3, 1)).astype(f32)
+              for k, s in ADAFACTOR_LEAVES.items()} for _ in range(2)]
+    return params, grads
+
+
+def optimizer_blocks(mesh, seed: int) -> dict:
+    """Two steps of ``adafactor`` and of ``chain(clip_by_global_norm,
+    adam)`` on this rank's ``lm_spec`` blocks of ``adafactor_leaves`` ->
+    the updates (blocks) and the adafactor state's tensors."""
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.dist.sharding import StoredBlock, block, lm_spec
+    from repro_torch.optim import optimizers as ol
+
+    params, grads = adafactor_leaves(seed)
+    out = {}
+    with use_mesh(mesh):
+        for kind, opt in (("adafactor", ol.adafactor(1e-2)),
+                          ("clip_adam", ol.chain(ol.clip_by_global_norm(0.5),
+                                                 ol.adam(1e-2)))):
+            ps = {}
+            for k, v in params.items():
+                spec = lm_spec(k, v.shape, mesh)
+                ps[k] = StoredBlock(torch.from_numpy(np.ascontiguousarray(
+                    block(v, mesh, spec))), spec, mesh)
+            st = opt.init(ps)
+            ups = []
+            for g in grads:
+                gb = {k: torch.from_numpy(np.ascontiguousarray(
+                    block(v, mesh, ps[k].spec))) for k, v in g.items()}
+                u, st = opt.update(gb, st, ps)
+                ups.append({k: _host(x) for k, x in u.items()})
+            out[kind] = {"updates": ups, "state": _state_blocks(st),
+                         "specs": {k: p.spec for k, p in ps.items()}}
+    return out
+
+
+def data_reduce_pieces(mesh) -> dict:
+    """``guard._data_reduce`` over a block stored over 'data' and a leaf
+    replicated over it: x = arange + 100 * world rank."""
+    from repro_torch.dist.sharding import StoredBlock
+    from repro_torch.resilience.guard import _data_reduce
+
+    params = {"zero3": StoredBlock(torch.zeros(4), ("data",), mesh),
+              "replicated": StoredBlock(torch.zeros(4), (None,), mesh)}
+    g = {k: torch.arange(4, dtype=torch.float32) + 100 * mesh.world_rank
+         for k in params}
+    out, loss = _data_reduce(g, torch.tensor(1.0 + mesh.data_rank), mesh,
+                             params)
+    return {k: v.numpy() for k, v in out.items()} | {"loss": float(loss)}
+
+
+def launch_rank(mesh, argv: list, ckpt: str) -> dict:
+    """The launcher's 2 steps of an LM arch under ``mesh``; at (2, 2) it
+    checkpoints into ``ckpt`` -> the Trainer's result."""
+    import contextlib
+    import io
+
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.launch import train as tlaunch
+
+    extra = ["--ckpt-dir", ckpt] if mesh.data == 2 else []
+    with use_mesh(mesh), contextlib.redirect_stdout(io.StringIO()):
+        return tlaunch.main(argv + ["--steps", "2"] + extra)["train"]
+
+
+def train_rank(mesh, payload: dict) -> dict:
+    """One rank of ``test_torch_lm_mesh_train.py``: the collectives,
+    ``_data_reduce``, the optimizers over blocks, each LM case, the
+    launcher."""
+    return {"collectives": collective_pieces(mesh),
+            "data_reduce": data_reduce_pieces(mesh),
+            "optim": optimizer_blocks(mesh, payload["optim_seed"]),
+            "runs": {name: train_run(name, p, b, mesh, store)
+                     for name, (p, b, store) in payload["runs"].items()},
+            "launch": launch_rank(mesh, payload["launch"],
+                                  payload["ckpt"])}

@@ -3,6 +3,7 @@ script in a process of its own:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/lm_mesh_reference.py OUT.npz {flash,moe}
+    XLA_FLAGS=... python tests/lm_mesh_reference.py OUT.pkl train IN.pkl
 
 ``XLA_FLAGS`` must be set before JAX is imported, which a test process
 has already done with one device.  Every case of ``lm_mesh_ranks`` runs
@@ -12,6 +13,13 @@ meshes, jitted (an eager ``shard_map`` compiles op by op, seconds a
 call); each output is turned into numpy before any further JAX call on it
 (an op on a still-sharded output is where the reference's own test
 breaks) and saved as ``{kind}/{D}x{M}/{i}/{name}``.
+
+``train`` takes the pickled ``{name: (config, params, batches)}`` of
+``test_torch_lm_mesh_train.py`` and runs each config's steps under the
+installed (2, 2) mesh (``Auto`` axes, which ``with_sharding_constraint``
+needs): ``jax.grad`` of ``transformer.loss_fn``, whose MoE layers take
+``moe_apply_sharded``, then the launcher's optimizer; it pickles each
+case's losses, first gradients and last parameters.
 """
 from __future__ import annotations
 
@@ -69,6 +77,45 @@ def moe(mesh, shape: tuple, tag: str, out: dict) -> None:
         out[f"moe/{tag}/{i}/aux"] = np.asarray(aux)
 
 
+def train(in_path: str, out_path: str) -> None:
+    import pickle
+
+    from jax.sharding import AxisType
+
+    from repro.configs.base import get_config
+    from repro.dist.context import use_mesh
+    from repro.launch import train as jlaunch
+    from repro.models import transformer as jt
+    from repro.optim import optimizers as jopt
+
+    with open(in_path, "rb") as f:
+        cases = pickle.load(f)
+    mesh = jax.make_mesh((2, 2), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    out = {}
+    for name, (jcfg, params, batches) in cases.items():
+        params = jax.tree_util.tree_map(jnp.asarray, params)
+        opt = jlaunch.make_optimizer(get_config(name.split("+")[0]))
+        with use_mesh(mesh):
+            vg = jax.jit(jax.value_and_grad(
+                lambda p, t, y: jt.loss_fn(p, jcfg, t, y)[0]))
+            update = jax.jit(opt.update)
+            state = opt.init(params)
+            losses, grads = [], None
+            for s in range(len(batches["tokens"])):
+                loss, g = vg(params, jnp.asarray(batches["tokens"][s]),
+                             jnp.asarray(batches["labels"][s]))
+                g = jax.tree_util.tree_map(np.asarray, g)
+                losses.append(float(loss))
+                grads = g if grads is None else grads
+                upd, state = update(g, state, params)
+                params = jax.tree_util.tree_map(
+                    np.asarray, jopt.apply_updates(params, upd))
+        out[name] = {"losses": losses, "grads": grads, "params": params}
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
 def main(path: str, kind: str) -> None:
     out = {}
     for D, M in lr.MESHES:
@@ -82,4 +129,7 @@ def main(path: str, kind: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    if sys.argv[2] == "train":
+        train(sys.argv[3], sys.argv[1])
+    else:
+        main(sys.argv[1], sys.argv[2])
